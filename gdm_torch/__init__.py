@@ -1,0 +1,16 @@
+"""gdm_torch — the PyTorch/CUDA port of gdm, the Galerkin Difference
+Method framework.
+
+A second package beside gdm, held against it: the same module names and
+public names, numpy host setup copied from gdm, torch on the device, and
+hand-written CUDA kernels for Hopper (gdm_torch/csrc/) where gdm had
+Pallas TPU kernels, each beside its plain torch version.  Imports torch,
+numpy and scipy only.
+
+``gdm_torch.entry(n, device, dtype)`` builds the flagship solver, one
+RK4 step of the 2D cut wave equation (see gdm_torch/entry.py).
+"""
+
+from .entry import entry  # noqa: F401
+
+__version__ = "0.1.0"
