@@ -20,7 +20,24 @@ Run from the repository root:  python3 chip_smoke.py
    steps against gdm_torch.entry(128, device="cpu", dtype=torch.float64)
    within 1e-4 relative, finite values of the right shape, and the
    launch counts of K1 and K2 over setup + steps, both > 0.  Also the
-   cost of the streamed (host-synced) CG against the resident solve.
+   cost of the streamed (host-synced) CG against the resident solve;
+6. K3 (2D separable Laplace) against its plain torch twin, float32, at
+   1024^2 for p = 3 and p = 5 and with four distinct band factors: max
+   error <= 1e-5 of max|y|; device and per-call times, GB/s at 8 bytes
+   per node (read u, write y);
+7. K4 (3D Laplace) against its plain twin at 160^3, p = 3, the same way;
+8. the 2D Poisson solve through the public entry point,
+   gdm_torch.problems.poisson.solve on Grid(3, (1024, 1024)) with
+   precondition="mg", rel_tol=1e-3, float32 on the card: iterations and
+   relative residual (converged, not stopped at max_iter), the same
+   solve in float64 on the card (iterations within 1), the L2 error
+   against sin(pi x) sin(pi y), median times of the public solve and of
+   its CG phase, device busy time, and the K3 launches (> 0); at 128^2
+   the float32 card solution against the float64 CPU solution (rel_tol
+   1e-4: iterations within 1, relative difference <= 1e-3);
+9. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
+   relative residual, L2 error, K4 launches (> 0); at 16^3 the float32
+   card solution against the float64 CPU solution as in phase 8.
 
 Prints a JSON line of per-kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1, no
@@ -33,6 +50,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_GRID = 128
@@ -87,13 +106,175 @@ def device_ms(fn, n=20, warmup=3):
     return us / 1e3 / n
 
 
+def device_breakdown(fn, n=5, warmup=2, top=6):
+    """(device ms per call, kernel launches per call, the `top` device
+    items as (name, ms per call, count per call)) from the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    items = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    items.sort(key=lambda it: -it[1])
+    return (sum(it[1] for it in items), sum(it[2] for it in items),
+            items[:top])
+
+
+def wall_ms(fn, n=5, warmup=1):
+    """Median host-clock time of fn() in ms, synchronized after each."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def sin_rhs(m, c):
+    v = len(m) * np.pi**2
+    for x in m:
+        v = v * np.sin(np.pi * x)
+    return v
+
+
+def sin_exact(m, c):
+    v = 1.0
+    for x in m:
+        v = v * np.sin(np.pi * x)
+    return v
+
+
+def kernel_vs_plain(name, kernel, plain, u, n_nodes):
+    """Hold a Laplace kernel against its plain twin on ``u``; print and
+    return (max abs error, device ms, plain device ms)."""
+    import torch
+
+    yk = kernel(u)
+    yp = plain(u)
+    torch.cuda.synchronize()
+    err = (yk - yp).abs().max().item()
+    rel = err / yp.abs().max().item()
+    check(rel <= 1e-5, f"{name}: max error {rel:.3e} of max|y|")
+    ms = device_ms(lambda: kernel(u))
+    pms = device_ms(lambda: plain(u), n=10)
+    cms = call_ms(lambda: kernel(u))
+    cpms = call_ms(lambda: plain(u), n=10)
+    gbs = 8 * n_nodes / (ms * 1e-3) / 1e9
+    print(f"{name}: max abs err {err:.3e} (rel {rel:.3e}); device time: "
+          f"kernel {ms * 1e3:.2f} us ({gbs:.0f} GB/s at 8 B/node, "
+          f"{n_nodes / (ms * 1e-3) / 1e9:.1f} GDoF/s), plain "
+          f"{pms * 1e3:.2f} us; per call with launch: kernel "
+          f"{cms * 1e3:.2f} us, plain {cpms * 1e3:.2f} us")
+    return err, ms, pms
+
+
+def reset_counts():
+    from gdm_torch.ops import cutband, resident, stencil2, stencil3
+
+    for fn in (cutband.band_apply, resident.resident_cg,
+               stencil2.laplace2_apply, stencil3.laplace3_apply):
+        fn.launches = 0
+
+
+def read_counts():
+    from gdm_torch.ops import cutband, resident, stencil2, stencil3
+
+    return {"cutband": cutband.band_apply.launches,
+            "resident": resident.resident_cg.launches,
+            "laplace2": stencil2.laplace2_apply.launches,
+            "laplace3": stencil3.laplace3_apply.launches}
+
+
+def solve_phase(dim, n, dev, f32, f64, n_check):
+    """Phases 8 (dim 2) and 9 (dim 3): the public Poisson solve on the
+    card.  Returns the launch counts of its main-path run."""
+    import torch
+
+    from gdm_torch.grid import Grid
+    from gdm_torch.ops.tensor import l2_error
+    from gdm_torch.problems import poisson
+
+    grid = Grid(3, (n,) * dim, (0.0,) * dim, (1.0,) * dim)
+    tag = f"{dim}D {n}^{dim}"
+    reset_counts()
+    t0 = time.perf_counter()
+    x, info = poisson.solve(grid, sin_rhs, rel_tol=1e-3, precondition="mg",
+                            device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    sysf = poisson.system(grid, sin_rhs, "mg", dev, f32)
+    nb = sysf.b.norm().item()
+    rel_res = info["residual"] / nb
+    l2 = l2_error(x, grid, sin_exact)
+    print(f"{tag} mg-CG float32: {info['iterations']} iterations, relative "
+          f"residual {rel_res:.3e}, L2 error {l2:.3e}, first solve "
+          f"{first_s:.2f} s (setup included); launches {counts}")
+    check(x.shape == grid.field_shape and x.dtype == f32, f"{tag}: shape")
+    check(bool(torch.isfinite(x).all()), f"{tag}: solution not finite")
+    check(info["iterations"] < 10000 and rel_res <= 1e-3,
+          f"{tag}: the solve did not converge ({info})")
+    # float32's floor: the Laplace apply of a smooth field cancels O(1)
+    # terms to O(h^2), so the error grows as h^-2 (6.75e-3 at 1024^2 in
+    # float32 on a CPU as well; float64 reaches 6.2e-7)
+    check(l2 <= 2e-2, f"{tag}: L2 error {l2:.3e}")
+    x64, info64 = poisson.solve(grid, sin_rhs, rel_tol=1e-3,
+                                precondition="mg", device=dev, dtype=f64)
+    print(f"{tag} mg-CG float64 on the card: {info64['iterations']} "
+          f"iterations, L2 error {l2_error(x64, grid, sin_exact):.3e}")
+    check(abs(info64["iterations"] - info["iterations"]) <= 1,
+          f"{tag}: float32 and float64 iteration counts differ by > 1")
+
+    solve_ms, solve_all = wall_ms(lambda: poisson.solve(
+        grid, sin_rhs, rel_tol=1e-3, precondition="mg", device=dev,
+        dtype=f32), n=5)
+    cg_ms, cg_all = wall_ms(lambda: sysf.run(rel_tol=1e-3), n=10, warmup=2)
+    busy, launches, top = device_breakdown(lambda: sysf.run(rel_tol=1e-3))
+    print(f"{tag}: public solve median {solve_ms:.1f} ms over 5 "
+          f"({', '.join(f'{t:.1f}' for t in solve_all)}); CG phase median "
+          f"{cg_ms:.3f} ms over 10 (min {min(cg_all):.3f}, max "
+          f"{max(cg_all):.3f}); device busy {busy:.3f} ms per CG phase, "
+          f"{launches:.0f} device launches, idle share "
+          f"{1 - busy / cg_ms:.3f}")
+    for name, ms, cnt in top:
+        print(f"    {ms * 1e3:9.1f} us  x{cnt:6.1f}  {name[:90]}")
+
+    gs = Grid(3, (n_check,) * dim, (0.0,) * dim, (1.0,) * dim)
+    xs, is_ = poisson.solve(gs, sin_rhs, rel_tol=1e-4, precondition="mg",
+                            device=dev, dtype=f32)
+    xc, ic = poisson.solve(gs, sin_rhs, rel_tol=1e-4, precondition="mg",
+                           device="cpu", dtype=f64)
+    d = ((xs.cpu().double() - xc).norm() / xc.norm()).item()
+    print(f"{dim}D {n_check}^{dim} float32 card vs float64 cpu: iterations "
+          f"{is_['iterations']} vs {ic['iterations']}, relative L2 "
+          f"difference {d:.3e}")
+    check(abs(is_["iterations"] - ic["iterations"]) <= 1,
+          f"{dim}D {n_check}: card and cpu iteration counts differ by > 1")
+    check(d <= 1e-3, f"{dim}D {n_check}: card and cpu solutions differ")
+    return counts
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
 
 
 def main():
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -102,7 +283,8 @@ def main():
     import gdm_torch
     from gdm_torch.cut.fsai import fsai_factors
     from gdm_torch.entry import flagship_operators
-    from gdm_torch.ops import _build, cutband, resident
+    from gdm_torch.grid import Grid
+    from gdm_torch.ops import _build, cutband, resident, stencil2, stencil3
 
     card = card_line()
     dev = torch.device("cuda")
@@ -192,8 +374,7 @@ def main():
           f"{k2_plain_call_ms * 1e3:.1f} us")
 
     # ---- the flagship solver through the public entry point ---------------
-    cutband.band_apply.launches = 0
-    resident.resident_cg.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     step, (t, dt, u, v) = gdm_torch.entry(N_GRID, device="cuda", dtype=f32)
     torch.cuda.synchronize()
@@ -213,8 +394,7 @@ def main():
             u3, v3 = u.clone(), v.clone()
         print(f"  step {k + 1}: {step_ms[-1]:.3f} ms, last mass solve "
               f"{ms_.last_info}")
-    launches = {"cutband": cutband.band_apply.launches,
-                "resident": resident.resident_cg.launches}
+    launches = read_counts()
     print(f"launches over setup + 10 steps: {launches}; "
           f"fallbacks {ms_.fallback_count}; median step "
           f"{statistics.median(step_ms):.3f} ms")
@@ -246,6 +426,42 @@ def main():
           f"(cpu routing {stepc.mass_solver.path!r})")
     check(du <= 1e-4 and dv <= 1e-4, "state disagrees with the reference")
 
+    # ---- K3 against its plain twin -----------------------------------------
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on; the coarse solves need f32")
+    k3_err, k3_ms, k3_plain_ms = 0.0, [], []
+    g2 = {p: Grid(p, (1024, 1024), (0.0, 0.0), (1.0, 1.0)) for p in (3, 5)}
+    n0, n1 = g2[3].nodes
+    four = tuple(rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1))
+    for name, grid2, bands in (("p=3", g2[3], None), ("p=5", g2[5], None),
+                               ("p=3 four factors", g2[3], four)):
+        bt = stencil2.laplace2_bands(grid2, dev, f32, bands)
+        u = torch.as_tensor(rng.standard_normal(grid2.nodes), dtype=f32,
+                            device=dev)
+        err, ms, pms = kernel_vs_plain(
+            f"K3 1024^2 {name}", lambda v: stencil2.laplace2_apply(v, bt),
+            lambda v: stencil2.laplace2_apply_plain(v, bt), u,
+            grid2.n_nodes)
+        k3_err = max(k3_err, err)
+        if bands is None:
+            k3_ms.append(ms)
+            k3_plain_ms.append(pms)
+
+    # ---- K4 against its plain twin -----------------------------------------
+    g3 = Grid(3, (160, 160, 160), (0.0,) * 3, (1.0,) * 3)
+    bt3 = stencil3.laplace3_bands(g3, dev, f32)
+    u = torch.as_tensor(rng.standard_normal(g3.nodes), dtype=f32, device=dev)
+    k4_err, k4_ms, k4_plain_ms = kernel_vs_plain(
+        "K4 160^3 p=3", lambda v: stencil3.laplace3_apply(v, bt3),
+        lambda v: stencil3.laplace3_apply_plain(v, bt3), u, g3.n_nodes)
+
+    # ---- the uncut Poisson solves through the public entry point -----------
+    f64 = torch.float64
+    counts2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
+    check(counts2["laplace2"] > 0, "K3 never launched on the 2D solve")
+    counts3 = solve_phase(3, 64, dev, f32, f64, n_check=16)
+    check(counts3["laplace3"] > 0, "K4 never launched on the 3D solve")
+
     print(json.dumps({"kernels": [
         {"name": "cutband_apply (K1)", "route": "cuda",
          "source": "gdm_torch/csrc/cutband.cu",
@@ -257,6 +473,16 @@ def main():
          "replaces": "gdm/ops/pallas_resident.py:197",
          "launches": launches["resident"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "laplace2_apply (K3)", "route": "cuda",
+         "source": "gdm_torch/csrc/laplace2.cu",
+         "replaces": "gdm/ops/pallas_stencil2.py:566",
+         "launches": counts2["laplace2"], "max_abs_err": k3_err,
+         "ms": k3_ms[0], "plain_ms": k3_plain_ms[0]},
+        {"name": "laplace3_apply (K4)", "route": "cuda",
+         "source": "gdm_torch/csrc/laplace3.cu",
+         "replaces": "gdm/ops/pallas_stencil2.py:1056",
+         "launches": counts3["laplace3"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,13 @@ numpy and scipy only.
 
 ``gdm_torch.entry(n, device, dtype)`` builds the flagship solver, one
 RK4 step of the 2D cut wave equation (see gdm_torch/entry.py).
+``gdm_torch.problems.poisson.solve(grid, rhs_fn, precondition=...,
+device=..., dtype=...)`` runs the uncut Poisson solve with Jacobi- or
+multigrid-preconditioned CG in 2D and 3D (see gdm_torch/problems/).
 """
 
+from . import problems  # noqa: F401
 from .entry import entry  # noqa: F401
+from .problems import poisson  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources in gdm_torch/csrc/ have a plain C interface; they are
-compiled by nvcc for Hopper (``sm_90a``) into one shared library at
-first use and loaded with ctypes.  The library lands in this package's
+compiled by nvcc for Hopper (``sm_90a``), one nvcc process per source,
+all started together, and linked into one shared library at first use,
+which is loaded with ctypes.  The library lands in this package's
 gitignored build directory under a name keyed by the hash of the
 sources and flags, written under a temporary name and renamed into
 place, so a fresh checkout builds everything it needs and concurrent
@@ -28,10 +29,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -72,6 +72,12 @@ def _declare(lib):
         fn.argtypes = [P, P, P, P, I, P, P, I, P, P, I, I, P, P, I, P,
                        I, I, I, I, I, I, D, D, P]
         fn.restype = I
+        fn = getattr(lib, f"gdm_laplace2_apply_{dt}")
+        fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"gdm_laplace3_apply_{dt}")
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+        fn.restype = I
     lib.gdm_cuda_error_string.argtypes = [I]
     lib.gdm_cuda_error_string.restype = ctypes.c_char_p
 
@@ -89,25 +95,44 @@ def kernels() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{log}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        t0 = time.perf_counter()
+        log = _compile_and_link(sources, path)
+        seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
     _declare(lib)
     return KernelLibrary(lib, path, seconds, log)
+
+
+def _compile_and_link(sources, path) -> str:
+    """Compile every source to an object in parallel, link them into
+    ``path`` (written under a temporary name and renamed into place);
+    returns nvcc's output.  Raises on any failure."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(f) + ".o")
+                for f in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, f],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(sources, objs)]
+        logs, failed = [], []
+        for f, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(f)} (exit {proc.returncode})")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        lib_tmp = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp,
+                               *objs], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{log}")
+        os.replace(lib_tmp, path)
+    return log
 
 
 def stream_handle(device) -> int:

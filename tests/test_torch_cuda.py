@@ -10,6 +10,10 @@ Tolerances: float32 sums of up to 81 taps in another order (fma against
 mul + add) stay within 1e-5 of max|y|; float64 within 1e-12.  CG
 iteration counts may differ by 2 in float32 (the kernel sums dots in
 double, the plain version in float32) and must be equal in float64.
+The separable Laplace kernels K3 (2D) and K4 (3D) are held to the same
+1e-5 / 1e-12 of max|y| against their plain twins; the Poisson solve on
+the card to the CPU float64 solve's iteration count (float64: equal;
+float32: within 1).
 """
 
 import numpy as np
@@ -23,7 +27,8 @@ from gdm_torch.cut.operators import CutOperators
 from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
 from gdm_torch.entry import flagship_operators
 from gdm_torch.grid import Grid
-from gdm_torch.ops import cutband, resident
+from gdm_torch.ops import cutband, resident, stencil2, stencil3
+from gdm_torch.problems import poisson
 
 DTYPES = [torch.float32, torch.float64]
 OPS = ["mass", "stiff", "G", "GT", "schwarz"]
@@ -176,3 +181,123 @@ def test_entry_step_matches_cpu(cuda_device, dtype):
     for a, b in ((uk, uc), (vk, vc)):
         assert a.device.type == "cuda" and a.dtype == dtype
         assert ((a.cpu().double() - b).norm() / b.norm()).item() <= tol
+
+
+LAPLACE2_CASES = [
+    (3, (40, 72)),     # 2 x 3 tiles of 32 x 32, ragged in both axes
+    (5, (48, 40)),
+    (3, (200, 130)),   # many tiles
+    (15, (40, 33)),    # the largest degree K3 takes
+]
+
+
+def _rand(shape, seed, dtype, device):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                           dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,cells", LAPLACE2_CASES)
+def test_laplace2_matches_plain(cuda_device, p, cells, dtype):
+    grid = Grid(p, cells, (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 0, dtype, cuda_device)
+    before = stencil2.laplace2_apply.launches
+    yk = stencil2.laplace2_apply(u, bt)
+    assert stencil2.laplace2_apply.launches == before + 1
+    yp = stencil2.laplace2_apply_plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(yk, yp) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_laplace2_four_factor_bands(cuda_device, dtype):
+    """Four distinct factors, so a swap of A/B or of the axes fails."""
+    grid = Grid(3, (37, 45), (0.0, 0.0), (1.0, 1.0))
+    rng = np.random.default_rng(5)
+    bands = [rng.standard_normal((n, 7))
+             for n in (grid.nodes[0], grid.nodes[1], grid.nodes[0],
+                       grid.nodes[1])]
+    apply, pad, unpad, shape = stencil2.make_padded_laplace2(
+        grid, cuda_device, dtype, bands=bands)
+    u = _rand(grid.nodes, 1, dtype, cuda_device)
+    yk = unpad(apply(pad(u)))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype, bands)
+    yp = stencil2.laplace2_apply_plain(u, bt)
+    assert _rel(yk, yp) <= _tol(dtype)
+    # the plain twin against the dense product on the host
+    full = []
+    for b in bands:
+        n = b.shape[0]
+        A = np.zeros((n, n))
+        for k in range(7):
+            idx = np.arange(max(0, 3 - k), min(n, n + 3 - k))
+            A[idx, idx + k - 3] = b[idx, k]
+        full.append(A)
+    U = u.double().cpu().numpy()
+    Y = full[0] @ U @ full[1].T + full[2] @ U @ full[3].T
+    assert np.abs(yp.double().cpu().numpy() - Y).max() <= (
+        _tol(dtype) * np.abs(Y).max())
+
+
+LAPLACE3_CASES = [
+    (3, (12, 12, 12)),
+    (5, (10, 9, 11)),    # anisotropic, one-sided bands
+    (3, (40, 20, 70)),   # ragged tiles along every axis, several chunks
+    (7, (9, 8, 10)),     # the largest degree K4 takes
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,cells", LAPLACE3_CASES)
+def test_laplace3_matches_plain(cuda_device, p, cells, dtype):
+    grid = Grid(p, cells, (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
+    bt = stencil3.laplace3_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 2, dtype, cuda_device)
+    before = stencil3.laplace3_apply.launches
+    yk = stencil3.laplace3_apply(u, bt)
+    assert stencil3.laplace3_apply.launches == before + 1
+    yp = stencil3.laplace3_apply_plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(yk, yp) <= _tol(dtype)
+
+
+def test_laplace_rejects(cuda_device):
+    grid = Grid(3, (16, 16), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, torch.float32)
+    u = torch.zeros(grid.nodes, device=cuda_device)
+    with pytest.raises(ValueError):
+        stencil2.laplace2_apply(u.double(), bt)
+    with pytest.raises(ValueError):
+        stencil2.laplace2_apply(u.t(), bt)   # same shape, not contiguous
+    with pytest.raises(ValueError):
+        stencil2.laplace2_apply(u[:-1], bt)
+    with pytest.raises(ValueError, match="p <= 7"):
+        stencil3.laplace3_bands(Grid(9, (9, 9, 9), (0,) * 3, (1,) * 3),
+                                cuda_device)
+
+
+def _sin_rhs(m, c):
+    v = len(m) * np.pi**2
+    for x in m:
+        v = v * np.sin(np.pi * x)
+    return v
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cells", [(32, 32), (16, 16, 16)])
+def test_poisson_mg_on_card(cuda_device, cells, dtype):
+    grid = Grid(3, cells, (0.0,) * len(cells), (1.0,) * len(cells))
+    kernel = stencil2.laplace2_apply if len(cells) == 2 else (
+        stencil3.laplace3_apply)
+    before = kernel.launches
+    xk, ik = poisson.solve(grid, _sin_rhs, rel_tol=1e-4, precondition="mg",
+                           device=cuda_device, dtype=dtype)
+    assert kernel.launches > before
+    xc, ic = poisson.solve(grid, _sin_rhs, rel_tol=1e-4, precondition="mg")
+    if dtype == torch.float64:
+        assert ik["iterations"] == ic["iterations"]
+    else:
+        assert abs(ik["iterations"] - ic["iterations"]) <= 1
+    assert ((xk.cpu().double() - xc).norm() / xc.norm()).item() <= (
+        1e-10 if dtype == torch.float64 else 1e-4)
