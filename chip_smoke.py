@@ -32,12 +32,17 @@ Run from the repository root:  python3 chip_smoke.py
    relative residual (converged, not stopped at max_iter), the same
    solve in float64 on the card (iterations within 1), the L2 error
    against sin(pi x) sin(pi y), median times of the public solve and of
-   its CG phase, device busy time, and the K3 launches (> 0); at 128^2
-   the float32 card solution against the float64 CPU solution (rel_tol
-   1e-4: iterations within 1, relative difference <= 1e-3);
+   its CG phase, device busy time, and the K3 launches (> 0); K3 against
+   its plain twin at every level shape of the solve's multigrid
+   hierarchy (1025^2 down to 9^2 nodes); the CG phase of the bench's own
+   problem (right-hand side 1) timed the same way; at 128^2 the float32
+   card solution against the float64 CPU solution (rel_tol 1e-4:
+   iterations within 1, relative difference <= 1e-3);
 9. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
-   relative residual, L2 error, K4 launches (> 0); at 16^3 the float32
-   card solution against the float64 CPU solution as in phase 8.
+   relative residual, L2 error, K4 launches (> 0), K4 against its plain
+   twin at every level shape (65^3 down to 9^3 nodes); at 16^3 the
+   float32 card solution against the float64 CPU solution as in
+   phase 8.
 
 Prints a JSON line of per-kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1, no
@@ -152,6 +157,10 @@ def sin_rhs(m, c):
     return v
 
 
+def ones_rhs(m, c):
+    return np.ones_like(m[0])
+
+
 def sin_exact(m, c):
     v = 1.0
     for x in m:
@@ -183,6 +192,37 @@ def kernel_vs_plain(name, kernel, plain, u, n_nodes):
     return err, ms, pms
 
 
+def levels_vs_plain(mg, dev, dtype):
+    """Hold K3 (2D) or K4 (3D) against its plain twin at the node shape
+    of every level of the multigrid hierarchy ``mg``: the shapes the
+    solve gives the kernel.  Returns the largest max abs error."""
+    import torch
+
+    from gdm_torch.ops import stencil2, stencil3
+
+    fns = {2: (stencil2.laplace2_bands, stencil2.laplace2_apply,
+               stencil2.laplace2_apply_plain),
+           3: (stencil3.laplace3_bands, stencil3.laplace3_apply,
+               stencil3.laplace3_apply_plain)}
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for lvl in mg.levels:
+        g = lvl.grid
+        bands, kernel, plain = fns[g.dim]
+        bt = bands(g, dev, dtype)
+        u = torch.as_tensor(rng.standard_normal(g.nodes), dtype=dtype,
+                            device=dev)
+        yk, yp = kernel(u, bt), plain(u, bt)
+        torch.cuda.synchronize()
+        err = (yk - yp).abs().max().item()
+        rel = err / yp.abs().max().item()
+        print(f"  level {g.nodes}: kernel vs plain max abs err {err:.3e} "
+              f"(rel {rel:.3e})")
+        check(rel <= 1e-5, f"level {g.nodes}: max error {rel:.3e} of max|y|")
+        worst = max(worst, err)
+    return worst
+
+
 def reset_counts():
     from gdm_torch.ops import cutband, resident, stencil2, stencil3
 
@@ -202,7 +242,8 @@ def read_counts():
 
 def solve_phase(dim, n, dev, f32, f64, n_check):
     """Phases 8 (dim 2) and 9 (dim 3): the public Poisson solve on the
-    card.  Returns the launch counts of its main-path run."""
+    card.  Returns the launch counts of its main-path run and the largest
+    kernel-vs-plain error over its level shapes."""
     import torch
 
     from gdm_torch.grid import Grid
@@ -253,6 +294,25 @@ def solve_phase(dim, n, dev, f32, f64, n_check):
           f"{1 - busy / cg_ms:.3f}")
     for name, ms, cnt in top:
         print(f"    {ms * 1e3:9.1f} us  x{cnt:6.1f}  {name[:90]}")
+    # the multigrid behind the system's preconditioner (a bound method)
+    level_err = levels_vs_plain(sysf.precond.__self__, dev, f32)
+
+    if dim == 2:
+        # the bench's own problem: right-hand side 1 (no exact solution)
+        sys1 = poisson.system(grid, ones_rhs, "mg", dev, f32)
+        _, info1 = sys1.run(rel_tol=1e-3)
+        rel1 = info1["residual"] / sys1.b.norm().item()
+        check(info1["iterations"] < 10000 and rel1 <= 1e-3,
+              f"{tag} ones: the solve did not converge ({info1})")
+        ms1, all1 = wall_ms(lambda: sys1.run(rel_tol=1e-3), n=10, warmup=2)
+        busy1, launches1, _ = device_breakdown(
+            lambda: sys1.run(rel_tol=1e-3))
+        print(f"{tag} mg-CG float32, right-hand side 1: "
+              f"{info1['iterations']} iterations, relative residual "
+              f"{rel1:.3e}; CG phase median {ms1:.3f} ms over 10 (min "
+              f"{min(all1):.3f}, max {max(all1):.3f}); device busy "
+              f"{busy1:.3f} ms, {launches1:.0f} device launches, idle share "
+              f"{1 - busy1 / ms1:.3f}")
 
     gs = Grid(3, (n_check,) * dim, (0.0,) * dim, (1.0,) * dim)
     xs, is_ = poisson.solve(gs, sin_rhs, rel_tol=1e-4, precondition="mg",
@@ -266,7 +326,7 @@ def solve_phase(dim, n, dev, f32, f64, n_check):
     check(abs(is_["iterations"] - ic["iterations"]) <= 1,
           f"{dim}D {n_check}: card and cpu iteration counts differ by > 1")
     check(d <= 1e-3, f"{dim}D {n_check}: card and cpu solutions differ")
-    return counts
+    return counts, level_err
 
 
 def check(cond, what):
@@ -457,10 +517,11 @@ def main():
 
     # ---- the uncut Poisson solves through the public entry point -----------
     f64 = torch.float64
-    counts2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
+    counts2, err2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
     check(counts2["laplace2"] > 0, "K3 never launched on the 2D solve")
-    counts3 = solve_phase(3, 64, dev, f32, f64, n_check=16)
+    counts3, err3 = solve_phase(3, 64, dev, f32, f64, n_check=16)
     check(counts3["laplace3"] > 0, "K4 never launched on the 3D solve")
+    k3_err, k4_err = max(k3_err, err2), max(k4_err, err3)
 
     print(json.dumps({"kernels": [
         {"name": "cutband_apply (K1)", "route": "cuda",

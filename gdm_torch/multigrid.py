@@ -9,7 +9,8 @@ smoothing; a dense direct solve on the coarsest level.  Fields carry
 the trailing component axis (grid.nodes + (1,)).
 
 Every level's operator apply is ``ops.fast.best_field_laplace``: K3 or
-K4 on a CUDA device, at every level.  The transfers are plain torch
+K4 at every level, the kernel on a CUDA device and its plain twin on
+the CPU.  The transfers are plain torch
 slice multiply-adds, as gdm computes them outside Pallas.  The coarsest
 dense inverse is built on the host in float64 from the exact operator
 and cast; the coarse solve is one matrix-vector product, which must not

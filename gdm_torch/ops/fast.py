@@ -82,17 +82,19 @@ def best_field_laplace(grid: Grid, device="cpu", dtype=torch.float32):
     the uncut Poisson and multigrid solves, on fields of shape
     grid.nodes + (1,).
 
-    On a CUDA device, in 2D or 3D, it is K3 or K4 on ``u[..., 0]`` (a
-    contiguous view of a contiguous field, so no copy).  Everywhere else
-    it is the exact SeparableOperator apply, ``operators.laplace``.
+    In 2D and 3D it is K3 or K4 on ``u[..., 0]`` (a contiguous view of a
+    contiguous field, so no copy) on every device: the wrappers launch
+    the kernel for a CUDA tensor and run the plain twin for a CPU tensor,
+    so ``rode_kernel`` is whether the device is a CUDA card.  In 1D, and
+    for fields of several components, it is the exact SeparableOperator
+    apply, ``operators.laplace``.
     """
     device = torch.device(device)
-    if (device.type == "cuda" and grid.dim in (2, 3)
-            and grid.n_components == 1):
+    if grid.dim in (2, 3) and grid.n_components == 1:
         fn = laplace_apply_fn(grid, device, dtype)
 
         def apply(u):
             return fn(u[..., 0])[..., None]
 
-        return apply, True
+        return apply, device.type == "cuda"
     return operators.laplace(grid, device=device, dtype=dtype).apply, False

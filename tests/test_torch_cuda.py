@@ -245,7 +245,26 @@ LAPLACE3_CASES = [
     (5, (10, 9, 11)),    # anisotropic, one-sided bands
     (3, (40, 20, 70)),   # ragged tiles along every axis, several chunks
     (7, (9, 8, 10)),     # the largest degree K4 takes
+    # K4's launcher picks the plane chunk from the grid of tiles; these
+    # reach chunks of 16, 32 and 64 planes, each with a ragged last chunk
+    (3, (24, 176, 680)),
+    (3, (44, 176, 680)),
+    (3, (96, 176, 680)),
 ]
+
+
+def _k4_chunk(nodes):
+    """The plane chunk laplace3.cu's launch_p picks for ``nodes``."""
+    n0, n1, n2 = nodes
+    cols = -(-n2 // 32) * -(-n1 // 16)
+    return next((c for c in (64, 32, 16) if cols * -(-n0 // c) >= 4 * 132),
+                8)
+
+
+def test_laplace3_cases_reach_every_chunk():
+    chunks = {_k4_chunk(tuple(c + 1 for c in cells))
+              for _, cells in LAPLACE3_CASES}
+    assert chunks == {8, 16, 32, 64}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -18,6 +18,7 @@ from gdm.ops import laplace_apply_fn as g_laplace_apply_fn
 from gdm.ops.pallas_stencil2 import (make_padded_laplace2 as g_make2,
                                      make_padded_laplace3 as g_make3)
 
+from gdm_torch import operators
 from gdm_torch.grid import Grid
 from gdm_torch.ops import fast, stencil2, stencil3
 
@@ -104,15 +105,20 @@ def test_k4_plain_matches_gdm(p, cells):
 
 @pytest.mark.parametrize("cells", [(16, 20), (6, 8, 7)])
 def test_best_field_laplace_on_cpu(cells):
-    """On the CPU the dispatch is the exact SeparableOperator apply, and
-    it agrees with the plain twins on field-shaped arrays."""
+    """On the CPU the dispatch runs the kernels' plain twins (no kernel
+    launch) and agrees with the exact SeparableOperator apply on
+    field-shaped arrays."""
     grid = Grid(3, cells, (0.0,) * len(cells), (1.0,) * len(cells))
+    kernel = (stencil2.laplace2_apply if len(cells) == 2
+              else stencil3.laplace3_apply)
+    before = kernel.launches
     apply, rode = fast.best_field_laplace(grid, "cpu", F64)
     assert rode is False
     u = torch.as_tensor(np.random.default_rng(2).standard_normal(
         grid.field_shape))
-    twin = fast.laplace_apply_fn(grid, "cpu", F64)
-    assert _rel(apply(u), twin(u[..., 0])[..., None]) <= 1e-12
+    exact = operators.laplace(grid, device="cpu", dtype=F64).apply
+    assert _rel(apply(u), exact(u)) <= 1e-12
+    assert kernel.launches == before
 
 
 def test_kernel_wrappers_reject():
