@@ -22,10 +22,22 @@ Run from the repository root:  python3 chip_smoke.py
    launch counts of K1 and K2 over setup + steps, both > 0.  Also the
    cost of the streamed (host-synced) CG against the resident solve;
 6. K3 (2D separable Laplace) against its plain torch twin, float32, at
-   1024^2 for p = 3 and p = 5 and with four distinct band factors: max
-   error <= 1e-5 of max|y|; device and per-call times, GB/s at 8 bytes
-   per node (read u, write y);
+   1024^2 for p = 3 and p = 5, with four distinct band factors, and at
+   2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
+   per-call times, GB/s at 8 bytes per node (read u, write y); in each
+   case K3s (K3's operator streamed through a cp.async ring) against the
+   same twin the same way, and the two timed in turns (K3, K3s, K3s,
+   K3); then K3s once through its public make_padded_laplace2_stream at
+   4096^2, the launch counts reset just before: K3s's own path;
 7. K4 (3D Laplace) against its plain twin at 160^3, p = 3, the same way;
+   K5 (the 3D Laplace with the plane coupling on the tensor cores)
+   against its plain twin at 160^3 and 256^3, p = 3, with K4 timed
+   beside it in turns (K4, K5, K5, K4), and torch.matmul alone on stage
+   3's dense coupling at 161^3 (the yardstick for stage 3 only); then
+   gdm's 3D dispatch through the public laplace_apply_fn, the launch
+   counts reset just before each: Grid(3, (160,)*3) launches K5 and not
+   K4, Grid(3, (510, 64, 64)) (N0 + 2p = 517 > 512) K4 and not K5, held
+   against the plain twin;
 8. the 2D Poisson solve through the public entry point,
    gdm_torch.problems.poisson.solve on Grid(3, (1024, 1024)) with
    precondition="mg", rel_tol=1e-3, float32 on the card: iterations and
@@ -39,12 +51,17 @@ Run from the repository root:  python3 chip_smoke.py
    card solution against the float64 CPU solution (rel_tol 1e-4:
    iterations within 1, relative difference <= 1e-3);
 9. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
-   relative residual, L2 error, K4 launches (> 0), K4 against its plain
-   twin at every level shape (65^3 down to 9^3 nodes); at 16^3 the
+   relative residual, L2 error, K5 launches (> 0; K4 none: every level
+   has N0 + 2p <= 512), the kernel the dispatch picks (K5) against its
+   plain twin at every level shape (65^3 down to 9^3 nodes); at 16^3 the
    float32 card solution against the float64 CPU solution as in
    phase 8.
 
-Prints a JSON line of per-kernel results, the card line, and last
+Prints a JSON line of per-kernel results (K1-K5 and K3s: launches on the
+kernel's main path, max error against the plain twin, device ms of the
+kernel and of the twin, the bound from the bytes and operations of the
+measured inputs, and ``library_ms`` null: no single PyTorch call
+computes any of them), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1, no
 result line).
 """
@@ -60,6 +77,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_GRID = 128
+# NVIDIA H100 SXM at 700 W (NVIDIA's data sheet): device memory rate and
+# the float32 rate outside the tensor cores
+MEM_BPS = 3.35e12
+F32_FLOPS = 67e12
 
 
 def card_line() -> str:
@@ -90,10 +111,12 @@ def call_ms(fn, n=30, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(fn, n=20, warmup=3):
+def device_ms(fn, n=20, warmup=3, attempts=3):
     """Device time of one fn() call in ms: the sum of the kernel and copy
     times the profiler records over n calls, divided by n.  Host work
-    (launch overhead, syncs) and idle gaps do not count."""
+    (launch overhead, syncs) and idle gaps do not count.  A profile that
+    recorded no device time at all is taken again, up to ``attempts``
+    times, and then raises: it is a lost trace, not a zero time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -101,14 +124,18 @@ def device_ms(fn, n=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / n
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / n
+    raise AssertionError(f"the profiler recorded no device time in "
+                         f"{attempts} traces of {n} calls")
 
 
 def device_breakdown(fn, n=5, warmup=2, top=6):
@@ -150,6 +177,32 @@ def wall_ms(fn, n=5, warmup=1):
     return statistics.median(times), times
 
 
+def bound(nbytes, flops):
+    """(least ms the card could take, "bytes" or "operations"): the
+    bytes each input read once and each output written once over the
+    memory rate, against the float32 operations over the peak rate."""
+    t_mem, t_ops = nbytes / MEM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def separable_bound(n_nodes, k, fma_per_tap, itemsize=4):
+    """The bound of a separable Laplace apply on n_nodes nodes with k
+    taps per band: u read and y written once, fma_per_tap FMAs per node
+    and tap (K3: 4, two column and two row products; K4/K5: 7, the
+    band form of the three stages)."""
+    return bound(2 * itemsize * n_nodes, 2 * fma_per_tap * k * n_nodes)
+
+
+def turns(name_a, fa, name_b, fb):
+    """Device ms of fa and fb timed in turns (a, b, b, a); prints and
+    returns ((a1, a2), (b1, b2))."""
+    a1, b1, b2, a2 = (device_ms(f) for f in (fa, fb, fb, fa))
+    print(f"  in turns: {name_a} {a1 * 1e3:.2f} us, {name_b} "
+          f"{b1 * 1e3:.2f} us, {name_b} {b2 * 1e3:.2f} us, {name_a} "
+          f"{a2 * 1e3:.2f} us")
+    return (a1, a2), (b1, b2)
+
+
 def sin_rhs(m, c):
     v = len(m) * np.pi**2
     for x in m:
@@ -179,6 +232,7 @@ def kernel_vs_plain(name, kernel, plain, u, n_nodes):
     err = (yk - yp).abs().max().item()
     rel = err / yp.abs().max().item()
     check(rel <= 1e-5, f"{name}: max error {rel:.3e} of max|y|")
+    del yk, yp
     ms = device_ms(lambda: kernel(u))
     pms = device_ms(lambda: plain(u), n=10)
     cms = call_ms(lambda: kernel(u))
@@ -193,41 +247,41 @@ def kernel_vs_plain(name, kernel, plain, u, n_nodes):
 
 
 def levels_vs_plain(mg, dev, dtype):
-    """Hold K3 (2D) or K4 (3D) against its plain twin at the node shape
-    of every level of the multigrid hierarchy ``mg``: the shapes the
-    solve gives the kernel.  Returns the largest max abs error."""
+    """Hold the kernel gdm's dispatch picks for each level of the
+    multigrid hierarchy ``mg`` (K3 in 2D; K5 in 3D while N0 + 2p <= 512,
+    else K4) against its plain twin at the level's node shape: the
+    shapes the solve gives the kernel.  Returns the largest max abs
+    error and the names of the kernels held."""
     import torch
 
-    from gdm_torch.ops import stencil2, stencil3
+    from gdm_torch.ops import fast
 
-    fns = {2: (stencil2.laplace2_bands, stencil2.laplace2_apply,
-               stencil2.laplace2_apply_plain),
-           3: (stencil3.laplace3_bands, stencil3.laplace3_apply,
-               stencil3.laplace3_apply_plain)}
     rng = np.random.default_rng(1)
-    worst = 0.0
+    worst, names = 0.0, set()
     for lvl in mg.levels:
         g = lvl.grid
-        bands, kernel, plain = fns[g.dim]
-        bt = bands(g, dev, dtype)
+        apply = fast.best_padded_laplace(g, dev, dtype)[0]
         u = torch.as_tensor(rng.standard_normal(g.nodes), dtype=dtype,
                             device=dev)
-        yk, yp = kernel(u, bt), plain(u, bt)
+        yk, yp = apply(u), apply.plain(u)
         torch.cuda.synchronize()
         err = (yk - yp).abs().max().item()
         rel = err / yp.abs().max().item()
-        print(f"  level {g.nodes}: kernel vs plain max abs err {err:.3e} "
+        name = apply.kernel.__name__
+        print(f"  level {g.nodes}: {name} vs plain max abs err {err:.3e} "
               f"(rel {rel:.3e})")
         check(rel <= 1e-5, f"level {g.nodes}: max error {rel:.3e} of max|y|")
         worst = max(worst, err)
-    return worst
+        names.add(name)
+    return worst, names
 
 
 def reset_counts():
     from gdm_torch.ops import cutband, resident, stencil2, stencil3
 
     for fn in (cutband.band_apply, resident.resident_cg,
-               stencil2.laplace2_apply, stencil3.laplace3_apply):
+               stencil2.laplace2_apply, stencil2.laplace2_stream_apply,
+               stencil3.laplace3_apply, stencil3.laplace3_mxu_apply):
         fn.launches = 0
 
 
@@ -237,7 +291,9 @@ def read_counts():
     return {"cutband": cutband.band_apply.launches,
             "resident": resident.resident_cg.launches,
             "laplace2": stencil2.laplace2_apply.launches,
-            "laplace3": stencil3.laplace3_apply.launches}
+            "laplace2_stream": stencil2.laplace2_stream_apply.launches,
+            "laplace3": stencil3.laplace3_apply.launches,
+            "laplace3_mxu": stencil3.laplace3_mxu_apply.launches}
 
 
 def solve_phase(dim, n, dev, f32, f64, n_check):
@@ -295,7 +351,11 @@ def solve_phase(dim, n, dev, f32, f64, n_check):
     for name, ms, cnt in top:
         print(f"    {ms * 1e3:9.1f} us  x{cnt:6.1f}  {name[:90]}")
     # the multigrid behind the system's preconditioner (a bound method)
-    level_err = levels_vs_plain(sysf.precond.__self__, dev, f32)
+    level_err, level_kernels = levels_vs_plain(sysf.precond.__self__, dev,
+                                               f32)
+    check(level_kernels == ({"laplace2_apply"} if dim == 2
+                            else {"laplace3_mxu_apply"}),
+          f"{tag}: the dispatch picked {level_kernels} on the levels")
 
     if dim == 2:
         # the bench's own problem: right-hand side 1 (no exact solution)
@@ -344,7 +404,8 @@ def main():
     from gdm_torch.cut.fsai import fsai_factors
     from gdm_torch.entry import flagship_operators
     from gdm_torch.grid import Grid
-    from gdm_torch.ops import _build, cutband, resident, stencil2, stencil3
+    from gdm_torch.ops import (_build, cutband, fast, resident, stencil2,
+                               stencil3)
 
     card = card_line()
     dev = torch.device("cuda")
@@ -373,7 +434,7 @@ def main():
     N = grid.n_nodes
 
     # ---- K1 against its plain version ------------------------------------
-    k1_err, k1_ms, k1_plain_ms = 0.0, [], []
+    k1_err, k1_ms, k1_plain_ms, k1_bound = 0.0, [], [], []
     for name, st in (("mass", mass), ("stiffness", stiff)):
         bp = cutband.band_planes(st, layout, dev, f32)
         u = layout.pad(torch.as_tensor(rng.standard_normal(N), dtype=f32,
@@ -401,6 +462,8 @@ def main():
         k1_err = max(k1_err, err)
         k1_ms.append(ms)
         k1_plain_ms.append(pms)
+        k1_bound.append(bound(4 * (bp.planes.numel() + 2 * cells),
+                              2 * len(bp.taps) * cells))
 
     # ---- K2 against its plain version ------------------------------------
     A = cutband.band_planes(mass, layout, dev, f32)
@@ -421,12 +484,21 @@ def main():
     check(abs(sk["residual"] - sp["residual"]) <= 0.1 * sp["residual"],
           "K2 true residuals differ by more than 10%")
     k2_err = (xk - xp).abs().max().item()
+    # the kernels line reports this absolute error; its scale is x's
+    print(f"K2: max abs x difference {k2_err:.3e} of max|x| "
+          f"{xp.abs().max().item():.3e}")
     k2_ms = device_ms(lambda: resident.resident_cg(b, x0, *args))
     k2_call_ms = call_ms(lambda: resident.resident_cg(b, x0, *args), n=20)
     k2_plain_ms = device_ms(
         lambda: resident.resident_cg_plain(b, x0, *args), n=5)
     k2_plain_call_ms = call_ms(
         lambda: resident.resident_cg_plain(b, x0, *args), n=20)
+    # each plane and b, x0 read once, x written once; per iteration the
+    # three band applies and ~10 flops of vector updates and dots a cell
+    cells = layout.rows * layout.pitch
+    n_taps = len(A.taps) + len(Gp.taps) + len(GTp.taps)
+    k2_bound = bound(4 * (n_taps + 3) * cells,
+                     sk["iterations"] * (2 * n_taps + 10) * cells)
     print(f"K2: device time: kernel {k2_ms * 1e3:.1f} us "
           f"({k2_ms * 1e3 / max(sk['iterations'], 1):.1f} us/iteration), "
           f"plain {k2_plain_ms * 1e3:.1f} us; per call with launch and "
@@ -486,64 +558,156 @@ def main():
           f"(cpu routing {stepc.mass_solver.path!r})")
     check(du <= 1e-4 and dv <= 1e-4, "state disagrees with the reference")
 
-    # ---- K3 against its plain twin -----------------------------------------
+    # ---- K3 and K3s against K3's plain twin -------------------------------
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmul is on; the coarse solves need f32")
-    k3_err, k3_ms, k3_plain_ms = 0.0, [], []
+    k3 = stencil2.laplace2_apply
+    k3s = stencil2.laplace2_stream_apply
+    k3_plain = stencil2.laplace2_apply_plain
+    k3_err, k3_ms, k3_plain_ms, k3s_err = 0.0, [], [], 0.0
     g2 = {p: Grid(p, (1024, 1024), (0.0, 0.0), (1.0, 1.0)) for p in (3, 5)}
     n0, n1 = g2[3].nodes
     four = tuple(rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1))
-    for name, grid2, bands in (("p=3", g2[3], None), ("p=5", g2[5], None),
-                               ("p=3 four factors", g2[3], four)):
+    cases = [("1024^2 p=3", g2[3], None), ("1024^2 p=5", g2[5], None),
+             ("1024^2 p=3 four factors", g2[3], four)] + [
+        (f"{n}^2 p=3", Grid(3, (n, n), (0.0, 0.0), (1.0, 1.0)), None)
+        for n in (2048, 4096)]
+    for name, grid2, bands in cases:
         bt = stencil2.laplace2_bands(grid2, dev, f32, bands)
         u = torch.as_tensor(rng.standard_normal(grid2.nodes), dtype=f32,
                             device=dev)
         err, ms, pms = kernel_vs_plain(
-            f"K3 1024^2 {name}", lambda v: stencil2.laplace2_apply(v, bt),
-            lambda v: stencil2.laplace2_apply_plain(v, bt), u,
+            f"K3 {name}", lambda v: k3(v, bt), lambda v: k3_plain(v, bt), u,
             grid2.n_nodes)
         k3_err = max(k3_err, err)
-        if bands is None:
-            k3_ms.append(ms)
-            k3_plain_ms.append(pms)
+        if name == "1024^2 p=3":
+            k3_ms, k3_plain_ms = ms, pms
+        err, ms, pms = kernel_vs_plain(
+            f"K3s {name}", lambda v: k3s(v, bt), lambda v: k3_plain(v, bt), u,
+            grid2.n_nodes)
+        k3s_err = max(k3s_err, err)
+        turns("K3", lambda: k3(u, bt), "K3s", lambda: k3s(u, bt))
+    k3s_ms, k3s_plain_ms, g4096 = ms, pms, grid2
+    del u, bt
+    # K3s through its public entry point: no solve routes to it, so this
+    # is its path
+    apply, pad, unpad, _ = stencil2.make_padded_laplace2_stream(g4096, dev,
+                                                                f32)
+    u = torch.as_tensor(rng.standard_normal(g4096.nodes), dtype=f32,
+                        device=dev)
+    reset_counts()
+    y = unpad(apply(pad(u)))
+    torch.cuda.synchronize()
+    counts_k3s = read_counts()
+    print(f"make_padded_laplace2_stream at 4096^2: launches {counts_k3s}")
+    check(counts_k3s["laplace2_stream"] == 1, "K3s did not launch")
+    check(y.shape == g4096.nodes and bool(torch.isfinite(y).all()),
+          "K3s: output not finite or of the wrong shape")
+    del u, y
 
-    # ---- K4 against its plain twin -----------------------------------------
+    # ---- K4 and K5 against their plain twins -------------------------------
+    k4 = stencil3.laplace3_apply
+    k5 = stencil3.laplace3_mxu_apply
+    k5_plain = stencil3.laplace3_mxu_apply_plain
     g3 = Grid(3, (160, 160, 160), (0.0,) * 3, (1.0,) * 3)
     bt3 = stencil3.laplace3_bands(g3, dev, f32)
     u = torch.as_tensor(rng.standard_normal(g3.nodes), dtype=f32, device=dev)
     k4_err, k4_ms, k4_plain_ms = kernel_vs_plain(
-        "K4 160^3 p=3", lambda v: stencil3.laplace3_apply(v, bt3),
+        "K4 160^3 p=3", lambda v: k4(v, bt3),
         lambda v: stencil3.laplace3_apply_plain(v, bt3), u, g3.n_nodes)
+    k5_err, k5_ms, k5_plain_ms = kernel_vs_plain(
+        "K5 160^3 p=3", lambda v: k5(v, bt3), lambda v: k5_plain(v, bt3), u,
+        g3.n_nodes)
+    turns("K4", lambda: k4(u, bt3), "K5", lambda: k5(u, bt3))
+    n0 = g3.nodes[0]
+    coupling = torch.cat([stencil3.band_matrix(bt3.s[0]),
+                          stencil3.band_matrix(bt3.m[0])], dim=1)
+    pt = torch.as_tensor(rng.standard_normal((2 * n0, g3.n_nodes // n0)),
+                         dtype=f32, device=dev)
+    mm_ms = device_ms(lambda: torch.matmul(coupling, pt))
+    print(f"torch.matmul of stage 3's dense coupling alone at 161^3, "
+          f"({n0} x {2 * n0})({2 * n0} x {g3.n_nodes // n0}) float32: "
+          f"{mm_ms * 1e3:.2f} us (a yardstick for stage 3 only, not for "
+          f"K5's whole function)")
+    del pt, u
+    g3b = Grid(3, (256, 256, 256), (0.0,) * 3, (1.0,) * 3)
+    bt3b = stencil3.laplace3_bands(g3b, dev, f32)
+    u = torch.as_tensor(rng.standard_normal(g3b.nodes), dtype=f32,
+                        device=dev)
+    err, _, _ = kernel_vs_plain(
+        "K5 256^3 p=3", lambda v: k5(v, bt3b), lambda v: k5_plain(v, bt3b),
+        u, g3b.n_nodes)
+    k5_err = max(k5_err, err)
+    err, _, _ = kernel_vs_plain(
+        "K4 256^3 p=3", lambda v: k4(v, bt3b), lambda v: k5_plain(v, bt3b),
+        u, g3b.n_nodes)
+    k4_err = max(k4_err, err)
+    turns("K4", lambda: k4(u, bt3b), "K5", lambda: k5(u, bt3b))
+    del u, bt3b
+
+    # ---- gdm's 3D dispatch through the public apply ------------------------
+    for cells, want, other in (((160, 160, 160), "laplace3_mxu", "laplace3"),
+                               ((510, 64, 64), "laplace3", "laplace3_mxu")):
+        gd = Grid(3, cells, (0.0,) * 3, (1.0,) * 3)
+        apply = fast.laplace_apply_fn(gd, dev, f32)
+        u = torch.as_tensor(rng.standard_normal(gd.nodes), dtype=f32,
+                            device=dev)
+        reset_counts()
+        y = apply(u)
+        torch.cuda.synchronize()
+        counts_d = read_counts()
+        yp = k5_plain(u, stencil3.laplace3_bands(gd, dev, f32))
+        err = (y - yp).abs().max().item()
+        rel = err / yp.abs().max().item()
+        print(f"laplace_apply_fn at {gd.nodes} nodes (N0 + 2p = "
+              f"{gd.nodes[0] + 6}): launches {counts_d}; max abs err "
+              f"{err:.3e} (rel {rel:.3e}) against the plain twin")
+        check(counts_d[want] == 1 and counts_d[other] == 0,
+              f"the dispatch at {cells} did not take {want} alone")
+        check(rel <= 1e-5, f"dispatch at {cells}: max error {rel:.3e}")
+        if want == "laplace3":
+            k4_err, k4_launches = max(k4_err, err), counts_d["laplace3"]
+        else:
+            k5_err = max(k5_err, err)
+    del u, y, yp
 
     # ---- the uncut Poisson solves through the public entry point -----------
     f64 = torch.float64
     counts2, err2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
     check(counts2["laplace2"] > 0, "K3 never launched on the 2D solve")
     counts3, err3 = solve_phase(3, 64, dev, f32, f64, n_check=16)
-    check(counts3["laplace3"] > 0, "K4 never launched on the 3D solve")
-    k3_err, k4_err = max(k3_err, err2), max(k4_err, err3)
+    check(counts3["laplace3_mxu"] > 0, "K5 never launched on the 3D solve")
+    check(counts3["laplace3"] == 0,
+          "K4 launched on the 3D solve, where gdm's dispatch takes K5")
+    k3_err, k5_err = max(k3_err, err2), max(k5_err, err3)
 
+    def row(name, source, replaces, launches, err, ms, pms, bnd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    k1_at = k1_ms.index(max(k1_ms))
     print(json.dumps({"kernels": [
-        {"name": "cutband_apply (K1)", "route": "cuda",
-         "source": "gdm_torch/csrc/cutband.cu",
-         "replaces": "gdm/ops/pallas_cutband.py:137",
-         "launches": launches["cutband"], "max_abs_err": k1_err,
-         "ms": max(k1_ms), "plain_ms": max(k1_plain_ms)},
-        {"name": "resident_cg (K2)", "route": "cuda",
-         "source": "gdm_torch/csrc/resident.cu",
-         "replaces": "gdm/ops/pallas_resident.py:197",
-         "launches": launches["resident"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "laplace2_apply (K3)", "route": "cuda",
-         "source": "gdm_torch/csrc/laplace2.cu",
-         "replaces": "gdm/ops/pallas_stencil2.py:566",
-         "launches": counts2["laplace2"], "max_abs_err": k3_err,
-         "ms": k3_ms[0], "plain_ms": k3_plain_ms[0]},
-        {"name": "laplace3_apply (K4)", "route": "cuda",
-         "source": "gdm_torch/csrc/laplace3.cu",
-         "replaces": "gdm/ops/pallas_stencil2.py:1056",
-         "launches": counts3["laplace3"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+        row("cutband_apply (K1)", "gdm_torch/csrc/cutband.cu",
+            "gdm/ops/pallas_cutband.py:137", launches["cutband"], k1_err,
+            k1_ms[k1_at], k1_plain_ms[k1_at], k1_bound[k1_at]),
+        row("resident_cg (K2)", "gdm_torch/csrc/resident.cu",
+            "gdm/ops/pallas_resident.py:197", launches["resident"], k2_err,
+            k2_ms, k2_plain_ms, k2_bound),
+        row("laplace2_apply (K3)", "gdm_torch/csrc/laplace2.cu",
+            "gdm/ops/pallas_stencil2.py:566", counts2["laplace2"], k3_err,
+            k3_ms, k3_plain_ms, separable_bound(g2[3].n_nodes, 7, 4)),
+        row("laplace2_stream_apply (K3s)", "gdm_torch/csrc/laplace2_stream.cu",
+            "gdm/ops/pallas_stencil2.py:793", counts_k3s["laplace2_stream"],
+            k3s_err, k3s_ms, k3s_plain_ms,
+            separable_bound(g4096.n_nodes, 7, 4)),
+        row("laplace3_apply (K4)", "gdm_torch/csrc/laplace3.cu",
+            "gdm/ops/pallas_stencil2.py:1056", k4_launches, k4_err, k4_ms,
+            k4_plain_ms, separable_bound(g3.n_nodes, 7, 7)),
+        row("laplace3_mxu_apply (K5)", "gdm_torch/csrc/laplace3_mxu.cu",
+            "gdm/ops/pallas_stencil2.py:1946", counts3["laplace3_mxu"],
+            k5_err, k5_ms, k5_plain_ms, separable_bound(g3.n_nodes, 7, 7)),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

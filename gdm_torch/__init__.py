@@ -12,6 +12,7 @@ RK4 step of the 2D cut wave equation (see gdm_torch/entry.py).
 ``gdm_torch.problems.poisson.solve(grid, rhs_fn, precondition=...,
 device=..., dtype=...)`` runs the uncut Poisson solve with Jacobi- or
 multigrid-preconditioned CG in 2D and 3D (see gdm_torch/problems/).
+Both run on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import problems  # noqa: F401

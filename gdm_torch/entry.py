@@ -17,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from . import device as _device
 from . import timestepping
 from .cut.fastapply import fast_stencil_bundle
 from .cut.fsai import verified_fsai_solver
@@ -63,11 +64,12 @@ def flagship_operators(n: int):
     return grid, op, mass_stencil, rhs_stencil
 
 
-def entry(n: int = 24, device="cpu", dtype=torch.float32):
-    """(step, (t0, dt, u0, v0)) of the flagship solver on an n x n grid."""
+def entry(n: int = 24, device="cuda", dtype=torch.float32):
+    """(step, (t0, dt, u0, v0)) of the flagship solver on an n x n grid,
+    on the card unless ``device="cpu"`` is asked for."""
     import scipy.special
 
-    device = torch.device(device)
+    device = _device.resolve(device)
     grid, op, mass_stencil, rhs_stencil = flagship_operators(n)
     wn = WN
 

@@ -8,10 +8,11 @@ degree-p interpolant at coarse-cell midpoints; restriction R = P^T (no
 smoothing; a dense direct solve on the coarsest level.  Fields carry
 the trailing component axis (grid.nodes + (1,)).
 
-Every level's operator apply is ``ops.fast.best_field_laplace``: K3 or
-K4 at every level, the kernel on a CUDA device and its plain twin on
-the CPU.  The transfers are plain torch
-slice multiply-adds, as gdm computes them outside Pallas.  The coarsest
+Every level's operator apply is ``ops.fast.best_field_laplace``: the
+kernel gdm's dispatch picks for the level (K3 in 2D; K5 in 3D while
+N0 + 2p <= 512, else K4), on a CUDA device, and its plain twin on the
+CPU.  The transfers are plain torch slice multiply-adds, as gdm computes
+them outside Pallas.  The coarsest
 dense inverse is built on the host in float64 from the exact operator
 and cast; the coarse solve is one matrix-vector product, which must not
 run in TF32 (checked on every call).
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from . import basis, operators
+from . import device as _device
 from .constraints import Constraints
 from .grid import Grid
 from .ops.fast import best_field_laplace
@@ -146,11 +148,11 @@ class Level:
 class PoissonMultigrid:
     """Symmetric V-cycle preconditioner for the zero-BC GD Laplacian."""
 
-    def __init__(self, grid: Grid, device="cpu", dtype=torch.float64,
+    def __init__(self, grid: Grid, device="cuda", dtype=torch.float64,
                  n_smooth: int = 2, omega: float = 0.6, coarsest: int = 8):
         if grid.n_components != 1:
             raise ValueError("PoissonMultigrid takes scalar fields")
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
         self.n_smooth = n_smooth
         self.omega = omega
         self.levels = []

@@ -75,9 +75,13 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_laplace2_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
         fn.restype = I
-        fn = getattr(lib, f"gdm_laplace3_apply_{dt}")
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+        fn = getattr(lib, f"gdm_laplace2_stream_apply_{dt}")
+        fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
         fn.restype = I
+        for k in ("laplace3", "laplace3_mxu"):
+            fn = getattr(lib, f"gdm_{k}_apply_{dt}")
+            fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+            fn.restype = I
     lib.gdm_cuda_error_string.argtypes = [I]
     lib.gdm_cuda_error_string.restype = ctypes.c_char_p
 

@@ -2,28 +2,35 @@
 uncut Poisson and multigrid solves.
 
 Port of gdm/ops/fast.py.  ``laplace_apply_fn`` acts on bare
-(N0, ..., N_{dim-1}) fields: in 2D and 3D it is K3 or K4
-(gdm_torch/ops/stencil2.py, stencil3.py), whose wrappers launch the
-CUDA kernel for a CUDA tensor and the plain torch twin for a CPU
-tensor; in 1D it is the separable band sweep.
+(N0, ..., N_{dim-1}) fields: in 2D and 3D it is the kernel that
+``best_padded_laplace`` picks, as gdm's dispatch of the same name
+(gdm/ops/pallas_stencil2.py) does: K3 in 2D; in 3D K5 while
+N0 + 2p <= 512 and K4 above (gdm_torch/ops/stencil2.py, stencil3.py).
+Their wrappers launch the CUDA kernel for a CUDA tensor and the plain
+torch twin for a CPU tensor.  In 1D it is the separable band sweep.
+Every entry point here defaults to the card (``device="cuda"``).
 
 gdm rode its Pallas kernels only on a TPU and only above
 ``min_dofs=200_000`` nodes, because of the TPU's 128-lane padding.  The
 card has no such padding, so every 2D/3D CUDA apply takes the kernel and
-there is no ``use_pallas`` option.  gdm's TPU-only ``use_mxu_3d`` and
-``laplace_3d_mxu_fn`` (dense-factor matmuls for the TPU's matrix unit)
-have no caller on the card and are not ported (ROADMAP Queue 2).
+there is no ``use_pallas`` or ``min_dofs`` option.  The 3D threshold
+N0 + 2p <= 512 is gdm's, copied as it is (gdm's K5 holds the planes on
+128-wide lanes); the card's own crossover is not measured yet.
+gdm's TPU-only ``use_mxu_3d`` and ``laplace_3d_mxu_fn`` (dense-factor
+matmuls for the TPU's matrix unit) have no caller on the card and are
+not ported (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import device as _device
 from .. import operators
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
 from .stencil2 import make_padded_laplace2
-from .stencil3 import make_padded_laplace3
+from .stencil3 import make_padded_laplace3, make_padded_laplace3_mxu
 from .tensor import apply_banded
 
 
@@ -38,12 +45,25 @@ def _bands(grid: Grid, device, dtype):
     return bs, bm
 
 
-def laplace_apply_fn(grid: Grid, device="cpu", dtype=torch.float32):
-    """The Laplace apply on bare (N0, ..., N_{dim-1}) fields: K3 in 2D,
-    K4 in 3D, the separable sweep in 1D."""
+def best_padded_laplace(grid: Grid, device="cuda", dtype=torch.float32):
+    """(apply, pad, unpad, shape) of the 2D/3D Laplace kernel gdm's
+    dispatch picks: K3 in 2D; in 3D K5 when N0 + 2p <= 512, else K4."""
+    if grid.dim == 3:
+        if grid.nodes[0] + 2 * grid.degree <= 512:
+            return make_padded_laplace3_mxu(grid, device, dtype)
+        return make_padded_laplace3(grid, device, dtype)
+    if grid.dim == 2:
+        return make_padded_laplace2(grid, device, dtype)
+    raise ValueError(f"no padded Laplace kernel for a {grid.dim}D grid")
+
+
+def laplace_apply_fn(grid: Grid, device="cuda", dtype=torch.float32):
+    """The Laplace apply on bare (N0, ..., N_{dim-1}) fields: the kernel
+    of ``best_padded_laplace`` in 2D and 3D, the separable sweep in 1D."""
+    device = _device.resolve(device)
     if grid.dim in (2, 3):
-        make = make_padded_laplace2 if grid.dim == 2 else make_padded_laplace3
-        apply_padded, pad, unpad, _ = make(grid, device, dtype)
+        apply_padded, pad, unpad, _ = best_padded_laplace(grid, device,
+                                                          dtype)
 
         def apply(u):
             return unpad(apply_padded(pad(u)))
@@ -65,8 +85,8 @@ def laplace_apply_fn(grid: Grid, device="cpu", dtype=torch.float32):
     return apply
 
 
-def mass_apply_fn(grid: Grid, device="cpu", dtype=torch.float32):
-    _, bm = _bands(grid, device, dtype)
+def mass_apply_fn(grid: Grid, device="cuda", dtype=torch.float32):
+    _, bm = _bands(grid, _device.resolve(device), dtype)
 
     def apply(u):
         v = u
@@ -77,19 +97,20 @@ def mass_apply_fn(grid: Grid, device="cpu", dtype=torch.float32):
     return apply
 
 
-def best_field_laplace(grid: Grid, device="cpu", dtype=torch.float32):
+def best_field_laplace(grid: Grid, device="cuda", dtype=torch.float32):
     """(field-shaped Laplace apply, rode_kernel: bool): the dispatch of
     the uncut Poisson and multigrid solves, on fields of shape
     grid.nodes + (1,).
 
-    In 2D and 3D it is K3 or K4 on ``u[..., 0]`` (a contiguous view of a
-    contiguous field, so no copy) on every device: the wrappers launch
-    the kernel for a CUDA tensor and run the plain twin for a CPU tensor,
-    so ``rode_kernel`` is whether the device is a CUDA card.  In 1D, and
-    for fields of several components, it is the exact SeparableOperator
-    apply, ``operators.laplace``.
+    In 2D and 3D it is the kernel of ``best_padded_laplace`` on
+    ``u[..., 0]`` (a contiguous view of a contiguous field, so no copy)
+    on every device: the wrappers launch the kernel for a CUDA tensor and
+    run the plain twin for a CPU tensor, so ``rode_kernel`` is whether
+    the device is a CUDA card.  In 1D, and for fields of several
+    components, it is the exact SeparableOperator apply,
+    ``operators.laplace``.
     """
-    device = torch.device(device)
+    device = _device.resolve(device)
     if grid.dim in (2, 3) and grid.n_components == 1:
         fn = laplace_apply_fn(grid, device, dtype)
 

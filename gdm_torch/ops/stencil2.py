@@ -1,14 +1,16 @@
-"""K3: the 2D separable band apply  y = A0 U A1^T + B0 U B1^T.
+"""K3 and K3s: the 2D separable band apply  y = A0 U A1^T + B0 U B1^T.
 
-Port of gdm/ops/pallas_stencil2.py (``make_padded_laplace2``, the TPU
-kernel that gdm/ops/fast.py::best_field_laplace routes the uncut
-Poisson CG operator and every multigrid level through).  The CUDA
-kernel is gdm_torch/csrc/laplace2.cu; its source note says what bounds
-it on the card.  ``laplace2_apply`` launches it for a CUDA tensor and
-runs the plain torch version ``laplace2_apply_plain`` for a CPU tensor;
-there is no other switch.
+Port of gdm/ops/pallas_stencil2.py: ``make_padded_laplace2`` (K3, the
+TPU kernel that gdm/ops/fast.py::best_field_laplace routes the uncut
+Poisson CG operator and every multigrid level through) and
+``make_padded_laplace2_stream`` (K3s, the same operator streamed down
+the rows; no solve dispatch routes to it, in gdm or here).  The CUDA
+kernels are gdm_torch/csrc/laplace2.cu and laplace2_stream.cu; their
+source notes say what bounds them on the card.  ``laplace2_apply`` and
+``laplace2_stream_apply`` launch their kernel for a CUDA tensor and run
+the plain torch version for a CPU tensor; there is no other switch.
 
-It computes what gdm's f32-exact ``rows="vpu"`` kernel computes, not
+Both compute what gdm's f32-exact ``rows="vpu"`` kernel computes, not
 the bf16x3 row products of gdm's TPU default.  The node array is the
 contiguous (N0, N1) field itself: gdm's guard rows and 128-lane padding
 existed for aligned TPU DMAs, so here ``pad`` and ``unpad`` are
@@ -22,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
 from . import _build
@@ -51,10 +54,12 @@ def laplace2_bands(grid: Grid, device="cpu", dtype=torch.float32,
     """The band tables for ``grid``: ``bands=(A0, A1, B0, B1)`` numpy
     arrays, or by default the GD Laplace (S0, M1, M0, S1)."""
     if grid.dim != 2:
-        raise ValueError(f"K3 is the 2D apply; the grid is {grid.dim}D")
+        raise ValueError(f"K3 and K3s are the 2D apply; the grid is "
+                         f"{grid.dim}D")
     p = grid.degree
     if p > MAX_DEGREE:
-        raise ValueError(f"K3 takes odd degrees p <= {MAX_DEGREE}, not {p}")
+        raise ValueError(f"K3 and K3s take odd degrees p <= {MAX_DEGREE}, "
+                         f"not {p}")
     if bands is None:
         bands = (stiffness_1d(p, grid.cells[0], grid.h[0]).band,
                  mass_1d(p, grid.cells[1], grid.h[1]).band,
@@ -92,28 +97,33 @@ def laplace2_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
     return apply_banded(v, bt.a0, 0) + apply_banded(w, bt.b0, 0)
 
 
-def laplace2_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
-    """y = A0 U A1^T + B0 U B1^T: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
-    _check(u, bt)
-    if u.device.type == "cpu":
-        return laplace2_apply_plain(u, bt)
+def _launch(u: torch.Tensor, bt: Bands2, fn: str, what: str):
+    """Launch ``gdm_{fn}_{f32|f64}`` on the CUDA tensor ``u``; returns y."""
     if u.device.type != "cuda":
-        raise ValueError(f"no K3 apply for device {u.device}")
-    fns = {torch.float32: "gdm_laplace2_apply_f32",
-           torch.float64: "gdm_laplace2_apply_f64"}
-    if u.dtype not in fns:
-        raise ValueError(f"the CUDA K3 apply takes float32 or float64, "
+        raise ValueError(f"no {what} apply for device {u.device}")
+    dts = {torch.float32: "f32", torch.float64: "f64"}
+    if u.dtype not in dts:
+        raise ValueError(f"the CUDA {what} apply takes float32 or float64, "
                          f"not {u.dtype}")
     kl = _build.kernels()
     y = torch.empty_like(u)
     n0, n1 = bt.shape
     with torch.cuda.device(u.device):
-        err = getattr(kl.lib, fns[u.dtype])(
+        err = getattr(kl.lib, f"gdm_{fn}_{dts[u.dtype]}")(
             u.data_ptr(), bt.a0.data_ptr(), bt.a1.data_ptr(),
             bt.b0.data_ptr(), bt.b1.data_ptr(), y.data_ptr(), bt.p, n0, n1,
             _build.stream_handle(u.device))
-    _build.check(kl, err, "K3 laplace2 launch")
+    _build.check(kl, err, f"{what} {fn} launch")
+    return y
+
+
+def laplace2_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """y = A0 U A1^T + B0 U B1^T: the CUDA kernel K3 for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    _check(u, bt)
+    if u.device.type == "cpu":
+        return laplace2_apply_plain(u, bt)
+    y = _launch(u, bt, "laplace2_apply", "K3")
     laplace2_apply.launches += 1
     return y
 
@@ -121,20 +131,34 @@ def laplace2_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 laplace2_apply.launches = 0
 
 
-def make_padded_laplace2(grid: Grid, device="cpu", dtype=torch.float32,
-                         bands=None):
-    """(apply, pad, unpad, shape) as in gdm, for any odd p <= 15.
+def laplace2_stream_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3s: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
 
-    bands: optional (A0, A1, B0, B1) numpy band matrices ((N_d, 2p+1)
-    each, the Banded1D.band layout) generalizing the operator to
-    y = A0 U A1^T + B0 U B1^T.  Default: the Laplace (S0, M1, M0, S1).
-    The "padded" array is the (N0, N1) node array itself.
-    """
-    bt = laplace2_bands(grid, device, dtype, bands)
+
+def laplace2_stream_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """K3's operator through the streaming kernel K3s (persistent blocks
+    and an asynchronous-copy ring) for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    _check(u, bt)
+    if u.device.type == "cpu":
+        return laplace2_stream_apply_plain(u, bt)
+    y = _launch(u, bt, "laplace2_stream_apply", "K3s")
+    laplace2_stream_apply.launches += 1
+    return y
+
+
+laplace2_stream_apply.launches = 0
+
+
+def padded_apply(bt, kernel, plain):
+    """(apply, pad, unpad, shape) over the node array itself, as gdm's
+    make_padded_* return them.  ``apply.kernel`` is the wrapper it runs
+    and ``apply.plain`` that wrapper's plain twin on the same bands."""
     shape = bt.shape
 
     def apply(u):
-        return laplace2_apply(u, bt)
+        return kernel(u, bt)
 
     def pad(u):
         return u.reshape(shape)
@@ -142,4 +166,28 @@ def make_padded_laplace2(grid: Grid, device="cpu", dtype=torch.float32,
     def unpad(u):
         return u
 
+    apply.kernel = kernel
+    apply.plain = lambda u: plain(u, bt)
     return apply, pad, unpad, shape
+
+
+def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
+                         bands=None):
+    """(apply, pad, unpad, shape) of K3 as in gdm, for any odd p <= 15.
+
+    bands: optional (A0, A1, B0, B1) numpy band matrices ((N_d, 2p+1)
+    each, the Banded1D.band layout) generalizing the operator to
+    y = A0 U A1^T + B0 U B1^T.  Default: the Laplace (S0, M1, M0, S1).
+    The "padded" array is the (N0, N1) node array itself.
+    """
+    bt = laplace2_bands(grid, _device.resolve(device), dtype, bands)
+    return padded_apply(bt, laplace2_apply, laplace2_apply_plain)
+
+
+def make_padded_laplace2_stream(grid: Grid, device="cuda",
+                                dtype=torch.float32, bands=None):
+    """(apply, pad, unpad, shape) of K3s, the streamed K3: the same
+    operator, band tables and node array as ``make_padded_laplace2``."""
+    bt = laplace2_bands(grid, _device.resolve(device), dtype, bands)
+    return padded_apply(bt, laplace2_stream_apply,
+                        laplace2_stream_apply_plain)

@@ -1,13 +1,17 @@
-"""K4: the 3D GD Laplace apply
+"""K4 and K5: the 3D GD Laplace apply
 y = S0 (x) M1 (x) M2 + M0 (x) S1 (x) M2 + M0 (x) M1 (x) S2.
 
-Port of gdm/ops/pallas_stencil2.py (``make_padded_laplace3``).  The CUDA
-kernel is gdm_torch/csrc/laplace3.cu; it runs gdm's three banded stages
+Port of gdm/ops/pallas_stencil2.py: ``make_padded_laplace3`` (K4) and
+``make_padded_laplace3_mxu`` (K5), two schedules of one operator, which
+gdm's dispatch ``best_padded_laplace`` (gdm_torch/ops/fast.py here)
+picks between by the plane count.  Both run gdm's stages
 (A = U M2^T, B = U S2^T; P = M1 A, T = S1 A + M1 B; y = S0 P + M0 T)
-with the intermediates in shared memory.  ``laplace3_apply`` launches it
-for a CUDA tensor and runs the plain torch version
-``laplace3_apply_plain`` (the same stages as band sweeps) for a CPU
-tensor; there is no other switch.  The node array is the contiguous
+with the intermediates in shared memory.  K4 (gdm_torch/csrc/
+laplace3.cu) does all three as band sums; K5 (laplace3_mxu.cu) does the
+plane coupling, stage 3, as a dense product y = [S0 | M0] [P ; T] on the
+tensor cores.  ``laplace3_apply`` and ``laplace3_mxu_apply`` launch
+their kernel for a CUDA tensor and run the plain torch version for a
+CPU tensor; there is no other switch.  The node array is the contiguous
 (N0, N1, N2) field: ``pad`` and ``unpad`` are reshapes.
 """
 
@@ -17,9 +21,11 @@ import dataclasses
 
 import torch
 
+from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
 from . import _build
+from .stencil2 import padded_apply
 from .tensor import apply_banded
 
 MAX_DEGREE = 7
@@ -39,13 +45,15 @@ class Bands3:
 
 def laplace3_bands(grid: Grid, device="cpu", dtype=torch.float32) -> Bands3:
     if grid.dim != 3:
-        raise ValueError(f"K4 is the 3D apply; the grid is {grid.dim}D")
+        raise ValueError(f"K4 and K5 are the 3D apply; the grid is "
+                         f"{grid.dim}D")
     p = grid.degree
     if p > MAX_DEGREE:
         raise ValueError(
-            f"K4 takes odd degrees p <= {MAX_DEGREE}, not {p}: its shared-"
-            f"memory plane ring holds 2p+1 planes of 16 x 32 nodes, which "
-            f"fits one H100 block up to p = {MAX_DEGREE}")
+            f"K4 and K5 take odd degrees p <= {MAX_DEGREE}, not {p}: their "
+            f"shared-memory plane windows (K4 2p+1 planes of 16 x 32 nodes, "
+            f"K5 16+2p planes of 8 x 32) fit one H100 block up to "
+            f"p = {MAX_DEGREE}")
 
     def tab(band):
         return torch.as_tensor(band, dtype=dtype, device=device).contiguous()
@@ -78,28 +86,33 @@ def laplace3_apply_plain(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
     return apply_banded(p_, s0, 0) + apply_banded(t_, m0, 0)
 
 
-def laplace3_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
-    """The 3D Laplace apply: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    _check(u, bt)
-    if u.device.type == "cpu":
-        return laplace3_apply_plain(u, bt)
+def _launch(u: torch.Tensor, bt: Bands3, fn: str, what: str):
+    """Launch ``gdm_{fn}_{f32|f64}`` on the CUDA tensor ``u``; returns y."""
     if u.device.type != "cuda":
-        raise ValueError(f"no K4 apply for device {u.device}")
-    fns = {torch.float32: "gdm_laplace3_apply_f32",
-           torch.float64: "gdm_laplace3_apply_f64"}
-    if u.dtype not in fns:
-        raise ValueError(f"the CUDA K4 apply takes float32 or float64, "
+        raise ValueError(f"no {what} apply for device {u.device}")
+    dts = {torch.float32: "f32", torch.float64: "f64"}
+    if u.dtype not in dts:
+        raise ValueError(f"the CUDA {what} apply takes float32 or float64, "
                          f"not {u.dtype}")
     kl = _build.kernels()
     y = torch.empty_like(u)
     (s0, s1, s2), (m0, m1, m2) = bt.s, bt.m
     with torch.cuda.device(u.device):
-        err = getattr(kl.lib, fns[u.dtype])(
+        err = getattr(kl.lib, f"gdm_{fn}_{dts[u.dtype]}")(
             u.data_ptr(), s0.data_ptr(), m0.data_ptr(), s1.data_ptr(),
             m1.data_ptr(), s2.data_ptr(), m2.data_ptr(), y.data_ptr(), bt.p,
             *bt.shape, _build.stream_handle(u.device))
-    _build.check(kl, err, "K4 laplace3 launch")
+    _build.check(kl, err, f"{what} {fn} launch")
+    return y
+
+
+def laplace3_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
+    """The 3D Laplace apply through K4: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    _check(u, bt)
+    if u.device.type == "cpu":
+        return laplace3_apply_plain(u, bt)
+    y = _launch(u, bt, "laplace3_apply", "K4")
     laplace3_apply.launches += 1
     return y
 
@@ -107,19 +120,58 @@ def laplace3_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
 laplace3_apply.launches = 0
 
 
-def make_padded_laplace3(grid: Grid, device="cpu", dtype=torch.float32):
-    """(apply, pad, unpad, shape) for the 3D Laplace, odd p <= 7.  The
-    "padded" array is the (N0, N1, N2) node array itself."""
-    bt = laplace3_bands(grid, device, dtype)
-    shape = bt.shape
+def band_matrix(band: torch.Tensor) -> torch.Tensor:
+    """The (N, N) matrix of an (N, 2p+1) band table."""
+    n, w = band.shape
+    p = (w - 1) // 2
+    full = band.new_zeros((n, n + 2 * p))
+    rows = torch.arange(n, device=band.device)
+    for k in range(w):
+        # entry (a, a+k-p) sits at column a+k of the p-padded matrix;
+        # the band is zero where a+k-p falls outside [0, N)
+        full[rows, rows + k] = band[:, k]
+    return full[:, p:n + p]
 
-    def apply(u):
-        return laplace3_apply(u, bt)
 
-    def pad(u):
-        return u.reshape(shape)
+def laplace3_mxu_apply_plain(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
+    """The plain torch version of K5: stages 1-2 as K4's band sweeps,
+    stage 3 as the dense product y = [S0 | M0] [P ; T] of shape
+    (N0 x 2N0)(2N0 x N1 N2), with torch.matmul in the working dtype."""
+    (s0, s1, s2), (m0, m1, m2) = bt.s, bt.m
+    a = apply_banded(u, m2, 2)
+    b = apply_banded(u, s2, 2)
+    p_ = apply_banded(a, m1, 1)
+    t_ = apply_banded(a, s1, 1) + apply_banded(b, m1, 1)
+    n0 = u.shape[0]
+    c = torch.cat([band_matrix(s0), band_matrix(m0)], dim=1)
+    pt = torch.cat([p_.reshape(n0, -1), t_.reshape(n0, -1)], dim=0)
+    return torch.matmul(c, pt).reshape(u.shape)
 
-    def unpad(u):
-        return u
 
-    return apply, pad, unpad, shape
+def laplace3_mxu_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
+    """The 3D Laplace apply through K5 (plane coupling on the tensor
+    cores): the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    _check(u, bt)
+    if u.device.type == "cpu":
+        return laplace3_mxu_apply_plain(u, bt)
+    y = _launch(u, bt, "laplace3_mxu_apply", "K5")
+    laplace3_mxu_apply.launches += 1
+    return y
+
+
+laplace3_mxu_apply.launches = 0
+
+
+def make_padded_laplace3(grid: Grid, device="cuda", dtype=torch.float32):
+    """(apply, pad, unpad, shape) of K4, odd p <= 7.  The "padded" array
+    is the (N0, N1, N2) node array itself."""
+    bt = laplace3_bands(grid, _device.resolve(device), dtype)
+    return padded_apply(bt, laplace3_apply, laplace3_apply_plain)
+
+
+def make_padded_laplace3_mxu(grid: Grid, device="cuda", dtype=torch.float32):
+    """(apply, pad, unpad, shape) of K5, odd p <= 7: K4's band tables and
+    node array, the plane coupling as a tensor-core product."""
+    bt = laplace3_bands(grid, _device.resolve(device), dtype)
+    return padded_apply(bt, laplace3_mxu_apply, laplace3_mxu_apply_plain)

@@ -1,8 +1,10 @@
 """Uncut Poisson problem on the full hypercube (zero Dirichlet BC).
 
 Port of gdm/problems/poisson.py: the matrix-free stiffness apply and
-CG, in 2D and 3D on the card through K3/K4 (ops.fast.best_field_laplace)
-for the CG operator and every multigrid level.
+CG, in 2D and 3D on the card through the kernel gdm's dispatch picks
+(ops.fast.best_field_laplace: K3 in 2D, K5 or K4 in 3D) for the CG
+operator and every multigrid level.  ``solve`` and ``system`` run on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import device as _device
 from .. import operators, solvers
 from ..constraints import Constraints
 from ..functional import load_vector
@@ -36,10 +39,10 @@ class PoissonSystem:
         return self.constraints.finalize_solution(x), info
 
 
-def system(grid: Grid, rhs_fn, precondition="jacobi", device="cpu",
+def system(grid: Grid, rhs_fn, precondition="jacobi", device="cuda",
            dtype=torch.float64) -> PoissonSystem:
     """Set up -Laplace(u) = f, u = 0 on the boundary (see ``solve``)."""
-    device = torch.device(device)
+    device = _device.resolve(device)
     cons = Constraints.zero_boundary(grid, device=device)
     base_apply, _ = best_field_laplace(grid, device, dtype)
     b = cons.constrain_rhs(load_vector(grid, rhs_fn, device=device,
@@ -71,7 +74,7 @@ def solve(
     abs_tol: float = 1e-20,
     max_iter: int = 10000,
     precondition="jacobi",
-    device="cpu",
+    device="cuda",
     dtype=torch.float64,
 ):
     """Solve -Laplace(u) = f, u = 0 on the boundary, on ``device`` in

@@ -10,10 +10,11 @@ Tolerances: float32 sums of up to 81 taps in another order (fma against
 mul + add) stay within 1e-5 of max|y|; float64 within 1e-12.  CG
 iteration counts may differ by 2 in float32 (the kernel sums dots in
 double, the plain version in float32) and must be equal in float64.
-The separable Laplace kernels K3 (2D) and K4 (3D) are held to the same
-1e-5 / 1e-12 of max|y| against their plain twins; the Poisson solve on
-the card to the CPU float64 solve's iteration count (float64: equal;
-float32: within 1).
+The separable Laplace kernels K3 and K3s (2D), K4 and K5 (3D) are held
+to the same 1e-5 / 1e-12 of max|y| against their plain twins (K5's
+float32 plane coupling runs as 3xTF32 on the tensor cores, its float64
+one on the DMMA units); the Poisson solve on the card to the CPU float64
+solve's iteration count (float64: equal; float32: within 1).
 """
 
 import numpy as np
@@ -27,7 +28,7 @@ from gdm_torch.cut.operators import CutOperators
 from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
 from gdm_torch.entry import flagship_operators
 from gdm_torch.grid import Grid
-from gdm_torch.ops import cutband, resident, stencil2, stencil3
+from gdm_torch.ops import cutband, fast, resident, stencil2, stencil3
 from gdm_torch.problems import poisson
 
 DTYPES = [torch.float32, torch.float64]
@@ -307,16 +308,139 @@ def _sin_rhs(m, c):
 @pytest.mark.parametrize("cells", [(32, 32), (16, 16, 16)])
 def test_poisson_mg_on_card(cuda_device, cells, dtype):
     grid = Grid(3, cells, (0.0,) * len(cells), (1.0,) * len(cells))
+    # gdm's dispatch: K3 in 2D, K5 in 3D (N0 + 2p = 23 <= 512)
     kernel = stencil2.laplace2_apply if len(cells) == 2 else (
-        stencil3.laplace3_apply)
+        stencil3.laplace3_mxu_apply)
     before = kernel.launches
     xk, ik = poisson.solve(grid, _sin_rhs, rel_tol=1e-4, precondition="mg",
                            device=cuda_device, dtype=dtype)
     assert kernel.launches > before
-    xc, ic = poisson.solve(grid, _sin_rhs, rel_tol=1e-4, precondition="mg")
+    xc, ic = poisson.solve(grid, _sin_rhs, rel_tol=1e-4, precondition="mg",
+                           device="cpu")
     if dtype == torch.float64:
         assert ik["iterations"] == ic["iterations"]
     else:
         assert abs(ik["iterations"] - ic["iterations"]) <= 1
     assert ((xk.cpu().double() - xc).norm() / xc.norm()).item() <= (
         1e-10 if dtype == torch.float64 else 1e-4)
+
+
+LAPLACE3_MXU_CASES = [
+    (3, (12, 6, 20)),    # one block, one 16-plane window
+    (1, (12, 12, 12)),
+    (5, (10, 9, 11)),    # anisotropic, one-sided bands
+    (3, (40, 20, 70)),   # ragged tiles along every axis, several windows
+    (7, (9, 8, 10)),     # the largest degree K5 takes
+    (7, (40, 17, 33)),
+    # K5's launcher picks the plane chunk from the grid of tiles; these
+    # reach chunks of 32 and 64 planes, each with a ragged last chunk
+    (3, (39, 191, 351)),
+    (3, (69, 191, 351)),
+]
+
+
+def _k5_chunk(nodes):
+    """The plane chunk laplace3_mxu.cu's launch_p picks for ``nodes``."""
+    n0, n1, n2 = nodes
+    cols = -(-n2 // 32) * -(-n1 // 8)
+    return next((c for c in (64, 32) if cols * -(-n0 // c) >= 4 * 132), 16)
+
+
+def test_laplace3_mxu_cases_reach_every_chunk():
+    chunks = {_k5_chunk(tuple(c + 1 for c in cells))
+              for _, cells in LAPLACE3_MXU_CASES}
+    assert chunks == {16, 32, 64}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,cells", LAPLACE3_MXU_CASES)
+def test_laplace3_mxu_matches_plain(cuda_device, p, cells, dtype):
+    grid = Grid(p, cells, (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
+    bt = stencil3.laplace3_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 3, dtype, cuda_device)
+    before = stencil3.laplace3_mxu_apply.launches
+    yk = stencil3.laplace3_mxu_apply(u, bt)
+    assert stencil3.laplace3_mxu_apply.launches == before + 1
+    yp = stencil3.laplace3_mxu_apply_plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(yk, yp) <= _tol(dtype)
+    # and K4, the other schedule of the same operator
+    assert _rel(stencil3.laplace3_apply(u, bt), yp) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("cells,kernel", [
+    ((505, 4, 4), "laplace3_mxu_apply"),   # N0 + 2p = 512: K5
+    ((506, 4, 4), "laplace3_apply"),       # N0 + 2p = 513: K4
+])
+def test_dispatch_routes_by_plane_count(cuda_device, cells, kernel):
+    grid = Grid(3, cells, (0.0,) * 3, (1.0,) * 3)
+    other = ({"laplace3_mxu_apply", "laplace3_apply"} - {kernel}).pop()
+    before = {k: getattr(stencil3, k).launches for k in (kernel, other)}
+    u = _rand(grid.nodes, 4, torch.float32, cuda_device)
+    y = fast.laplace_apply_fn(grid, cuda_device, torch.float32)(u)
+    assert getattr(stencil3, kernel).launches == before[kernel] + 1
+    assert getattr(stencil3, other).launches == before[other]
+    bt = stencil3.laplace3_bands(grid, cuda_device, torch.float32)
+    assert _rel(y, stencil3.laplace3_mxu_apply_plain(u, bt)) <= 1e-5
+
+
+LAPLACE2_STREAM_CASES = [
+    (3, (20, 20)),       # one strip, one tile
+    (3, (40, 72)),       # ragged in both axes
+    (5, (48, 40)),
+    (3, (200, 130)),
+    (15, (40, 33)),      # the largest degree K3s takes
+    (7, (300, 1000)),
+    (3, (1500, 2100)),   # several tiles per segment, ragged last tile
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,cells", LAPLACE2_STREAM_CASES)
+def test_laplace2_stream_matches_plain(cuda_device, p, cells, dtype):
+    grid = Grid(p, cells, (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 5, dtype, cuda_device)
+    before = stencil2.laplace2_stream_apply.launches
+    yk = stencil2.laplace2_stream_apply(u, bt)
+    assert stencil2.laplace2_stream_apply.launches == before + 1
+    yp = stencil2.laplace2_stream_apply_plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(yk, yp) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_laplace2_stream_four_factor_bands(cuda_device, dtype):
+    """Four distinct factors: a swap of the A and B factors of one axis
+    changes the operator, and the kernel must follow."""
+    grid = Grid(3, (137, 45), (0.0, 0.0), (1.0, 1.0))
+    rng = np.random.default_rng(6)
+    n0, n1 = grid.nodes
+    bands = [rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1)]
+    apply, pad, unpad, _ = stencil2.make_padded_laplace2_stream(
+        grid, cuda_device, dtype, bands=bands)
+    u = _rand(grid.nodes, 7, dtype, cuda_device)
+    yk = unpad(apply(pad(u)))
+    assert _rel(yk, apply.plain(u)) <= _tol(dtype)
+    crossed = (bands[0], bands[3], bands[2], bands[1])
+    yc = stencil2.laplace2_stream_apply(
+        u, stencil2.laplace2_bands(grid, cuda_device, dtype, crossed))
+    assert _rel(yc, yk) > 1e-3
+
+
+def test_schedule_wrappers_reject(cuda_device):
+    g2 = Grid(3, (16, 16), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(g2, cuda_device, torch.float32)
+    u = torch.zeros(g2.nodes, device=cuda_device)
+    for bad in (u.double(), u.t(), u[:-1], u.cpu()):
+        with pytest.raises(ValueError):
+            stencil2.laplace2_stream_apply(bad, bt)
+    g3 = Grid(3, (6, 6, 6), (0.0,) * 3, (1.0,) * 3)
+    bt3 = stencil3.laplace3_bands(g3, cuda_device, torch.float32)
+    u3 = torch.zeros(g3.nodes, device=cuda_device)
+    for bad in (u3.double(), u3.transpose(0, 2), u3[:-1], u3.cpu()):
+        with pytest.raises(ValueError):
+            stencil3.laplace3_mxu_apply(bad, bt3)
+    bt16 = stencil3.laplace3_bands(g3, cuda_device, torch.float16)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        stencil3.laplace3_mxu_apply(u3.half(), bt16)

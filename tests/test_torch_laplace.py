@@ -110,7 +110,7 @@ def test_best_field_laplace_on_cpu(cells):
     field-shaped arrays."""
     grid = Grid(3, cells, (0.0,) * len(cells), (1.0,) * len(cells))
     kernel = (stencil2.laplace2_apply if len(cells) == 2
-              else stencil3.laplace3_apply)
+              else stencil3.laplace3_mxu_apply)   # gdm's dispatch
     before = kernel.launches
     apply, rode = fast.best_field_laplace(grid, "cpu", F64)
     assert rode is False

@@ -61,7 +61,8 @@ def test_solve_matches_gdm(gdm_solutions, cells, pre):
     gx, giters = gdm_solutions[cells, pre]
     assert giters == EXPECTED_ITERATIONS[cells, pre]
     grid = _grid(Grid, cells)
-    x, info = poisson.solve(grid, rhs, rel_tol=1e-10, precondition=pre)
+    x, info = poisson.solve(grid, rhs, rel_tol=1e-10, precondition=pre,
+                            device="cpu")
     assert info["iterations"] == giters
     assert x.shape == grid.field_shape and x.dtype == torch.float64
     assert np.linalg.norm(x.numpy() - gx) <= 1e-10 * np.linalg.norm(gx)
@@ -71,7 +72,7 @@ def test_convergence_rate_p3():
     errs = []
     for n in (8, 16, 32):
         grid = _grid(Grid, (n, n))
-        x, info = poisson.solve(grid, rhs)   # jacobi, rel_tol 1e-12
+        x, info = poisson.solve(grid, rhs, device="cpu")  # jacobi, 1e-12
         assert info["iterations"] < 10000
         errs.append(l2_error(x, grid, exact))
     rates = np.log2(np.array(errs[:-1]) / np.array(errs[1:]))
@@ -80,24 +81,26 @@ def test_convergence_rate_p3():
 
 def test_prebuilt_and_unpreconditioned():
     grid = _grid(Grid, (16, 16))
-    mg = PoissonMultigrid(grid)
+    mg = PoissonMultigrid(grid, "cpu")
     x_mg, i_mg = poisson.solve(grid, rhs, rel_tol=1e-10,
-                               precondition=mg.precondition)
-    x_ref, i_ref = poisson.solve(grid, rhs, rel_tol=1e-10, precondition="mg")
+                               precondition=mg.precondition, device="cpu")
+    x_ref, i_ref = poisson.solve(grid, rhs, rel_tol=1e-10, precondition="mg",
+                                 device="cpu")
     assert i_mg == i_ref and torch.equal(x_mg, x_ref)
     x_none, i_none = poisson.solve(grid, rhs, rel_tol=1e-10,
-                                   precondition="none")
+                                   precondition="none", device="cpu")
     assert i_none["iterations"] > i_mg["iterations"]
     assert ((x_none - x_ref).norm() / x_ref.norm()).item() <= 1e-8
     with pytest.raises(ValueError, match="unknown precondition"):
-        poisson.solve(grid, rhs, precondition="ilu")
+        poisson.solve(grid, rhs, precondition="ilu", device="cpu")
 
 
 def test_float32_on_cpu_within_one_iteration():
     grid = _grid(Grid, (32, 32))
-    x64, i64 = poisson.solve(grid, rhs, rel_tol=1e-4, precondition="mg")
+    x64, i64 = poisson.solve(grid, rhs, rel_tol=1e-4, precondition="mg",
+                             device="cpu")
     x32, i32 = poisson.solve(grid, rhs, rel_tol=1e-4, precondition="mg",
-                             dtype=torch.float32)
+                             device="cpu", dtype=torch.float32)
     assert x32.dtype == torch.float32
     assert abs(i32["iterations"] - i64["iterations"]) <= 1
     assert ((x32.double() - x64).norm() / x64.norm()).item() <= 1e-4

@@ -229,7 +229,7 @@ def mg_pair(request):
 
 def test_multigrid_hierarchy_and_coarse_inverse(mg_pair):
     grid, gmgr, _, _ = mg_pair
-    mg = multigrid.PoissonMultigrid(grid)
+    mg = multigrid.PoissonMultigrid(grid, "cpu")
     assert [lvl.grid.cells for lvl in mg.levels] == [
         lvl["grid"].cells for lvl in gmgr.levels]
     assert _rel(mg.coarse_inv, np.asarray(gmgr.coarse_inv)) <= 1e-12
@@ -237,7 +237,7 @@ def test_multigrid_hierarchy_and_coarse_inverse(mg_pair):
 
 def test_multigrid_precondition(mg_pair):
     grid, _, r, want = mg_pair
-    mg = multigrid.PoissonMultigrid(grid)
+    mg = multigrid.PoissonMultigrid(grid, "cpu")
     rt = torch.as_tensor(r)
     got = mg.precondition(rt)
     assert _rel(got, want) <= 1e-12
@@ -246,4 +246,5 @@ def test_multigrid_precondition(mg_pair):
 
 def test_multigrid_rejects_uncoarsenable():
     with pytest.raises(ValueError, match="cannot be coarsened"):
-        multigrid.PoissonMultigrid(Grid(3, (9, 9), (0.0, 0.0), (1.0, 1.0)))
+        multigrid.PoissonMultigrid(Grid(3, (9, 9), (0.0, 0.0), (1.0, 1.0)),
+                                  "cpu")
