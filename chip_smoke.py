@@ -111,12 +111,11 @@ def call_ms(fn, n=30, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(fn, n=20, warmup=3, attempts=3):
+def device_ms(fn, n=20, warmup=3):
     """Device time of one fn() call in ms: the sum of the kernel and copy
     times the profiler records over n calls, divided by n.  Host work
     (launch overhead, syncs) and idle gaps do not count.  A profile that
-    recorded no device time at all is taken again, up to ``attempts``
-    times, and then raises: it is a lost trace, not a zero time."""
+    recorded no device time raises: it is a lost trace, not a zero time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -124,18 +123,17 @@ def device_ms(fn, n=20, warmup=3, attempts=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / n
-    raise AssertionError(f"the profiler recorded no device time in "
-                         f"{attempts} traces of {n} calls")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError(f"the profiler recorded no device time in "
+                             f"{n} calls")
+    return us / 1e3 / n
 
 
 def device_breakdown(fn, n=5, warmup=2, top=6):

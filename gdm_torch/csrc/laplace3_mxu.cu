@@ -38,13 +38,12 @@
 // and 2 and marches along axis 0 over a chunk of planes (a multiple of
 // 16).  For each plane it takes the u tile with a p-wide halo on axes 1
 // and 2 from a two-slot cp.async ring (the next plane's tile is in flight
-// while the block computes this one: on an H100 this took K5 from 154 to
-// 131 us at 161^3, scripts/torch_time_laplace.py), runs stages 1-2 and
-// writes P and T into a ring of W = 16 + 2p
-// plane slots, the rows of the product's right operand [P ; T] (2W rows
-// padded with zeros to a multiple of 8, 256 columns).  Every 16 planes,
-// once the ring holds the window of the next 16 output planes, the block
-// builds the window's slice of [S0 | M0] with its columns in ring order,
+// while the block computes this one), runs stages 1-2 and writes P and T
+// into a ring of W = 16 + 2p plane slots, the rows of the product's right
+// operand [P ; T] (2W rows padded with zeros to a multiple of 8, 256
+// columns).  Every 16 planes, once the ring holds the window of the next
+// 16 output planes, the block builds the window's slice of [S0 | M0]
+// with its columns in ring order,
 // the 8 warps each take 32 columns of the product (wmma fragments), and
 // the result goes through shared memory to coalesced stores.  The tile
 // is sized at float64, where the ring alone is 135 KB at p = 7; the

@@ -16,7 +16,7 @@ from ..ops.cutband import PaddedLayout, make_padded_stencil2
 from .stencil import StencilOperator
 
 
-def fast_stencil_bundle(st: StencilOperator, device="cpu",
+def fast_stencil_bundle(st: StencilOperator, device="cuda",
                         dtype=torch.float32, layout: PaddedLayout = None):
     """(apply_padded, pad, unpad) of K1 for ``st`` on ``layout``: pad
     takes a flat node vector, unpad returns one.  Guard zeros contribute

@@ -25,6 +25,7 @@ import logging
 import numpy as np
 import torch
 
+from .. import device as _device
 from .. import solvers
 from ..ops.cutband import layout_for
 from ..ops.resident import make_resident_cg, read_stats
@@ -245,7 +246,7 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
                          max_iter: int = 50, rel_tol: float = 1e-5,
                          abs_tol: float = 1e-12, R: int = None,
                          slack: float = 10.0, probe: bool = True,
-                         resident_max_iter: int = None, device="cpu",
+                         resident_max_iter: int = None, device="cuda",
                          dtype=torch.float32) -> VerifiedSolver:
     """Self-verifying best solve for an SPD 2D band system.
 
@@ -266,6 +267,7 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
     ``resident_max_iter`` cripples the resident path (detection tests).
     Solves take and return arrays in the solver's ``layout``.
     """
+    device = _device.resolve(device)
     rel_f = max(rel_tol, 1e-6)
     abs_f = max(abs_tol, 1e-12)
     G, GT = fsai_factors(st, R)

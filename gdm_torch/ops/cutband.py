@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import device as _device
 from . import _build
 
 
@@ -163,13 +164,13 @@ def band_apply(u: torch.Tensor, bp: BandPlanes) -> torch.Tensor:
 band_apply.launches = 0
 
 
-def make_padded_stencil2(st, device="cpu", dtype=torch.float32,
+def make_padded_stencil2(st, device="cuda", dtype=torch.float32,
                          layout: PaddedLayout = None):
     """(apply_padded, pad, unpad, shape) for a 2D StencilOperator, as in
     gdm; ``layout`` defaults to the operator's own radius."""
     if layout is None:
         layout = layout_for(st.grid, st.radius)
-    bp = band_planes(st, layout, device, dtype)
+    bp = band_planes(st, layout, _device.resolve(device), dtype)
 
     def apply_padded(u_pad):
         return band_apply(u_pad, bp)

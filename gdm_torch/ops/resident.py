@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from .. import device as _device
 from ..solvers import _dot
 from . import _build
 from .cutband import (BandPlanes, PaddedLayout, band_apply_plain, band_planes,
@@ -140,7 +141,7 @@ resident_cg.launches = 0
 
 def make_resident_cg(stA, stG=None, stGT=None, max_iter: int = 50,
                      rel_tol: float = 1e-5, abs_tol: float = 1e-12,
-                     device="cpu", dtype=torch.float32,
+                     device="cuda", dtype=torch.float32,
                      layout: PaddedLayout = None):
     """One-launch CG solve of ``stA x = b`` preconditioned by
     B = stGT o stG (or unpreconditioned when both are None).
@@ -151,6 +152,7 @@ def make_resident_cg(stA, stG=None, stGT=None, max_iter: int = 50,
     """
     if (stG is None) != (stGT is None):
         raise ValueError("give both FSAI factors or neither")
+    device = _device.resolve(device)
     if layout is None:
         r = max([stA.radius] + [s.radius for s in (stG, stGT)
                                 if s is not None])

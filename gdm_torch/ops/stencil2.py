@@ -27,7 +27,7 @@ import torch
 from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
-from . import _build
+from ._padded import launch, padded_apply
 from .tensor import apply_banded
 
 MAX_DEGREE = 15
@@ -98,23 +98,7 @@ def laplace2_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 
 
 def _launch(u: torch.Tensor, bt: Bands2, fn: str, what: str):
-    """Launch ``gdm_{fn}_{f32|f64}`` on the CUDA tensor ``u``; returns y."""
-    if u.device.type != "cuda":
-        raise ValueError(f"no {what} apply for device {u.device}")
-    dts = {torch.float32: "f32", torch.float64: "f64"}
-    if u.dtype not in dts:
-        raise ValueError(f"the CUDA {what} apply takes float32 or float64, "
-                         f"not {u.dtype}")
-    kl = _build.kernels()
-    y = torch.empty_like(u)
-    n0, n1 = bt.shape
-    with torch.cuda.device(u.device):
-        err = getattr(kl.lib, f"gdm_{fn}_{dts[u.dtype]}")(
-            u.data_ptr(), bt.a0.data_ptr(), bt.a1.data_ptr(),
-            bt.b0.data_ptr(), bt.b1.data_ptr(), y.data_ptr(), bt.p, n0, n1,
-            _build.stream_handle(u.device))
-    _build.check(kl, err, f"{what} {fn} launch")
-    return y
+    return launch(u, fn, what, (bt.a0, bt.a1, bt.b0, bt.b1), bt.p, bt.shape)
 
 
 def laplace2_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
@@ -149,26 +133,6 @@ def laplace2_stream_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 
 
 laplace2_stream_apply.launches = 0
-
-
-def padded_apply(bt, kernel, plain):
-    """(apply, pad, unpad, shape) over the node array itself, as gdm's
-    make_padded_* return them.  ``apply.kernel`` is the wrapper it runs
-    and ``apply.plain`` that wrapper's plain twin on the same bands."""
-    shape = bt.shape
-
-    def apply(u):
-        return kernel(u, bt)
-
-    def pad(u):
-        return u.reshape(shape)
-
-    def unpad(u):
-        return u
-
-    apply.kernel = kernel
-    apply.plain = lambda u: plain(u, bt)
-    return apply, pad, unpad, shape
 
 
 def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,

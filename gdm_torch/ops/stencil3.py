@@ -24,8 +24,7 @@ import torch
 from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
-from . import _build
-from .stencil2 import padded_apply
+from ._padded import launch, padded_apply
 from .tensor import apply_banded
 
 MAX_DEGREE = 7
@@ -87,23 +86,8 @@ def laplace3_apply_plain(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
 
 
 def _launch(u: torch.Tensor, bt: Bands3, fn: str, what: str):
-    """Launch ``gdm_{fn}_{f32|f64}`` on the CUDA tensor ``u``; returns y."""
-    if u.device.type != "cuda":
-        raise ValueError(f"no {what} apply for device {u.device}")
-    dts = {torch.float32: "f32", torch.float64: "f64"}
-    if u.dtype not in dts:
-        raise ValueError(f"the CUDA {what} apply takes float32 or float64, "
-                         f"not {u.dtype}")
-    kl = _build.kernels()
-    y = torch.empty_like(u)
     (s0, s1, s2), (m0, m1, m2) = bt.s, bt.m
-    with torch.cuda.device(u.device):
-        err = getattr(kl.lib, f"gdm_{fn}_{dts[u.dtype]}")(
-            u.data_ptr(), s0.data_ptr(), m0.data_ptr(), s1.data_ptr(),
-            m1.data_ptr(), s2.data_ptr(), m2.data_ptr(), y.data_ptr(), bt.p,
-            *bt.shape, _build.stream_handle(u.device))
-    _build.check(kl, err, f"{what} {fn} launch")
-    return y
+    return launch(u, fn, what, (s0, m0, s1, m1, s2, m2), bt.p, bt.shape)
 
 
 def laplace3_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:

@@ -26,9 +26,13 @@ from gdm.ops.pallas_stencil2 import (
     make_padded_laplace3_mxu as g_make3m)
 
 import gdm_torch
+from gdm_torch.cut import fastapply, fsai
+from gdm_torch.cut.geometry import INSIDE, CutGeometry
+from gdm_torch.cut.operators import CutOperators
+from gdm_torch.cut.stencil import assemble_stencil
 from gdm_torch.grid import Grid
 from gdm_torch.multigrid import PoissonMultigrid
-from gdm_torch.ops import fast, stencil2, stencil3
+from gdm_torch.ops import cutband, fast, resident, stencil2, stencil3
 from gdm_torch.problems import poisson
 
 F64 = torch.float64
@@ -177,7 +181,9 @@ ENTRY_POINTS = [
     fast.laplace_apply_fn, fast.mass_apply_fn, fast.best_field_laplace,
     fast.best_padded_laplace, stencil2.make_padded_laplace2,
     stencil2.make_padded_laplace2_stream, stencil3.make_padded_laplace3,
-    stencil3.make_padded_laplace3_mxu]
+    stencil3.make_padded_laplace3_mxu, cutband.make_padded_stencil2,
+    resident.make_resident_cg, fastapply.fast_stencil_bundle,
+    fsai.verified_fsai_solver]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -190,6 +196,11 @@ def test_card_default_raises_without_a_card():
         pytest.skip("a card is present: the default runs there")
     g2 = Grid(3, (8, 8), (0.0, 0.0), (1.0, 1.0))
     g3 = Grid(3, (6, 6, 6), (0.0,) * 3, (1.0,) * 3)
+    gc = Grid(3, (8, 8), (-1.21, -1.21), (1.21, 1.21))
+    geo = CutGeometry.build(gc, lambda m: np.sqrt(sum(x**2 for x in m))
+                            - 1.0, 3)
+    mass = assemble_stencil(CutOperators(geo, INSIDE), "mass",
+                            0.25 * np.sqrt(3.0))
     calls = [lambda: gdm_torch.entry(8),
              lambda: poisson.solve(g2, _sin_rhs),
              lambda: poisson.system(g2, _sin_rhs),
@@ -198,7 +209,11 @@ def test_card_default_raises_without_a_card():
              lambda: fast.mass_apply_fn(g2),
              lambda: fast.best_field_laplace(g2),
              lambda: stencil3.make_padded_laplace3_mxu(g3),
-             lambda: stencil2.make_padded_laplace2_stream(g2)]
+             lambda: stencil2.make_padded_laplace2_stream(g2),
+             lambda: cutband.make_padded_stencil2(mass),
+             lambda: resident.make_resident_cg(mass),
+             lambda: fastapply.fast_stencil_bundle(mass),
+             lambda: fsai.verified_fsai_solver(mass)]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

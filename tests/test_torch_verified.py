@@ -55,7 +55,7 @@ def test_healthy_system_keeps_resident_path(mass24):
     gst, tst, win = mass24
     kw = dict(windows=win, max_iter=60, rel_tol=1e-5)
     vg = g_verified(gst, interpret=True, **kw)
-    vt = verified_fsai_solver(tst, dtype=torch.float32, **kw)
+    vt = verified_fsai_solver(tst, device="cpu", dtype=torch.float32, **kw)
     assert vt.path == vg.path == "resident-verified"
     assert vt.probe["ok"] is True and vg.probe["ok"] is True
     assert abs(vt.probe["iterations"] - vg.probe["iterations"]) <= 1
@@ -74,7 +74,7 @@ def test_probe_routes_crippled_resident_to_streamed(mass24):
     gst, tst, win = mass24
     kw = dict(windows=win, max_iter=200, rel_tol=1e-6, resident_max_iter=1)
     vg = g_verified(gst, interpret=True, **kw)
-    vt = verified_fsai_solver(tst, dtype=torch.float32, **kw)
+    vt = verified_fsai_solver(tst, device="cpu", dtype=torch.float32, **kw)
     assert vt.path == vg.path == "streamed"
     assert vt.probe["ok"] is False and vt.probe["reason"] == "probe"
     assert vt.probe["iterations"] == 1
@@ -89,7 +89,7 @@ def test_per_solve_check_falls_back(mass24):
     kw = dict(windows=win, max_iter=200, rel_tol=1e-6, probe=False,
               resident_max_iter=2)
     vg = g_verified(gst, interpret=True, **kw)
-    vt = verified_fsai_solver(tst, dtype=torch.float32, **kw)
+    vt = verified_fsai_solver(tst, device="cpu", dtype=torch.float32, **kw)
     assert vt.path == vg.path == "resident-verified"
     assert vt.probe == {"ok": True, "reason": "probe-disabled"}
     b = _rhs(1, tst.grid.n_nodes)
@@ -107,7 +107,7 @@ def test_per_solve_check_falls_back(mass24):
 def test_float64_resident_path(mass24):
     _, tst, win = mass24
     vt = verified_fsai_solver(tst, windows=win, max_iter=40, rel_tol=1e-5,
-                              dtype=torch.float64)
+                              device="cpu", dtype=torch.float64)
     assert vt.path == "resident-verified"
     b = _rhs(3, tst.grid.n_nodes).astype(np.float64)
     xt, info = _port_solve(vt, b, torch.float64)
