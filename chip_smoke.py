@@ -29,7 +29,19 @@ Run from the repository root:  python3 chip_smoke.py
    same twin the same way, and the two timed in turns (K3, K3s, K3s,
    K3); then K3s once through its public make_padded_laplace2_stream at
    4096^2, the launch counts reset just before: K3s's own path;
-7. K4 (3D Laplace) against its plain twin at 160^3, p = 3, the same way;
+7. the tensor-core schedules of K3's operator, K3c (column stage as a
+   window product on the tensor cores), K3f (both stages), K3h (column
+   stage split by rows between FMA and tensor-core warps) and K3p (K3h
+   pipelined across tiles), against K3's plain twin at 1024^2 p=3, p=5
+   and 4096^2 p=3 in float32 (max error <= 1e-5 of max|y|) and at
+   1024^2 p=3 in float64 (<= 1e-12), each timed in turns against K3
+   (K3, K3x, K3x, K3): device and per-call times, GB/s at 8 B per node
+   (16 in float64); torch.matmul of the dense column coupling
+   U [A1^T | B1^T] at 1024^2 alone (the yardstick for the column stage
+   only); then each once through its public make_padded_laplace2_*
+   builder at 1024^2, the launch counts reset just before: its own
+   kernel launched once and nothing else;
+8. K4 (3D Laplace) against its plain twin at 160^3, p = 3, the same way;
    K5 (the 3D Laplace with the plane coupling on the tensor cores)
    against its plain twin at 160^3 and 256^3, p = 3, with K4 timed
    beside it in turns (K4, K5, K5, K4), and torch.matmul alone on stage
@@ -38,7 +50,7 @@ Run from the repository root:  python3 chip_smoke.py
    counts reset just before each: Grid(3, (160,)*3) launches K5 and not
    K4, Grid(3, (510, 64, 64)) (N0 + 2p = 517 > 512) K4 and not K5, held
    against the plain twin;
-8. the 2D Poisson solve through the public entry point,
+9. the 2D Poisson solve through the public entry point,
    gdm_torch.problems.poisson.solve on Grid(3, (1024, 1024)) with
    precondition="mg", rel_tol=1e-3, float32 on the card: iterations and
    relative residual (converged, not stopped at max_iter), the same
@@ -50,18 +62,18 @@ Run from the repository root:  python3 chip_smoke.py
    problem (right-hand side 1) timed the same way; at 128^2 the float32
    card solution against the float64 CPU solution (rel_tol 1e-4:
    iterations within 1, relative difference <= 1e-3);
-9. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
+10. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
    relative residual, L2 error, K5 launches (> 0; K4 none: every level
    has N0 + 2p <= 512), the kernel the dispatch picks (K5) against its
    plain twin at every level shape (65^3 down to 9^3 nodes); at 16^3 the
    float32 card solution against the float64 CPU solution as in
-   phase 8.
+   phase 9.
 
-Prints a JSON line of per-kernel results (K1-K5 and K3s: launches on the
-kernel's main path, max error against the plain twin, device ms of the
-kernel and of the twin, the bound from the bytes and operations of the
-measured inputs, and ``library_ms`` null: no single PyTorch call
-computes any of them), the card line, and last
+Prints a JSON line of per-kernel results (K1-K5, K3s, K3c, K3f, K3h and
+K3p: launches on the kernel's main path, max error against the plain
+twin, device ms of the kernel and of the twin, the bound from the
+bytes and operations of the measured inputs, and ``library_ms`` null:
+no single PyTorch call computes any of them), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1, no
 result line).
 """
@@ -112,10 +124,14 @@ def call_ms(fn, n=30, warmup=5):
 
 
 def device_ms(fn, n=20, warmup=3):
-    """Device time of one fn() call in ms: the sum of the kernel and copy
-    times the profiler records over n calls, divided by n.  Host work
-    (launch overhead, syncs) and idle gaps do not count.  A profile that
-    recorded no device time raises: it is a lost trace, not a zero time."""
+    """Device time of one fn() call in ms: the kernel and copy times the
+    profiler records over n calls, per call.  Host work (launch
+    overhead, syncs) and idle gaps do not count.  A profile may lose a
+    few device items at its edges: the time per call is then the mean
+    item time times the items per call (the count over n, rounded).  A
+    profile with no items, or with a count more than 10% away from that
+    many per call (a lost or mixed trace), is taken again, at most three
+    times in all, and then raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -123,17 +139,24 @@ def device_ms(fn, n=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError(f"the profiler recorded no device time in "
-                             f"{n} calls")
-    return us / 1e3 / n
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        items = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in items)
+        count = sum(e.count for e in items)
+        per_call = round(count / n)
+        if us > 0 and per_call > 0 and (
+                abs(count - per_call * n) <= 0.1 * per_call * n):
+            return us / count * per_call / 1e3
+        print(f"  (profile {attempt + 1} recorded {count} device items, "
+              f"{us:.1f} us, for {n} calls; taken again)")
+    raise AssertionError(f"the profiler lost the trace in three profiles "
+                         f"of {n} calls")
 
 
 def device_breakdown(fn, n=5, warmup=2, top=6):
@@ -274,12 +297,30 @@ def levels_vs_plain(mg, dev, dtype):
     return worst, names
 
 
+def tc_wrappers():
+    """The wrappers of the 2D Laplace's tensor-core schedules by kernel."""
+    from gdm_torch.ops import stencil2
+
+    return {"K3c": stencil2.laplace2_mxucol_apply,
+            "K3f": stencil2.laplace2_fullmxu_apply,
+            "K3h": stencil2.laplace2_hybrid_apply,
+            "K3p": stencil2.laplace2_hybp_apply}
+
+
+# the gdm builder each schedule sits behind, and its TPU kernel
+TC_BUILDERS = {"K3c": ("mxucol", "gdm/ops/pallas_stencil2.py:2210"),
+               "K3f": ("fullmxu", "gdm/ops/pallas_stencil2.py:1293"),
+               "K3h": ("hybrid", "gdm/ops/pallas_stencil2.py:1550"),
+               "K3p": ("hybp", "gdm/ops/pallas_stencil2.py:2483")}
+
+
 def reset_counts():
     from gdm_torch.ops import cutband, resident, stencil2, stencil3
 
     for fn in (cutband.band_apply, resident.resident_cg,
                stencil2.laplace2_apply, stencil2.laplace2_stream_apply,
-               stencil3.laplace3_apply, stencil3.laplace3_mxu_apply):
+               *tc_wrappers().values(), stencil3.laplace3_apply,
+               stencil3.laplace3_mxu_apply):
         fn.launches = 0
 
 
@@ -290,12 +331,13 @@ def read_counts():
             "resident": resident.resident_cg.launches,
             "laplace2": stencil2.laplace2_apply.launches,
             "laplace2_stream": stencil2.laplace2_stream_apply.launches,
+            **{k: w.launches for k, w in tc_wrappers().items()},
             "laplace3": stencil3.laplace3_apply.launches,
             "laplace3_mxu": stencil3.laplace3_mxu_apply.launches}
 
 
 def solve_phase(dim, n, dev, f32, f64, n_check):
-    """Phases 8 (dim 2) and 9 (dim 3): the public Poisson solve on the
+    """Phases 9 (dim 2) and 10 (dim 3): the public Poisson solve on the
     card.  Returns the launch counts of its main-path run and the largest
     kernel-vs-plain error over its level shapes."""
     import torch
@@ -603,6 +645,76 @@ def main():
           "K3s: output not finite or of the wrong shape")
     del u, y
 
+    # ---- K3c, K3f, K3h, K3p against K3's plain twin, timed against K3 ------
+    f64 = torch.float64
+    tc = tc_wrappers()
+    tc_err = dict.fromkeys(tc, 0.0)
+    tc_ms, tc_plain_ms = {}, None
+    tc_cases = [("1024^2 p=3", g2[3], f32), ("1024^2 p=5", g2[5], f32),
+                ("4096^2 p=3", g4096, f32), ("1024^2 p=3 float64", g2[3], f64)]
+    for name, grid2, dt in tc_cases:
+        bt = stencil2.laplace2_bands(grid2, dev, dt)
+        u = torch.as_tensor(rng.standard_normal(grid2.nodes), dtype=dt,
+                            device=dev)
+        yp = k3_plain(u, bt)
+        pms = device_ms(lambda: k3_plain(u, bt), n=5)
+        print(f"{name}: K3's plain twin {pms * 1e3:.2f} us")
+        if name == "1024^2 p=3":
+            tc_plain_ms = pms
+        tol = 1e-5 if dt == f32 else 1e-12
+        node_bytes = 2 * u.element_size()
+        for kname, fn in tc.items():
+            yk = fn(u, bt)
+            torch.cuda.synchronize()
+            err = (yk - yp).abs().max().item()
+            rel = err / yp.abs().max().item()
+            check(rel <= tol, f"{kname} {name}: max error {rel:.3e} of max|y|")
+            del yk
+            k3t, kt = turns("K3", lambda: k3(u, bt), kname,
+                            lambda: fn(u, bt))
+            ms = sum(kt) / 2
+            cms = call_ms(lambda: fn(u, bt))
+            print(f"{kname} {name}: max abs err {err:.3e} (rel {rel:.3e}); "
+                  f"device time {ms * 1e3:.2f} us ("
+                  f"{node_bytes * grid2.n_nodes / (ms * 1e-3) / 1e9:.0f} GB/s "
+                  f"at {node_bytes} B/node), K3 {sum(k3t) / 2 * 1e3:.2f} us; "
+                  f"per call with launch {cms * 1e3:.2f} us")
+            tc_err[kname] = max(tc_err[kname], err)
+            if name == "1024^2 p=3":
+                tc_ms[kname] = ms
+        del u, yp, bt
+    # the yardstick for the column stage alone: one dense product by the
+    # whole column coupling [A1^T | B1^T]
+    bt = stencil2.laplace2_bands(g2[3], dev, f32)
+    coupling = torch.cat([stencil3.band_matrix(bt.a1).t(),
+                          stencil3.band_matrix(bt.b1).t()], dim=1).contiguous()
+    u = torch.as_tensor(rng.standard_normal(g2[3].nodes), dtype=f32,
+                        device=dev)
+    mm_ms = device_ms(lambda: torch.matmul(u, coupling))
+    print(f"torch.matmul of the dense column coupling U [A1^T | B1^T] alone "
+          f"at 1024^2, ({n1} x {n1})({n1} x {2 * n1}) float32: "
+          f"{mm_ms * 1e3:.2f} us (a yardstick for the column stage only, "
+          f"not for the whole apply)")
+    del coupling
+    # each schedule through its public builder: no solve routes to them,
+    # so this is their path
+    tc_launches = {}
+    for kname, (builder, _) in TC_BUILDERS.items():
+        make = getattr(stencil2, f"make_padded_laplace2_{builder}")
+        apply, pad, unpad, _ = make(g2[3], dev, f32)
+        reset_counts()
+        y = unpad(apply(pad(u)))
+        torch.cuda.synchronize()
+        counts_tc = read_counts()
+        print(f"make_padded_laplace2_{builder} at 1024^2 ({apply.options}): "
+              f"launches {counts_tc}")
+        check(counts_tc[kname] == 1 and sum(counts_tc.values()) == 1,
+              f"{kname}: its builder did not launch it alone, once")
+        check(y.shape == g2[3].nodes and bool(torch.isfinite(y).all()),
+              f"{kname}: output not finite or of the wrong shape")
+        tc_launches[kname] = counts_tc[kname]
+    del u, y, bt
+
     # ---- K4 and K5 against their plain twins -------------------------------
     k4 = stencil3.laplace3_apply
     k5 = stencil3.laplace3_mxu_apply
@@ -670,7 +782,6 @@ def main():
     del u, y, yp
 
     # ---- the uncut Poisson solves through the public entry point -----------
-    f64 = torch.float64
     counts2, err2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
     check(counts2["laplace2"] > 0, "K3 never launched on the 2D solve")
     counts3, err3 = solve_phase(3, 64, dev, f32, f64, n_check=16)
@@ -700,6 +811,10 @@ def main():
             "gdm/ops/pallas_stencil2.py:793", counts_k3s["laplace2_stream"],
             k3s_err, k3s_ms, k3s_plain_ms,
             separable_bound(g4096.n_nodes, 7, 4)),
+        *(row(f"laplace2_{b}_apply ({k})", f"gdm_torch/csrc/laplace2_{b}.cu",
+              at, tc_launches[k], tc_err[k], tc_ms[k], tc_plain_ms,
+              separable_bound(g2[3].n_nodes, 7, 4))
+          for k, (b, at) in TC_BUILDERS.items()),
         row("laplace3_apply (K4)", "gdm_torch/csrc/laplace3.cu",
             "gdm/ops/pallas_stencil2.py:1056", k4_launches, k4_err, k4_ms,
             k4_plain_ms, separable_bound(g3.n_nodes, 7, 7)),

@@ -55,10 +55,12 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "tc_window.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using gdm::tc::split_tf32;
 
 constexpr int TX = 32;         // nodes along axis 2 per block: one warp
 constexpr int TY = 8;          // nodes along axis 1 per block
@@ -94,19 +96,6 @@ struct Geom {
   static constexpr size_t BYTES = sizeof(T) * (C1S + rnd32(TY * K));
   static_assert(BYTES <= 232448, "K5 tile exceeds an H100 block's smem");
 };
-
-// hi = tf32(x), lo = tf32(x - hi), element by element: the two fragments
-// have one type, so element e of each holds the same matrix entry
-template <typename Frag>
-__device__ __forceinline__ void split_tf32(Frag& hi, Frag& lo) {
-#pragma unroll
-  for (int e = 0; e < hi.num_elements; ++e) {
-    const float x = hi.x[e];
-    const float h = wmma::__float_to_tf32(x);
-    hi.x[e] = h;
-    lo.x[e] = wmma::__float_to_tf32(x - h);
-  }
-}
 
 // ys[0:T0, warp's 32 columns] = ct[0:T0, 0:KD] . pt[0:KD, warp's columns]
 template <typename T, int P>

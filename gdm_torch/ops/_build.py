@@ -78,6 +78,11 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_laplace2_stream_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
         fn.restype = I
+        for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_fullmxu", 1),
+                           ("laplace2_hybrid", 2), ("laplace2_hybp", 2)):
+            fn = getattr(lib, f"gdm_{k}_apply_{dt}")
+            fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
+            fn.restype = I
         for k in ("laplace3", "laplace3_mxu"):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]

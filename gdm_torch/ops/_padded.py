@@ -1,7 +1,7 @@
-"""What the separable Laplace modules share (stencil2: K3, K3s;
-stencil3: K4, K5): the launch of a kernel over the contiguous node array
-and the (apply, pad, unpad, shape) tuple that gdm's make_padded_*
-return."""
+"""What the separable Laplace modules share (stencil2: K3, K3s, K3c,
+K3f, K3h, K3p; stencil3: K4, K5): the launch of a kernel over the
+contiguous node array and the (apply, pad, unpad, shape) tuple that
+gdm's make_padded_* return."""
 
 from __future__ import annotations
 
@@ -12,9 +12,12 @@ from . import _build
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def launch(u: torch.Tensor, fn: str, what: str, tables, p: int, shape):
-    """Launch ``gdm_{fn}_{f32|f64}(u, *tables, y, p, *shape, stream)``
-    on the CUDA tensor ``u``; returns y.  Raises for any other tensor."""
+def launch(u: torch.Tensor, fn: str, what: str, tables, p: int, shape,
+           extra=()):
+    """Launch ``gdm_{fn}_{f32|f64}(u, *tables, y, p, *shape, *extra,
+    stream)`` on the CUDA tensor ``u``, ``extra`` being integer launch
+    options (a tile's rows, a row split); returns y.  Raises for any
+    other tensor."""
     if u.device.type != "cuda":
         raise ValueError(f"no {what} apply for device {u.device}")
     if u.dtype not in _SUFFIX:
@@ -25,19 +28,20 @@ def launch(u: torch.Tensor, fn: str, what: str, tables, p: int, shape):
     with torch.cuda.device(u.device):
         err = getattr(kl.lib, f"gdm_{fn}_{_SUFFIX[u.dtype]}")(
             u.data_ptr(), *(t.data_ptr() for t in tables), y.data_ptr(), p,
-            *shape, _build.stream_handle(u.device))
+            *shape, *extra, _build.stream_handle(u.device))
     _build.check(kl, err, f"{what} {fn} launch")
     return y
 
 
-def padded_apply(bt, kernel, plain):
+def padded_apply(bt, kernel, plain, **options):
     """(apply, pad, unpad, shape) over the node array itself, as gdm's
     make_padded_* return them.  ``apply.kernel`` is the wrapper it runs
-    and ``apply.plain`` that wrapper's plain twin on the same bands."""
+    (with the keyword ``options``, kept as ``apply.options``) and
+    ``apply.plain`` that wrapper's plain twin on the same bands."""
     shape = bt.shape
 
     def apply(u):
-        return kernel(u, bt)
+        return kernel(u, bt, **options)
 
     def pad(u):
         return u.reshape(shape)
@@ -46,5 +50,6 @@ def padded_apply(bt, kernel, plain):
         return u
 
     apply.kernel = kernel
+    apply.options = options
     apply.plain = lambda u: plain(u, bt)
     return apply, pad, unpad, shape

@@ -1,20 +1,29 @@
-"""K3 and K3s: the 2D separable band apply  y = A0 U A1^T + B0 U B1^T.
+"""K3 and its schedules: the 2D separable band apply
+y = A0 U A1^T + B0 U B1^T.
 
 Port of gdm/ops/pallas_stencil2.py: ``make_padded_laplace2`` (K3, the
 TPU kernel that gdm/ops/fast.py::best_field_laplace routes the uncut
-Poisson CG operator and every multigrid level through) and
-``make_padded_laplace2_stream`` (K3s, the same operator streamed down
-the rows; no solve dispatch routes to it, in gdm or here).  The CUDA
-kernels are gdm_torch/csrc/laplace2.cu and laplace2_stream.cu; their
-source notes say what bounds them on the card.  ``laplace2_apply`` and
-``laplace2_stream_apply`` launch their kernel for a CUDA tensor and run
-the plain torch version for a CPU tensor; there is no other switch.
+Poisson CG operator and every multigrid level through) and five other
+schedules of the same operator that no solve dispatch routes to, in gdm
+or here: ``make_padded_laplace2_stream`` (K3s, streamed down the rows),
+``make_padded_laplace2_mxucol`` (K3c, the column stage on the tensor
+cores), ``make_padded_laplace2_fullmxu`` (K3f, both stages on the
+tensor cores), ``make_padded_laplace2_hybrid`` (K3h, the column stage
+split by rows between the FMA units and the tensor cores) and
+``make_padded_laplace2_hybp`` (K3p, K3h pipelined across tiles).  The
+CUDA kernels are gdm_torch/csrc/laplace2*.cu (the tensor-core ones share
+csrc/tc_window.cuh); their source notes say what bounds them on the
+card.  Each wrapper (``laplace2_apply``, ``laplace2_stream_apply``,
+``laplace2_mxucol_apply``, ...) launches its kernel for a CUDA tensor
+and runs its plain torch twin for a CPU tensor; there is no other
+switch.  Every twin is K3's plain column-then-row computation.
 
-Both compute what gdm's f32-exact ``rows="vpu"`` kernel computes, not
-the bf16x3 row products of gdm's TPU default.  The node array is the
-contiguous (N0, N1) field itself: gdm's guard rows and 128-lane padding
-existed for aligned TPU DMAs, so here ``pad`` and ``unpad`` are
-reshapes and cost no copy.
+K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes,
+not the bf16x3 row products of gdm's TPU default; the tensor-core
+schedules run their products as 3xTF32 in float32 and on the DMMA units
+in float64.  The node array is the contiguous (N0, N1) field itself:
+gdm's guard rows and 128-lane padding existed for aligned TPU DMAs, so
+here ``pad`` and ``unpad`` are reshapes and cost no copy.
 """
 
 from __future__ import annotations
@@ -54,12 +63,12 @@ def laplace2_bands(grid: Grid, device="cpu", dtype=torch.float32,
     """The band tables for ``grid``: ``bands=(A0, A1, B0, B1)`` numpy
     arrays, or by default the GD Laplace (S0, M1, M0, S1)."""
     if grid.dim != 2:
-        raise ValueError(f"K3 and K3s are the 2D apply; the grid is "
-                         f"{grid.dim}D")
+        raise ValueError(f"K3 and its schedules are the 2D apply; the "
+                         f"grid is {grid.dim}D")
     p = grid.degree
     if p > MAX_DEGREE:
-        raise ValueError(f"K3 and K3s take odd degrees p <= {MAX_DEGREE}, "
-                         f"not {p}")
+        raise ValueError(f"K3 and its schedules take odd degrees "
+                         f"p <= {MAX_DEGREE}, not {p}")
     if bands is None:
         bands = (stiffness_1d(p, grid.cells[0], grid.h[0]).band,
                  mass_1d(p, grid.cells[1], grid.h[1]).band,
@@ -97,8 +106,9 @@ def laplace2_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
     return apply_banded(v, bt.a0, 0) + apply_banded(w, bt.b0, 0)
 
 
-def _launch(u: torch.Tensor, bt: Bands2, fn: str, what: str):
-    return launch(u, fn, what, (bt.a0, bt.a1, bt.b0, bt.b1), bt.p, bt.shape)
+def _launch(u: torch.Tensor, bt: Bands2, fn: str, what: str, extra=()):
+    return launch(u, fn, what, (bt.a0, bt.a1, bt.b0, bt.b1), bt.p, bt.shape,
+                  extra)
 
 
 def laplace2_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
@@ -155,3 +165,207 @@ def make_padded_laplace2_stream(grid: Grid, device="cuda",
     bt = laplace2_bands(grid, _device.resolve(device), dtype, bands)
     return padded_apply(bt, laplace2_stream_apply,
                         laplace2_stream_apply_plain)
+
+
+# ---- K3c, K3f, K3h, K3p: the tensor-core schedules of K3's operator ----
+
+SMEM_MAX = 232448               # bytes of shared memory an H100 block may use
+TILE_CANDIDATES = (64, 48, 32, 16)
+
+
+def _rnd(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
+    """Shared memory of one block of the tensor-core schedule ``kernel``
+    ("mxucol", "fullmxu", "hybrid" or "hybp") at degree p with tile_r
+    output rows, as csrc/tc_window.cuh's ``Tile`` lays it out: the u
+    tile, the C slice, [V | W], the A0/B0 band rows (K3f: its row
+    windows instead), the MMA warps' scratch tiles (K3h, K3p), and in
+    K3p two u tiles, three band slots and two [V | W] buffers."""
+    tx = 32
+    kd = _rnd(tx + 2 * p, 8)
+    m = _rnd(tile_r + 2 * p, 16)
+    u = _rnd(m * (kd + 4), 32)
+    c = _rnd(kd * (2 * tx + 4), 32)
+    vw = _rnd(m * (2 * tx + 4), 32)
+    r = _rnd(2 * tile_r * (2 * p + 1), 32)
+    scr = 4 * 256
+    n = {"mxucol": u + c + vw + r,
+         "fullmxu": u + c + vw + _rnd(2 * _rnd(tile_r, 16) * (m + 4), 32),
+         "hybrid": u + c + vw + r + scr,
+         "hybp": 2 * u + 3 * r + 2 * vw + c + scr}[kernel]
+    return n * itemsize
+
+
+def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
+    """The card's tile of a tensor-core schedule: {"tile_r": ..} and, for
+    "hybrid" and "hybp", {"vpu_rows": ..}.
+
+    tile_r, the block's output rows: by default the largest of 64, 48,
+    32, 16 whose tile fits one H100 block at this degree and dtype (64
+    for every p <= 15 in float32; in float64 48 for K3f at p = 13-15,
+    and for K3p 48 at p = 7 and 32 at p = 9-15).  As in gdm, K3c, K3h
+    and K3p clamp it to N0 rounded up to 8.  A tile that does not fit
+    raises.
+
+    vpu_rows, the rows of the extended tile (tile_r + 2p rows) whose
+    column stage runs on the FMA units, the rest on the tensor cores:
+    by default two thirds of the extended tile rounded up to 8 (gdm's
+    K3p default; per row the FMA units cost about 2.3x less than the
+    3xTF32 window product at the card's peak rates), clamped to the
+    extended tile as gdm clamps it; 0 means all tensor cores and any
+    value >= tile_r + 2p all FMAs.
+    """
+    p, n0 = bt.p, bt.shape[0]
+    itemsize = bt.a0.element_size()
+    if tile_r is None:
+        tile_r = next((t for t in TILE_CANDIDATES
+                       if tc_smem_bytes(kernel, p, t, itemsize) <= SMEM_MAX),
+                      None)
+        if tile_r is None:
+            raise ValueError(f"no tile of K3 {kernel} fits an H100 block at "
+                             f"p = {p}, {itemsize}-byte values")
+    if int(tile_r) != tile_r or tile_r < 1:
+        raise ValueError(f"tile_r must be a positive integer, not {tile_r}")
+    tile_r = int(tile_r)
+    if kernel != "fullmxu":
+        tile_r = min(tile_r, _rnd(n0, 8))
+    need = tc_smem_bytes(kernel, p, tile_r, itemsize)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"a K3 {kernel} tile of {tile_r} rows at p = {p} with "
+            f"{itemsize}-byte values needs {need} bytes of shared memory; "
+            f"an H100 block has {SMEM_MAX}: take a smaller tile_r")
+    if kernel not in ("hybrid", "hybp"):
+        return {"tile_r": tile_r}
+    t_ext = tile_r + 2 * p
+    if vpu_rows is None:
+        vpu_rows = _rnd(2 * t_ext // 3, 8)
+    if int(vpu_rows) != vpu_rows or vpu_rows < 0:
+        raise ValueError(f"vpu_rows must be an integer >= 0, not {vpu_rows}")
+    return {"tile_r": tile_r, "vpu_rows": min(int(vpu_rows), t_ext)}
+
+
+def _tc_apply(u, bt, kernel, what, wrapper, plain, tile_r, vpu_rows=None):
+    _check(u, bt)
+    opts = tc_options(kernel, bt, tile_r, vpu_rows)
+    if u.device.type == "cpu":
+        return plain(u, bt)
+    y = _launch(u, bt, f"laplace2_{kernel}_apply", what,
+                tuple(opts.values()))
+    wrapper.launches += 1
+    return y
+
+
+def laplace2_mxucol_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3c: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
+
+
+def laplace2_mxucol_apply(u: torch.Tensor, bt: Bands2,
+                          tile_r=None) -> torch.Tensor:
+    """K3's operator through K3c (the column stage as a window product
+    on the tensor cores, K3's row stage) for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    return _tc_apply(u, bt, "mxucol", "K3c", laplace2_mxucol_apply,
+                     laplace2_mxucol_apply_plain, tile_r)
+
+
+laplace2_mxucol_apply.launches = 0
+
+
+def laplace2_fullmxu_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3f: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
+
+
+def laplace2_fullmxu_apply(u: torch.Tensor, bt: Bands2,
+                           tile_r=None) -> torch.Tensor:
+    """K3's operator through K3f (both stages as window products on the
+    tensor cores) for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    return _tc_apply(u, bt, "fullmxu", "K3f", laplace2_fullmxu_apply,
+                     laplace2_fullmxu_apply_plain, tile_r)
+
+
+laplace2_fullmxu_apply.launches = 0
+
+
+def laplace2_hybrid_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3h: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
+
+
+def laplace2_hybrid_apply(u: torch.Tensor, bt: Bands2, tile_r=None,
+                          vpu_rows=None) -> torch.Tensor:
+    """K3's operator through K3h (the column stage split by rows between
+    FMA warps and tensor-core warps) for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    return _tc_apply(u, bt, "hybrid", "K3h", laplace2_hybrid_apply,
+                     laplace2_hybrid_apply_plain, tile_r, vpu_rows)
+
+
+laplace2_hybrid_apply.launches = 0
+
+
+def laplace2_hybp_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3p: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
+
+
+def laplace2_hybp_apply(u: torch.Tensor, bt: Bands2, tile_r=None,
+                        vpu_rows=None) -> torch.Tensor:
+    """K3's operator through K3p (K3h pipelined across the tiles of a
+    column strip by persistent blocks) for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    return _tc_apply(u, bt, "hybp", "K3p", laplace2_hybp_apply,
+                     laplace2_hybp_apply_plain, tile_r, vpu_rows)
+
+
+laplace2_hybp_apply.launches = 0
+
+
+def make_padded_laplace2_mxucol(grid: Grid, device="cuda",
+                                dtype=torch.float32, tile_r=None):
+    """(apply, pad, unpad, shape) of K3c, odd p <= 15: K3's operator,
+    band tables and node array.  ``tile_r`` as in ``tc_options``; the
+    resolved tile is ``apply.options``."""
+    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    return padded_apply(bt, laplace2_mxucol_apply,
+                        laplace2_mxucol_apply_plain,
+                        **tc_options("mxucol", bt, tile_r))
+
+
+def make_padded_laplace2_fullmxu(grid: Grid, device="cuda",
+                                 dtype=torch.float32, tile_r=None):
+    """(apply, pad, unpad, shape) of K3f, odd p <= 15: K3's operator,
+    band tables and node array.  ``tile_r`` as in ``tc_options`` (not
+    clamped to N0, as in gdm)."""
+    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    return padded_apply(bt, laplace2_fullmxu_apply,
+                        laplace2_fullmxu_apply_plain,
+                        **tc_options("fullmxu", bt, tile_r))
+
+
+def make_padded_laplace2_hybrid(grid: Grid, device="cuda",
+                                dtype=torch.float32, tile_r=None,
+                                vpu_rows=None):
+    """(apply, pad, unpad, shape) of K3h, odd p <= 15: K3's operator,
+    band tables and node array.  ``tile_r`` and ``vpu_rows`` as in
+    ``tc_options`` (gdm's defaults, 376 and 136, were the TPU's)."""
+    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    return padded_apply(bt, laplace2_hybrid_apply,
+                        laplace2_hybrid_apply_plain,
+                        **tc_options("hybrid", bt, tile_r, vpu_rows))
+
+
+def make_padded_laplace2_hybp(grid: Grid, device="cuda", dtype=torch.float32,
+                              tile_r=None, vpu_rows=None):
+    """(apply, pad, unpad, shape) of K3p, odd p <= 15: K3's operator,
+    band tables and node array.  ``tile_r`` and ``vpu_rows`` as in
+    ``tc_options``."""
+    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    return padded_apply(bt, laplace2_hybp_apply, laplace2_hybp_apply_plain,
+                        **tc_options("hybp", bt, tile_r, vpu_rows))

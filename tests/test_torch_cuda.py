@@ -10,11 +10,12 @@ Tolerances: float32 sums of up to 81 taps in another order (fma against
 mul + add) stay within 1e-5 of max|y|; float64 within 1e-12.  CG
 iteration counts may differ by 2 in float32 (the kernel sums dots in
 double, the plain version in float32) and must be equal in float64.
-The separable Laplace kernels K3 and K3s (2D), K4 and K5 (3D) are held
-to the same 1e-5 / 1e-12 of max|y| against their plain twins (K5's
-float32 plane coupling runs as 3xTF32 on the tensor cores, its float64
-one on the DMMA units); the Poisson solve on the card to the CPU float64
-solve's iteration count (float64: equal; float32: within 1).
+The separable Laplace kernels K3 and its schedules K3s, K3c, K3f, K3h
+and K3p (2D), K4 and K5 (3D) are held to the same 1e-5 / 1e-12 of
+max|y| against their plain twins (the tensor-core products of K5 and
+of the 2D schedules run as 3xTF32 in float32 and on the DMMA units in
+float64); the Poisson solve on the card to the CPU float64 solve's
+iteration count (float64: equal; float32: within 1).
 """
 
 import numpy as np
@@ -444,3 +445,103 @@ def test_schedule_wrappers_reject(cuda_device):
     bt16 = stencil3.laplace3_bands(g3, cuda_device, torch.float16)
     with pytest.raises(ValueError, match="float32 or float64"):
         stencil3.laplace3_mxu_apply(u3.half(), bt16)
+
+
+TC_KERNELS = ["mxucol", "fullmxu", "hybrid", "hybp"]
+TC_CASES = [
+    (1, (20, 20)),       # one block
+    (3, (40, 72)),       # ragged in both axes
+    (3, (150, 1024)),    # N0 not a multiple of the tile, N1 = 1025 (odd)
+    (7, (300, 140)),     # several tiles per strip
+    (15, (40, 33)),      # the largest degree, the smallest default tiles
+]
+
+
+def _tc(kernel):
+    return (getattr(stencil2, f"laplace2_{kernel}_apply"),
+            getattr(stencil2, f"laplace2_{kernel}_apply_plain"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,cells", TC_CASES)
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+def test_laplace2_tc_matches_plain(cuda_device, kernel, p, cells, dtype):
+    """K3c, K3f, K3h and K3p (3xTF32 in float32, DMMA in float64) at
+    their default tiles against K3's twin."""
+    grid = Grid(p, cells, (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 8, dtype, cuda_device)
+    wrapper, plain = _tc(kernel)
+    before = wrapper.launches
+    yk = wrapper(u, bt)
+    assert wrapper.launches == before + 1
+    yp = plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(yk, yp) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("vr", [0, 13, None, 10**6])
+@pytest.mark.parametrize("kernel", ["hybrid", "hybp"])
+def test_laplace2_split_rows(cuda_device, kernel, vr, dtype):
+    """K3h/K3p with the column stage all on the tensor cores (0), split
+    inside a 16-row block (13), at the default split and all on the FMA
+    units (>= the extended tile), over several tiles of a strip."""
+    grid = Grid(3, (400, 90), (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 9, dtype, cuda_device)
+    wrapper, plain = _tc(kernel)
+    yk = wrapper(u, bt, tile_r=48, vpu_rows=vr)
+    assert _rel(yk, plain(u, bt)) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+def test_laplace2_tc_four_factor_bands(cuda_device, kernel, dtype):
+    """Four distinct factors at an odd tile: a swap of the A and B
+    factors or of the axes would fail."""
+    grid = Grid(3, (137, 45), (0.0, 0.0), (1.0, 1.0))
+    rng = np.random.default_rng(10)
+    n0, n1 = grid.nodes
+    bands = [rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1)]
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype, bands)
+    u = _rand(grid.nodes, 11, dtype, cuda_device)
+    wrapper, plain = _tc(kernel)
+    assert _rel(wrapper(u, bt, tile_r=37), plain(u, bt)) <= _tol(dtype)
+
+
+def test_tc_builders_launch_their_own_kernel(cuda_device):
+    """Each public builder launches its own kernel once per apply and no
+    other kernel."""
+    grid = Grid(3, (100, 70), (0.0, 0.0), (1.0, 1.0))
+    u = _rand(grid.nodes, 12, torch.float32, cuda_device)
+    wrappers = {k: _tc(k)[0] for k in TC_KERNELS}
+    wrappers["k3"] = stencil2.laplace2_apply
+    wrappers["k3s"] = stencil2.laplace2_stream_apply
+    for kernel in TC_KERNELS:
+        make = getattr(stencil2, f"make_padded_laplace2_{kernel}")
+        apply, pad, unpad, _ = make(grid, cuda_device, torch.float32)
+        assert apply.kernel is wrappers[kernel]
+        before = {k: w.launches for k, w in wrappers.items()}
+        y = unpad(apply(pad(u)))
+        after = {k: w.launches for k, w in wrappers.items()}
+        assert {k for k in after if after[k] != before[k]} == {kernel}
+        assert after[kernel] == before[kernel] + 1
+        assert _rel(y, apply.plain(u)) <= 1e-5
+
+
+def test_tc_wrappers_reject(cuda_device):
+    g2 = Grid(3, (16, 16), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(g2, cuda_device, torch.float32)
+    u = torch.zeros(g2.nodes, device=cuda_device)
+    for kernel in TC_KERNELS:
+        wrapper = _tc(kernel)[0]
+        for bad in (u.double(), u.t(), u[:-1], u.cpu()):
+            with pytest.raises(ValueError):
+                wrapper(bad, bt)
+    g15 = Grid(15, (40, 33), (0.0, 0.0), (1.0, 1.0))
+    bt15 = stencil2.laplace2_bands(g15, cuda_device, torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil2.laplace2_hybp_apply(torch.zeros(g15.nodes, device=cuda_device,
+                                                 dtype=torch.float64),
+                                     bt15, tile_r=64)

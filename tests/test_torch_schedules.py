@@ -180,7 +180,9 @@ ENTRY_POINTS = [
     gdm_torch.entry, poisson.solve, poisson.system, PoissonMultigrid,
     fast.laplace_apply_fn, fast.mass_apply_fn, fast.best_field_laplace,
     fast.best_padded_laplace, stencil2.make_padded_laplace2,
-    stencil2.make_padded_laplace2_stream, stencil3.make_padded_laplace3,
+    stencil2.make_padded_laplace2_stream, stencil2.make_padded_laplace2_mxucol,
+    stencil2.make_padded_laplace2_fullmxu, stencil2.make_padded_laplace2_hybrid,
+    stencil2.make_padded_laplace2_hybp, stencil3.make_padded_laplace3,
     stencil3.make_padded_laplace3_mxu, cutband.make_padded_stencil2,
     resident.make_resident_cg, fastapply.fast_stencil_bundle,
     fsai.verified_fsai_solver]
@@ -210,6 +212,10 @@ def test_card_default_raises_without_a_card():
              lambda: fast.best_field_laplace(g2),
              lambda: stencil3.make_padded_laplace3_mxu(g3),
              lambda: stencil2.make_padded_laplace2_stream(g2),
+             lambda: stencil2.make_padded_laplace2_mxucol(g2),
+             lambda: stencil2.make_padded_laplace2_fullmxu(g2),
+             lambda: stencil2.make_padded_laplace2_hybrid(g2),
+             lambda: stencil2.make_padded_laplace2_hybp(g2),
              lambda: cutband.make_padded_stencil2(mass),
              lambda: resident.make_resident_cg(mass),
              lambda: fastapply.fast_stencil_bundle(mass),
