@@ -9,8 +9,9 @@ Run from the repository root:  python3 chip_smoke.py
    build time and nvcc's register/shared-memory report;
 3. K1 (band apply) against its plain torch version, float32, on the
    flagship 128^2 mass and stiffness bands: max error <= 1e-5 of max|y|,
-   guard cells zero; device time per apply (kernel times from the
-   profiler) and median time per call with its launch (CUDA events);
+   guard cells zero; device time per apply (``device_ms``: CUDA events
+   around a run queued behind a spin kernel) and median time per call
+   with its launch (CUDA events around each call);
 4. K2 (one-launch FSAI-CG) against its plain version, float32, at 128^2
    (cut mass + FSAI factors): iteration counts within 2, x within 1e-4
    relative, true residuals within 10%; device and per-call times;
@@ -50,7 +51,26 @@ Run from the repository root:  python3 chip_smoke.py
    counts reset just before each: Grid(3, (160,)*3) launches K5 and not
    K4, Grid(3, (510, 64, 64)) (N0 + 2p = 517 > 512) K4 and not K5, held
    against the plain twin;
-9. the 2D Poisson solve through the public entry point,
+9. K3's tensor-core row modes K3/mxu (the row stage as a 3xTF32 window
+   product), K3/mxu3 (as bf16x3) and K3/mxu3p (K3/mxu3 pipelined across
+   tiles), and K0 (gdm's v1 Laplace, rows first), against K3's plain
+   twin at 1024^2 p=3, p=5 and 4096^2 p=3 in float32 (max error <= 1e-5
+   of max|y| for K3/mxu and K0, <= 1e-4 for the bf16x3 modes), with four
+   band factors for the three K3 modes, and at 1024^2 p=3 in float64
+   (<= 1e-12), each timed in turns against K3 (K3, X, X, K3);
+   torch.matmul of the dense row coupling [A0 | B0] [V; W] at 1024^2
+   alone (the yardstick for the row stage only); then, the launch
+   counts reset before each, make_padded_laplace2(rows=r) for every r,
+   best_padded_laplace with rows=None (K3) and rows="mxu3p", and K0's
+   make_padded_laplace: each its own kernel once and nothing else;
+10. the split cut apply make_fast_cut_apply (the separable part on
+   K3/mxu3p, its default, plus the correction rows) on the flagship disc
+   at 128^2 and 512^2, for the mass and the stiffness, against K1's
+   apply of the same assembled band (max error <= 1e-4 of max|y|; with
+   rows="vpu" <= 1e-5), the launch counts reset just before: K3/mxu3p
+   once per apply; the number of correction rows; device and per-call
+   times of the split apply (both row modes) in turns against K1;
+11. the 2D Poisson solve through the public entry point,
    gdm_torch.problems.poisson.solve on Grid(3, (1024, 1024)) with
    precondition="mg", rel_tol=1e-3, float32 on the card: iterations and
    relative residual (converged, not stopped at max_iter), the same
@@ -62,18 +82,19 @@ Run from the repository root:  python3 chip_smoke.py
    problem (right-hand side 1) timed the same way; at 128^2 the float32
    card solution against the float64 CPU solution (rel_tol 1e-4:
    iterations within 1, relative difference <= 1e-3);
-10. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
+12. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
    relative residual, L2 error, K5 launches (> 0; K4 none: every level
    has N0 + 2p <= 512), the kernel the dispatch picks (K5) against its
    plain twin at every level shape (65^3 down to 9^3 nodes); at 16^3 the
    float32 card solution against the float64 CPU solution as in
-   phase 9.
+   phase 11.
 
-Prints a JSON line of per-kernel results (K1-K5, K3s, K3c, K3f, K3h and
-K3p: launches on the kernel's main path, max error against the plain
-twin, device ms of the kernel and of the twin, the bound from the
-bytes and operations of the measured inputs, and ``library_ms`` null:
-no single PyTorch call computes any of them), the card line, and last
+Prints a JSON line of per-kernel results (K1-K5, K3s, K3c, K3f, K3h,
+K3p, K3/mxu, K3/mxu3, K3/mxu3p and K0: launches on the kernel's main
+path, max error against the plain twin, device ms of the kernel and of
+the twin, the bound from the bytes and operations of the measured
+inputs, and ``library_ms`` null: no single PyTorch call computes any of
+them), the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1, no
 result line).
 """
@@ -123,15 +144,70 @@ def call_ms(fn, n=30, warmup=5):
     return statistics.median(times)
 
 
+_SPIN = {}
+
+
+def spin_cycles_per_ms():
+    """The clock cycles torch.cuda._sleep spins per ms on this card."""
+    import torch
+
+    if "cycles" not in _SPIN:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10**7)
+        end.record()
+        end.synchronize()
+        _SPIN["cycles"] = 1e7 / start.elapsed_time(end)
+    return _SPIN["cycles"]
+
+
 def device_ms(fn, n=20, warmup=3):
-    """Device time of one fn() call in ms: the kernel and copy times the
-    profiler records over n calls, per call.  Host work (launch
-    overhead, syncs) and idle gaps do not count.  A profile may lose a
-    few device items at its edges: the time per call is then the mean
-    item time times the items per call (the count over n, rounded).  A
-    profile with no items, or with a count more than 10% away from that
-    many per call (a lost or mixed trace), is taken again, at most three
-    times in all, and then raises."""
+    """Device time of one fn() call in ms: CUDA events around n calls
+    that the host enqueues behind a spin kernel (torch.cuda._sleep), so
+    the device runs them back to back and the host's launch overhead is
+    hidden.  The gaps between queued kernels count, idle time does not.
+    The spin lasts twice the host's time to enqueue n calls (from the
+    warm-up) plus 1 ms; a run in which the spin ended before the host had
+    enqueued the n calls is taken again with a spin four times as long.
+    If that fails too (fn waits on the device, or its launches fill the
+    device's launch queue, as a plain twin of hundreds of small kernels
+    does), the time is ``profiled_ms``'s kernel sum."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    spin_ms = 2 * n * (time.perf_counter() - t0) * 1e3 / warmup + 1.0
+    torch.cuda.synchronize()
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not start.query()   # the spin still ran: nothing idled
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+        spin_ms *= 4
+    print(f"  (the host could not enqueue {n} calls within a "
+          f"{spin_ms / 4:.1f} ms spin; timed by the profiler)")
+    return profiled_ms(fn, n, warmup=1)
+
+
+def profiled_ms(fn, n=20, warmup=3):
+    """Device time of one fn() call in ms for an fn that waits on the
+    device (a host loop): the kernel and copy times the profiler records
+    over n calls, per call.  A profile may lose a few device items at
+    its edges: the time per call is then the mean item time times the
+    items per call (the count over n, rounded).  A profile with no
+    items, or with a count more than 10% away from that many per call
+    (a lost or mixed trace), is taken again, at most three times in all,
+    and then raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -314,13 +390,36 @@ TC_BUILDERS = {"K3c": ("mxucol", "gdm/ops/pallas_stencil2.py:2210"),
                "K3p": ("hybp", "gdm/ops/pallas_stencil2.py:2483")}
 
 
+def row_wrappers():
+    """The wrappers of K3's tensor-core row modes and of K0 by kernel."""
+    from gdm_torch.ops import stencil, stencil2
+
+    return {"K3/mxu": stencil2.laplace2_mxu_apply,
+            "K3/mxu3": stencil2.laplace2_mxu3_apply,
+            "K3/mxu3p": stencil2.laplace2_mxu3p_apply,
+            "K0": stencil.laplace_v1_apply}
+
+
+# each row mode's source and the TPU kernel body it replaces; its limit
+# against K3's twin in float32 (bf16x3 keeps about 16 significant bits)
+ROW_KERNELS = {
+    "K3/mxu": ("laplace2_mxu_apply", "gdm_torch/csrc/laplace2_mxurows.cu",
+               "gdm/ops/pallas_stencil2.py:278", 1e-5),
+    "K3/mxu3": ("laplace2_mxu3_apply", "gdm_torch/csrc/laplace2_mxurows.cu",
+                "gdm/ops/pallas_stencil2.py:325", 1e-4),
+    "K3/mxu3p": ("laplace2_mxu3p_apply", "gdm_torch/csrc/laplace2_mxu3p.cu",
+                 "gdm/ops/pallas_stencil2.py:382", 1e-4),
+    "K0": ("laplace_v1_apply", "gdm_torch/csrc/laplace2_v1.cu",
+           "gdm/ops/pallas_stencil.py:155", 1e-5)}
+
+
 def reset_counts():
     from gdm_torch.ops import cutband, resident, stencil2, stencil3
 
     for fn in (cutband.band_apply, resident.resident_cg,
                stencil2.laplace2_apply, stencil2.laplace2_stream_apply,
-               *tc_wrappers().values(), stencil3.laplace3_apply,
-               stencil3.laplace3_mxu_apply):
+               *tc_wrappers().values(), *row_wrappers().values(),
+               stencil3.laplace3_apply, stencil3.laplace3_mxu_apply):
         fn.launches = 0
 
 
@@ -332,12 +431,176 @@ def read_counts():
             "laplace2": stencil2.laplace2_apply.launches,
             "laplace2_stream": stencil2.laplace2_stream_apply.launches,
             **{k: w.launches for k, w in tc_wrappers().items()},
+            **{k: w.launches for k, w in row_wrappers().items()},
             "laplace3": stencil3.laplace3_apply.launches,
             "laplace3_mxu": stencil3.laplace3_mxu_apply.launches}
 
 
+def row_phase(rng, dev, g2, g4096, four):
+    """Phase 9: K3/mxu, K3/mxu3, K3/mxu3p and K0 against K3's plain
+    twin, timed in turns against K3, then each through its public path.
+    Returns (max abs errors, device ms and K3's plain ms at 1024^2 p=3,
+    launches of K3/mxu, K3/mxu3 and K0 on their paths)."""
+    import torch
+
+    from gdm_torch.ops import fast, stencil, stencil2, stencil3
+
+    f32, f64 = torch.float32, torch.float64
+    k3, k3_plain = stencil2.laplace2_apply, stencil2.laplace2_apply_plain
+    rw = row_wrappers()
+    err_max, ms_at, plain_at = dict.fromkeys(rw, 0.0), {}, None
+    cases = [("1024^2 p=3", g2[3], f32, None),
+             ("1024^2 p=5", g2[5], f32, None),
+             ("1024^2 p=3 four factors", g2[3], f32, four),
+             ("4096^2 p=3", g4096, f32, None),
+             ("1024^2 p=3 float64", g2[3], f64, None)]
+    for name, grid2, dt, bands in cases:
+        bt = stencil2.laplace2_bands(grid2, dev, dt, bands)
+        u = torch.as_tensor(rng.standard_normal(grid2.nodes), dtype=dt,
+                            device=dev)
+        yp = k3_plain(u, bt)
+        pms = device_ms(lambda: k3_plain(u, bt), n=5)
+        print(f"{name}: K3's plain twin {pms * 1e3:.2f} us")
+        if name == "1024^2 p=3":
+            plain_at = pms
+        node_bytes = 2 * u.element_size()
+        for kname, fn in rw.items():
+            if kname == "K0" and bands is not None:
+                continue   # gdm's K0 is the Laplace only
+            tol = ROW_KERNELS[kname][3] if dt == f32 else 1e-12
+            yk = fn(u, bt)
+            torch.cuda.synchronize()
+            err = (yk - yp).abs().max().item()
+            rel = err / yp.abs().max().item()
+            check(rel <= tol, f"{kname} {name}: max error {rel:.3e} of "
+                  f"max|y| (limit {tol:g})")
+            del yk
+            k3t, kt = turns("K3", lambda: k3(u, bt), kname,
+                            lambda: fn(u, bt))
+            ms = sum(kt) / 2
+            cms = call_ms(lambda: fn(u, bt))
+            print(f"{kname} {name}: max abs err {err:.3e} (rel {rel:.3e}, "
+                  f"limit {tol:g}); device time {ms * 1e3:.2f} us ("
+                  f"{node_bytes * grid2.n_nodes / (ms * 1e-3) / 1e9:.0f} GB/s "
+                  f"at {node_bytes} B/node), K3 {sum(k3t) / 2 * 1e3:.2f} us; "
+                  f"per call with launch {cms * 1e3:.2f} us")
+            err_max[kname] = max(err_max[kname], err)
+            if name == "1024^2 p=3":
+                ms_at[kname] = ms
+        del u, yp, bt
+    # the yardstick for the row stage alone: one dense product by the
+    # whole row coupling [A0 | B0] of the stacked column-stage outputs
+    bt = stencil2.laplace2_bands(g2[3], dev, f32)
+    n0, n1 = g2[3].nodes
+    coupling = torch.cat([stencil3.band_matrix(bt.a0),
+                          stencil3.band_matrix(bt.b0)], dim=1).contiguous()
+    vw = torch.as_tensor(rng.standard_normal((2 * n0, n1)), dtype=f32,
+                         device=dev)
+    mm_ms = device_ms(lambda: torch.matmul(coupling, vw))
+    print(f"torch.matmul of the dense row coupling [A0 | B0] [V; W] alone "
+          f"at 1024^2, ({n0} x {2 * n0})({2 * n0} x {n1}) float32: "
+          f"{mm_ms * 1e3:.2f} us (a yardstick for the row stage only, not "
+          f"for the whole apply)")
+    del coupling, vw
+    # each mode through its public path, the counts reset just before
+    u = torch.as_tensor(rng.standard_normal(g2[3].nodes), dtype=f32,
+                        device=dev)
+    paths = [(f"make_padded_laplace2(rows={r!r})",
+              stencil2.make_padded_laplace2(g2[3], dev, f32, rows=r), k)
+             for r, k in (("vpu", "laplace2"), ("mxu", "K3/mxu"),
+                          ("mxu3", "K3/mxu3"), ("mxu3p", "K3/mxu3p"))]
+    paths += [("best_padded_laplace(rows=None)",
+               fast.best_padded_laplace(g2[3], dev, f32), "laplace2"),
+              ("best_padded_laplace(rows='mxu3p')",
+               fast.best_padded_laplace(g2[3], dev, f32, rows="mxu3p"),
+               "K3/mxu3p"),
+              ("make_padded_laplace (K0)",
+               stencil.make_padded_laplace(g2[3], dev, f32), "K0")]
+    launches = {}
+    for name, (apply, pad, unpad, _), want in paths:
+        reset_counts()
+        y = unpad(apply(pad(u)))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"{name} at 1024^2 ({apply.options}): launches {counts}")
+        check(counts[want] == 1 and sum(counts.values()) == 1,
+              f"{name}: did not launch {want} alone, once")
+        check(y.shape == g2[3].nodes and bool(torch.isfinite(y).all()),
+              f"{name}: output not finite or of the wrong shape")
+        if name.startswith("make_padded"):
+            launches[want] = counts[want]
+    return err_max, ms_at, plain_at, launches
+
+
+def split_phase(rng, dev, sizes):
+    """Phase 10: the split cut apply on the flagship disc against K1's
+    apply of the same assembled band.  Returns the launches of K3/mxu3p
+    over the split applies' main-path runs."""
+    import torch
+
+    from gdm_torch.cut import fastapply
+    from gdm_torch.entry import flagship_operators
+    from gdm_torch.ops import stencil2
+
+    f32 = torch.float32
+    mxu3p_launches = 0
+    for n in sizes:
+        t0 = time.perf_counter()
+        grid, op, mass, stiff = flagship_operators(n)
+        print(f"split apply {n}^2: host setup {time.perf_counter() - t0:.2f} "
+              f"s")
+        for kind, st in (("mass", mass), ("stiff", stiff)):
+            pairs = fastapply.kron_pairs(grid, kind)
+            ident = kind == "mass"   # the flagship stiffness has zero rows
+            t0 = time.perf_counter()
+            split = fastapply.make_fast_cut_apply(st, op, pairs, dev, f32,
+                                                  inactive_identity=ident)
+            split_s = time.perf_counter() - t0
+            split_vpu = fastapply.make_fast_cut_apply(
+                st, op, pairs, dev, f32, rows="vpu", inactive_identity=ident)
+            k1 = fastapply.fast_stencil_apply(st, device=dev, dtype=f32)
+            check(split.separable.kernel is stencil2.laplace2_mxu3p_apply,
+                  "make_fast_cut_apply's default is not K3/mxu3p")
+            u = torch.as_tensor(rng.standard_normal(grid.n_nodes), dtype=f32,
+                                device=dev)
+            reset_counts()
+            y = split(u)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts["K3/mxu3p"] == 1 and sum(counts.values()) == 1,
+                  f"split {kind} {n}^2: launches {counts}")
+            mxu3p_launches += counts["K3/mxu3p"]
+            yk1 = k1(u)
+            yv = split_vpu(u)
+            torch.cuda.synchronize()
+            scale = yk1.abs().max().item()
+            err = (y - yk1).abs().max().item()
+            err_v = (yv - yk1).abs().max().item()
+            print(f"split {kind} {n}^2: {split.n_corrections} correction rows "
+                  f"of {grid.n_nodes} nodes ({st.radius * 2 + 1}^2 taps), "
+                  f"setup {split_s:.2f} s; launches {counts}; against K1: "
+                  f"mxu3p max abs err {err:.3e} (rel {err / scale:.3e}), vpu "
+                  f"{err_v:.3e} (rel {err_v / scale:.3e})")
+            check(y.shape == (grid.n_nodes,) and bool(torch.isfinite(y).all()),
+                  f"split {kind} {n}^2: output not finite or misshapen")
+            check(err <= 1e-4 * scale, f"split {kind} {n}^2 mxu3p: max error "
+                  f"{err / scale:.3e} of max|y|")
+            check(err_v <= 1e-5 * scale, f"split {kind} {n}^2 vpu: max error "
+                  f"{err_v / scale:.3e} of max|y|")
+            for name, fn in (("split mxu3p", split), ("split vpu", split_vpu)):
+                (k1a, k1b), (sa, sb) = turns("K1", lambda: k1(u), name,
+                                             lambda: fn(u))
+                ck1, cs = call_ms(lambda: k1(u)), call_ms(lambda: fn(u))
+                print(f"  {kind} {n}^2 {name}: device "
+                      f"{(sa + sb) / 2 * 1e3:.2f} us vs K1 "
+                      f"{(k1a + k1b) / 2 * 1e3:.2f} us; per call "
+                      f"{cs * 1e3:.2f} us vs K1 {ck1 * 1e3:.2f} us")
+            del u, y, yk1, yv
+    return mxu3p_launches
+
+
 def solve_phase(dim, n, dev, f32, f64, n_check):
-    """Phases 9 (dim 2) and 10 (dim 3): the public Poisson solve on the
+    """Phases 11 (dim 2) and 12 (dim 3): the public Poisson solve on the
     card.  Returns the launch counts of its main-path run and the largest
     kernel-vs-plain error over its level shapes."""
     import torch
@@ -529,7 +792,7 @@ def main():
           f"{xp.abs().max().item():.3e}")
     k2_ms = device_ms(lambda: resident.resident_cg(b, x0, *args))
     k2_call_ms = call_ms(lambda: resident.resident_cg(b, x0, *args), n=20)
-    k2_plain_ms = device_ms(
+    k2_plain_ms = profiled_ms(
         lambda: resident.resident_cg_plain(b, x0, *args), n=5)
     k2_plain_call_ms = call_ms(
         lambda: resident.resident_cg_plain(b, x0, *args), n=20)
@@ -781,6 +1044,11 @@ def main():
             k5_err = max(k5_err, err)
     del u, y, yp
 
+    # ---- K3's row modes and K0, then the split cut apply ------------------
+    row_err, row_ms, row_plain_ms, row_launches = row_phase(
+        rng, dev, g2, g4096, four)
+    row_launches["K3/mxu3p"] = split_phase(rng, dev, (N_GRID, 512))
+
     # ---- the uncut Poisson solves through the public entry point -----------
     counts2, err2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
     check(counts2["laplace2"] > 0, "K3 never launched on the 2D solve")
@@ -789,6 +1057,7 @@ def main():
     check(counts3["laplace3"] == 0,
           "K4 launched on the 3D solve, where gdm's dispatch takes K5")
     k3_err, k5_err = max(k3_err, err2), max(k5_err, err3)
+
 
     def row(name, source, replaces, launches, err, ms, pms, bnd):
         return {"name": name, "route": "cuda", "source": source,
@@ -815,6 +1084,9 @@ def main():
               at, tc_launches[k], tc_err[k], tc_ms[k], tc_plain_ms,
               separable_bound(g2[3].n_nodes, 7, 4))
           for k, (b, at) in TC_BUILDERS.items()),
+        *(row(f"{fn} ({k})", src, at, row_launches[k], row_err[k],
+              row_ms[k], row_plain_ms, separable_bound(g2[3].n_nodes, 7, 4))
+          for k, (fn, src, at, _) in ROW_KERNELS.items()),
         row("laplace3_apply (K4)", "gdm_torch/csrc/laplace3.cu",
             "gdm/ops/pallas_stencil2.py:1056", k4_launches, k4_err, k4_ms,
             k4_plain_ms, separable_bound(g3.n_nodes, 7, 7)),

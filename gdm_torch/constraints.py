@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import device as _device
 from .grid import Grid
 
 
@@ -39,21 +40,24 @@ class Constraints:
         # other operand's dtype
         self._zero = torch.zeros((), device=self.device)
 
+    # the builders run on the card unless device="cpu" is asked for
     @staticmethod
-    def none(grid: Grid, device="cpu") -> "Constraints":
+    def none(grid: Grid, device="cuda") -> "Constraints":
         return Constraints(grid, np.zeros(grid.field_shape, dtype=bool),
-                           device=device)
+                           device=_device.resolve(device))
 
     @staticmethod
     def zero_boundary(grid: Grid, surfaces=None,
-                      device="cpu") -> "Constraints":
-        return Constraints(grid, grid.boundary_mask(surfaces), device=device)
+                      device="cuda") -> "Constraints":
+        return Constraints(grid, grid.boundary_mask(surfaces),
+                           device=_device.resolve(device))
 
     @staticmethod
-    def periodic(grid: Grid, axes=None, device="cpu") -> "Constraints":
+    def periodic(grid: Grid, axes=None, device="cuda") -> "Constraints":
         axes = tuple(range(grid.dim)) if axes is None else tuple(axes)
         mask = np.zeros(grid.field_shape, dtype=bool)
-        return Constraints(grid, mask, periodic_axes=axes, device=device)
+        return Constraints(grid, mask, periodic_axes=axes,
+                           device=_device.resolve(device))
 
     @property
     def full_mask(self) -> np.ndarray:

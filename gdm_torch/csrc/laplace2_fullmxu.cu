@@ -10,9 +10,8 @@
 // Bound on the card: K3's (memory, 2.51 us at 1024^2 p = 3 in float32).
 // Both stages become dense window products on the tensor cores: the
 // column stage as K3c's ([V | W] = U_tile . C), the row stage as
-// y_tile = A0w . V + B0w . W, where A0w and B0w are the tile's
-// tile_r x (tile_r + 2p) windows of A0 and B0 (gdm's Bcat, split in two
-// so that V and W stay side by side as the column product leaves them).
+// y_tile = A0w . V + B0w . W over the tile's row windows of A0 and B0
+// (tc_window.cuh).
 // The row product's depth is the extended tile, so it costs about
 // 4 (tile_r + 2p) flops per output (3x for 3xTF32) against the band's
 // 4(2p+1): the price of taking the row stage off the FMA units.
@@ -29,27 +28,6 @@
 namespace {
 
 using namespace gdm::tc;
-
-// A0w[r][s] = A0(i0 + r, s - r) for 0 <= s - r <= 2p, zero elsewhere and
-// on rows past tile_r or the grid; B0w likewise.  Rows rnd(tile_r, 16),
-// columns m, pitch ldw.
-template <typename T, int P>
-__device__ void build_row_windows(T* aw, T* bw, const T* __restrict__ a0,
-                                  const T* __restrict__ b0,
-                                  const Tile<P>& g, int i0, int n0, int tid) {
-  constexpr int K = 2 * P + 1;
-  const int rows = rnd(g.tile_r, 16);
-  const int ldw = g.ldw();
-  for (int e = tid; e < rows * g.m; e += NT) {
-    const int r = e / g.m;
-    const int s = e % g.m;
-    const int t = s - r;
-    const bool in = r < g.tile_r && i0 + r < n0 && t >= 0 && t < K;
-    const size_t at = static_cast<size_t>(i0 + r) * K + t;
-    aw[r * ldw + s] = in ? a0[at] : T(0);
-    bw[r * ldw + s] = in ? b0[at] : T(0);
-  }
-}
 
 template <typename T, int P>
 __global__ void __launch_bounds__(NT)
@@ -76,7 +54,11 @@ laplace2_fullmxu_kernel(const T* __restrict__ u, const T* __restrict__ a0,
 
   load_u_tile<T, P>(ut, u, g, i0, j0, n0, n1, tid, NT);
   build_c<T, P>(ct, a1, b1, j0, n1, tid, NT);
-  build_row_windows<T, P>(aw, bw, a0, b0, g, i0, n0, tid);
+  build_row_windows<T, P>(a0, b0, g, i0, n0, tid, NT,
+                          [=](int r, int s, T a, T b) {
+                            aw[r * ldw + s] = a;
+                            bw[r * ldw + s] = b;
+                          });
   __syncthreads();
   col_mma<T, P>(ut, ct, vw, nullptr, 0, g.m, warp, NW, lane);
   __syncthreads();

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import device as _device
 from .grid import Grid
 from .ops.tensor import integrate_to_nodes, quad_points_1d
 
@@ -19,12 +20,14 @@ def quad_mesh(grid: Grid, nq: int = None):
     return np.meshgrid(*pts, indexing="ij")
 
 
-def load_vector(grid: Grid, fn, t=None, nq: int = None, device="cpu",
+def load_vector(grid: Grid, fn, t=None, nq: int = None, device="cuda",
                 dtype=torch.float64) -> torch.Tensor:
-    """F_a = (phi_a, f) over the full domain, a field on ``device``.
+    """F_a = (phi_a, f) over the full domain, a field on ``device`` (the
+    card unless ``device="cpu"`` is asked for).
 
     fn(coords_list, component[, t]) -> array over the quadrature mesh.
     """
+    device = _device.resolve(device)
     mesh = quad_mesh(grid, nq)
     comps = []
     for c in range(grid.n_components):

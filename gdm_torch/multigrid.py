@@ -63,8 +63,11 @@ class Transfer:
     cols: tuple          # the columns j with any nonzero coefficient
 
 
-def make_transfer(table, offsets, device="cpu",
+def make_transfer(table, offsets, device="cuda",
                   dtype=torch.float64) -> Transfer:
+    """The transfer band of (table, offsets) on ``device`` (the card
+    unless ``device="cpu"`` is asked for)."""
+    device = _device.resolve(device)
     Tb, lo = _realigned_band(table, offsets)
     cols = tuple(j for j in range(Tb.shape[1]) if Tb[:, j].any())
     return Transfer(torch.as_tensor(Tb, dtype=dtype, device=device), lo,
@@ -160,7 +163,7 @@ class PoissonMultigrid:
         while True:
             cons = Constraints.zero_boundary(g, device=self.device)
             diag = np.where(cons.full_mask, 1.0,
-                            operators.laplace(g).diagonal())
+                            operators.laplace(g, device="cpu").diagonal())
             base_apply, _ = best_field_laplace(g, self.device, dtype)
             self.levels.append(Level(
                 g, cons.constrain_operator(base_apply), cons.full_t,
@@ -222,8 +225,9 @@ def _coarse_inverse(gc: Grid) -> np.ndarray:
     """The dense inverse of the constrained exact Laplace on ``gc``, in
     float64 on the host, with identity rows and columns on the
     constrained dofs (as gdm builds it)."""
-    cons = Constraints.zero_boundary(gc)
-    apply_exact = cons.constrain_operator(operators.laplace(gc).apply)
+    cons = Constraints.zero_boundary(gc, device="cpu")
+    apply_exact = cons.constrain_operator(
+        operators.laplace(gc, device="cpu").apply)
     n = gc.n_dofs
     eye = torch.eye(n, dtype=torch.float64).reshape((n,) + gc.field_shape)
     Ad = apply_exact(eye).reshape(n, n).numpy().T.copy()

@@ -2,13 +2,15 @@
 
 Port of gdm/operators.py: the same Kronecker factors of banded 1D
 matrices (host numpy, gdm_torch/ops1d.py), applied in torch on
-``device`` in ``dtype``.
+``device`` in ``dtype``.  Every builder runs on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import device as _device
 from .grid import Grid
 from .ops.tensor import SeparableOperator
 from .ops1d import assemble_1d
@@ -22,7 +24,7 @@ def _per_axis(grid: Grid, kind_per_axis, nq=None):
             for d in range(grid.dim)]
 
 
-def mass(grid: Grid, nq: int = None, device="cpu",
+def mass(grid: Grid, nq: int = None, device="cuda",
          dtype=F64) -> SeparableOperator:
     """(v, u) per component."""
     bands = _per_axis(grid, [(0, 0)] * grid.dim, nq)
@@ -30,7 +32,7 @@ def mass(grid: Grid, nq: int = None, device="cpu",
     return SeparableOperator.from_banded(grid, terms, device, dtype)
 
 
-def laplace(grid: Grid, nq: int = None, device="cpu",
+def laplace(grid: Grid, nq: int = None, device="cuda",
             dtype=F64) -> SeparableOperator:
     """(grad v, grad u) per component."""
     terms = []
@@ -41,7 +43,7 @@ def laplace(grid: Grid, nq: int = None, device="cpu",
     return SeparableOperator.from_banded(grid, terms, device, dtype)
 
 
-def advection(grid: Grid, velocity, nq: int = None, device="cpu",
+def advection(grid: Grid, velocity, nq: int = None, device="cuda",
               dtype=F64) -> SeparableOperator:
     """(v, a . grad u) per component, constant velocity vector ``a``."""
     terms = []
@@ -55,16 +57,17 @@ def advection(grid: Grid, velocity, nq: int = None, device="cpu",
     return SeparableOperator.from_banded(grid, terms, device, dtype)
 
 
-def lumped_mass_inverse_diagonal(grid: Grid, nq: int = None, device="cpu",
+def lumped_mass_inverse_diagonal(grid: Grid, nq: int = None, device="cuda",
                                  dtype=F64) -> torch.Tensor:
     """Inverted row-sum (lumped) mass matrix as a diagonal field:
     diag[i] = 1 / sum_j M[i, j], computed matrix-free as 1 / (M @ ones)."""
+    device = _device.resolve(device)
     M = mass(grid, nq, device, dtype)
     ones = torch.ones(grid.field_shape, dtype=dtype, device=device)
     return 1.0 / M.apply(ones)
 
 
-def elasticity(grid: Grid, nq: int = None, device="cpu",
+def elasticity(grid: Grid, nq: int = None, device="cuda",
                dtype=F64) -> SeparableOperator:
     """2 (eps(v), eps(u)) for a dim-component displacement field (the
     symmetric-gradient form; see gdm/operators.py::elasticity)."""

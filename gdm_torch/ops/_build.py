@@ -79,7 +79,9 @@ def _declare(lib):
         fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
         fn.restype = I
         for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_fullmxu", 1),
-                           ("laplace2_hybrid", 2), ("laplace2_hybp", 2)):
+                           ("laplace2_hybrid", 2), ("laplace2_hybp", 2),
+                           ("laplace2_mxu", 1), ("laplace2_mxu3", 1),
+                           ("laplace2_mxu3p", 1), ("laplace2_v1", 1)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
             fn.restype = I

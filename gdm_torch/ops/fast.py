@@ -3,12 +3,21 @@ uncut Poisson and multigrid solves.
 
 Port of gdm/ops/fast.py.  ``laplace_apply_fn`` acts on bare
 (N0, ..., N_{dim-1}) fields: in 2D and 3D it is the kernel that
-``best_padded_laplace`` picks, as gdm's dispatch of the same name
-(gdm/ops/pallas_stencil2.py) does: K3 in 2D; in 3D K5 while
-N0 + 2p <= 512 and K4 above (gdm_torch/ops/stencil2.py, stencil3.py).
-Their wrappers launch the CUDA kernel for a CUDA tensor and the plain
-torch twin for a CPU tensor.  In 1D it is the separable band sweep.
-Every entry point here defaults to the card (``device="cuda"``).
+``best_padded_laplace`` picks, the port of gdm's dispatch of the same
+name (gdm/ops/pallas_stencil2.py): in 2D K3 with the row stage that
+``rows=`` names (gdm_torch/ops/stencil2.py), in 3D K5 while
+N0 + 2p <= 512 and K4 above (stencil3.py).  Their wrappers launch the
+CUDA kernel for a CUDA tensor and the plain torch twin for a CPU
+tensor.  In 1D it is the separable band sweep.  Every entry point here
+defaults to the card (``device="cuda"``).
+
+The 2D default differs from gdm's.  gdm returns ``rows or "mxu3p"``, its
+bf16x3 row products (about 1e-6 relative), a choice its docstring
+grounds in v5e timing, with a tile rule (96/128/160 rows) swept on the
+v5e too.  Neither carries over: with ``rows=None`` the card runs K3's
+float32-exact ``"vpu"`` row stage, the one the uncut solves use; any row
+mode gdm accepts runs its own kernel when it is asked for, at the card's
+tile (``stencil2.tc_options``).
 
 gdm rode its Pallas kernels only on a TPU and only above
 ``min_dofs=200_000`` nodes, because of the TPU's 128-lane padding.  The
@@ -45,15 +54,23 @@ def _bands(grid: Grid, device, dtype):
     return bs, bm
 
 
-def best_padded_laplace(grid: Grid, device="cuda", dtype=torch.float32):
-    """(apply, pad, unpad, shape) of the 2D/3D Laplace kernel gdm's
-    dispatch picks: K3 in 2D; in 3D K5 when N0 + 2p <= 512, else K4."""
+def best_padded_laplace(grid: Grid, device="cuda", dtype=torch.float32,
+                        rows=None):
+    """(apply, pad, unpad, shape) of the 2D/3D Laplace kernel: in 2D K3
+    with the row stage ``rows`` ("vpu", K3 itself, when None; "mxu",
+    "mxu3" or "mxu3p", that mode's kernel), in 3D, as in gdm, K5 when
+    N0 + 2p <= 512, else K4 (``rows`` is the 2D row stage and must be
+    None there)."""
     if grid.dim == 3:
+        if rows is not None:
+            raise ValueError(f"rows={rows!r} is the 2D row stage; the 3D "
+                             f"kernels take none")
         if grid.nodes[0] + 2 * grid.degree <= 512:
             return make_padded_laplace3_mxu(grid, device, dtype)
         return make_padded_laplace3(grid, device, dtype)
     if grid.dim == 2:
-        return make_padded_laplace2(grid, device, dtype)
+        return make_padded_laplace2(grid, device, dtype,
+                                    rows="vpu" if rows is None else rows)
     raise ValueError(f"no padded Laplace kernel for a {grid.dim}D grid")
 
 

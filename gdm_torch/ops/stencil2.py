@@ -3,7 +3,11 @@ y = A0 U A1^T + B0 U B1^T.
 
 Port of gdm/ops/pallas_stencil2.py: ``make_padded_laplace2`` (K3, the
 TPU kernel that gdm/ops/fast.py::best_field_laplace routes the uncut
-Poisson CG operator and every multigrid level through) and five other
+Poisson CG operator and every multigrid level through, with gdm's four
+row stages behind its ``rows=`` keyword: ``"vpu"``, K3's FMA row stage;
+``"mxu"``, K3/mxu, the row stage as a window product on the tensor cores
+at float32 fidelity; ``"mxu3"``, K3/mxu3, the same product as bf16x3;
+``"mxu3p"``, K3/mxu3p, K3/mxu3 pipelined across tiles) and five other
 schedules of the same operator that no solve dispatch routes to, in gdm
 or here: ``make_padded_laplace2_stream`` (K3s, streamed down the rows),
 ``make_padded_laplace2_mxucol`` (K3c, the column stage on the tensor
@@ -18,10 +22,12 @@ card.  Each wrapper (``laplace2_apply``, ``laplace2_stream_apply``,
 and runs its plain torch twin for a CPU tensor; there is no other
 switch.  Every twin is K3's plain column-then-row computation.
 
-K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes,
-not the bf16x3 row products of gdm's TPU default; the tensor-core
-schedules run their products as 3xTF32 in float32 and on the DMMA units
-in float64.  The node array is the contiguous (N0, N1) field itself:
+K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes;
+the tensor-core schedules run their products as 3xTF32 in float32 and on
+the DMMA units in float64, except the bf16x3 row products of K3/mxu3 and
+K3/mxu3p in float32 (about 16 bits of each operand: within 1e-5 of
+max|y| on the card; in float64 they are DMMA products too).  The node
+array is the contiguous (N0, N1) field itself:
 gdm's guard rows and 128-lane padding existed for aligned TPU DMAs, so
 here ``pad`` and ``unpad`` are reshapes and cost no copy.
 """
@@ -58,10 +64,12 @@ class Bands2:
         return (self.a0.shape[0], self.a1.shape[0])
 
 
-def laplace2_bands(grid: Grid, device="cpu", dtype=torch.float32,
+def laplace2_bands(grid: Grid, device="cuda", dtype=torch.float32,
                    bands=None) -> Bands2:
-    """The band tables for ``grid``: ``bands=(A0, A1, B0, B1)`` numpy
+    """The band tables for ``grid`` on ``device`` (the card unless
+    ``device="cpu"`` is asked for): ``bands=(A0, A1, B0, B1)`` numpy
     arrays, or by default the GD Laplace (S0, M1, M0, S1)."""
+    device = _device.resolve(device)
     if grid.dim != 2:
         raise ValueError(f"K3 and its schedules are the 2D apply; the "
                          f"grid is {grid.dim}D")
@@ -145,24 +153,11 @@ def laplace2_stream_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 laplace2_stream_apply.launches = 0
 
 
-def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
-                         bands=None):
-    """(apply, pad, unpad, shape) of K3 as in gdm, for any odd p <= 15.
-
-    bands: optional (A0, A1, B0, B1) numpy band matrices ((N_d, 2p+1)
-    each, the Banded1D.band layout) generalizing the operator to
-    y = A0 U A1^T + B0 U B1^T.  Default: the Laplace (S0, M1, M0, S1).
-    The "padded" array is the (N0, N1) node array itself.
-    """
-    bt = laplace2_bands(grid, _device.resolve(device), dtype, bands)
-    return padded_apply(bt, laplace2_apply, laplace2_apply_plain)
-
-
 def make_padded_laplace2_stream(grid: Grid, device="cuda",
                                 dtype=torch.float32, bands=None):
     """(apply, pad, unpad, shape) of K3s, the streamed K3: the same
     operator, band tables and node array as ``make_padded_laplace2``."""
-    bt = laplace2_bands(grid, _device.resolve(device), dtype, bands)
+    bt = laplace2_bands(grid, device, dtype, bands)
     return padded_apply(bt, laplace2_stream_apply,
                         laplace2_stream_apply_plain)
 
@@ -178,37 +173,62 @@ def _rnd(n: int, m: int) -> int:
 
 
 def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
-    """Shared memory of one block of the tensor-core schedule ``kernel``
-    ("mxucol", "fullmxu", "hybrid" or "hybp") at degree p with tile_r
-    output rows, as csrc/tc_window.cuh's ``Tile`` lays it out: the u
-    tile, the C slice, [V | W], the A0/B0 band rows (K3f: its row
-    windows instead), the MMA warps' scratch tiles (K3h, K3p), and in
-    K3p two u tiles, three band slots and two [V | W] buffers."""
+    """Shared memory of one block of the tensor-core kernel ``kernel``
+    ("mxucol", "fullmxu", "hybrid", "hybp", "mxu", "mxu3", "mxu3p" or
+    "v1") at degree p with tile_r output rows, as csrc/tc_window.cuh's
+    ``Tile`` and the kernels lay it out: the u tile, the C slice,
+    [V | W], the A0/B0 band rows or row windows, the MMA warps' scratch
+    tiles (K3h, K3p, K3/mxu3p), and in K3p and K3/mxu3p two u tiles and
+    two operand slots.  K3/mxu3 and K3/mxu3p keep [V | W] and the row
+    windows as bf16 hi/lo pairs in float32; K0 ("v1") keeps the u tile
+    with its columns padded to 16 and the row products ts, tm.  The
+    row modes and K0 start each array on a 128-byte line."""
     tx = 32
-    kd = _rnd(tx + 2 * p, 8)
+    uw = tx + 2 * p
+    kd = _rnd(uw, 8)
     m = _rnd(tile_r + 2 * p, 16)
+    rows = _rnd(tile_r, 16)
+    ldv = 2 * tx + 4
     u = _rnd(m * (kd + 4), 32)
-    c = _rnd(kd * (2 * tx + 4), 32)
-    vw = _rnd(m * (2 * tx + 4), 32)
+    c = _rnd(kd * ldv, 32)
+    vw = _rnd(m * ldv, 32)
     r = _rnd(2 * tile_r * (2 * p + 1), 32)
     scr = 4 * 256
-    n = {"mxucol": u + c + vw + r,
-         "fullmxu": u + c + vw + _rnd(2 * _rnd(tile_r, 16) * (m + 4), 32),
-         "hybrid": u + c + vw + r + scr,
-         "hybp": 2 * u + 3 * r + 2 * vw + c + scr}[kernel]
-    return n * itemsize
+    elems = {"mxucol": u + c + vw + r,
+             "fullmxu": u + c + vw + _rnd(2 * rows * (m + 4), 32),
+             "hybrid": u + c + vw + r + scr,
+             "hybp": 2 * u + 3 * r + 2 * vw + c + scr}
+    if kernel in elems:
+        return elems[kernel] * itemsize
+
+    def line(n, size=itemsize):
+        return _rnd(n * size, 128)
+
+    if kernel == "v1":
+        ldp = _rnd(uw, 16) + 4
+        return (line(m * ldp) + 2 * line(rows * (m + 4)) + line(c)
+                + 2 * line(rows * ldp))
+    if itemsize == 4 and kernel in ("mxu3", "mxu3p"):
+        ops = 2 * line(m * (2 * tx + 8), 2) + 4 * line(rows * (m + 8), 2)
+    else:
+        ops = line(m * ldv) + 2 * line(rows * (m + 4))
+    if kernel in ("mxu", "mxu3"):
+        return line(u) + line(c) + ops
+    if kernel == "mxu3p":
+        return 2 * line(u) + line(c) + 2 * ops + line(scr)
+    raise ValueError(f"no tensor-core kernel {kernel!r}")
 
 
 def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
-    """The card's tile of a tensor-core schedule: {"tile_r": ..} and, for
+    """The card's tile of a tensor-core kernel: {"tile_r": ..} and, for
     "hybrid" and "hybp", {"vpu_rows": ..}.
 
     tile_r, the block's output rows: by default the largest of 64, 48,
-    32, 16 whose tile fits one H100 block at this degree and dtype (64
-    for every p <= 15 in float32; in float64 48 for K3f at p = 13-15,
-    and for K3p 48 at p = 7 and 32 at p = 9-15).  As in gdm, K3c, K3h
-    and K3p clamp it to N0 rounded up to 8.  A tile that does not fit
-    raises.
+    32, 16 whose tile fits one H100 block at this degree and dtype (see
+    ``tc_smem_bytes``; 64 for K3c, K3f, K3h, K3p, K3/mxu and K3/mxu3 at
+    every p <= 15 in float32; smaller for K3/mxu3p at high p and for
+    several kernels in float64).  As in gdm, every kernel but K3f clamps
+    it to N0 rounded up to 8.  A tile that does not fit raises.
 
     vpu_rows, the rows of the extended tile (tile_r + 2p rows) whose
     column stage runs on the FMA units, the rest on the tensor cores:
@@ -248,7 +268,10 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
     return {"tile_r": tile_r, "vpu_rows": min(int(vpu_rows), t_ext)}
 
 
-def _tc_apply(u, bt, kernel, what, wrapper, plain, tile_r, vpu_rows=None):
+def tc_apply(u, bt, kernel, what, wrapper, plain, tile_r, vpu_rows=None):
+    """The wrapper of tensor-core kernel ``kernel`` (named ``what``):
+    its plain twin for a CPU tensor, else the kernel, counted on
+    ``wrapper.launches``."""
     _check(u, bt)
     opts = tc_options(kernel, bt, tile_r, vpu_rows)
     if u.device.type == "cpu":
@@ -269,8 +292,8 @@ def laplace2_mxucol_apply(u: torch.Tensor, bt: Bands2,
     """K3's operator through K3c (the column stage as a window product
     on the tensor cores, K3's row stage) for a CUDA tensor, the plain
     version for a CPU tensor."""
-    return _tc_apply(u, bt, "mxucol", "K3c", laplace2_mxucol_apply,
-                     laplace2_mxucol_apply_plain, tile_r)
+    return tc_apply(u, bt, "mxucol", "K3c", laplace2_mxucol_apply,
+                    laplace2_mxucol_apply_plain, tile_r)
 
 
 laplace2_mxucol_apply.launches = 0
@@ -286,8 +309,8 @@ def laplace2_fullmxu_apply(u: torch.Tensor, bt: Bands2,
     """K3's operator through K3f (both stages as window products on the
     tensor cores) for a CUDA tensor, the plain version for a CPU
     tensor."""
-    return _tc_apply(u, bt, "fullmxu", "K3f", laplace2_fullmxu_apply,
-                     laplace2_fullmxu_apply_plain, tile_r)
+    return tc_apply(u, bt, "fullmxu", "K3f", laplace2_fullmxu_apply,
+                    laplace2_fullmxu_apply_plain, tile_r)
 
 
 laplace2_fullmxu_apply.launches = 0
@@ -303,8 +326,8 @@ def laplace2_hybrid_apply(u: torch.Tensor, bt: Bands2, tile_r=None,
     """K3's operator through K3h (the column stage split by rows between
     FMA warps and tensor-core warps) for a CUDA tensor, the plain
     version for a CPU tensor."""
-    return _tc_apply(u, bt, "hybrid", "K3h", laplace2_hybrid_apply,
-                     laplace2_hybrid_apply_plain, tile_r, vpu_rows)
+    return tc_apply(u, bt, "hybrid", "K3h", laplace2_hybrid_apply,
+                    laplace2_hybrid_apply_plain, tile_r, vpu_rows)
 
 
 laplace2_hybrid_apply.launches = 0
@@ -320,11 +343,105 @@ def laplace2_hybp_apply(u: torch.Tensor, bt: Bands2, tile_r=None,
     """K3's operator through K3p (K3h pipelined across the tiles of a
     column strip by persistent blocks) for a CUDA tensor, the plain
     version for a CPU tensor."""
-    return _tc_apply(u, bt, "hybp", "K3p", laplace2_hybp_apply,
-                     laplace2_hybp_apply_plain, tile_r, vpu_rows)
+    return tc_apply(u, bt, "hybp", "K3p", laplace2_hybp_apply,
+                    laplace2_hybp_apply_plain, tile_r, vpu_rows)
 
 
 laplace2_hybp_apply.launches = 0
+
+
+# ---- K3/mxu, K3/mxu3, K3/mxu3p: K3's tensor-core row modes ----------
+
+def laplace2_mxu_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3/mxu: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
+
+
+def laplace2_mxu_apply(u: torch.Tensor, bt: Bands2,
+                       tile_r=None) -> torch.Tensor:
+    """K3's operator through K3/mxu (K3's FMA column stage, the row stage
+    as a 3xTF32 window product on the tensor cores; DMMA in float64) for
+    a CUDA tensor, the plain version for a CPU tensor."""
+    return tc_apply(u, bt, "mxu", "K3/mxu", laplace2_mxu_apply,
+                    laplace2_mxu_apply_plain, tile_r)
+
+
+laplace2_mxu_apply.launches = 0
+
+
+def laplace2_mxu3_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3/mxu3: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
+
+
+def laplace2_mxu3_apply(u: torch.Tensor, bt: Bands2,
+                        tile_r=None) -> torch.Tensor:
+    """K3's operator through K3/mxu3 (K3/mxu with the row product as
+    bf16x3 in float32, within about 1e-5 of max|y|) for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    return tc_apply(u, bt, "mxu3", "K3/mxu3", laplace2_mxu3_apply,
+                    laplace2_mxu3_apply_plain, tile_r)
+
+
+laplace2_mxu3_apply.launches = 0
+
+
+def laplace2_mxu3p_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
+    """The plain torch version of K3/mxu3p: K3's operator, so K3's twin."""
+    return laplace2_apply_plain(u, bt)
+
+
+def laplace2_mxu3p_apply(u: torch.Tensor, bt: Bands2,
+                         tile_r=None) -> torch.Tensor:
+    """K3's operator through K3/mxu3p (K3/mxu3 pipelined across the
+    tiles of a column strip by persistent blocks) for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    return tc_apply(u, bt, "mxu3p", "K3/mxu3p", laplace2_mxu3p_apply,
+                    laplace2_mxu3p_apply_plain, tile_r)
+
+
+laplace2_mxu3p_apply.launches = 0
+
+# rows= of make_padded_laplace2: (wrapper, plain twin, tensor-core kernel)
+ROWS = {"vpu": (laplace2_apply, laplace2_apply_plain, None),
+        "mxu": (laplace2_mxu_apply, laplace2_mxu_apply_plain, "mxu"),
+        "mxu3": (laplace2_mxu3_apply, laplace2_mxu3_apply_plain, "mxu3"),
+        "mxu3p": (laplace2_mxu3p_apply, laplace2_mxu3p_apply_plain, "mxu3p")}
+
+
+def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
+                         tile_r=None, rows="vpu", bands=None):
+    """(apply, pad, unpad, shape) of K3 as in gdm, for any odd p <= 15.
+
+    rows: gdm's row stage, one of ``ROWS``: "vpu" (K3, the FMA row
+    stage, float32-exact), "mxu" (K3/mxu, the row stage as a window
+    product on the tensor cores, 3xTF32: float32 fidelity, gdm's
+    HIGHEST), "mxu3" (K3/mxu3, that product as bf16x3, within about 1e-5
+    of max|y| in float32) or "mxu3p" (K3/mxu3p, K3/mxu3 pipelined across
+    tiles).  In float64 every mode is exact to float64 (DMMA products).
+    Any other value raises; gdm takes "vpu" for any unknown string.
+    tile_r: the card's tile of the row modes, as in ``tc_options``
+    (gdm's TPU tile rules do not carry over); K3's "vpu" tile is fixed
+    at 32 x 32, so there it must be None.  The resolved tile is
+    ``apply.options``.  gdm's ``mxu_precision``, ``pipeline_interleave``
+    and ``static_parity`` steer its TPU compiler's schedule and have no
+    counterpart on the card.
+
+    bands: optional (A0, A1, B0, B1) numpy band matrices ((N_d, 2p+1)
+    each, the Banded1D.band layout) generalizing the operator to
+    y = A0 U A1^T + B0 U B1^T.  Default: the Laplace (S0, M1, M0, S1).
+    The "padded" array is the (N0, N1) node array itself.
+    """
+    if rows not in ROWS:
+        raise ValueError(f"rows must be one of {sorted(ROWS)}, not {rows!r}")
+    kernel, plain, tc = ROWS[rows]
+    if tc is None and tile_r is not None:
+        raise ValueError(f"K3's rows='vpu' tile is fixed at 32 x 32 on the "
+                         f"card; tile_r={tile_r} is for the tensor-core row "
+                         f"modes")
+    bt = laplace2_bands(grid, device, dtype, bands)
+    options = {} if tc is None else tc_options(tc, bt, tile_r)
+    return padded_apply(bt, kernel, plain, **options)
 
 
 def make_padded_laplace2_mxucol(grid: Grid, device="cuda",
@@ -332,7 +449,7 @@ def make_padded_laplace2_mxucol(grid: Grid, device="cuda",
     """(apply, pad, unpad, shape) of K3c, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` as in ``tc_options``; the
     resolved tile is ``apply.options``."""
-    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    bt = laplace2_bands(grid, device, dtype)
     return padded_apply(bt, laplace2_mxucol_apply,
                         laplace2_mxucol_apply_plain,
                         **tc_options("mxucol", bt, tile_r))
@@ -343,7 +460,7 @@ def make_padded_laplace2_fullmxu(grid: Grid, device="cuda",
     """(apply, pad, unpad, shape) of K3f, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` as in ``tc_options`` (not
     clamped to N0, as in gdm)."""
-    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    bt = laplace2_bands(grid, device, dtype)
     return padded_apply(bt, laplace2_fullmxu_apply,
                         laplace2_fullmxu_apply_plain,
                         **tc_options("fullmxu", bt, tile_r))
@@ -355,7 +472,7 @@ def make_padded_laplace2_hybrid(grid: Grid, device="cuda",
     """(apply, pad, unpad, shape) of K3h, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` and ``vpu_rows`` as in
     ``tc_options`` (gdm's defaults, 376 and 136, were the TPU's)."""
-    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    bt = laplace2_bands(grid, device, dtype)
     return padded_apply(bt, laplace2_hybrid_apply,
                         laplace2_hybrid_apply_plain,
                         **tc_options("hybrid", bt, tile_r, vpu_rows))
@@ -366,6 +483,6 @@ def make_padded_laplace2_hybp(grid: Grid, device="cuda", dtype=torch.float32,
     """(apply, pad, unpad, shape) of K3p, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` and ``vpu_rows`` as in
     ``tc_options``."""
-    bt = laplace2_bands(grid, _device.resolve(device), dtype)
+    bt = laplace2_bands(grid, device, dtype)
     return padded_apply(bt, laplace2_hybp_apply, laplace2_hybp_apply_plain,
                         **tc_options("hybp", bt, tile_r, vpu_rows))

@@ -42,7 +42,10 @@ class Bands3:
         return tuple(b.shape[0] for b in self.s)
 
 
-def laplace3_bands(grid: Grid, device="cpu", dtype=torch.float32) -> Bands3:
+def laplace3_bands(grid: Grid, device="cuda", dtype=torch.float32) -> Bands3:
+    """The band tables for ``grid`` on ``device`` (the card unless
+    ``device="cpu"`` is asked for)."""
+    device = _device.resolve(device)
     if grid.dim != 3:
         raise ValueError(f"K4 and K5 are the 3D apply; the grid is "
                          f"{grid.dim}D")
@@ -150,12 +153,12 @@ laplace3_mxu_apply.launches = 0
 def make_padded_laplace3(grid: Grid, device="cuda", dtype=torch.float32):
     """(apply, pad, unpad, shape) of K4, odd p <= 7.  The "padded" array
     is the (N0, N1, N2) node array itself."""
-    bt = laplace3_bands(grid, _device.resolve(device), dtype)
+    bt = laplace3_bands(grid, device, dtype)
     return padded_apply(bt, laplace3_apply, laplace3_apply_plain)
 
 
 def make_padded_laplace3_mxu(grid: Grid, device="cuda", dtype=torch.float32):
     """(apply, pad, unpad, shape) of K5, odd p <= 7: K4's band tables and
     node array, the plane coupling as a tensor-core product."""
-    bt = laplace3_bands(grid, _device.resolve(device), dtype)
+    bt = laplace3_bands(grid, device, dtype)
     return padded_apply(bt, laplace3_mxu_apply, laplace3_mxu_apply_plain)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import basis, quadrature
+from .. import device as _device
 from ..grid import Grid
 
 
@@ -81,9 +82,11 @@ class SeparableOperator:
         ]
 
     @staticmethod
-    def from_banded(grid: Grid, terms, device="cpu",
+    def from_banded(grid: Grid, terms, device="cuda",
                     dtype=torch.float64) -> "SeparableOperator":
-        """terms: list of (ci, cj, coeff, [Banded1D per axis])."""
+        """terms: list of (ci, cj, coeff, [Banded1D per axis]); on the
+        card unless ``device="cpu"`` is asked for."""
+        device = _device.resolve(device)
         conv = [
             (ci, cj, float(co), tuple(np.asarray(b.band, np.float64)
                                       for b in bs))

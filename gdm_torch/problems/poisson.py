@@ -54,8 +54,8 @@ def system(grid: Grid, rhs_fn, precondition="jacobi", device="cuda",
 
         precond = PoissonMultigrid(grid, device, dtype).precondition
     elif precondition in ("jacobi", True):
-        diag = np.where(cons.full_mask, 1.0, operators.laplace(grid)
-                        .diagonal())
+        diag = np.where(cons.full_mask, 1.0,
+                        operators.laplace(grid, device="cpu").diagonal())
         precond = solvers.jacobi_preconditioner(
             torch.as_tensor(diag, dtype=dtype, device=device))
     elif precondition in ("none", None, False):

@@ -14,7 +14,11 @@ The separable Laplace kernels K3 and its schedules K3s, K3c, K3f, K3h
 and K3p (2D), K4 and K5 (3D) are held to the same 1e-5 / 1e-12 of
 max|y| against their plain twins (the tensor-core products of K5 and
 of the 2D schedules run as 3xTF32 in float32 and on the DMMA units in
-float64); the Poisson solve on the card to the CPU float64 solve's
+float64); so are K3's row modes K3/mxu (3xTF32) and K0, while K3/mxu3
+and K3/mxu3p, whose float32 row products are bf16x3 (each operand kept
+to about 16 significant bits), are held to 1e-4 of max|y| in float32
+(1e-12 in float64, DMMA); the split cut apply against K1 to the same
+class; the Poisson solve on the card to the CPU float64 solve's
 iteration count (float64: equal; float32: within 1).
 """
 
@@ -23,13 +27,14 @@ import pytest
 import torch
 
 import gdm_torch
+from gdm_torch.cut import fastapply
 from gdm_torch.cut.fsai import fsai_factors, verified_fsai_solver
 from gdm_torch.cut.geometry import INSIDE, CutGeometry
 from gdm_torch.cut.operators import CutOperators
 from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
 from gdm_torch.entry import flagship_operators
 from gdm_torch.grid import Grid
-from gdm_torch.ops import cutband, fast, resident, stencil2, stencil3
+from gdm_torch.ops import cutband, fast, resident, stencil, stencil2, stencil3
 from gdm_torch.problems import poisson
 
 DTYPES = [torch.float32, torch.float64]
@@ -545,3 +550,164 @@ def test_tc_wrappers_reject(cuda_device):
         stencil2.laplace2_hybp_apply(torch.zeros(g15.nodes, device=cuda_device,
                                                  dtype=torch.float64),
                                      bt15, tile_r=64)
+
+
+ROW_MODES = ["mxu", "mxu3", "mxu3p"]
+ROW_CASES = [
+    (1, (20, 20)),       # one block
+    (3, (40, 72)),       # ragged in both axes
+    (3, (150, 1024)),    # N0 not a multiple of the tile, N1 = 1025 (odd)
+    (7, (300, 140)),     # several tiles per strip
+    (15, (40, 33)),      # the largest degree, the smallest default tiles
+    (3, (1500, 2100)),   # K3/mxu3p: several tiles per segment
+]
+K0_CASES = [(1, (20, 20)), (3, (40, 72)), (3, (150, 1024)), (7, (300, 140))]
+
+
+def _row_tol(rows, dtype):
+    """bf16x3 row products (K3/mxu3, K3/mxu3p) in float32: 1e-4."""
+    if dtype == torch.float32 and rows in ("mxu3", "mxu3p"):
+        return 1e-4
+    return _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,cells", ROW_CASES)
+@pytest.mark.parametrize("rows", ROW_MODES)
+def test_laplace2_rows_match_plain(cuda_device, rows, p, cells, dtype):
+    """K3/mxu, K3/mxu3 and K3/mxu3p at their default tiles against K3's
+    twin."""
+    grid = Grid(p, cells, (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 13, dtype, cuda_device)
+    wrapper, plain, _ = stencil2.ROWS[rows]
+    before = wrapper.launches
+    yk = wrapper(u, bt)
+    assert wrapper.launches == before + 1
+    yp = plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(yk, yp) <= _row_tol(rows, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,cells", K0_CASES)
+def test_laplace_v1_matches_plain(cuda_device, p, cells, dtype):
+    """K0 (rows first, 3xTF32 / DMMA) against its twin and K3's."""
+    grid = Grid(p, cells, (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 14, dtype, cuda_device)
+    before = stencil.laplace_v1_apply.launches
+    yk = stencil.laplace_v1_apply(u, bt)
+    assert stencil.laplace_v1_apply.launches == before + 1
+    yp = stencil.laplace_v1_apply_plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(yk, yp) <= _tol(dtype)
+    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", ROW_MODES + ["k0"])
+def test_laplace2_rows_four_factor_bands(cuda_device, rows, dtype):
+    """Four distinct factors at an odd tile: a swap of the A and B
+    factors of one axis would fail."""
+    grid = Grid(3, (137, 45), (0.0, 0.0), (1.0, 1.0))
+    rng = np.random.default_rng(15)
+    n0, n1 = grid.nodes
+    bands = [rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1)]
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype, bands)
+    u = _rand(grid.nodes, 16, dtype, cuda_device)
+    if rows == "k0":
+        wrapper = stencil.laplace_v1_apply
+    else:
+        apply, pad, unpad, _ = stencil2.make_padded_laplace2(
+            grid, cuda_device, dtype, tile_r=37, rows=rows, bands=bands)
+        assert unpad(apply(pad(u))).equal(apply.kernel(u, bt, tile_r=37))
+        wrapper = stencil2.ROWS[rows][0]
+    yk = wrapper(u, bt, tile_r=37)
+    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _row_tol(rows,
+                                                                       dtype)
+    crossed = stencil2.laplace2_bands(
+        grid, cuda_device, dtype, (bands[0], bands[3], bands[2], bands[1]))
+    assert _rel(wrapper(u, crossed, tile_r=37), yk) > 1e-3
+
+
+def test_row_builders_launch_their_own_kernel(cuda_device):
+    """make_padded_laplace2(rows=r), the 2D dispatch and K0's builder
+    each launch their own kernel once per apply and no other kernel."""
+    grid = Grid(3, (100, 70), (0.0, 0.0), (1.0, 1.0))
+    u = _rand(grid.nodes, 17, torch.float32, cuda_device)
+    wrappers = {rows: w for rows, (w, _, _) in stencil2.ROWS.items()}
+    wrappers["k0"] = stencil.laplace_v1_apply
+    wrappers["k3s"] = stencil2.laplace2_stream_apply
+    built = {rows: stencil2.make_padded_laplace2(grid, cuda_device,
+                                                 rows=rows)
+             for rows in stencil2.ROWS}
+    built["k0"] = stencil.make_padded_laplace(grid, cuda_device)
+    built["vpu (dispatch)"] = fast.best_padded_laplace(grid, cuda_device)
+    built["mxu3p (dispatch)"] = fast.best_padded_laplace(grid, cuda_device,
+                                                         rows="mxu3p")
+    for name, (apply, pad, unpad, _) in built.items():
+        want = name.split()[0]
+        assert apply.kernel is wrappers[want]
+        before = {k: w.launches for k, w in wrappers.items()}
+        y = unpad(apply(pad(u)))
+        after = {k: w.launches for k, w in wrappers.items()}
+        assert {k for k in after if after[k] != before[k]} == {want}
+        assert after[want] == before[want] + 1
+        assert _rel(y, apply.plain(u)) <= _row_tol(want, torch.float32)
+
+
+def test_row_modes_reject(cuda_device):
+    g2 = Grid(3, (16, 16), (0.0, 0.0), (1.0, 1.0))
+    for bad in ("foo", "MXU3P", ""):
+        with pytest.raises(ValueError, match="rows"):
+            stencil2.make_padded_laplace2(g2, cuda_device, rows=bad)
+        with pytest.raises(ValueError, match="rows"):
+            fast.best_padded_laplace(g2, cuda_device, rows=bad)
+    bt = stencil2.laplace2_bands(g2, cuda_device, torch.float32)
+    u = torch.zeros(g2.nodes, device=cuda_device)
+    for wrapper in [stencil2.ROWS[r][0] for r in ROW_MODES] + [
+            stencil.laplace_v1_apply]:
+        for bad in (u.double(), u.t(), u[:-1], u.cpu()):
+            with pytest.raises(ValueError):
+                wrapper(bad, bt)
+    g9 = Grid(9, (40, 40), (0.0, 0.0), (1.0, 1.0))
+    with pytest.raises(ValueError, match="p <= 7"):
+        stencil.make_padded_laplace(g9, cuda_device)
+    with pytest.raises(ValueError, match="p <= 7"):
+        stencil.laplace_v1_apply(torch.zeros(g9.nodes, device=cuda_device),
+                                 stencil2.laplace2_bands(g9, cuda_device))
+    g15 = Grid(15, (300, 140), (0.0, 0.0), (1.0, 1.0))
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil2.make_padded_laplace2(g15, cuda_device, torch.float64,
+                                      tile_r=64, rows="mxu3p")
+
+
+@pytest.fixture(scope="module")
+def flagship64():
+    return flagship_operators(64)
+
+
+@pytest.mark.parametrize("rows", ["mxu3p", "vpu"])
+@pytest.mark.parametrize("kind", ["mass", "stiff"])
+def test_fast_cut_apply_matches_k1(flagship64, cuda_device, kind, rows):
+    """The split cut apply (the separable part on K3 in row mode
+    ``rows``, plus the correction rows) against K1's apply of the same
+    assembled band, at 64^2, float32."""
+    grid, op, mass, stiff = flagship64
+    st = mass if kind == "mass" else stiff
+    fast_apply = fastapply.make_fast_cut_apply(
+        st, op, fastapply.kron_pairs(grid, kind), cuda_device,
+        inactive_identity=kind == "mass", rows=rows)
+    assert fast_apply.n_corrections > 0
+    k1 = fastapply.fast_stencil_apply(st, device=cuda_device)
+    u = _rand(grid.n_nodes, 18, torch.float32, cuda_device)
+    wrapper = stencil2.ROWS[rows][0]
+    before = (wrapper.launches, cutband.band_apply.launches)
+    y = fast_apply(u)
+    assert (wrapper.launches, cutband.band_apply.launches) == (
+        before[0] + 1, before[1])
+    yk1 = k1(u)
+    assert cutband.band_apply.launches == before[1] + 1
+    torch.cuda.synchronize()
+    assert _rel(y, yk1) <= _row_tol(rows, torch.float32)

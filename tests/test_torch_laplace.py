@@ -135,7 +135,8 @@ def test_kernel_wrappers_reject():
         stencil2.laplace2_bands(grid, "cpu", F64,
                                 bands=[np.zeros((17, 5))] * 4)
     with pytest.raises(ValueError, match="p <= 7"):
-        stencil3.laplace3_bands(Grid(9, (9, 9, 9), (0.0,) * 3, (1.0,) * 3))
+        stencil3.laplace3_bands(Grid(9, (9, 9, 9), (0.0,) * 3, (1.0,) * 3),
+                                "cpu")
     g3 = Grid(3, (6, 6, 6), (0.0,) * 3, (1.0,) * 3)
     bt3 = stencil3.laplace3_bands(g3, "cpu", F64)
     with pytest.raises(ValueError, match="expected shape"):

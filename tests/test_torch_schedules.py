@@ -26,13 +26,16 @@ from gdm.ops.pallas_stencil2 import (
     make_padded_laplace3_mxu as g_make3m)
 
 import gdm_torch
+from gdm_torch import functional, multigrid, operators
+from gdm_torch.constraints import Constraints
 from gdm_torch.cut import fastapply, fsai
 from gdm_torch.cut.geometry import INSIDE, CutGeometry
 from gdm_torch.cut.operators import CutOperators
 from gdm_torch.cut.stencil import assemble_stencil
 from gdm_torch.grid import Grid
 from gdm_torch.multigrid import PoissonMultigrid
-from gdm_torch.ops import cutband, fast, resident, stencil2, stencil3
+from gdm_torch.ops import cutband, fast, resident, stencil, stencil2, stencil3
+from gdm_torch.ops.tensor import SeparableOperator
 from gdm_torch.problems import poisson
 
 F64 = torch.float64
@@ -185,7 +188,14 @@ ENTRY_POINTS = [
     stencil2.make_padded_laplace2_hybp, stencil3.make_padded_laplace3,
     stencil3.make_padded_laplace3_mxu, cutband.make_padded_stencil2,
     resident.make_resident_cg, fastapply.fast_stencil_bundle,
-    fsai.verified_fsai_solver]
+    fsai.verified_fsai_solver, stencil.make_padded_laplace,
+    stencil.laplace_2d_fn, fastapply.make_fast_cut_apply,
+    fastapply.fast_stencil_apply, operators.mass, operators.laplace,
+    operators.advection, operators.lumped_mass_inverse_diagonal,
+    operators.elasticity, functional.load_vector, Constraints.none,
+    Constraints.zero_boundary, Constraints.periodic, multigrid.make_transfer,
+    SeparableOperator.from_banded, stencil2.laplace2_bands,
+    stencil3.laplace3_bands]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -197,12 +207,13 @@ def test_card_default_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     g2 = Grid(3, (8, 8), (0.0, 0.0), (1.0, 1.0))
+    g2v = Grid(3, (8, 8), (0.0, 0.0), (1.0, 1.0), n_components=2)
     g3 = Grid(3, (6, 6, 6), (0.0,) * 3, (1.0,) * 3)
     gc = Grid(3, (8, 8), (-1.21, -1.21), (1.21, 1.21))
     geo = CutGeometry.build(gc, lambda m: np.sqrt(sum(x**2 for x in m))
                             - 1.0, 3)
-    mass = assemble_stencil(CutOperators(geo, INSIDE), "mass",
-                            0.25 * np.sqrt(3.0))
+    op = CutOperators(geo, INSIDE)
+    mass = assemble_stencil(op, "mass", 0.25 * np.sqrt(3.0))
     calls = [lambda: gdm_torch.entry(8),
              lambda: poisson.solve(g2, _sin_rhs),
              lambda: poisson.system(g2, _sin_rhs),
@@ -219,7 +230,29 @@ def test_card_default_raises_without_a_card():
              lambda: cutband.make_padded_stencil2(mass),
              lambda: resident.make_resident_cg(mass),
              lambda: fastapply.fast_stencil_bundle(mass),
-             lambda: fsai.verified_fsai_solver(mass)]
+             lambda: fsai.verified_fsai_solver(mass),
+             lambda: stencil.make_padded_laplace(g2),
+             lambda: stencil.laplace_2d_fn(g2),
+             lambda: fastapply.make_fast_cut_apply(
+                 mass, op, fastapply.kron_pairs(gc, "mass")),
+             lambda: fastapply.fast_stencil_apply(mass),
+             lambda: operators.mass(g2),
+             lambda: operators.laplace(g2),
+             lambda: operators.advection(g2, (1.0, 0.5)),
+             lambda: operators.lumped_mass_inverse_diagonal(g2),
+             lambda: operators.elasticity(g2v),
+             lambda: functional.load_vector(g2, _sin_rhs),
+             lambda: Constraints.none(g2),
+             lambda: Constraints.zero_boundary(g2),
+             lambda: Constraints.periodic(g2),
+             lambda: multigrid.make_transfer(*multigrid._gd_mid_table(g2, 0)),
+             lambda: SeparableOperator.from_banded(g2, []),
+             lambda: stencil2.laplace2_bands(g2),
+             lambda: stencil3.laplace3_bands(g3)]
+    calls += [lambda rows=rows: stencil2.make_padded_laplace2(g2, rows=rows)
+              for rows in ("vpu", "mxu", "mxu3", "mxu3p")]
+    calls += [lambda rows=rows: fast.best_padded_laplace(g2, rows=rows)
+              for rows in (None, "mxu3p")]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

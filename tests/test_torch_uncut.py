@@ -66,12 +66,15 @@ def test_apply_banded(shape, axis, p):
 
 def _builders():
     return {
-        "mass": (operators.mass, gops.mass, 1),
-        "laplace": (operators.laplace, gops.laplace, 1),
-        "advection": (lambda g: operators.advection(g, (0.7, -1.3, 0.4)[:g.dim]),
+        "mass": (lambda g: operators.mass(g, device="cpu"), gops.mass, 1),
+        "laplace": (lambda g: operators.laplace(g, device="cpu"),
+                    gops.laplace, 1),
+        "advection": (lambda g: operators.advection(
+                          g, (0.7, -1.3, 0.4)[:g.dim], device="cpu"),
                       lambda g: gops.advection(g, (0.7, -1.3, 0.4)[:g.dim]),
                       1),
-        "elasticity": (operators.elasticity, gops.elasticity, None),
+        "elasticity": (lambda g: operators.elasticity(g, device="cpu"),
+                       gops.elasticity, None),
     }
 
 
@@ -94,7 +97,7 @@ def test_separable_operator(name, key):
 
 def test_separable_dense_and_batch():
     grid, ggrid = _grids("2d")
-    op, gop = operators.laplace(grid), gops.laplace(ggrid)
+    op, gop = operators.laplace(grid, device="cpu"), gops.laplace(ggrid)
     assert _rel(op.dense(), gop.dense()) <= 1e-12
     U = np.random.default_rng(3).standard_normal((4,) + grid.field_shape)
     got = op.apply(torch.as_tensor(U))
@@ -104,7 +107,7 @@ def test_separable_dense_and_batch():
 
 def test_lumped_mass_inverse_diagonal():
     grid, ggrid = _grids("2d")
-    assert _rel(operators.lumped_mass_inverse_diagonal(grid),
+    assert _rel(operators.lumped_mass_inverse_diagonal(grid, device="cpu"),
                 np.asarray(gops.lumped_mass_inverse_diagonal(ggrid))) <= 1e-12
 
 
@@ -136,10 +139,11 @@ def _fn(m, c, t=None):
 @pytest.mark.parametrize("key", ["1d", "2d", "3d"])
 def test_load_vector_and_l2_error(key):
     grid, ggrid = _grids(key)
-    got = functional.load_vector(grid, _fn)
+    got = functional.load_vector(grid, _fn, device="cpu")
     want = np.asarray(gfunc.load_vector(ggrid, _fn))
     assert _rel(got, want) <= 1e-12
-    got_t = functional.load_vector(grid, _fn, t=0.5, dtype=torch.float32)
+    got_t = functional.load_vector(grid, _fn, t=0.5, device="cpu",
+                                   dtype=torch.float32)
     assert got_t.dtype == torch.float32
     assert _rel(got_t, np.asarray(gfunc.load_vector(ggrid, _fn, t=0.5))) <= 1e-6
     u = _field(grid, 5)
@@ -157,10 +161,10 @@ def test_load_vector_and_l2_error(key):
 def test_constraints_exact(kind, key):
     grid, ggrid = _grids(key)
     if kind == "periodic1":
-        c = constraints.Constraints.periodic(grid, axes=(1,))
+        c = constraints.Constraints.periodic(grid, axes=(1,), device="cpu")
         gc = gcons.Constraints.periodic(ggrid, axes=(1,))
     else:
-        c = getattr(constraints.Constraints, kind)(grid)
+        c = getattr(constraints.Constraints, kind)(grid, device="cpu")
         gc = getattr(gcons.Constraints, kind)(ggrid)
     assert np.array_equal(c.full_mask, gc.full_mask)
     u = _field(grid, 2)
@@ -170,7 +174,7 @@ def test_constraints_exact(kind, key):
         want = np.asarray(getattr(gc, name)(jnp.asarray(u)))
         assert np.array_equal(got.numpy(), want), name
     assert np.array_equal(ut.numpy(), u)  # arguments stay untouched
-    A, gA = operators.laplace(grid), gops.laplace(ggrid)
+    A, gA = operators.laplace(grid, device="cpu"), gops.laplace(ggrid)
     got = c.constrain_operator(A.apply)(ut)
     want = np.asarray(gc.constrain_operator(gA.apply)(jnp.asarray(u)))
     assert _rel(got, want) <= 1e-12
