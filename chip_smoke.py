@@ -65,11 +65,14 @@ Run from the repository root:  python3 chip_smoke.py
    make_padded_laplace: each its own kernel once and nothing else;
 10. the split cut apply make_fast_cut_apply (the separable part on
    K3/mxu3p, its default, plus the correction rows) on the flagship disc
-   at 128^2 and 512^2, for the mass and the stiffness, against K1's
-   apply of the same assembled band (max error <= 1e-4 of max|y|; with
-   rows="vpu" <= 1e-5), the launch counts reset just before: K3/mxu3p
-   once per apply; the number of correction rows; device and per-call
-   times of the split apply (both row modes) in turns against K1;
+   at 128^2 and 512^2, for the mass and the stiffness: the launch counts
+   reset just before one apply, K3/mxu3p launched once and nothing
+   else; the separable part's kernel (K3/mxu3p, and K3 with
+   rows="vpu") against its plain twin on the same node array and bands
+   (max error <= 1e-4 of max|y|, 1e-5 for K3); the whole split apply
+   against K1's apply of the same assembled band (the same limits); the
+   number of correction rows; device and per-call times of the split
+   apply (both row modes) in turns against K1;
 11. the 2D Poisson solve through the public entry point,
    gdm_torch.problems.poisson.solve on Grid(3, (1024, 1024)) with
    precondition="mg", rel_tol=1e-3, float32 on the card: iterations and
@@ -93,8 +96,10 @@ Prints a JSON line of per-kernel results (K1-K5, K3s, K3c, K3f, K3h,
 K3p, K3/mxu, K3/mxu3, K3/mxu3p and K0: launches on the kernel's main
 path, max error against the plain twin, device ms of the kernel and of
 the twin, the bound from the bytes and operations of the measured
-inputs, and ``library_ms`` null: no single PyTorch call computes any of
-them), the card line, and last
+inputs, ``library_ms`` null: no single PyTorch call computes any of
+them, and ``ms_by``/``plain_ms_by``, the method that took ``ms`` and
+``plain_ms``: "events" or "profiler", as ``device_ms`` says), the card
+line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1, no
 result line).
 """
@@ -144,6 +149,24 @@ def call_ms(fn, n=30, warmup=5):
     return statistics.median(times)
 
 
+class Ms(float):
+    """A device time in ms and the method that took it: "events" (CUDA
+    events around calls queued behind a spin kernel) or "profiler" (the
+    profiler's kernel sum)."""
+
+    def __new__(cls, ms, method):
+        t = super().__new__(cls, ms)
+        t.method = method
+        return t
+
+
+def mean_ms(times):
+    """The mean of Ms times, keeping their methods ("events+profiler"
+    where they differ)."""
+    return Ms(sum(times) / len(times),
+              "+".join(sorted({t.method for t in times})))
+
+
 _SPIN = {}
 
 
@@ -172,7 +195,8 @@ def device_ms(fn, n=20, warmup=3):
     enqueued the n calls is taken again with a spin four times as long.
     If that fails too (fn waits on the device, or its launches fill the
     device's launch queue, as a plain twin of hundreds of small kernels
-    does), the time is ``profiled_ms``'s kernel sum."""
+    does), the time is ``profiled_ms``'s kernel sum.  Returns an Ms
+    that names its method."""
     import torch
 
     torch.cuda.synchronize()
@@ -192,7 +216,7 @@ def device_ms(fn, n=20, warmup=3):
         queued = not start.query()   # the spin still ran: nothing idled
         end.synchronize()
         if queued:
-            return start.elapsed_time(end) / n
+            return Ms(start.elapsed_time(end) / n, "events")
         spin_ms *= 4
     print(f"  (the host could not enqueue {n} calls within a "
           f"{spin_ms / 4:.1f} ms spin; timed by the profiler)")
@@ -207,7 +231,7 @@ def profiled_ms(fn, n=20, warmup=3):
     items per call (the count over n, rounded).  A profile with no
     items, or with a count more than 10% away from that many per call
     (a lost or mixed trace), is taken again, at most three times in all,
-    and then raises."""
+    and then raises.  Returns an Ms of method "profiler"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -228,7 +252,7 @@ def profiled_ms(fn, n=20, warmup=3):
         per_call = round(count / n)
         if us > 0 and per_call > 0 and (
                 abs(count - per_call * n) <= 0.1 * per_call * n):
-            return us / count * per_call / 1e3
+            return Ms(us / count * per_call / 1e3, "profiler")
         print(f"  (profile {attempt + 1} recorded {count} device items, "
               f"{us:.1f} us, for {n} calls; taken again)")
     raise AssertionError(f"the profiler lost the trace in three profiles "
@@ -477,7 +501,7 @@ def row_phase(rng, dev, g2, g4096, four):
             del yk
             k3t, kt = turns("K3", lambda: k3(u, bt), kname,
                             lambda: fn(u, bt))
-            ms = sum(kt) / 2
+            ms = mean_ms(kt)
             cms = call_ms(lambda: fn(u, bt))
             print(f"{kname} {name}: max abs err {err:.3e} (rel {rel:.3e}, "
                   f"limit {tol:g}); device time {ms * 1e3:.2f} us ("
@@ -533,9 +557,12 @@ def row_phase(rng, dev, g2, g4096, four):
 
 
 def split_phase(rng, dev, sizes):
-    """Phase 10: the split cut apply on the flagship disc against K1's
-    apply of the same assembled band.  Returns the launches of K3/mxu3p
-    over the split applies' main-path runs."""
+    """Phase 10: the split cut apply on the flagship disc.  Its separable
+    part (K3/mxu3p, its default, and K3 with rows="vpu") against that
+    apply's plain twin on the same node array; the whole split apply
+    against K1's apply of the same assembled band.  Returns (K3/mxu3p's
+    launches in one run of one split apply, the largest separable-part
+    errors of K3/mxu3p and of K3 against their twin)."""
     import torch
 
     from gdm_torch.cut import fastapply
@@ -543,7 +570,7 @@ def split_phase(rng, dev, sizes):
     from gdm_torch.ops import stencil2
 
     f32 = torch.float32
-    mxu3p_launches = 0
+    mxu3p_launches, sep_err = None, {"mxu3p": 0.0, "vpu": 0.0}
     for n in sizes:
         t0 = time.perf_counter()
         grid, op, mass, stiff = flagship_operators(n)
@@ -569,7 +596,25 @@ def split_phase(rng, dev, sizes):
             counts = read_counts()
             check(counts["K3/mxu3p"] == 1 and sum(counts.values()) == 1,
                   f"split {kind} {n}^2: launches {counts}")
-            mxu3p_launches += counts["K3/mxu3p"]
+            if mxu3p_launches is None:
+                mxu3p_launches = counts["K3/mxu3p"]
+            # the separable part's kernel against its plain twin on the
+            # node array and bands the split apply gives it
+            u2 = u.reshape(grid.nodes)
+            for rows, sp, tol in (("mxu3p", split, 1e-4),
+                                  ("vpu", split_vpu, 1e-5)):
+                sep = sp.separable
+                ys, yp = sep(u2), sep.plain(u2)
+                torch.cuda.synchronize()
+                e = (ys - yp).abs().max().item()
+                rel = e / yp.abs().max().item()
+                print(f"split {kind} {n}^2: separable part "
+                      f"{sep.kernel.__name__} ({sep.options}) against its "
+                      f"plain twin: max abs err {e:.3e} (rel {rel:.3e}, "
+                      f"limit {tol:g})")
+                check(rel <= tol, f"split {kind} {n}^2 {rows} separable part: "
+                      f"max error {rel:.3e} of max|y|")
+                sep_err[rows] = max(sep_err[rows], e)
             yk1 = k1(u)
             yv = split_vpu(u)
             torch.cuda.synchronize()
@@ -593,10 +638,10 @@ def split_phase(rng, dev, sizes):
                 ck1, cs = call_ms(lambda: k1(u)), call_ms(lambda: fn(u))
                 print(f"  {kind} {n}^2 {name}: device "
                       f"{(sa + sb) / 2 * 1e3:.2f} us vs K1 "
-                      f"{(k1a + k1b) / 2 * 1e3:.2f} us; per call "
-                      f"{cs * 1e3:.2f} us vs K1 {ck1 * 1e3:.2f} us")
-            del u, y, yk1, yv
-    return mxu3p_launches
+                      f"{(k1a + k1b) / 2 * 1e3:.2f} us ({sa.method}); per "
+                      f"call {cs * 1e3:.2f} us vs K1 {ck1 * 1e3:.2f} us")
+            del u, u2, y, yk1, yv, ys, yp
+    return mxu3p_launches, sep_err
 
 
 def solve_phase(dim, n, dev, f32, f64, n_check):
@@ -935,7 +980,7 @@ def main():
             del yk
             k3t, kt = turns("K3", lambda: k3(u, bt), kname,
                             lambda: fn(u, bt))
-            ms = sum(kt) / 2
+            ms = mean_ms(kt)
             cms = call_ms(lambda: fn(u, bt))
             print(f"{kname} {name}: max abs err {err:.3e} (rel {rel:.3e}); "
                   f"device time {ms * 1e3:.2f} us ("
@@ -1047,7 +1092,9 @@ def main():
     # ---- K3's row modes and K0, then the split cut apply ------------------
     row_err, row_ms, row_plain_ms, row_launches = row_phase(
         rng, dev, g2, g4096, four)
-    row_launches["K3/mxu3p"] = split_phase(rng, dev, (N_GRID, 512))
+    row_launches["K3/mxu3p"], sep_err = split_phase(rng, dev, (N_GRID, 512))
+    row_err["K3/mxu3p"] = max(row_err["K3/mxu3p"], sep_err["mxu3p"])
+    k3_err = max(k3_err, sep_err["vpu"])
 
     # ---- the uncut Poisson solves through the public entry point -----------
     counts2, err2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
@@ -1063,7 +1110,8 @@ def main():
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                "ms_by": ms.method, "plain_ms_by": pms.method}
 
     k1_at = k1_ms.index(max(k1_ms))
     print(json.dumps({"kernels": [

@@ -162,15 +162,13 @@ def make_fast_cut_apply(st: StencilOperator, op: CutOperators, pairs,
     return apply
 
 
-def fast_stencil_apply(st: StencilOperator, op: CutOperators = None,
-                       kind: str = None, dt: float = None,
-                       inactive_identity: bool = True, device="cuda",
+def fast_stencil_apply(st: StencilOperator, device="cuda",
                        dtype=torch.float32):
     """K1's flat-vector apply of ``st`` for a 2D grid, None otherwise
     (callers keep ``st.apply``), on the card unless ``device="cpu"`` is
-    asked for.  ``op``, ``kind``, ``dt`` and ``inactive_identity`` are
-    gdm's arguments for a later dispatch to the split apply; gdm keeps
-    that apply opt-in, and so does the port."""
+    asked for.  gdm's ``op``, ``kind``, ``dt`` and ``inactive_identity``
+    are left out: gdm reads none of them (the split apply stays opt-in
+    through ``make_fast_cut_apply``)."""
     device = _device.resolve(device)
     if st.grid.dim != 2:
         return None

@@ -352,26 +352,16 @@ laplace2_hybp_apply.launches = 0
 
 # ---- K3/mxu, K3/mxu3, K3/mxu3p: K3's tensor-core row modes ----------
 
-def laplace2_mxu_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
-    """The plain torch version of K3/mxu: K3's operator, so K3's twin."""
-    return laplace2_apply_plain(u, bt)
-
-
 def laplace2_mxu_apply(u: torch.Tensor, bt: Bands2,
                        tile_r=None) -> torch.Tensor:
     """K3's operator through K3/mxu (K3's FMA column stage, the row stage
     as a 3xTF32 window product on the tensor cores; DMMA in float64) for
     a CUDA tensor, the plain version for a CPU tensor."""
     return tc_apply(u, bt, "mxu", "K3/mxu", laplace2_mxu_apply,
-                    laplace2_mxu_apply_plain, tile_r)
+                    laplace2_apply_plain, tile_r)
 
 
 laplace2_mxu_apply.launches = 0
-
-
-def laplace2_mxu3_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
-    """The plain torch version of K3/mxu3: K3's operator, so K3's twin."""
-    return laplace2_apply_plain(u, bt)
 
 
 def laplace2_mxu3_apply(u: torch.Tensor, bt: Bands2,
@@ -380,15 +370,10 @@ def laplace2_mxu3_apply(u: torch.Tensor, bt: Bands2,
     bf16x3 in float32, within about 1e-5 of max|y|) for a CUDA tensor,
     the plain version for a CPU tensor."""
     return tc_apply(u, bt, "mxu3", "K3/mxu3", laplace2_mxu3_apply,
-                    laplace2_mxu3_apply_plain, tile_r)
+                    laplace2_apply_plain, tile_r)
 
 
 laplace2_mxu3_apply.launches = 0
-
-
-def laplace2_mxu3p_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
-    """The plain torch version of K3/mxu3p: K3's operator, so K3's twin."""
-    return laplace2_apply_plain(u, bt)
 
 
 def laplace2_mxu3p_apply(u: torch.Tensor, bt: Bands2,
@@ -397,16 +382,16 @@ def laplace2_mxu3p_apply(u: torch.Tensor, bt: Bands2,
     tiles of a column strip by persistent blocks) for a CUDA tensor, the
     plain version for a CPU tensor."""
     return tc_apply(u, bt, "mxu3p", "K3/mxu3p", laplace2_mxu3p_apply,
-                    laplace2_mxu3p_apply_plain, tile_r)
+                    laplace2_apply_plain, tile_r)
 
 
 laplace2_mxu3p_apply.launches = 0
 
 # rows= of make_padded_laplace2: (wrapper, plain twin, tensor-core kernel)
 ROWS = {"vpu": (laplace2_apply, laplace2_apply_plain, None),
-        "mxu": (laplace2_mxu_apply, laplace2_mxu_apply_plain, "mxu"),
-        "mxu3": (laplace2_mxu3_apply, laplace2_mxu3_apply_plain, "mxu3"),
-        "mxu3p": (laplace2_mxu3p_apply, laplace2_mxu3p_apply_plain, "mxu3p")}
+        "mxu": (laplace2_mxu_apply, laplace2_apply_plain, "mxu"),
+        "mxu3": (laplace2_mxu3_apply, laplace2_apply_plain, "mxu3"),
+        "mxu3p": (laplace2_mxu3p_apply, laplace2_apply_plain, "mxu3p")}
 
 
 def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,

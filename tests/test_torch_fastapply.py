@@ -185,8 +185,7 @@ def test_fast_stencil_apply():
     for another dimension, as in gdm."""
     grid, op, _, _ = _ops()
     st = assemble_stencil(op, "mass", 0.25 * np.sqrt(3.0))
-    apply = fastapply.fast_stencil_apply(st, op, "mass", device="cpu",
-                                         dtype=F64)
+    apply = fastapply.fast_stencil_apply(st, device="cpu", dtype=F64)
     before = cutband.band_apply.launches
     u = torch.as_tensor(_u(grid, 5))
     np.testing.assert_allclose(apply(u).numpy(), st.apply(u).numpy(),
