@@ -73,7 +73,26 @@ Run from the repository root:  python3 chip_smoke.py
    against K1's apply of the same assembled band (the same limits); the
    number of correction rows; device and per-call times of the split
    apply (both row modes) in turns against K1;
-11. the 2D Poisson solve through the public entry point,
+11. gdm's micro-benchmarks through their public builders
+   (gdm_torch.benchmarks): M1 (make_stage1_micro, all six modes at
+   1024^2 p=3, p=5 and 2048^2 p=3: the column modes within 1e-6 of the
+   sum of |terms| of an output, the bf16x3 row modes within 1e-5 of
+   max|y|, "splitsonly" exactly), M2 (relayout_apply, 4096 steps, at
+   gdm's shapes and K5's ring tile (48, 256), both pitches, exactly), M3
+   (make_micro, every mode at 1024^2 and 4096^2: "dma" and "dma_out"
+   exactly, "both" within 1e-6 of the sum of |terms|, the sinks within
+   1e-5 of theirs), M4 (make_auto_micro: "dma" exactly, "both" as M3's)
+   and M5 (make_sepbuf_micro, exactly), each against its plain twin;
+   device times by events, in turns where modes are compared, and gdm's
+   derived rows: one shifted read and one FMA a pass in us per MDoF
+   (against K3 in turns), M2's us per M elements against the
+   shared-memory bound, M3's overlap fraction at 1024^2 and 4096^2 (its
+   five modes on one grid of blocks), the compute time at K = 3 against
+   7 (it must grow), M4 against u * 1.0000001, M5 against M3; then, for
+   each row of the kernels line (M1's column and row modes apart), its
+   builder, mode and shape once with the counts reset: its own kernel
+   once and nothing else;
+12. the 2D Poisson solve through the public entry point,
    gdm_torch.problems.poisson.solve on Grid(3, (1024, 1024)) with
    precondition="mg", rel_tol=1e-3, float32 on the card: iterations and
    relative residual (converged, not stopped at max_iter), the same
@@ -85,19 +104,22 @@ Run from the repository root:  python3 chip_smoke.py
    problem (right-hand side 1) timed the same way; at 128^2 the float32
    card solution against the float64 CPU solution (rel_tol 1e-4:
    iterations within 1, relative difference <= 1e-3);
-12. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
+13. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
    relative residual, L2 error, K5 launches (> 0; K4 none: every level
    has N0 + 2p <= 512), the kernel the dispatch picks (K5) against its
    plain twin at every level shape (65^3 down to 9^3 nodes); at 16^3 the
    float32 card solution against the float64 CPU solution as in
-   phase 11.
+   phase 12.
 
 Prints a JSON line of per-kernel results (K1-K5, K3s, K3c, K3f, K3h,
-K3p, K3/mxu, K3/mxu3, K3/mxu3p and K0: launches on the kernel's main
-path, max error against the plain twin, device ms of the kernel and of
-the twin, the bound from the bytes and operations of the measured
-inputs, ``library_ms`` null: no single PyTorch call computes any of
-them, and ``ms_by``/``plain_ms_by``, the method that took ``ms`` and
+K3p, K3/mxu, K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes),
+M2, M3, M4, M5: launches on the kernel's main path, max error against
+the plain twin, device ms of the kernel and of the twin, the bound from
+the bytes and operations of the measured inputs (M1's row modes over
+the bf16 tensor-core peak, M2's over the shared-memory rate),
+``library_ms``: null but for M2 (x.t().contiguous()) and M4
+(u * 1.0000001), where one PyTorch call computes the same function, and
+``ms_by``/``plain_ms_by``, the method that took ``ms`` and
 ``plain_ms``: "events" or "profiler", as ``device_ms`` says), the card
 line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1, no
@@ -114,11 +136,16 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from gdm_torch.benchmarks.timing import (  # noqa: E402
+    call_ms, device_ms, mean_ms, profiled_ms)
 N_GRID = 128
 # NVIDIA H100 SXM at 700 W (NVIDIA's data sheet): device memory rate and
 # the float32 rate outside the tensor cores
 MEM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12   # dense, on the tensor cores
+SMEM_BYTES_PER_CLOCK = 128   # shared memory, per SM
 
 
 def card_line() -> str:
@@ -127,136 +154,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def call_ms(fn, n=30, warmup=5):
-    """Median time of one fn() call in ms: CUDA events around each call,
-    so host work inside the call (launch overhead, host syncs) counts."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-class Ms(float):
-    """A device time in ms and the method that took it: "events" (CUDA
-    events around calls queued behind a spin kernel) or "profiler" (the
-    profiler's kernel sum)."""
-
-    def __new__(cls, ms, method):
-        t = super().__new__(cls, ms)
-        t.method = method
-        return t
-
-
-def mean_ms(times):
-    """The mean of Ms times, keeping their methods ("events+profiler"
-    where they differ)."""
-    return Ms(sum(times) / len(times),
-              "+".join(sorted({t.method for t in times})))
-
-
-_SPIN = {}
-
-
-def spin_cycles_per_ms():
-    """The clock cycles torch.cuda._sleep spins per ms on this card."""
-    import torch
-
-    if "cycles" not in _SPIN:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        torch.cuda._sleep(10**7)
-        end.record()
-        end.synchronize()
-        _SPIN["cycles"] = 1e7 / start.elapsed_time(end)
-    return _SPIN["cycles"]
-
-
-def device_ms(fn, n=20, warmup=3):
-    """Device time of one fn() call in ms: CUDA events around n calls
-    that the host enqueues behind a spin kernel (torch.cuda._sleep), so
-    the device runs them back to back and the host's launch overhead is
-    hidden.  The gaps between queued kernels count, idle time does not.
-    The spin lasts twice the host's time to enqueue n calls (from the
-    warm-up) plus 1 ms; a run in which the spin ended before the host had
-    enqueued the n calls is taken again with a spin four times as long.
-    If that fails too (fn waits on the device, or its launches fill the
-    device's launch queue, as a plain twin of hundreds of small kernels
-    does), the time is ``profiled_ms``'s kernel sum.  Returns an Ms
-    that names its method."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        fn()
-    spin_ms = 2 * n * (time.perf_counter() - t0) * 1e3 / warmup + 1.0
-    torch.cuda.synchronize()
-    for _ in range(2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        queued = not start.query()   # the spin still ran: nothing idled
-        end.synchronize()
-        if queued:
-            return Ms(start.elapsed_time(end) / n, "events")
-        spin_ms *= 4
-    print(f"  (the host could not enqueue {n} calls within a "
-          f"{spin_ms / 4:.1f} ms spin; timed by the profiler)")
-    return profiled_ms(fn, n, warmup=1)
-
-
-def profiled_ms(fn, n=20, warmup=3):
-    """Device time of one fn() call in ms for an fn that waits on the
-    device (a host loop): the kernel and copy times the profiler records
-    over n calls, per call.  A profile may lose a few device items at
-    its edges: the time per call is then the mean item time times the
-    items per call (the count over n, rounded).  A profile with no
-    items, or with a count more than 10% away from that many per call
-    (a lost or mixed trace), is taken again, at most three times in all,
-    and then raises.  Returns an Ms of method "profiler"."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        items = [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
-        us = sum(e.self_device_time_total for e in items)
-        count = sum(e.count for e in items)
-        per_call = round(count / n)
-        if us > 0 and per_call > 0 and (
-                abs(count - per_call * n) <= 0.1 * per_call * n):
-            return Ms(us / count * per_call / 1e3, "profiler")
-        print(f"  (profile {attempt + 1} recorded {count} device items, "
-              f"{us:.1f} us, for {n} calls; taken again)")
-    raise AssertionError(f"the profiler lost the trace in three profiles "
-                         f"of {n} calls")
 
 
 def device_breakdown(fn, n=5, warmup=2, top=6):
@@ -298,11 +195,22 @@ def wall_ms(fn, n=5, warmup=1):
     return statistics.median(times), times
 
 
-def bound(nbytes, flops):
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(nbytes, flops, peak=F32_FLOPS, rate=MEM_BPS):
     """(least ms the card could take, "bytes" or "operations"): the
     bytes each input read once and each output written once over the
-    memory rate, against the float32 operations over the peak rate."""
-    t_mem, t_ops = nbytes / MEM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    memory rate ``rate``, against the operations over the peak rate
+    ``peak`` (float32 outside the tensor cores unless another is
+    given)."""
+    t_mem, t_ops = nbytes / rate * 1e3, flops / peak * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -437,20 +345,33 @@ ROW_KERNELS = {
            "gdm/ops/pallas_stencil.py:155", 1e-5)}
 
 
+def micro_wrappers():
+    """The wrappers of gdm's micro-benchmarks M1-M5 by name."""
+    from gdm_torch.benchmarks import mxu_micro, stream_overlap_micro as som
+
+    return {"M1": mxu_micro.stage1_micro_apply,
+            "M2": mxu_micro.relayout_apply,
+            "M3": som.stream_micro_apply,
+            "M4": som.auto_micro_apply,
+            "M5": som.sepbuf_micro_apply}
+
+
 def reset_counts():
     from gdm_torch.ops import cutband, resident, stencil2, stencil3
 
     for fn in (cutband.band_apply, resident.resident_cg,
                stencil2.laplace2_apply, stencil2.laplace2_stream_apply,
                *tc_wrappers().values(), *row_wrappers().values(),
-               stencil3.laplace3_apply, stencil3.laplace3_mxu_apply):
+               stencil3.laplace3_apply, stencil3.laplace3_mxu_apply,
+               *micro_wrappers().values()):
         fn.launches = 0
 
 
 def read_counts():
     from gdm_torch.ops import cutband, resident, stencil2, stencil3
 
-    return {"cutband": cutband.band_apply.launches,
+    return {**{k: w.launches for k, w in micro_wrappers().items()},
+            "cutband": cutband.band_apply.launches,
             "resident": resident.resident_cg.launches,
             "laplace2": stencil2.laplace2_apply.launches,
             "laplace2_stream": stencil2.laplace2_stream_apply.launches,
@@ -644,8 +565,300 @@ def split_phase(rng, dev, sizes):
     return mxu3p_launches, sep_err
 
 
+# each micro's source and the TPU kernel (its pallas_call line) it replaces
+MICRO_KERNELS = {
+    "M1": ("gdm_torch/csrc/micro_stage1.cu", "benchmarks/mxu_micro.py:188"),
+    "M2": ("gdm_torch/csrc/micro_relayout.cu", "benchmarks/mxu_micro.py:289"),
+    "M3": ("gdm_torch/csrc/micro_stream.cu",
+           "benchmarks/stream_overlap_micro.py:159"),
+    "M4": ("gdm_torch/csrc/micro_stream.cu",
+           "benchmarks/stream_overlap_micro.py:222"),
+    "M5": ("gdm_torch/csrc/micro_stream.cu",
+           "benchmarks/stream_overlap_micro.py:307")}
+RELAYOUT_SHAPES = [((512, 128), "float32"), ((128, 128), "float32"),
+                   ((1024, 128), "float32"), ((512, 256), "float32"),
+                   ((512, 128), "bfloat16"), ((48, 256), "float32")]
+
+
+def micro_phase(rng, dev):
+    """Phase 11: gdm's micro-benchmarks M1-M5 through their public
+    builders, each mode held against its plain twin and timed, gdm's
+    derived rows printed; then each kernels row's builder, mode and
+    shape once with the counts reset.
+    Returns the kernels line's rows of M1 (column and row modes), M2, M3,
+    M4 and M5."""
+    import torch
+
+    from gdm_torch.benchmarks import mxu_micro, stream_overlap_micro as som
+    from gdm_torch.grid import Grid
+    from gdm_torch.ops import stencil2
+
+    f32 = torch.float32
+    t_start = time.perf_counter()
+    err = {}    # the largest max abs error by (micro, mode)
+    at = {}     # (kernel, ms, plain ms, bound, library ms) per kernels row
+
+    def rand(shape, dtype=f32):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=f32,
+                               device=dev).to(dtype)
+
+    def held(key, y, yp, limit, scale, what):
+        check(y.shape == yp.shape, f"{what}: shape {tuple(y.shape)}")
+        e = (y - yp).abs().max().item()
+        check(e <= limit * scale, f"{what}: max error {e:.3e}, limit "
+              f"{limit:g} x {scale:.3e}")
+        err[key] = max(err.get(key, 0.0), e)
+        print(f"  {what}: max abs err {e:.3e} (limit {limit:g} x "
+              f"{scale:.3e})")
+
+    def per_mdof(ms, ndof):
+        return ms * 1e9 / ndof
+
+    # ---- M1: the column stage alone, the bf16x3 row product alone -------
+    for n, p in ((1024, 3), (1024, 5), (2048, 3)):
+        grid = Grid(p, (n, n), (0.0, 0.0), (1.0, 1.0))
+        aps = {m: mxu_micro.make_stage1_micro(grid, m, dev)[0]
+               for m in mxu_micro.MODES}
+        g = aps["full"].geom
+        u = rand(g.shape)
+        tag = f"M1 {n}^2 p={p} (tile_r {g.tile_r}, {g.shape})"
+        for mode, ap in aps.items():
+            y, yp = ap(u), mxu_micro.stage1_micro_plain(u, *ap.tables, mode,
+                                                        g)
+            torch.cuda.synchronize()
+            if mode == "splitsonly":
+                limit, scale = 0.0, 1.0
+            elif mode in mxu_micro.ROW_MODES:
+                limit, scale = 1e-5, yp.abs().max().item()
+            else:   # the bands nearly cancel in "norolls": scale by terms
+                limit = 1e-6
+                scale = mxu_micro.stage1_term_scale(u, *ap.tables, mode, g)
+            held(("M1", mode), y, yp, limit, scale, f"{tag} {mode}")
+            del y, yp
+        ndof, k = grid.n_nodes, 2 * p + 1
+        tf, tn = turns("full", lambda: aps["full"](u), "norolls",
+                       lambda: aps["norolls"](u))
+        t = {"full": mean_ms(tf), "norolls": mean_ms(tn)}
+        for mode in ("rollsonly", "rowsonly", "dotsonly", "splitsonly"):
+            t[mode] = device_ms(lambda: aps[mode](u))
+        us = {m: per_mdof(v, ndof) for m, v in t.items()}
+        roll = (us["full"] - us["norolls"]) / k
+        fma = us["norolls"] / (2 * k)
+        print(f"{tag}, us per MDoF (events): " + ", ".join(
+            f"{m} {v:.3f}" for m, v in us.items()))
+        print(f"  one shifted read a pass {roll:.4f} us/MDoF, one FMA with "
+              f"its coefficient read {fma:.4f} us/MDoF; rollsonly per read "
+              f"{us['rollsonly'] / k:.4f} us/MDoF")
+        if (n, p) == (1024, 3):
+            k3 = stencil2.laplace2_apply
+            bt = stencil2.laplace2_bands(grid, dev, f32)
+            uk = rand(grid.nodes)
+            tk, tf2 = turns("K3", lambda: k3(uk, bt), "M1 full",
+                            lambda: aps["full"](u))
+            print(f"  K3 {mean_ms(tk) * 1e3:.2f} us against M1 full "
+                  f"{mean_ms(tf2) * 1e3:.2f} us at 1024^2 p=3: K3's column "
+                  f"stage is (38/32) x (K reads + 2K FMAs), "
+                  f"{38 / 32 * (k * roll + 2 * k * fma) * ndof / 1e6:.2f} "
+                  f"us by M1's per-pass costs")
+            col_bytes = 4 * (2 * g.shape[0] * g.w2 + 2 * k * g.w2)
+            at["M1 columns"] = (
+                "full", t["full"],
+                device_ms(lambda: mxu_micro.stage1_micro_plain(
+                    u, *aps["full"].tables, "full", g), n=5),
+                bound(col_bytes, 4 * k * g.rp * g.w2), None)
+            depth = 2 * g.t_ext
+            row_bytes = 4 * 2 * g.shape[0] * g.w2 + 2 * 2 * g.rp * depth
+            at["M1 rows"] = (
+                "rowsonly", t["rowsonly"],
+                device_ms(lambda: mxu_micro.stage1_micro_plain(
+                    u, *aps["rowsonly"].tables, "rowsonly", g), n=5),
+                bound(row_bytes, 3 * 2 * g.rp * depth * g.w2,
+                      peak=BF16_FLOPS), None)
+        del aps, u
+
+    # ---- M2: transposes in shared memory --------------------------------
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem_rate = SMEM_BYTES_PER_CLOCK * sms * clock
+    steps = 4096
+    print(f"M2: shared memory {SMEM_BYTES_PER_CLOCK} B/clock/SM x {sms} SMs "
+          f"x {clock / 1e6:.0f} MHz = {smem_rate / 1e12:.2f} TB/s")
+    for shape, dname in RELAYOUT_SHAPES:
+        dt = getattr(torch, dname)
+        x = rand(shape, dt)
+        yp = mxu_micro.relayout_apply_plain(x, steps)
+        for pad in (True, False):
+            held(("M2", "padded" if pad else "unpadded"),
+                 mxu_micro.relayout_apply(x, steps, pad).float(),
+                 yp.float(), 0.0, 1.0, f"M2 {shape} {dname} pad={pad}")
+        tp, tu = turns("padded", lambda: mxu_micro.relayout_apply(x, steps),
+                       "unpadded",
+                       lambda: mxu_micro.relayout_apply(x, steps, False))
+        lib = device_ms(lambda: x.t().contiguous())
+        n_el = shape[0] * shape[1]
+        bnd = bound(steps * n_el * x.element_size() * 2, 0, rate=smem_rate)
+        print(f"M2 {shape} {dname}, {steps} steps: padded "
+              f"{per_mdof(mean_ms(tp), steps * n_el):.4f}, unpadded "
+              f"{per_mdof(mean_ms(tu), steps * n_el):.4f} us per M "
+              f"elements (bound {per_mdof(bnd[0], steps * n_el):.4f}); "
+              f"x.t().contiguous() {lib * 1e3:.2f} us per transpose against "
+              f"{mean_ms(tp) / steps * 1e3:.4f} us in shared memory")
+        if (shape, dname) == ((512, 128), "float32"):
+            at["M2"] = ("padded", mean_ms(tp),
+                        device_ms(lambda: mxu_micro.relayout_apply_plain(
+                            x, steps)), bnd, lib)
+
+    # ---- M3, M4, M5: copies under compute -------------------------------
+    for n in (1024, 4096):
+        aps = {m: som.make_micro(m, n, n, device=dev)[0] for m in som.MODES}
+        g = aps["both"].geom
+        u = rand((g.r_ext, g.w2))
+        scale = som.stream_term_scale(u, aps["both"].coef)
+        tag = (f"M3 {n}^2 (tile_r {g.tile_r}, nb 2, nsplit 1, strips of "
+               f"{g.sw}, {g.n_tiles * g.n_strips} units)")
+        blocks = {}
+        for mode, ap in aps.items():
+            y, yp = ap(u), som.stream_micro_plain(u, ap.coef, g, mode)
+            torch.cuda.synchronize()
+            blocks[mode] = som.stream_micro_apply.blocks
+            per = g.tile_r * g.sw
+            limit, sc = {"dma": (0.0, 1.0), "dma_out": (0.0, 1.0),
+                         "both": (1e-6, scale),
+                         "compute": (1e-5, per * scale),
+                         "dma_in": (1e-5, per * u.abs().max().item())}[mode]
+            held(("M3", mode), y, yp, limit, sc, f"{tag} {mode}")
+            del y, yp
+        print(f"{tag}: blocks by mode {blocks}")
+        check(len(set(blocks.values())) == 1, f"{tag}: the modes ran "
+              f"different grids {blocks}: their times do not compare")
+        order = ("compute", "dma", "both", "both", "dma", "compute")
+        times = [device_ms(lambda m=m: aps[m](u)) for m in order]
+        t = {m: mean_ms([times[i] for i, o in enumerate(order) if o == m])
+             for m in ("compute", "dma", "both")}
+        for m in ("dma_in", "dma_out"):
+            t[m] = device_ms(lambda m=m: aps[m](u))
+        print(f"{tag} in turns {order}: " + ", ".join(
+            f"{times[i] * 1e3:.2f}" for i in range(6)) + " us")
+        print(f"{tag}: " + ", ".join(
+            f"{m} {v * 1e3:.2f} us ({per_mdof(v, g.n_dof):.3f} us/MDoF)"
+            for m, v in t.items()))
+        overlap = som.overlap_fraction(t["compute"], t["dma"], t["both"])
+        print(f"M3 {n}^2: overlap fraction = {overlap:.2f} (1 = perfect, "
+              f"0 = fully serialized)")
+        both_bound = bound(8 * u.numel(), 4 * g.k * g.rp * g.w2)
+        if n == 4096:
+            at["M3"] = ("both", t["both"],
+                        device_ms(lambda: som.stream_micro_plain(
+                            u, aps["both"].coef, g, "both"), n=3),
+                        both_bound, None)
+            c3 = som.make_micro("compute", n, n, K=3, device=dev)[0]
+            t7, t3 = turns("compute K=7", lambda: aps["compute"](u),
+                           "compute K=3", lambda: c3(u))
+            print(f"M3 4096^2 compute: K=7 {mean_ms(t7) * 1e3:.2f} us, K=3 "
+                  f"{mean_ms(t3) * 1e3:.2f} us")
+            check(min(t7) > max(t3), "M3 compute did not grow with K: the "
+                  "stencil's work was dropped")
+            for nb, nsplit in ((3, 1), (2, 2), (3, 2)):
+                alt = som.make_micro("both", n, n, nb=nb, nsplit=nsplit,
+                                     device=dev)[0]
+                held(("M3", "both"), alt(u), aps["both"](u), 0.0, 1.0,
+                     f"M3 4096^2 both nb {nb} nsplit {nsplit} (strips of "
+                     f"{alt.geom.sw}) against nb 2 nsplit 1")
+                turns("both nb 2 nsplit 1", lambda: aps["both"](u),
+                      f"both nb {nb} nsplit {nsplit}", lambda: alt(u))
+        del aps
+        # M4 on the (Rp, W2) rows, M5 on M3's array
+        a4 = {m: som.make_auto_micro(m, n, n, device=dev)[0]
+              for m in som.AUTO_MODES}
+        u4 = u[:g.rp].contiguous()
+        scale4 = som.stream_term_scale(u4, a4["both"].coef)
+        for mode, ap in a4.items():
+            held(("M4", mode), ap(u4), som.auto_micro_plain(u4, ap.coef,
+                                                            ap.geom,
+                                                    mode),
+                 0.0 if mode == "dma" else 1e-6,
+                 1.0 if mode == "dma" else scale4, f"M4 {n}^2 {mode}")
+        t4, tl = turns("M4 dma", lambda: a4["dma"](u4), "u * 1.0000001",
+                       lambda: u4 * som.AUTO_SCALE)
+        t4b = device_ms(lambda: a4["both"](u4))
+        print(f"M4 {n}^2 ({som.auto_micro_apply.blocks} blocks): dma "
+              f"{mean_ms(t4) * 1e3:.2f} us "
+              f"({8 * u4.numel() / (mean_ms(t4) * 1e-3) / 1e9:.0f} GB/s), "
+              f"u * 1.0000001 {mean_ms(tl) * 1e3:.2f} us, both "
+              f"{t4b * 1e3:.2f} us")
+        a5 = {m: som.make_sepbuf_micro(m, n, n, device=dev)[0]
+              for m in som.SEPBUF_MODES}
+        for mode, ap in a5.items():
+            held(("M5", mode), ap(u), som.sepbuf_micro_plain(u, ap.geom,
+                                                             mode), 0.0,
+                 1.0, f"M5 {n}^2 {mode}")
+        m3dma = som.make_micro("dma", n, n, device=dev)[0]
+        t3d, t5d = turns("M3 dma", lambda: m3dma(u), "M5 dma",
+                         lambda: a5["dma"](u))
+        t5i = device_ms(lambda: a5["dma_in"](u))
+        print(f"M5 {n}^2: dma {mean_ms(t5d) * 1e3:.2f} us against M3's "
+              f"{mean_ms(t3d) * 1e3:.2f}; dma_in {t5i * 1e3:.2f} us")
+        if n == 4096:
+            at["M4"] = ("dma", mean_ms(t4),
+                        device_ms(lambda: som.auto_micro_plain(
+                            u4, a4["dma"].coef, a4["dma"].geom, "dma")),
+                        bound(8 * u4.numel(), u4.numel()), mean_ms(tl))
+            at["M5"] = ("dma", mean_ms(t5d),
+                        device_ms(lambda: som.sepbuf_micro_plain(
+                            u, a5["dma"].geom, "dma")),
+                        bound(8 * u.numel(), 0), None)
+        del a4, a5, u, u4
+
+    # ---- each kernels row's builder, mode and shape once, the counts reset
+    # just before: M1's column and row kernels at 1024^2 p=3, M2 at
+    # (512, 128) float32, M3, M4 and M5 at 4096^2, as their rows report
+    grid = Grid(3, (1024, 1024), (0.0, 0.0), (1.0, 1.0))
+    runs = {"M1 columns": mxu_micro.make_stage1_micro(grid, "full", dev),
+            "M1 rows": mxu_micro.make_stage1_micro(grid, "rowsonly", dev),
+            "M3": som.make_micro("both", 4096, 4096, device=dev)[:2],
+            "M4": som.make_auto_micro("dma", 4096, 4096, device=dev)[:2],
+            "M5": som.make_sepbuf_micro("dma", 4096, 4096, device=dev)[:2]}
+    x = rand((512, 128))
+    launches = {}
+    for key in at:
+        name = key.split()[0]
+        if name == "M2":
+            def run():
+                return mxu_micro.relayout_apply(x, steps)
+        else:
+            ap, shape = runs[key]
+            u = rand(shape)
+
+            def run():
+                return ap(u)
+        reset_counts()
+        y = run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts[name] == 1 and sum(counts.values()) == 1,
+              f"{key}: its builder did not launch it alone, once: {counts}")
+        check(bool(torch.isfinite(y).all()), f"{key}: output not finite")
+        launches[key] = counts[name]
+        del y
+    print(f"micro builders, each once with the counts reset: {launches}; "
+          f"phase {time.perf_counter() - t_start:.1f} s")
+
+    fns = {"M1": "stage1_micro_apply", "M2": "relayout_apply",
+           "M3": "stream_micro_apply", "M4": "auto_micro_apply",
+           "M5": "sepbuf_micro_apply"}
+    out = []
+    for key, (mode, ms, pms, bnd, lib) in at.items():
+        name = key.split()[0]
+        r = kernel_row(f"{fns[name]} ({key}, {mode})", *MICRO_KERNELS[name],
+                       launches[key], err[(name, mode)], ms, pms, bnd)
+        if lib is not None:
+            r["library_ms"] = lib
+        out.append(r)
+    return out
+
+
 def solve_phase(dim, n, dev, f32, f64, n_check):
-    """Phases 11 (dim 2) and 12 (dim 3): the public Poisson solve on the
+    """Phases 12 (dim 2) and 13 (dim 3): the public Poisson solve on the
     card.  Returns the launch counts of its main-path run and the largest
     kernel-vs-plain error over its level shapes."""
     import torch
@@ -737,6 +950,15 @@ def solve_phase(dim, n, dev, f32, f64, n_check):
     return counts, level_err
 
 
+def kernel_row(name, source, replaces, launches, err, ms, pms, bnd):
+    """One kernel's entry in the kernels line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "ms_by": ms.method, "plain_ms_by": pms.method}
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -747,7 +969,6 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch sees no CUDA device")
-    sys.path.insert(0, ROOT)
     import gdm_torch
     from gdm_torch.cut.fsai import fsai_factors
     from gdm_torch.entry import flagship_operators
@@ -1096,6 +1317,9 @@ def main():
     row_err["K3/mxu3p"] = max(row_err["K3/mxu3p"], sep_err["mxu3p"])
     k3_err = max(k3_err, sep_err["vpu"])
 
+    # ---- gdm's micro-benchmarks M1-M5 ---------------------------------------
+    micro_rows = micro_phase(rng, dev)
+
     # ---- the uncut Poisson solves through the public entry point -----------
     counts2, err2 = solve_phase(2, 1024, dev, f32, f64, n_check=128)
     check(counts2["laplace2"] > 0, "K3 never launched on the 2D solve")
@@ -1105,13 +1329,7 @@ def main():
           "K4 launched on the 3D solve, where gdm's dispatch takes K5")
     k3_err, k5_err = max(k3_err, err2), max(k5_err, err3)
 
-
-    def row(name, source, replaces, launches, err, ms, pms, bnd):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-                "ms_by": ms.method, "plain_ms_by": pms.method}
+    row = kernel_row
 
     k1_at = k1_ms.index(max(k1_ms))
     print(json.dumps({"kernels": [
@@ -1141,6 +1359,7 @@ def main():
         row("laplace3_mxu_apply (K5)", "gdm_torch/csrc/laplace3_mxu.cu",
             "gdm/ops/pallas_stencil2.py:1946", counts3["laplace3_mxu"],
             k5_err, k5_ms, k5_plain_ms, separable_bound(g3.n_nodes, 7, 7)),
+        *micro_rows,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

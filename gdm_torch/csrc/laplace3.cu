@@ -174,7 +174,7 @@ laplace3_kernel(const T* __restrict__ u, const T* __restrict__ s0,
 template <typename T, int P>
 int launch_p(const void* u, const void* s0, const void* m0, const void* s1,
              const void* m1, const void* s2, const void* m2, void* y, int n0,
-             int n1, int n2, cudaStream_t stream) {
+             int n1, int n2, int planes, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, P>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -182,9 +182,10 @@ int launch_p(const void* u, const void* s0, const void* m0, const void* s1,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // the longest chunk of planes that still gives about four blocks per
-  // SM of an H100 (132 SMs); short chunks recompute stages 1-2 on 2p
-  // extra planes each
+  // the chunk of planes a block marches over: ``planes`` when given (gdm's
+  // tile_planes), else the longest chunk that still gives about four
+  // blocks per SM of an H100 (132 SMs); short chunks recompute stages
+  // 1-2 on 2p extra planes each
   const int cols = ((n2 + TX - 1) / TX) * ((n1 + TY - 1) / TY);
   const int candidates[] = {64, 32, 16};
   int chunk = 8;
@@ -194,6 +195,7 @@ int launch_p(const void* u, const void* s0, const void* m0, const void* s1,
       break;
     }
   }
+  if (planes > 0) chunk = planes;
   const dim3 block(TX, NTY);
   const dim3 grid((n2 + TX - 1) / TX, (n1 + TY - 1) / TY,
                   (n0 + chunk - 1) / chunk);
@@ -208,13 +210,21 @@ int launch_p(const void* u, const void* s0, const void* m0, const void* s1,
 template <typename T>
 int launch(const void* u, const void* s0, const void* m0, const void* s1,
            const void* m1, const void* s2, const void* m2, void* y, int p,
-           int n0, int n1, int n2, void* stream) {
+           int n0, int n1, int n2, int planes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p) {
-    case 1: return launch_p<T, 1>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, s);
-    case 3: return launch_p<T, 3>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, s);
-    case 5: return launch_p<T, 5>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, s);
-    case 7: return launch_p<T, 7>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, s);
+    case 1:
+      return launch_p<T, 1>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, planes,
+                            s);
+    case 3:
+      return launch_p<T, 3>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, planes,
+                            s);
+    case 5:
+      return launch_p<T, 5>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, planes,
+                            s);
+    case 7:
+      return launch_p<T, 7>(u, s0, m0, s1, m1, s2, m2, y, n0, n1, n2, planes,
+                            s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -226,15 +236,17 @@ extern "C" {
 int gdm_laplace3_apply_f32(const void* u, const void* s0, const void* m0,
                            const void* s1, const void* m1, const void* s2,
                            const void* m2, void* y, int p, int n0, int n1,
-                           int n2, void* stream) {
-  return launch<float>(u, s0, m0, s1, m1, s2, m2, y, p, n0, n1, n2, stream);
+                           int n2, int planes, void* stream) {
+  return launch<float>(u, s0, m0, s1, m1, s2, m2, y, p, n0, n1, n2, planes,
+                     stream);
 }
 
 int gdm_laplace3_apply_f64(const void* u, const void* s0, const void* m0,
                            const void* s1, const void* m1, const void* s2,
                            const void* m2, void* y, int p, int n0, int n1,
-                           int n2, void* stream) {
-  return launch<double>(u, s0, m0, s1, m1, s2, m2, y, p, n0, n1, n2, stream);
+                           int n2, int planes, void* stream) {
+  return launch<double>(u, s0, m0, s1, m1, s2, m2, y, p, n0, n1, n2, planes,
+                     stream);
 }
 
 }  // extern "C"

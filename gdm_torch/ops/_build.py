@@ -85,10 +85,23 @@ def _declare(lib):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
             fn.restype = I
-        for k in ("laplace3", "laplace3_mxu"):
+        for k, n_extra in (("laplace3", 1), ("laplace3_mxu", 0)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
-            fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+            fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I] + (
+                [I] * n_extra) + [P]
             fn.restype = I
+    # gdm's micro-benchmarks (gdm_torch/benchmarks/)
+    IP = ctypes.POINTER(I)
+    lib.gdm_micro_stage1_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    for dt in ("f32", "bf16"):
+        getattr(lib, f"gdm_micro_relayout_{dt}").argtypes = [
+            P, P, P, I, I, I, I, I, P]
+    lib.gdm_micro_stream_f32.argtypes = [P, P, P, P] + [I] * 10 + [IP, P]
+    lib.gdm_micro_auto_f32.argtypes = [P, P, P] + [I] * 6 + [IP, P]
+    for fn in ("gdm_micro_stage1_f32", "gdm_micro_relayout_f32",
+               "gdm_micro_relayout_bf16", "gdm_micro_stream_f32",
+               "gdm_micro_auto_f32"):
+        getattr(lib, fn).restype = I
     lib.gdm_cuda_error_string.argtypes = [I]
     lib.gdm_cuda_error_string.restype = ctypes.c_char_p
 

@@ -33,6 +33,16 @@ def launch(u: torch.Tensor, fn: str, what: str, tables, p: int, shape,
     return y
 
 
+def positive_int(name: str, value):
+    """``value`` as an int when it is None or a positive integer (gdm's
+    tile keywords); raises ValueError for anything else."""
+    if value is None:
+        return None
+    if isinstance(value, bool) or int(value) != value or value < 1:
+        raise ValueError(f"{name} must be a positive integer, not {value!r}")
+    return int(value)
+
+
 def padded_apply(bt, kernel, plain, **options):
     """(apply, pad, unpad, shape) over the node array itself, as gdm's
     make_padded_* return them.  ``apply.kernel`` is the wrapper it runs

@@ -32,6 +32,7 @@ import torch
 
 from .. import device as _device
 from . import _build
+from ._padded import positive_int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,9 +166,14 @@ band_apply.launches = 0
 
 
 def make_padded_stencil2(st, device="cuda", dtype=torch.float32,
-                         layout: PaddedLayout = None):
+                         layout: PaddedLayout = None, tile_r=None):
     """(apply_padded, pad, unpad, shape) for a 2D StencilOperator, as in
-    gdm; ``layout`` defaults to the operator's own radius."""
+    gdm; ``layout`` defaults to the operator's own radius.  ``tile_r``,
+    gdm's row tile (sized to the TPU's VMEM), is taken and has no effect:
+    K1 has no row tile (one thread per node, 32 x 8 nodes per block), and
+    the tile does not change the function.  A value that is not a
+    positive integer raises ValueError."""
+    positive_int("tile_r", tile_r)
     if layout is None:
         layout = layout_for(st.grid, st.radius)
     bp = band_planes(st, layout, _device.resolve(device), dtype)

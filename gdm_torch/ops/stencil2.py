@@ -42,7 +42,7 @@ import torch
 from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
-from ._padded import launch, padded_apply
+from ._padded import launch, padded_apply, positive_int
 from .tensor import apply_banded
 
 MAX_DEGREE = 15
@@ -154,9 +154,16 @@ laplace2_stream_apply.launches = 0
 
 
 def make_padded_laplace2_stream(grid: Grid, device="cuda",
-                                dtype=torch.float32, bands=None):
+                                dtype=torch.float32, tile_r=None,
+                                bands=None):
     """(apply, pad, unpad, shape) of K3s, the streamed K3: the same
-    operator, band tables and node array as ``make_padded_laplace2``."""
+    operator, band tables and node array as ``make_padded_laplace2``.
+
+    ``tile_r``, gdm's row tile (sized to the TPU's VMEM), is taken and has
+    no effect: K3s's tile is fixed at 32 x 32 nodes (csrc/
+    laplace2_stream.cu), and the tile does not change the function.  A
+    value that is not a positive integer raises ValueError."""
+    positive_int("tile_r", tile_r)
     bt = laplace2_bands(grid, device, dtype, bands)
     return padded_apply(bt, laplace2_stream_apply,
                         laplace2_stream_apply_plain)
@@ -394,8 +401,29 @@ ROWS = {"vpu": (laplace2_apply, laplace2_apply_plain, None),
         "mxu3p": (laplace2_mxu3p_apply, laplace2_apply_plain, "mxu3p")}
 
 
+def _check_gdm_schedule(mxu_precision, pipeline_interleave, static_parity):
+    """gdm's ``make_padded_laplace2`` schedule keywords, as the card takes
+    them (see ``make_padded_laplace2``); raises ValueError for a value
+    the card kernels do not satisfy."""
+    if mxu_precision is not None:
+        name = str(getattr(mxu_precision, "name", mxu_precision)).lower()
+        if name not in ("highest", "float32"):
+            raise ValueError(
+                f"mxu_precision={mxu_precision!r}: the card's rows='mxu' "
+                f"product runs as 3xTF32 (float32 fidelity, gdm's HIGHEST) "
+                f"and has no cheaper pass count; for bf16x3 products take "
+                f"rows='mxu3'")
+    for name, value in (("pipeline_interleave", pipeline_interleave),
+                        ("static_parity", static_parity)):
+        if value is not None and not isinstance(value, bool):
+            raise ValueError(f"{name} must be None, True or False, not "
+                             f"{value!r}")
+
+
 def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
-                         tile_r=None, rows="vpu", bands=None):
+                         tile_r=None, rows="vpu", bands=None,
+                         mxu_precision=None, pipeline_interleave=None,
+                         static_parity=True):
     """(apply, pad, unpad, shape) of K3 as in gdm, for any odd p <= 15.
 
     rows: gdm's row stage, one of ``ROWS``: "vpu" (K3, the FMA row
@@ -408,9 +436,18 @@ def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
     tile_r: the card's tile of the row modes, as in ``tc_options``
     (gdm's TPU tile rules do not carry over); K3's "vpu" tile is fixed
     at 32 x 32, so there it must be None.  The resolved tile is
-    ``apply.options``.  gdm's ``mxu_precision``, ``pipeline_interleave``
-    and ``static_parity`` steer its TPU compiler's schedule and have no
-    counterpart on the card.
+    ``apply.options``.
+
+    gdm's schedule keywords: ``mxu_precision`` (the pass count of gdm's
+    rows="mxu" product) is taken when None or gdm's HIGHEST, recognised
+    by name ("HIGHEST" or jax's alias "float32"), which K3/mxu's 3xTF32
+    product matches in every mode; any other precision raises ValueError.
+    ``pipeline_interleave`` (where gdm's mxu3p issues the previous tile's
+    products in its roll loop) and ``static_parity`` (literal slot
+    indices for the TPU compiler) take None, True or False and have no
+    effect: both values produce the same function, and K3/mxu3p always
+    overlaps one tile's products with the next tile's column stage on
+    separate warps.  Anything else raises ValueError.
 
     bands: optional (A0, A1, B0, B1) numpy band matrices ((N_d, 2p+1)
     each, the Banded1D.band layout) generalizing the operator to
@@ -419,6 +456,7 @@ def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
     """
     if rows not in ROWS:
         raise ValueError(f"rows must be one of {sorted(ROWS)}, not {rows!r}")
+    _check_gdm_schedule(mxu_precision, pipeline_interleave, static_parity)
     kernel, plain, tc = ROWS[rows]
     if tc is None and tile_r is not None:
         raise ValueError(f"K3's rows='vpu' tile is fixed at 32 x 32 on the "

@@ -24,7 +24,7 @@ import torch
 from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
-from ._padded import launch, padded_apply
+from ._padded import launch, padded_apply, positive_int
 from .tensor import apply_banded
 
 MAX_DEGREE = 7
@@ -88,18 +88,24 @@ def laplace3_apply_plain(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
     return apply_banded(p_, s0, 0) + apply_banded(t_, m0, 0)
 
 
-def _launch(u: torch.Tensor, bt: Bands3, fn: str, what: str):
+def _launch(u: torch.Tensor, bt: Bands3, fn: str, what: str, extra=()):
     (s0, s1, s2), (m0, m1, m2) = bt.s, bt.m
-    return launch(u, fn, what, (s0, m0, s1, m1, s2, m2), bt.p, bt.shape)
+    return launch(u, fn, what, (s0, m0, s1, m1, s2, m2), bt.p, bt.shape,
+                  extra)
 
 
-def laplace3_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
+def laplace3_apply(u: torch.Tensor, bt: Bands3,
+                   tile_planes=None) -> torch.Tensor:
     """The 3D Laplace apply through K4: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor, the plain version for a CPU tensor.  ``tile_planes``: the
+    planes of axis 0 one block marches over (gdm's tile of planes); by
+    default the launcher's choice, the longest of 64, 32, 16, 8 that
+    keeps about four blocks per SM."""
     _check(u, bt)
+    tile_planes = positive_int("tile_planes", tile_planes)
     if u.device.type == "cpu":
         return laplace3_apply_plain(u, bt)
-    y = _launch(u, bt, "laplace3_apply", "K4")
+    y = _launch(u, bt, "laplace3_apply", "K4", (tile_planes or 0,))
     laplace3_apply.launches += 1
     return y
 
@@ -150,15 +156,41 @@ def laplace3_mxu_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
 laplace3_mxu_apply.launches = 0
 
 
-def make_padded_laplace3(grid: Grid, device="cuda", dtype=torch.float32):
+def make_padded_laplace3(grid: Grid, device="cuda", dtype=torch.float32,
+                         tile_planes=None):
     """(apply, pad, unpad, shape) of K4, odd p <= 7.  The "padded" array
-    is the (N0, N1, N2) node array itself."""
+    is the (N0, N1, N2) node array itself.  ``tile_planes`` (gdm's tile
+    of axis-0 planes) is K4's chunk of planes per block, as in
+    ``laplace3_apply``, kept in ``apply.options``; a value that is not a
+    positive integer raises ValueError."""
+    tile_planes = positive_int("tile_planes", tile_planes)
     bt = laplace3_bands(grid, device, dtype)
-    return padded_apply(bt, laplace3_apply, laplace3_apply_plain)
+    options = {} if tile_planes is None else {"tile_planes": tile_planes}
+    return padded_apply(bt, laplace3_apply, laplace3_apply_plain, **options)
 
 
-def make_padded_laplace3_mxu(grid: Grid, device="cuda", dtype=torch.float32):
+def make_padded_laplace3_mxu(grid: Grid, device="cuda", dtype=torch.float32,
+                             tile_planes1=None, chunk=None, pipelined=True):
     """(apply, pad, unpad, shape) of K5, odd p <= 7: K4's band tables and
-    node array, the plane coupling as a tensor-core product."""
+    node array, the plane coupling as a tensor-core product.
+
+    gdm's schedule keywords, none of which changes the function:
+    ``tile_planes1`` (gdm's tile of axis-1 planes, sized to the TPU's
+    VMEM) and ``chunk`` (the row chunk of gdm's in-kernel loops, sized to
+    the TPU's vector registers) are taken and have no effect: K5's tile
+    along axes 1 and 2 is fixed at 8 x 32 nodes and its launcher picks
+    its own chunk of axis-0 planes.  ``pipelined=True`` (gdm's dispatch
+    passes it) is what K5 always does: its two-slot cp.async ring copies
+    the next plane while the block computes this one.  ``pipelined=False``
+    asks for a schedule the card kernel does not have and raises
+    ValueError, as does a tile or chunk that is not a positive integer.
+    """
+    positive_int("tile_planes1", tile_planes1)
+    positive_int("chunk", chunk)
+    if pipelined is not True:
+        raise ValueError(
+            f"pipelined={pipelined!r}: K5 always overlaps the next plane's "
+            f"copy with this plane's compute (a two-slot cp.async ring); it "
+            f"has no unpipelined schedule, so only pipelined=True is taken")
     bt = laplace3_bands(grid, device, dtype)
     return padded_apply(bt, laplace3_mxu_apply, laplace3_mxu_apply_plain)

@@ -711,3 +711,173 @@ def test_fast_cut_apply_matches_k1(flagship64, cuda_device, kind, rows):
     assert cutband.band_apply.launches == before[1] + 1
     torch.cuda.synchronize()
     assert _rel(y, yk1) <= _row_tol(rows, torch.float32)
+
+
+@pytest.mark.parametrize("planes", [1, 5, 13, 64])
+def test_laplace3_tile_planes(cuda_device, planes):
+    """gdm's tile_planes is K4's chunk of planes per block: any chunk
+    gives the same function."""
+    grid = Grid(3, (40, 20, 70), (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
+    apply, pad, unpad, _ = stencil3.make_padded_laplace3(
+        grid, cuda_device, tile_planes=planes)
+    assert apply.options == {"tile_planes": planes}
+    u = _rand(grid.nodes, 19, torch.float32, cuda_device)
+    assert _rel(unpad(apply(pad(u))), apply.plain(u)) <= 1e-5
+
+
+# ---- gdm's micro-benchmarks M1-M5 ------------------------------------------
+
+from gdm_torch.benchmarks import mxu_micro, stream_overlap_micro as som  # noqa: E402
+
+MICRO_WRAPPERS = {"M1": mxu_micro.stage1_micro_apply,
+                  "M2": mxu_micro.relayout_apply,
+                  "M3": som.stream_micro_apply,
+                  "M4": som.auto_micro_apply,
+                  "M5": som.sepbuf_micro_apply}
+
+
+def _launched_only(name, run):
+    """Run ``run()`` and check that it launched micro ``name`` once and
+    no other micro."""
+    before = {k: w.launches for k, w in MICRO_WRAPPERS.items()}
+    out = run()
+    after = {k: w.launches for k, w in MICRO_WRAPPERS.items()}
+    assert {k for k in after if after[k] != before[k]} == {name}
+    assert after[name] == before[name] + 1
+    return out
+
+
+@pytest.mark.parametrize("p,cells,tile_r", [(3, (40, 40), 16),
+                                            (5, (100, 70), 256),
+                                            (3, (300, 130), 64)])
+@pytest.mark.parametrize("mode", mxu_micro.MODES)
+def test_stage1_micro_matches_plain(cuda_device, mode, p, cells, tile_r):
+    """M1 against its twin: the column modes within 1e-6 of the sum of
+    |terms| (FMAs against multiply-adds), the bf16x3 row modes within 1e-5
+    of max|y|, "splitsonly" exactly; ragged N0 (41, 101 and 301 nodes
+    in tiles of 16, 104 and 64 rows)."""
+    grid = Grid(p, cells, (0.0, 0.0), (1.0, 1.0))
+    apply, shape = mxu_micro.make_stage1_micro(grid, mode, cuda_device,
+                                               tile_r=tile_r)
+    u = _rand(shape, 20, torch.float32, cuda_device)
+    y = _launched_only("M1", lambda: apply(u))
+    g = apply.geom
+    yp = mxu_micro.stage1_micro_plain(u, *apply.tables, mode, g)
+    torch.cuda.synchronize()
+    err = (y - yp).abs().max().item()
+    if mode == "splitsonly":
+        assert err == 0.0
+    elif mode in mxu_micro.ROW_MODES:
+        assert err <= 1e-5 * yp.abs().max().item()
+    else:
+        assert err <= 1e-6 * mxu_micro.stage1_term_scale(u, *apply.tables,
+                                                         mode, g)
+    assert not y[:g.h].any() and not y[g.h + g.rp:].any()
+
+
+@pytest.mark.parametrize("pad", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,steps", [((32, 16), 3), ((48, 256), 5),
+                                         ((100, 70), 1), ((512, 128), 64)])
+def test_relayout_matches_plain(cuda_device, shape, steps, dtype, pad):
+    """M2: x^T exactly, at ragged sub-tiles and both pitches."""
+    x = _rand(shape, 21, torch.float32, cuda_device).to(dtype)
+    y = _launched_only("M2", lambda: mxu_micro.relayout_apply(x, steps, pad))
+    assert y.equal(mxu_micro.relayout_apply_plain(x, steps))
+    assert y.equal(x.t())
+
+
+STREAM_CASES = [(40, 60, 16), (300, 250, 96), (1000, 1000, 96)]
+
+
+@pytest.mark.parametrize("nb,nsplit", [(2, 1), (2, 2), (3, 1), (3, 2)])
+@pytest.mark.parametrize("n0,n1,tile_r", STREAM_CASES)
+@pytest.mark.parametrize("mode", som.MODES)
+def test_stream_micro_matches_plain(cuda_device, mode, n0, n1, tile_r, nb,
+                                    nsplit):
+    """M3 against its twin: "dma" and "dma_out" exactly, "both" within
+    1e-6 of the sum of |terms|, the sinks within 1e-5 of their sum of
+    |terms|; ragged N0, wrapped columns (u is nonzero everywhere)."""
+    apply, shape, _ = som.make_micro(mode, n0, n1, tile_r, nb=nb,
+                                     nsplit=nsplit, device=cuda_device)
+    u = _rand(shape, 22, torch.float32, cuda_device)
+    y = _launched_only("M3", lambda: apply(u))
+    g = apply.geom
+    yp = som.stream_micro_plain(u, apply.coef, g, mode)
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape
+    if mode in ("dma", "dma_out"):
+        assert y.equal(yp)
+    elif mode == "both":
+        scale = som.stream_term_scale(u, apply.coef)
+        assert (y - yp).abs().max().item() <= 1e-6 * scale
+    else:
+        per = g.tile_r * g.sw
+        scale = per * (som.stream_term_scale(u, apply.coef)
+                       if mode == "compute" else u.abs().max().item())
+        assert (y - yp).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n0,n1,tile_r", STREAM_CASES)
+@pytest.mark.parametrize("mode", som.AUTO_MODES)
+def test_auto_micro_matches_plain(cuda_device, mode, n0, n1, tile_r):
+    """M4 against its twin: "dma" exactly, "both" within 1e-6 of the sum
+    of |terms|."""
+    apply, shape, _ = som.make_auto_micro(mode, n0, n1, tile_r,
+                                          device=cuda_device)
+    u = _rand(shape, 23, torch.float32, cuda_device)
+    y = _launched_only("M4", lambda: apply(u))
+    yp = som.auto_micro_plain(u, apply.coef, apply.geom, mode)
+    torch.cuda.synchronize()
+    if mode == "dma":
+        assert y.equal(yp)
+    else:
+        scale = som.stream_term_scale(u, apply.coef)
+        assert (y - yp).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("nb", [2, 3])
+def test_stream_micro_modes_share_grid(cuda_device, nb):
+    """Every M3 mode reserves the same shared memory, so all five run
+    the same number of blocks and their times compare."""
+    blocks = set()
+    for mode in som.MODES:
+        apply, shape, _ = som.make_micro(mode, 1000, 1000, 96, nb=nb,
+                                         device=cuda_device)
+        apply(torch.zeros(shape, device=cuda_device))
+        blocks.add(som.stream_micro_apply.blocks)
+    assert len(blocks) == 1
+
+
+@pytest.mark.parametrize("n0,n1,tile_r", STREAM_CASES)
+@pytest.mark.parametrize("mode", som.SEPBUF_MODES)
+def test_sepbuf_micro_matches_plain(cuda_device, mode, n0, n1, tile_r):
+    """M5 against its twin, exactly."""
+    apply, shape, _ = som.make_sepbuf_micro(mode, n0, n1, tile_r,
+                                            device=cuda_device)
+    u = _rand(shape, 24, torch.float32, cuda_device)
+    y = _launched_only("M5", lambda: apply(u))
+    assert y.equal(som.sepbuf_micro_plain(u, apply.geom, mode))
+
+
+def test_micro_wrappers_reject(cuda_device):
+    """A wrong dtype, shape or a non-contiguous input raises."""
+    grid = Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0))
+    m1, shape1 = mxu_micro.make_stage1_micro(grid, "full", cuda_device,
+                                             tile_r=16)
+    m3, shape3, _ = som.make_micro("both", 40, 60, 16, device=cuda_device)
+    m4, shape4, _ = som.make_auto_micro("dma", 40, 60, 16,
+                                        device=cuda_device)
+    m5, shape5, _ = som.make_sepbuf_micro("dma", 40, 60, 16,
+                                          device=cuda_device)
+    for apply, shape in ((m1, shape1), (m3, shape3), (m4, shape4),
+                         (m5, shape5)):
+        u = torch.zeros(shape, device=cuda_device)
+        wide = torch.zeros((shape[0], 2 * shape[1]), device=cuda_device)
+        for bad in (u.double(), wide[:, ::2], u[:-1], u.half()):
+            with pytest.raises(ValueError):
+                apply(bad)
+    x = torch.zeros((32, 64), device=cuda_device)
+    for bad in (x.double(), x.t(), x.half()):
+        with pytest.raises(ValueError):
+            mxu_micro.relayout_apply(bad)

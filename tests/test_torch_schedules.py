@@ -256,3 +256,122 @@ def test_card_default_raises_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def _stencil_op():
+    gc = Grid(3, (12, 12), (-1.21, -1.21), (1.21, 1.21))
+    geo = CutGeometry.build(gc, lambda m: np.sqrt(sum(x**2 for x in m))
+                            - 1.0, 3)
+    return gc, assemble_stencil(CutOperators(geo, INSIDE), "mass",
+                                0.25 * np.sqrt(3.0))
+
+
+G2 = Grid(3, (20, 24), (0.0, 0.0), (1.0, 2.0))
+G3 = Grid(3, (9, 8, 10), (0.0,) * 3, (1.0, 2.0, 1.5))
+
+# gdm's builder keywords the port takes: (builder, gdm keywords), each
+# against the same builder without them
+GDM_KEYWORDS = [
+    ("stream tile_r", stencil2.make_padded_laplace2_stream, G2,
+     {"tile_r": 96}),
+    ("laplace3 tile_planes", stencil3.make_padded_laplace3, G3,
+     {"tile_planes": 4}),
+    ("laplace3_mxu tile_planes1", stencil3.make_padded_laplace3_mxu, G3,
+     {"tile_planes1": 3}),
+    ("laplace3_mxu chunk", stencil3.make_padded_laplace3_mxu, G3,
+     {"chunk": 1024}),
+    ("laplace3_mxu pipelined", stencil3.make_padded_laplace3_mxu, G3,
+     {"pipelined": True}),
+    ("laplace2 mxu_precision None", stencil2.make_padded_laplace2, G2,
+     {"rows": "mxu", "mxu_precision": None}),
+    ("laplace2 mxu_precision HIGHEST", stencil2.make_padded_laplace2, G2,
+     {"rows": "mxu", "mxu_precision": "HIGHEST"}),
+    ("laplace2 pipeline_interleave", stencil2.make_padded_laplace2, G2,
+     {"rows": "mxu3p", "pipeline_interleave": True}),
+    ("laplace2 no pipeline_interleave", stencil2.make_padded_laplace2, G2,
+     {"rows": "mxu3p", "pipeline_interleave": False}),
+    ("laplace2 static_parity", stencil2.make_padded_laplace2, G2,
+     {"rows": "mxu3p", "static_parity": False}),
+]
+
+
+@pytest.mark.parametrize("builder,grid,kw",
+                         [c[1:] for c in GDM_KEYWORDS],
+                         ids=[c[0] for c in GDM_KEYWORDS])
+def test_gdm_builder_keywords_taken(builder, grid, kw):
+    """Each of gdm's keywords is taken (no TypeError) and leaves the
+    function as it was; K4's tile_planes is its chunk of planes."""
+    u = torch.as_tensor(np.random.default_rng(30).standard_normal(
+        grid.nodes))
+    plain_kw = {k: v for k, v in kw.items() if k == "rows"}
+    apply, pad, unpad, shape = builder(grid, "cpu", F64, **kw)
+    ref = builder(grid, "cpu", F64, **plain_kw)
+    assert shape == ref[3]
+    assert unpad(apply(pad(u))).equal(ref[2](ref[0](ref[1](u))))
+    if "tile_planes" in kw:
+        assert apply.options == {"tile_planes": kw["tile_planes"]}
+
+
+def test_gdm_precision_by_name():
+    """gdm's HIGHEST is recognised by name, as jax's enum gives it."""
+    from jax.lax import Precision
+
+    for prec in (Precision.HIGHEST, "float32", "highest"):
+        stencil2.make_padded_laplace2(G2, "cpu", F64, rows="mxu",
+                                      mxu_precision=prec)
+    for prec in (Precision.DEFAULT, Precision.HIGH, "bfloat16"):
+        with pytest.raises(ValueError, match="3xTF32"):
+            stencil2.make_padded_laplace2(G2, "cpu", F64, rows="mxu",
+                                          mxu_precision=prec)
+
+
+def test_stencil2_tile_r_taken():
+    """K1's builder takes gdm's tile_r and applies the same band."""
+    grid, mass = _stencil_op()
+    u = torch.as_tensor(np.random.default_rng(31).standard_normal(
+        grid.n_nodes))
+    outs = []
+    for kw in ({}, {"tile_r": 16}, {"tile_r": 64}):
+        apply, pad, unpad, _ = cutband.make_padded_stencil2(mass, "cpu", F64,
+                                                            **kw)
+        outs.append(unpad(apply(pad(u))))
+    assert outs[0].equal(outs[1]) and outs[0].equal(outs[2])
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: stencil2.make_padded_laplace2_stream(G2, "cpu", tile_r=0),
+     "tile_r"),
+    (lambda: stencil2.make_padded_laplace2_stream(G2, "cpu", tile_r=9.5),
+     "tile_r"),
+    (lambda: stencil3.make_padded_laplace3(G3, "cpu", tile_planes=-2),
+     "tile_planes"),
+    (lambda: stencil3.make_padded_laplace3_mxu(G3, "cpu", tile_planes1=0),
+     "tile_planes1"),
+    (lambda: stencil3.make_padded_laplace3_mxu(G3, "cpu", chunk=True),
+     "chunk"),
+    (lambda: stencil3.make_padded_laplace3_mxu(G3, "cpu", pipelined=False),
+     "pipelined"),
+    (lambda: stencil2.make_padded_laplace2(G2, "cpu", rows="mxu",
+                                           mxu_precision="DEFAULT"),
+     "mxu_precision"),
+    (lambda: stencil2.make_padded_laplace2(G2, "cpu",
+                                           pipeline_interleave=2),
+     "pipeline_interleave"),
+    (lambda: stencil2.make_padded_laplace2(G2, "cpu", static_parity="yes"),
+     "static_parity"),
+    (lambda: cutband.make_padded_stencil2(_stencil_op()[1], "cpu",
+                                          tile_r=-64), "tile_r"),
+    (lambda: stencil3.laplace3_apply(
+        torch.zeros(G3.nodes, dtype=F64),
+        stencil3.laplace3_bands(G3, "cpu", F64), tile_planes=0),
+     "tile_planes"),
+], ids=["stream tile_r 0", "stream tile_r 9.5", "laplace3 tile_planes",
+        "laplace3_mxu tile_planes1", "laplace3_mxu chunk",
+        "laplace3_mxu pipelined False", "mxu_precision DEFAULT",
+        "pipeline_interleave 2", "static_parity str", "stencil2 tile_r",
+        "laplace3_apply tile_planes"])
+def test_gdm_builder_keywords_refused(call, match):
+    """A value the card kernels do not satisfy raises ValueError with its
+    reason, never TypeError."""
+    with pytest.raises(ValueError, match=match):
+        call()
