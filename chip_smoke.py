@@ -11,21 +11,32 @@ Run from the repository root:  python3 chip_smoke.py
    flagship 128^2 mass and stiffness bands: max error <= 1e-5 of max|y|,
    guard cells zero; device time per apply (``device_ms``: CUDA events
    around a run queued behind a spin kernel) and median time per call
-   with its launch (CUDA events around each call);
-4. K2 (one-launch FSAI-CG) against its plain version, float32, at 128^2
-   (cut mass + FSAI factors): iteration counts within 2, x within 1e-4
-   relative, true residuals within 10%; device and per-call times;
+   with its launch (CUDA events around each call); one torch.sparse CSR
+   SpMV of the same operator (the library yardstick);
+4. K2 (one-launch FSAI-CG), both bodies (planes in shared memory and in
+   device memory) against its plain version at 128^2 (cut mass + FSAI
+   factors), float32: iteration counts equal between the bodies and
+   within 2 of the plain version's, x within 1e-4 relative, true
+   residuals within 10%; float64: iteration counts equal, x within
+   1e-10; the 128^2 float32 plan (the shared body), the two bodies timed
+   in turns (shared, device, device, shared), the plain version and the
+   time per call; then the device body on its own path, make_resident_cg
+   at 256^2 with the counts reset (the device body once, the shared
+   none), against the plain version the same way and timed;
 5. the flagship solver through the public entry point,
    gdm_torch.entry(128, device="cuda", dtype=torch.float32): routing and
    probe evidence, 10 RK4 steps with per-step times, the state after 3
    steps against gdm_torch.entry(128, device="cpu", dtype=torch.float64)
-   within 1e-4 relative, finite values of the right shape, and the
-   launch counts of K1 and K2 over setup + steps, both > 0.  Also the
-   cost of the streamed (host-synced) CG against the resident solve;
+   within 1e-4 relative, finite values of the right shape, the launch
+   counts of K1, K2 and K2's shared body over setup + steps, all > 0,
+   the routing "resident-verified" with 0 fallbacks, and the step's
+   device busy time with K2's share (profiler).  Also the cost of the
+   streamed (host-synced) CG against the resident solve;
 6. K3 (2D separable Laplace) against its plain torch twin, float32, at
    1024^2 for p = 3 and p = 5, with four distinct band factors, and at
    2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
-   per-call times, GB/s at 8 bytes per node (read u, write y); in each
+   per-call times, GB/s at 8 bytes per node (read u, write y), and at
+   1024^2 p=3 one torch.sparse CSR SpMV of the same operator; in each
    case K3s (K3's operator streamed through a cp.async ring) against the
    same twin the same way, and the two timed in turns (K3, K3s, K3s,
    K3); then K3s once through its public make_padded_laplace2_stream at
@@ -111,14 +122,18 @@ Run from the repository root:  python3 chip_smoke.py
    float32 card solution against the float64 CPU solution as in
    phase 12.
 
-Prints a JSON line of per-kernel results (K1-K5, K3s, K3c, K3f, K3h,
-K3p, K3/mxu, K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes),
-M2, M3, M4, M5: launches on the kernel's main path, max error against
-the plain twin, device ms of the kernel and of the twin, the bound from
-the bytes and operations of the measured inputs (M1's row modes over
-the bf16 tensor-core peak, M2's over the shared-memory rate),
-``library_ms``: null but for M2 (x.t().contiguous()) and M4
-(u * 1.0000001), where one PyTorch call computes the same function, and
+Prints a JSON line of per-kernel results (K1, K2's shared body at
+128^2 and device body at 256^2, K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
+K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes), M2, M3, M4, M5:
+launches on the kernel's main path, max error against the plain twin,
+device ms of the kernel and of the twin, the bound from the bytes and
+operations of the measured inputs (M1's row modes over the bf16
+tensor-core peak, M2's over the shared-memory rate), ``library_ms``:
+one PyTorch call computing the same function, where there is one (K1
+and K3: a torch.sparse CSR SpMV of the operator; M2:
+x.t().contiguous(); M4: u * 1.0000001), else null (no call runs K2's
+preconditioned CG; K4's and K5's 161^3 CSR would hold ~1.4e9
+nonzeros), and
 ``ms_by``/``plain_ms_by``, the method that took ``ms`` and
 ``plain_ms``: "events" or "profiler", as ``device_ms`` says), the card
 line, and last
@@ -365,6 +380,7 @@ def reset_counts():
                stencil3.laplace3_apply, stencil3.laplace3_mxu_apply,
                *micro_wrappers().values()):
         fn.launches = 0
+    resident.resident_cg.body_launches = dict.fromkeys(resident.BODIES, 0)
 
 
 def read_counts():
@@ -373,6 +389,8 @@ def read_counts():
     return {**{k: w.launches for k, w in micro_wrappers().items()},
             "cutband": cutband.band_apply.launches,
             "resident": resident.resident_cg.launches,
+            **{f"resident {body}": n for body, n in
+               resident.resident_cg.body_launches.items()},
             "laplace2": stencil2.laplace2_apply.launches,
             "laplace2_stream": stencil2.laplace2_stream_apply.launches,
             **{k: w.launches for k, w in tc_wrappers().items()},
@@ -475,6 +493,133 @@ def row_phase(rng, dev, g2, g4096, four):
         if name.startswith("make_padded"):
             launches[want] = counts[want]
     return err_max, ms_at, plain_at, launches
+
+
+def k2_solves(b, x0, args, bodies, what):
+    """K2's bodies against its plain version on one system: iteration
+    counts equal between the bodies and within 2 of the plain version's
+    (float32; equal in float64), x within 1e-4 relative (1e-10 in
+    float64), true residuals within 10% (1e-4).  Returns the largest max
+    abs x difference."""
+    import torch
+
+    from gdm_torch.ops import resident
+
+    f64 = b.dtype == torch.float64
+    xp, sp = resident.resident_cg_plain(b, x0, *args)
+    sp = resident.read_stats(sp)
+    err, its = 0.0, set()
+    for body in bodies:
+        xk, sk = resident.resident_cg(b, x0, *args, body=body)
+        sk = resident.read_stats(sk)
+        dx = (xk - xp).norm().item() / xp.norm().item()
+        e = (xk - xp).abs().max().item()
+        print(f"K2 {what} {body} body: {sk}; plain {sp}; x rel diff "
+              f"{dx:.3e}, max abs {e:.3e} of max|x| "
+              f"{xp.abs().max().item():.3e}")
+        check(abs(sk["iterations"] - sp["iterations"]) <= (0 if f64 else 2),
+              f"K2 {what} {body}: iterations {sk['iterations']} against "
+              f"{sp['iterations']}")
+        check(dx <= (1e-10 if f64 else 1e-4),
+              f"K2 {what} {body}: x rel diff {dx:.3e}")
+        check(abs(sk["residual"] - sp["residual"])
+              <= (1e-4 if f64 else 0.1) * sp["residual"],
+              f"K2 {what} {body}: true residuals differ")
+        its.add(sk["iterations"])
+        err = max(err, e)
+    check(len(its) == 1, f"K2 {what}: the bodies took {its} iterations")
+    return err
+
+
+def k2_phase(rng, dev, grid, mass, G, GT, layout):
+    """Phase 4: K2's shared and device bodies against the plain version
+    at 128^2 (float32, float64), timed in turns; the device body on its
+    own path at 256^2 (make_resident_cg, counts reset).  Returns the
+    kernels line's values by body."""
+    import torch
+
+    from gdm_torch.cut.fsai import fsai_factors
+    from gdm_torch.entry import flagship_operators
+    from gdm_torch.ops import cutband, resident
+
+    f32 = torch.float32
+    out = {}
+    for dt in (f32, torch.float64):
+        A, Gp, GTp = (cutband.band_planes(s, layout, dev, dt)
+                      for s in (mass, G, GT))
+        b = layout.pad(torch.as_tensor(rng.standard_normal(grid.n_nodes),
+                                       dtype=dt, device=dev))
+        x0 = torch.zeros_like(b)
+        args = (A, Gp, GTp, 40, 1e-5, 1e-12)
+        err = k2_solves(b, x0, args, resident.BODIES, f"128^2 {dt}")
+        if dt != f32:
+            continue
+        n_taps = len(A.taps) + len(Gp.taps) + len(GTp.taps)
+        plan = resident.resident_plan(layout, n_taps, 4, *resident.card_limits(
+            torch.cuda.current_device()))
+        print(f"K2 128^2 float32 plan: {plan}")
+        check(plan.body == "shared", "K2 does not keep the 128^2 planes in "
+              "shared memory")
+        its = resident.read_stats(resident.resident_cg(b, x0, *args)[1])[
+            "iterations"]
+        (s1, s2), (d1, d2) = turns(
+            "K2 shared", lambda: resident.resident_cg(b, x0, *args,
+                                                      body="shared"),
+            "K2 device", lambda: resident.resident_cg(b, x0, *args,
+                                                      body="device"))
+        pms = profiled_ms(lambda: resident.resident_cg_plain(b, x0, *args),
+                          n=5)
+        cms = call_ms(lambda: resident.resident_cg(b, x0, *args), n=20)
+        cells = layout.rows * layout.pitch
+        # each plane and b, x0 read once, x written once; per iteration
+        # the three band applies and ~10 flops of vector updates a cell
+        bnd = bound(4 * (n_taps + 3) * cells, its * (2 * n_taps + 10) * cells)
+        for body, ts in (("shared", (s1, s2)), ("device", (d1, d2))):
+            ms = mean_ms(ts)
+            print(f"K2 128^2 {body} body: {ms * 1e3:.2f} us "
+                  f"({ms * 1e3 / max(its, 1):.2f} us/iteration over {its})")
+        print(f"K2 128^2: plain {pms * 1e3:.1f} us (profiler); per call "
+              f"with launch {cms * 1e3:.1f} us; bound {bnd[0] * 1e3:.2f} us "
+              f"({bnd[1]}); no PyTorch call runs a preconditioned CG, so no "
+              f"library time")
+        out["shared"] = [err, mean_ms((s1, s2)), pms, bnd]
+        out["device at 128^2"] = mean_ms((d1, d2))
+    # the device body on its own path: the 256^2 wave preset's planes
+    # (45 MB in float32) do not fit the blocks' shared memory
+    t0 = time.perf_counter()
+    g256, _, m256, _ = flagship_operators(256)
+    G256, GT256 = fsai_factors(m256)
+    solve, pad, _, _ = resident.make_resident_cg(m256, G256, GT256,
+                                                 max_iter=40, device=dev,
+                                                 dtype=f32)
+    print(f"K2 256^2: host setup {time.perf_counter() - t0:.2f} s")
+    b = pad(torch.as_tensor(rng.standard_normal(g256.n_nodes), dtype=f32,
+                            device=dev))
+    reset_counts()
+    x, stats = solve(b)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"make_resident_cg at 256^2: launches {counts}")
+    check(counts["resident device"] == 1 and counts["resident shared"] == 0,
+          "K2 at 256^2 did not launch the device body alone, once")
+    check(bool(torch.isfinite(x).all()), "K2 at 256^2: x not finite")
+    lay = cutband.layout_for(g256, max(m256.radius, G256.radius))
+    A, Gp, GTp = (cutband.band_planes(s, lay, dev, f32)
+                  for s in (m256, G256, GT256))
+    x0 = torch.zeros_like(b)
+    args = (A, Gp, GTp, 40, 1e-5, 1e-12)
+    err = k2_solves(b, x0, args, ("device",), "256^2 float32")
+    its = resident.read_stats(stats)["iterations"]
+    ms = device_ms(lambda: resident.resident_cg(b, x0, *args))
+    pms = profiled_ms(lambda: resident.resident_cg_plain(b, x0, *args), n=3)
+    n_taps = len(A.taps) + len(Gp.taps) + len(GTp.taps)
+    cells = lay.rows * lay.pitch
+    bnd = bound(4 * (n_taps + 3) * cells, its * (2 * n_taps + 10) * cells)
+    print(f"K2 256^2 device body: {ms * 1e3:.2f} us "
+          f"({ms * 1e3 / max(its, 1):.2f} us/iteration over {its}), plain "
+          f"{pms * 1e3:.1f} us, bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+    out["device"] = [err, ms, pms, bnd, counts["resident device"]]
+    return out
 
 
 def split_phase(rng, dev, sizes):
@@ -781,7 +926,8 @@ def micro_phase(rng, dev):
         t4, tl = turns("M4 dma", lambda: a4["dma"](u4), "u * 1.0000001",
                        lambda: u4 * som.AUTO_SCALE)
         t4b = device_ms(lambda: a4["both"](u4))
-        print(f"M4 {n}^2 ({som.auto_micro_apply.blocks} blocks): dma "
+        print(f"M4 {n}^2 ({a4['dma'].ring}, "
+              f"{som.auto_micro_apply.blocks} blocks): dma "
               f"{mean_ms(t4) * 1e3:.2f} us "
               f"({8 * u4.numel() / (mean_ms(t4) * 1e-3) / 1e9:.0f} GB/s), "
               f"u * 1.0000001 {mean_ms(tl) * 1e3:.2f} us, both "
@@ -950,13 +1096,78 @@ def solve_phase(dim, n, dev, f32, f64, n_check):
     return counts, level_err
 
 
-def kernel_row(name, source, replaces, launches, err, ms, pms, bnd):
+def kernel_row(name, source, replaces, launches, err, ms, pms, bnd,
+               lib=None):
     """One kernel's entry in the kernels line."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
             "ms_by": ms.method, "plain_ms_by": pms.method}
+
+
+def sparse_csr(rows, cols, vals, n):
+    """The (n, n) CSR matrix of COO triples (duplicates summed, zeros
+    dropped): the operator of a band kernel for one torch.sparse SpMV,
+    the ``library_ms`` yardstick; the port never calls it."""
+    import torch
+
+    keep = vals != 0
+    return torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]), vals[keep],
+        (n, n)).coalesce().to_sparse_csr()
+
+
+def band_planes_csr(bp, layout):
+    """K1's operator as a CSR matrix over the flat padded cells."""
+    import torch
+
+    cells = layout.rows * layout.pitch
+    i = torch.arange(cells, device=bp.planes.device)
+    offs = torch.tensor([dy * layout.pitch + dx for dy, dx in bp.taps],
+                        device=i.device)
+    cols = (i[None, :] + offs[:, None]).reshape(-1)
+    rows = i.repeat(len(bp.taps))
+    vals = bp.planes.reshape(-1)
+    inside = (cols >= 0) & (cols < cells)
+    return sparse_csr(rows[inside], cols[inside], vals[inside], cells)
+
+
+def laplace2_csr(bt, nodes):
+    """K3's operator y = A0 U A1^T + B0 U B1^T as a CSR matrix over the
+    row-major nodes: entry (i n1 + j, k n1 + l) = A0[i,k] A1[j,l] +
+    B0[i,k] B1[j,l]."""
+    import torch
+
+    from gdm_torch.ops import stencil3
+
+    n0, n1 = nodes
+    parts = []
+    for left, right in ((bt.a0, bt.a1), (bt.b0, bt.b1)):
+        ml, mr = stencil3.band_matrix(left), stencil3.band_matrix(right)
+        i, k = ml.nonzero(as_tuple=True)
+        j, l_ = mr.nonzero(as_tuple=True)
+        parts.append(((i[:, None] * n1 + j[None, :]).reshape(-1),
+                      (k[:, None] * n1 + l_[None, :]).reshape(-1),
+                      (ml[i, k][:, None] * mr[j, l_][None, :]).reshape(-1)))
+    rows, cols, vals = (torch.cat(x) for x in zip(*parts))
+    return sparse_csr(rows, cols, vals, n0 * n1)
+
+
+def spmv_ms(csr, u, y_ref, what):
+    """One SpMV of ``csr`` on u (flattened), held against y_ref (max
+    error <= 1e-5 of max|y|), timed by events; prints and returns ms."""
+    import torch
+
+    v = u.reshape(-1)
+    y = torch.mv(csr, v).reshape(y_ref.shape)
+    rel = (y - y_ref).abs().max().item() / y_ref.abs().max().item()
+    check(rel <= 1e-5, f"{what}: torch.sparse SpMV max error {rel:.3e}")
+    ms = device_ms(lambda: torch.mv(csr, v))
+    print(f"{what}: torch.sparse CSR SpMV ({csr._nnz()} nonzeros) "
+          f"{ms * 1e3:.2f} us (max error {rel:.3e} of max|y|; the "
+          f"library yardstick)")
+    return ms
 
 
 def check(cond, what):
@@ -1003,7 +1214,7 @@ def main():
     N = grid.n_nodes
 
     # ---- K1 against its plain version ------------------------------------
-    k1_err, k1_ms, k1_plain_ms, k1_bound = 0.0, [], [], []
+    k1_err, k1_ms, k1_plain_ms, k1_bound, k1_lib = 0.0, [], [], [], []
     for name, st in (("mass", mass), ("stiffness", stiff)):
         bp = cutband.band_planes(st, layout, dev, f32)
         u = layout.pad(torch.as_tensor(rng.standard_normal(N), dtype=f32,
@@ -1033,46 +1244,11 @@ def main():
         k1_plain_ms.append(pms)
         k1_bound.append(bound(4 * (bp.planes.numel() + 2 * cells),
                               2 * len(bp.taps) * cells))
+        k1_lib.append(spmv_ms(band_planes_csr(bp, layout), u, yp,
+                              f"K1 {name}"))
 
-    # ---- K2 against its plain version ------------------------------------
-    A = cutband.band_planes(mass, layout, dev, f32)
-    Gp = cutband.band_planes(G, layout, dev, f32)
-    GTp = cutband.band_planes(GT, layout, dev, f32)
-    b = layout.pad(torch.as_tensor(rng.standard_normal(N), dtype=f32,
-                                   device=dev))
-    x0 = torch.zeros_like(b)
-    args = (A, Gp, GTp, 40, 1e-5, 1e-12)
-    xk, sk = resident.resident_cg(b, x0, *args)
-    xp, sp = resident.resident_cg_plain(b, x0, *args)
-    sk, sp = resident.read_stats(sk), resident.read_stats(sp)
-    dx = (xk - xp).norm().item() / xp.norm().item()
-    print(f"K2: {len(A.taps)}+{len(Gp.taps)}+{len(GTp.taps)} planes; "
-          f"kernel {sk}, plain {sp}, x rel diff {dx:.3e}")
-    check(abs(sk["iterations"] - sp["iterations"]) <= 2, "K2 iterations")
-    check(dx <= 1e-4, f"K2 x rel diff {dx:.3e}")
-    check(abs(sk["residual"] - sp["residual"]) <= 0.1 * sp["residual"],
-          "K2 true residuals differ by more than 10%")
-    k2_err = (xk - xp).abs().max().item()
-    # the kernels line reports this absolute error; its scale is x's
-    print(f"K2: max abs x difference {k2_err:.3e} of max|x| "
-          f"{xp.abs().max().item():.3e}")
-    k2_ms = device_ms(lambda: resident.resident_cg(b, x0, *args))
-    k2_call_ms = call_ms(lambda: resident.resident_cg(b, x0, *args), n=20)
-    k2_plain_ms = profiled_ms(
-        lambda: resident.resident_cg_plain(b, x0, *args), n=5)
-    k2_plain_call_ms = call_ms(
-        lambda: resident.resident_cg_plain(b, x0, *args), n=20)
-    # each plane and b, x0 read once, x written once; per iteration the
-    # three band applies and ~10 flops of vector updates and dots a cell
-    cells = layout.rows * layout.pitch
-    n_taps = len(A.taps) + len(Gp.taps) + len(GTp.taps)
-    k2_bound = bound(4 * (n_taps + 3) * cells,
-                     sk["iterations"] * (2 * n_taps + 10) * cells)
-    print(f"K2: device time: kernel {k2_ms * 1e3:.1f} us "
-          f"({k2_ms * 1e3 / max(sk['iterations'], 1):.1f} us/iteration), "
-          f"plain {k2_plain_ms * 1e3:.1f} us; per call with launch and "
-          f"host syncs: kernel {k2_call_ms * 1e3:.1f} us, plain "
-          f"{k2_plain_call_ms * 1e3:.1f} us")
+    # ---- K2's two bodies against its plain version -------------------------
+    k2 = k2_phase(rng, dev, grid, mass, G, GT, layout)
 
     # ---- the flagship solver through the public entry point ---------------
     reset_counts()
@@ -1101,9 +1277,23 @@ def main():
           f"{statistics.median(step_ms):.3f} ms")
     check(launches["cutband"] > 0, "K1 never launched on the main path")
     check(launches["resident"] > 0, "K2 never launched on the main path")
+    check(launches["resident shared"] > 0,
+          "K2's shared body never launched on the main path")
+    check(ms_.path == "resident-verified" and ms_.fallback_count == 0,
+          f"the flagship mass solve routed {ms_.path!r} with "
+          f"{ms_.fallback_count} fallbacks")
     check(u.shape == (N,) and v.shape == (N,), "state shape")
     check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()),
           "state not finite")
+
+    # the step's device work and K2's share of it (profiler)
+    busy, n_dev, top = device_breakdown(lambda: step(t, dt, u, v))
+    k2_busy = sum(ms for name, ms, _ in top if "resident_cg" in name)
+    print(f"step device busy {busy:.4f} ms, {n_dev:.0f} device items; K2 "
+          f"{k2_busy:.4f} ms ({k2_busy / busy:.1%}); idle share of the "
+          f"median step {1 - busy / statistics.median(step_ms):.3f}")
+    for name, ms, cnt in top:
+        print(f"    {ms * 1e3:9.1f} us  x{cnt:5.1f}  {name[:90]}")
 
     # cost of the streamed CG (one host sync per iteration) vs resident
     bs = layout.pad(torch.as_tensor(rng.standard_normal(N), dtype=f32,
@@ -1151,6 +1341,8 @@ def main():
         k3_err = max(k3_err, err)
         if name == "1024^2 p=3":
             k3_ms, k3_plain_ms = ms, pms
+            k3_lib = spmv_ms(laplace2_csr(bt, grid2.nodes), u,
+                             k3_plain(u, bt), f"K3 {name}")
         err, ms, pms = kernel_vs_plain(
             f"K3s {name}", lambda v: k3s(v, bt), lambda v: k3_plain(v, bt), u,
             grid2.n_nodes)
@@ -1335,13 +1527,18 @@ def main():
     print(json.dumps({"kernels": [
         row("cutband_apply (K1)", "gdm_torch/csrc/cutband.cu",
             "gdm/ops/pallas_cutband.py:137", launches["cutband"], k1_err,
-            k1_ms[k1_at], k1_plain_ms[k1_at], k1_bound[k1_at]),
-        row("resident_cg (K2)", "gdm_torch/csrc/resident.cu",
-            "gdm/ops/pallas_resident.py:197", launches["resident"], k2_err,
-            k2_ms, k2_plain_ms, k2_bound),
+            k1_ms[k1_at], k1_plain_ms[k1_at], k1_bound[k1_at],
+            k1_lib[k1_at]),
+        row("resident_cg (K2, shared body)", "gdm_torch/csrc/resident.cu",
+            "gdm/ops/pallas_resident.py:197", launches["resident shared"],
+            *k2["shared"]),
+        row("resident_cg (K2, device body, 256^2)",
+            "gdm_torch/csrc/resident.cu", "gdm/ops/pallas_resident.py:197",
+            k2["device"][4], *k2["device"][:4]),
         row("laplace2_apply (K3)", "gdm_torch/csrc/laplace2.cu",
             "gdm/ops/pallas_stencil2.py:566", counts2["laplace2"], k3_err,
-            k3_ms, k3_plain_ms, separable_bound(g2[3].n_nodes, 7, 4)),
+            k3_ms, k3_plain_ms, separable_bound(g2[3].n_nodes, 7, 4),
+            k3_lib),
         row("laplace2_stream_apply (K3s)", "gdm_torch/csrc/laplace2_stream.cu",
             "gdm/ops/pallas_stencil2.py:793", counts_k3s["laplace2_stream"],
             k3s_err, k3s_ms, k3s_plain_ms,

@@ -7,8 +7,9 @@ streams tiles of tile_r rows (with 2H = 16 halo rows) through a ring of
 waited row chunks, in gdm's modes ``"compute"`` (no traffic),
 ``"dma"`` (copies, no stencil), ``"both"`` (copies and a K-tap
 separable stencil), ``"dma_in"`` and ``"dma_out"``;
-``make_auto_micro`` (M4) streams disjoint row blocks through a
-two-stage ``cuda::pipeline``, gdm's automatic BlockSpec pipeline;
+``make_auto_micro`` (M4) streams the same array, gdm's automatic
+BlockSpec pipeline, in units of whole rows through a ring of bulk
+copies (``auto_ring``);
 ``make_sepbuf_micro`` (M5) is M3's two-slot ring with one buffer per slot
 and static slot indices.  ``main`` prints gdm's rows and the overlap
 fraction, (t_compute + t_dma - t_both) / (t_compute + t_dma -
@@ -61,12 +62,13 @@ def _rnd(n: int, m: int) -> int:
 class StreamGeom:
     """gdm's layout: W2 = rnd(N1 + 2p, 128) columns, Rp = rnd(N0, tile_r)
     rows in n_tiles tiles, R_ext = Rp + 2H; T_ext = tile_r + 2H rows a
-    tile copies; sw, the card's column strip (see ``strip_width``)."""
+    tile copies; sw, the column strip of M3's and M5's rings (see
+    ``strip_width``; None for M4, whose units are whole rows)."""
     n0: int
     n1: int
     tile_r: int
     k: int
-    sw: int
+    sw: int = None
 
     @property
     def p(self) -> int:
@@ -101,42 +103,42 @@ class StreamGeom:
         return self.n0 * self.n1
 
 
-def ring_bytes(tile_r: int, k: int, sw: int, slots: int, halo_rows: bool):
-    """Shared memory of one block as csrc/micro_stream.cu lays it out: the
-    ring's slots (rows of sw + 2 rnd(p, 4) columns, plus the rows'
-    column-0 values) and, for M3 and M5, the stencil's V rows and a
+def ring_bytes(tile_r: int, k: int, sw: int, slots: int):
+    """Shared memory of one M3 or M5 block as csrc/micro_stream.cu lays
+    it out: the ring's slots (T_ext rows of sw + 2 rnd(p, 4) columns,
+    plus the rows' column-0 values), the stencil's V rows and a
     reduction scratch."""
     p = (k - 1) // 2
-    rows = tile_r + 2 * H if halo_rows else tile_r
+    rows = tile_r + 2 * H
     slot = rows * (sw + 2 * _rnd(p, 4)) + _rnd(rows, 4)
-    if not halo_rows:
-        return 4 * slots * slot
     return 4 * (16 + _rnd((tile_r + 2 * p) * sw, 4) + slots * slot)
 
 
-def strip_width(tile_r: int, k: int, slots: int, halo_rows: bool = True):
+def strip_width(tile_r: int, k: int, slots: int):
     """The card's column strip: the widest of 64 and 32 columns whose
     block fits twice on an SM, else the widest that fits once; a ring
     that does not fit raises ValueError."""
     for limit in (SMEM_TWO, SMEM_MAX):
         for sw in STRIPS:
-            if ring_bytes(tile_r, k, sw, slots, halo_rows) <= limit:
+            if ring_bytes(tile_r, k, sw, slots) <= limit:
                 return sw
     raise ValueError(
         f"a ring of {slots} slots of {tile_r} rows needs "
-        f"{ring_bytes(tile_r, k, STRIPS[-1], slots, halo_rows)} bytes of "
-        f"shared memory at the narrowest strip; an H100 block has "
-        f"{SMEM_MAX}: take a smaller tile_r or fewer slots")
+        f"{ring_bytes(tile_r, k, STRIPS[-1], slots)} bytes of shared "
+        f"memory at the narrowest strip; an H100 block has {SMEM_MAX}: "
+        f"take a smaller tile_r or fewer slots")
 
 
-def _geometry(n0, n1, tile_r, k, slots, halo_rows=True) -> StreamGeom:
+def _geometry(n0, n1, tile_r, k, slots=None) -> StreamGeom:
+    """gdm's layout, with the strip of a ring of ``slots`` slots (M3,
+    M5), or none (M4)."""
     for name, v in (("N0", n0), ("N1", n1), ("tile_r", tile_r)):
         if int(v) != v or v < 1:
             raise ValueError(f"{name} must be a positive integer, not {v}")
     if k not in (3, 5, 7):
         raise ValueError(f"the card's micro kernels take K = 3, 5 or 7 "
                          f"taps, not {k}")
-    sw = strip_width(int(tile_r), k, slots, halo_rows)
+    sw = None if slots is None else strip_width(int(tile_r), k, slots)
     return StreamGeom(int(n0), int(n1), int(tile_r), k, sw)
 
 
@@ -294,11 +296,51 @@ def make_micro(mode: str, N0: int = 4096, N1: int = 4096, tile_r: int = 96,
     return apply_fn, (g.r_ext, g.w2), g.n_dof
 
 
-# ---- M4: disjoint row blocks through a two-stage pipeline ---------------
+# ---- M4: whole-row units through a ring of bulk copies -----------------
 
 # gdm's factor 1.0000001 as a float32 value: a float32 tensor times it
 # rounds the exact product once, on any device, as the kernel does
 AUTO_SCALE = float(np.float32(1.0000001))
+
+# M4's ring by mode: (bytes of u a stage aims to hold, stages, threads a
+# block), the fastest of scripts/torch_sweep_auto_micro.py on an H100:
+# "dma" streams, "both" needs two rows a unit to reuse each column's
+# coefficients and all its threads to hide the loads of them
+AUTO_RING = {"dma": (16 * 1024, 4, 256), "both": (32 * 1024, 3, 1024)}
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoRing:
+    """M4's ring on the card (csrc/micro_stream.cu, ``auto_kernel``):
+    units of ``unit_rows`` whole rows of the (Rp, W2) array, contiguous
+    bytes (the last unit shorter where unit_rows does not divide Rp),
+    through ``stages`` stages, each one unit of u and, in "both", one of
+    y; ``smem`` bytes of shared memory a block (128 for the mbarriers),
+    ``threads`` threads a block."""
+    unit_rows: int
+    n_units: int
+    stages: int
+    buffers: int
+    smem: int
+    threads: int
+
+
+def auto_ring(g: StreamGeom, mode: str) -> AutoRing:
+    """M4's ring for layout ``g`` in ``mode``: as many whole rows a unit
+    as come nearest the mode's stage bytes, at least one.  A row too
+    wide for the ring raises ValueError."""
+    target, stages, threads = AUTO_RING[mode]
+    row_bytes = 4 * g.w2
+    unit_rows = max(1, min(g.rp, round(target / row_bytes)))
+    buffers = 2 if mode == "both" else 1
+    smem = 128 + stages * buffers * unit_rows * row_bytes
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"M4's ring of {stages} stages of one {g.w2}-column row "
+            f"needs {smem} bytes of shared memory; an H100 block has "
+            f"{SMEM_MAX}")
+    return AutoRing(unit_rows, -(-g.rp // unit_rows), stages, buffers, smem,
+                    threads)
 
 
 def auto_micro_plain(u: torch.Tensor, coef: torch.Tensor, g: StreamGeom,
@@ -326,11 +368,13 @@ def auto_micro_apply(u: torch.Tensor, coef: torch.Tensor, g: StreamGeom,
         return auto_micro_plain(u, coef, g, mode)
     if u.data_ptr() % 16:
         raise ValueError("M4: u must be 16-byte aligned")
+    ring = auto_ring(g, mode)
     y = torch.empty_like(u)
     blocks = ctypes.c_int()
     _kernel.run("gdm_micro_auto_f32", f"M4 {mode}", u.device, u.data_ptr(),
                 coef.data_ptr(), y.data_ptr(), AUTO_MODES.index(mode) + 1,
-                g.p, g.tile_r, g.n_tiles, g.w2, g.sw, ctypes.byref(blocks))
+                g.p, g.rp, g.w2, ring.unit_rows, ring.stages, ring.threads,
+                ctypes.byref(blocks))
     auto_micro_apply.blocks = blocks.value
     auto_micro_apply.launches += 1
     return y
@@ -343,18 +387,19 @@ auto_micro_apply.blocks = None
 def make_auto_micro(mode: str, N0: int = 4096, N1: int = 4096,
                     tile_r: int = 96, K: int = 7, device="cuda"):
     """(apply, (Rp, W2), n_dof) of M4, as gdm's make_auto_micro: disjoint
-    tile_r-row blocks, no halo rows, through a two-stage pipeline (gdm's
-    automatic pipeline double-buffers)."""
+    tile_r-row blocks, no halo rows (gdm's automatic pipeline), streamed
+    on the card in units of whole rows (``auto_ring``, ``apply.ring``)."""
     if mode not in AUTO_MODES:
         raise ValueError(f"mode must be one of {AUTO_MODES}, not {mode!r}")
     device = _device.resolve(device)
-    g = _geometry(N0, N1, tile_r, K, 2, halo_rows=False)
+    g = _geometry(N0, N1, tile_r, K)
+    ring = auto_ring(g, mode)
     coef = stream_coef(g, device)
 
     def apply(u_pad):
         return auto_micro_apply(u_pad, coef, g, mode)
 
-    apply.geom, apply.coef = g, coef
+    apply.geom, apply.coef, apply.ring = g, coef, ring
     return apply, (g.rp, g.w2), g.n_dof
 
 

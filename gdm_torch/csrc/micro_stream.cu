@@ -33,14 +33,13 @@
 // u[t tile_r][0] (gdm's buf[0, :1]); "dma_in" copies in and writes the
 // sink u[t tile_r][strip's first column].
 // M4 (make_auto_micro) streams disjoint tile_r-row blocks of the (Rp, W2)
-// array, no halo rows, through a two-stage cuda::pipeline (gdm's
-// automatic BlockSpec pipeline double-buffers): "dma" y = u 1.0000001f,
-// "both" y =
-// sum_k coef[k][0] V (V of the block's own rows).
+// array, no halo rows (gdm's automatic BlockSpec pipeline): "dma" y = u
+// 1.0000001f, "both" y = sum_k coef[k][0] V (V of the block's own rows).
 //
 // Bound on the card: memory.  "both" reads T_ext / tile_r u rows per y
 // row and writes one: about 9 bytes a node at tile_r = 96 against 4K
-// flops; at 4096^2, 151 MB, 45 us at 3.35 TB/s.  What the micros measure
+// flops; at 4096^2, 151 MB, 45 us at 3.35 TB/s.  M4 reads u and writes y
+// once, 8 bytes a cell: at 4096^2, 139 MB, 41.6 us.  What the micros measure
 // is whether the copies of the next tiles overlap this tile's FMAs:
 // overlap = (t_compute + t_dma - t_both) / (t_compute + t_dma -
 // max(t_compute, t_dma)).
@@ -57,12 +56,21 @@
 // one's nsplit groups (cp.async.wait_group), and computes it: the column
 // stage V into shared memory, then the row stage.  Every M3 mode reserves
 // the same shared memory (nb slots, V and the scratch), used or not, so
-// all five run the same grid of blocks and their times compare.  M4: each
-// thread's cuda::pipeline carries the 16-byte pieces (and in "both" the
-// halo) it copies, one unit ahead.
+// all five run the same grid of blocks and their times compare.
+// M4's blocks are whole rows, so its units are contiguous bytes: runs of
+// unit_rows rows (about 16 KB a stage in "dma", 32 KB in "both":
+// gdm_torch/benchmarks/stream_overlap_micro.py::AUTO_RING) through a ring
+// of `stages` stages, each loaded by one bulk copy (cp.async.bulk, TMA
+// without a tensor map) that completes on the stage's mbarrier and stored
+// by another (cp.async.bulk ... bulk_group); threads spend no
+// instructions on the copies, stages - 1 loads and a store stay in
+// flight, and "both" takes the column wrap as an index mod W2 inside the
+// stage, with no halo copies.  "dma" is then bound by device memory;
+// "both" by the loads of each column's K coefficients, which a unit of
+// whole rows reuses over its few rows only (the strips of M3 reuse them
+// over a tile's 96), so it takes two rows a unit and 1024 threads.
 #include <cstddef>
-
-#include <cuda/pipeline>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -320,98 +328,153 @@ stream_kernel(const float* __restrict__ u, const float* __restrict__ coef,
   gdm::wait_group<0>();
 }
 
-// M4: disjoint tile_r-row blocks of the (Rp, W2) array through a
-// two-stage cuda::pipeline per thread, one unit ahead.
-constexpr int STAGES = 2;
+// M4: units of whole rows of the (Rp, W2) array, contiguous bytes, through
+// a ring of bulk copies (TMA without a tensor map).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
+// Load `bytes` (a multiple of 16, both addresses 16-byte aligned) into
+// shared memory; the copy completes its bytes on `bar`, which this call
+// arms with them.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until `bar` has completed the phase of parity `parity`.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Store `bytes` of shared memory to device memory as one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+constexpr int AUTO_MAX_STAGES = 16;   // mbarriers in the ring's first 128 B
+constexpr int AUTO_MAX_THREADS = 1024;
+
+// Block b takes units b, b + G, ...: unit k of its own is rows [(b + k G)
+// unit_rows, ...) of u, the last unit shorter where unit_rows does not
+// divide Rp.  Thread 0 keeps stages - 1 units in flight: it loads the
+// first `stages` at the start, and after it has stored unit k it waits
+// until the store of unit k - 1 has read its stage and loads unit
+// k - 1 + stages there.  Every thread waits on the stage's mbarrier,
+// computes in shared memory ("dma" in place, "both" into the stage's
+// second buffer), fences its writes to the async proxy, and after a
+// block barrier thread 0 stores the unit with one bulk copy.
 template <int MODE, int P>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(AUTO_MAX_THREADS)
 auto_kernel(const float* __restrict__ u, const float* __restrict__ coef,
-            float* __restrict__ y, Geom g) {
+            float* __restrict__ y, int rp, int w2, int unit_rows,
+            int stages) {
   constexpr int K = 2 * P + 1;
-  extern __shared__ __align__(16) float smem[];
+  constexpr int BUFS = MODE == BOTH ? 2 : 1;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  float* ring = reinterpret_cast<float*>(smem_raw + 128);
   const int tid = threadIdx.x;
-  const int n_units = g.units();
+  const int nt = blockDim.x;
   const int G = gridDim.x;
-  const int q4 = g.sw / 4;
-  const int edge = MODE == BOTH ? 2 * g.p : 0;
-  cuda::pipeline<cuda::thread_scope_thread> pipe = cuda::make_pipeline();
-  auto issue = [&](int unit, float* sl) {
-    pipe.producer_acquire();
-    if (unit < n_units) {
-      const int t = unit / g.n_strips;
-      const int j0 = (unit % g.n_strips) * g.sw;
-      const int per = q4 + edge;
-      for (int e = tid; e < g.tile_r * per; e += NT) {
-        const int q = e / per;
-        const int x = e % per;
-        const float* src = u + (static_cast<size_t>(t) * g.tile_r + q) * g.w2;
-        float* dst = sl + q * g.lds + g.hp;
-        if (x < q4) {
-          cuda::memcpy_async(dst + 4 * x, src + j0 + 4 * x,
-                             cuda::aligned_size_t<16>(16), pipe);
-        } else {
-          const int hx = x - q4;
-          const int c = hx < g.p ? hx - g.p : g.sw + hx - g.p;
-          int j = j0 + c;
-          j = j < 0 ? j + g.w2 : (j >= g.w2 ? j - g.w2 : j);
-          cuda::memcpy_async(dst + c, src + j, cuda::aligned_size_t<4>(4),
-                             pipe);
+  const int unit = unit_rows * w2;   // floats a unit holds
+  const int n_units = (rp + unit_rows - 1) / unit_rows;
+  const int mine = (n_units - static_cast<int>(blockIdx.x) + G - 1) / G;
+  auto first_row = [&](int k) {
+    return (static_cast<int>(blockIdx.x) + k * G) * unit_rows;
+  };
+  auto rows_of = [&](int k) { return min(unit_rows, rp - first_row(k)); };
+  auto stage = [&](int k) { return ring + (k % stages) * BUFS * unit; };
+  auto load = [&](int k) {
+    bulk_load(stage(k), u + static_cast<size_t>(first_row(k)) * w2,
+              static_cast<unsigned>(rows_of(k) * w2 * sizeof(float)),
+              full + k % stages);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(smem_u32(full + s)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < min(stages, mine); ++k) load(k);
+  }
+  __syncthreads();
+  float ck[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) ck[k] = __ldg(coef + static_cast<size_t>(k) * w2);
+  for (int k = 0; k < mine; ++k) {
+    bar_wait(full + k % stages, (k / stages) & 1);
+    float* in = stage(k);
+    float* out = in + (BUFS - 1) * unit;
+    const int nr = rows_of(k);
+    if (MODE == DMA) {
+      float4* v = reinterpret_cast<float4*>(in);
+      for (int e = tid; e < nr * w2 / 4; e += nt) {
+        float4 q = v[e];
+        q.x = __fmul_rn(q.x, 1.0000001f);
+        q.y = __fmul_rn(q.y, 1.0000001f);
+        q.z = __fmul_rn(q.z, 1.0000001f);
+        q.w = __fmul_rn(q.w, 1.0000001f);
+        v[e] = q;
+      }
+    } else {
+      // whole rows: the column wrap is an index mod W2 in shared memory
+      for (int j = tid; j < w2; j += nt) {
+        float cl[K];
+#pragma unroll
+        for (int l = 0; l < K; ++l)
+          cl[l] = __ldg(coef + static_cast<size_t>(l) * w2 + j);
+        for (int q = 0; q < nr; ++q) {
+          const float* row = in + q * w2;
+          float v = 0.0f;
+#pragma unroll
+          for (int l = 0; l < K; ++l) {
+            int jj = j + l - P;
+            jj = jj < 0 ? jj + w2 : (jj >= w2 ? jj - w2 : jj);
+            v = fmaf(cl[l], row[jj], v);
+          }
+          float acc = 0.0f;
+#pragma unroll
+          for (int kk = 0; kk < K; ++kk) acc = fmaf(ck[kk], v, acc);
+          out[q * w2 + j] = acc;
         }
       }
     }
-    pipe.producer_commit();
-  };
-  float ck[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) ck[k] = coef[static_cast<size_t>(k) * g.w2];
-  for (int k = 0; k < STAGES - 1; ++k)
-    issue(blockIdx.x + k * G, smem + (k % STAGES) * g.slot);
-  int k = 0;
-  for (int unit = blockIdx.x; unit < n_units; unit += G, ++k) {
-    issue(unit + (STAGES - 1) * G, smem + ((k + STAGES - 1) % STAGES) * g.slot);
-    pipe.consumer_wait();
-    const float* sl = smem + (k % STAGES) * g.slot;
-    const int t = unit / g.n_strips;
-    const int j0 = (unit % g.n_strips) * g.sw;
-    const size_t yrow = static_cast<size_t>(t) * g.tile_r;
-    if (MODE == DMA) {
-      // each thread reads back the 16-byte pieces it copied itself
-      for (int e = tid; e < g.tile_r * q4; e += NT) {
-        const int q = e / q4;
-        const int x = e % q4;
-        const float4 v =
-            *reinterpret_cast<const float4*>(sl + q * g.lds + g.hp + 4 * x);
-        *reinterpret_cast<float4*>(y + (yrow + q) * g.w2 + j0 + 4 * x) =
-            make_float4(v.x * 1.0000001f, v.y * 1.0000001f, v.z * 1.0000001f,
-                        v.w * 1.0000001f);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+      bulk_store(y + static_cast<size_t>(first_row(k)) * w2, out,
+                 static_cast<unsigned>(nr * w2 * sizeof(float)));
+      if (k > 0) {
+        // the store of unit k - 1 has read its stage: refill it
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        if (k - 1 + stages < mine) load(k - 1 + stages);
       }
-    } else {
-      __syncthreads();
-      const int c = tid % g.sw;
-      float cl[K];
-#pragma unroll
-      for (int l = 0; l < K; ++l)
-        cl[l] = coef[static_cast<size_t>(l) * g.w2 + j0 + c];
-      for (int q = tid / g.sw; q < g.tile_r; q += NT / g.sw) {
-        const float* row = sl + q * g.lds + g.hp + c - P;
-        float v = 0.0f;
-#pragma unroll
-        for (int l = 0; l < K; ++l) v = fmaf(cl[l], row[l], v);
-        float acc = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < K; ++kk) acc = fmaf(ck[kk], v, acc);
-        y[(yrow + q) * g.w2 + j0 + c] = acc;
-      }
-      __syncthreads();
     }
-    pipe.consumer_release();
   }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// One wave of persistent blocks: as many as fit on the card at once.
+// One wave of persistent blocks of `threads` threads: as many as fit on
+// the card at once.
 template <typename Kernel>
-int wave(Kernel kernel, size_t smem, int n_units, int* blocks) {
+int wave(Kernel kernel, size_t smem, int n_units, int* blocks,
+         int threads = NT) {
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -422,8 +485,8 @@ int wave(Kernel kernel, size_t smem, int n_units, int* blocks) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
-                                                      smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   *blocks = n_units < sms * per_sm ? n_units : sms * per_sm;
@@ -460,13 +523,17 @@ int stream_p(const float* u, const float* coef, float* y, float* sink,
 }
 
 template <int MODE, int P>
-int launch_auto(const float* u, const float* coef, float* y, const Geom& g,
-                int* blocks, cudaStream_t s) {
+int launch_auto(const float* u, const float* coef, float* y, int rp, int w2,
+                int unit_rows, int stages, int threads, int* blocks,
+                cudaStream_t s) {
   auto kernel = auto_kernel<MODE, P>;
-  const size_t smem = sizeof(float) * static_cast<size_t>(STAGES) * g.slot;
-  const int e = wave(kernel, smem, g.n_tiles * g.n_strips, blocks);
+  const size_t smem = 128 + sizeof(float) * static_cast<size_t>(stages) *
+                                (MODE == BOTH ? 2 : 1) * unit_rows * w2;
+  const int e = wave(kernel, smem, (rp + unit_rows - 1) / unit_rows, blocks,
+                     threads);
   if (e != 0) return e;
-  kernel<<<*blocks, NT, smem, s>>>(u, coef, y, g);
+  kernel<<<*blocks, threads, smem, s>>>(u, coef, y, rp, w2, unit_rows,
+                                        stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -519,24 +586,30 @@ int gdm_micro_stream_f32(const void* u, const void* coef, void* y, void* sink,
   }
 }
 
-// M4: u, y (n_tiles tile_r, w2) float32, coef (2p + 1, w2); mode 1 dma,
-// 2 both.
+// M4: u, y (rp, w2) float32, coef (2p + 1, w2); mode 1 dma, 2 both; a
+// ring of `stages` stages of `unit_rows` rows, blocks of `threads`.
 int gdm_micro_auto_f32(const void* u, const void* coef, void* y, int mode,
-                       int p, int tile_r, int n_tiles, int w2, int sw,
-                       int* blocks, void* stream) {
-  if (!valid(p, tile_r, n_tiles, w2, sw))
+                       int p, int rp, int w2, int unit_rows, int stages,
+                       int threads, int* blocks, void* stream) {
+  if (p < 1 || p > 3 || rp < 1 || w2 % 128 || unit_rows < 1 || stages < 2 ||
+      stages > AUTO_MAX_STAGES || threads < 32 || threads % 32 ||
+      threads > AUTO_MAX_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geom g(0, p, tile_r, n_tiles, w2, sw, tile_r);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* uf = static_cast<const float*>(u);
   const float* cf = static_cast<const float*>(coef);
   float* yf = static_cast<float*>(y);
-  if (mode == DMA) return launch_auto<DMA, 1>(uf, cf, yf, g, blocks, s);
+  if (mode == DMA)
+    return launch_auto<DMA, 1>(uf, cf, yf, rp, w2, unit_rows, stages,
+                               threads, blocks, s);
   if (mode != BOTH) return static_cast<int>(cudaErrorInvalidValue);
   switch (p) {
-    case 1: return launch_auto<BOTH, 1>(uf, cf, yf, g, blocks, s);
-    case 2: return launch_auto<BOTH, 2>(uf, cf, yf, g, blocks, s);
-    case 3: return launch_auto<BOTH, 3>(uf, cf, yf, g, blocks, s);
+    case 1: return launch_auto<BOTH, 1>(uf, cf, yf, rp, w2, unit_rows, stages,
+                                        threads, blocks, s);
+    case 2: return launch_auto<BOTH, 2>(uf, cf, yf, rp, w2, unit_rows, stages,
+                                        threads, blocks, s);
+    case 3: return launch_auto<BOTH, 3>(uf, cf, yf, rp, w2, unit_rows, stages,
+                                        threads, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,26 +12,50 @@
 //     systems; gdm_torch.cut.fsai.verified_fsai_solver checks it);
 //   * stats = [true ||b - A x||, iterations, ||r0||] (f32).
 //
-// Bound on the card: latency of the grid-wide synchronizations and L2
-// bandwidth.  Hopper has no 96 MB on-chip store, so there is no
-// counterpart of gdm's VMEM gate (pallas_resident.py:60,114-116): the
-// planes stay in device memory, and at the flagship 128^2 size all of
-// them (A: 77, G and G^T: 41 each, ~12 MB in f32) plus the six work
-// vectors fit in the 50 MB L2, so after the first iteration the applies
-// read L2, not HBM.  Each iteration costs four band sweeps' worth of
-// L2 traffic (~159 planes) and five grid syncs; at ~19k cells the card
-// is mostly idle between syncs.
-//
-// Design: a cooperative persistent kernel (cudaLaunchCooperativeKernel)
-// with at most occupancy x SM-count blocks of 256 threads, each striding
-// over the flat padded array.  cooperative_groups::this_grid().sync()
-// separates the phases (A p, x/r update, G r, G^T t, p update).  Every
-// dot product is summed per thread in double, reduced per block, and
-// written to one slot per block; after the next grid sync every block
-// sums all slots in the same order, so every block derives the same
-// alpha, beta and stop decision and none can leave the loop while
-// others wait at a sync.  The kernel allocates nothing: the caller
-// passes the work vectors r, z, p, Ap, t and the per-block slots.
+// Bound on the card: latency.  At the flagship 128^2 size (137 x 140
+// cells; A 77 taps, G and G^T 41 each) the bytes of a whole solve take
+// under 4 us at 3.35 TB/s, while every iteration waits on grid-wide
+// synchronizations, L2 round trips and the serial tap sums of few cells.
+// What the design does about each:
+//   * one block per SM, 512 threads.  Block b owns the contiguous range
+//     [b cells / G, (b + 1) cells / G) of the flat padded array.
+//   * planes resident (SHARED = true): at launch each block copies its
+//     cells' slice of every A, G and G^T plane into shared memory
+//     (cp.async), once per solve, as gdm keeps them in VMEM; no
+//     iteration reads a plane from device memory again.  Where they do
+//     not fit (the launcher decides from the bytes, gdm_torch/ops/
+//     resident.py::resident_plan), SHARED = false reads them through the
+//     read-only path and keeps everything below.
+//   * vectors staged with their halo: before a band apply a block stages
+//     the cells its taps reach, the window of rows dy = -r .. r around
+//     its chunk (stride sw = min(pitch, chunk + 2r): one contiguous run
+//     [c0 - r pitch - r, c0 + chunk + r pitch + r) when the chunk spans a
+//     row, 2r + 1 short runs when it does not), into shared memory, and
+//     sums each cell's taps from there.  One thread sums a cell's taps,
+//     in tap order with fma: a float32 solve ends at float32's accuracy
+//     floor, where another summation order moves the true residual by up
+//     to ~10% (PERF.md section 6), and splitting a cell's taps over
+//     threads buys nothing while the shared-memory loads (two a tap)
+//     bound the sum.
+//   * three grid syncs an iteration (two without a preconditioner)
+//     instead of five: the buffers of r and p are ping-ponged, and the
+//     halo values of p = z + beta p and of r = r - alpha Ap that a phase
+//     needs are computed again by every block that reads them:
+//       A: p = z + beta p (window), Ap = A p, p^T A p;        sync
+//       B: alpha; r -= alpha Ap (window), x += alpha p,
+//          t = G r, r^T r;                                     sync
+//       C: z = G^T t, r^T z;                                   sync
+//     beta and the stop decision come from the slots at the top of the
+//     next iteration.  A value two blocks compute must agree bit for
+//     bit, so the updates are pinned to __fma_rn/__fmaf_rn.
+//   * deterministic sums: each dot is summed per thread in double,
+//     reduced per block in a fixed order into one slot per block; after
+//     the grid sync warp 0 of every block reads all slots 32 lanes wide
+//     and reduces them with a fixed shuffle tree, so every block derives
+//     the same alpha, beta and stop decision and none can leave the loop
+//     while others wait at a sync.
+// The kernel allocates nothing: the caller passes the work vectors (r
+// twice, p twice, Ap, t, z) and the per-block slots.
 #include <cooperative_groups.h>
 
 #include <cmath>
@@ -42,205 +66,328 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BLOCK = 256;
+constexpr int NT = 512;                  // threads per block, one block per SM
+constexpr int NWARP = NT / 32;
+constexpr int SCRATCH = NWARP + 8;       // doubles at the head of shared memory
 
 template <typename T>
 struct Args {
   const T* b;
   T* x;  // in: x0, out: the solution
-  const T* plA;
-  const int* offA;
-  int nA;
-  const T* plG;
-  const int* offG;
-  int nG;
-  const T* plGT;
-  const int* offGT;
-  int nGT;
-  int precond;       // 0: z = r (plain CG)
-  T* work;           // 5 * rows * pitch: r, z, p, Ap, t
+  const T* pl[3];    // planes of A, G, G^T: (n[k], rows, pitch)
+  const int* off[3];  // their (dy, dx) offsets
+  int n[3];          // taps; n[1] = n[2] = 0 without a preconditioner
+  int precond;
+  T* work;           // 7 * cells: r (two), p (two), Ap, t, z
   double* partials;  // 3 * gridDim.x: p^T A p, r^T r, r^T z
   float* stats;      // 3
-  int rows, pitch, n0, n1, r;
+  long long cells;
+  int pitch, n0, n1, r;
+  int chunk;         // cells a block stages at once (its range if SHARED)
+  int sw;            // the window's row stride
   int max_iter;
   double rel_tol, abs_tol;
 };
 
-// Band apply at one cell; soff holds the flat offsets dy * pitch + dx.
-template <typename T>
-__device__ __forceinline__ T band_at(const T* __restrict__ planes,
-                                     const int* soff, int n, long long plane,
-                                     long long idx, const T* u) {
-  T acc = T(0);
-  for (int t = 0; t < n; ++t) {
-    acc = gdm::fma_(planes[t * plane + idx], u[idx + soff[t]], acc);
-  }
-  return acc;
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
 }
 
-// Sum over the block; the result is valid in thread 0.
-__device__ double block_sum(double v, double* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read by the previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < BLOCK / 32; ++w) s += red[w];
-  }
-  return s;
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
 }
 
-// Sum of all blocks' slots, in slot order, broadcast to the block.
-// Call after a grid sync that follows the writes.
-__device__ double grid_total(const double* slots, double* bcast) {
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int i = 0; i < static_cast<int>(gridDim.x); ++i) s += __ldcg(slots + i);
-    *bcast = s;
-  }
-  __syncthreads();
-  const double s = *bcast;
-  __syncthreads();  // bcast is rewritten by the next call
-  return s;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(BLOCK) resident_cg_kernel(Args<T> a) {
+template <typename T, bool SHARED>
+__global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ int soff[];  // flat tap offsets of A, then G, then G^T
-  __shared__ double red[BLOCK / 32];
-  __shared__ double bcast;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* scr = reinterpret_cast<double*>(smem_raw);
+  const int ntap = a.n[0] + a.n[1] + a.n[2];
+  const int win_len = 2 * a.r * a.sw + a.chunk + 2 * a.r;
+  T* planes = reinterpret_cast<T*>(scr + SCRATCH);  // ntap x chunk if SHARED
+  T* win = planes + (SHARED ? ntap * a.chunk : 0);
+  // SHARED: the block's own p, r and x, kept from phase to phase
+  T* kp = win + win_len;
+  T* kr = kp + (SHARED ? a.chunk : 0);
+  T* kx = kr + (SHARED ? a.chunk : 0);
+  int* toff = reinterpret_cast<int*>(kx + (SHARED ? a.chunk : 0));
+  const int tid = threadIdx.x;
+  const int G = gridDim.x;
+  const long long lo = static_cast<long long>(blockIdx.x) * a.cells / G;
+  const long long hi = static_cast<long long>(blockIdx.x + 1) * a.cells / G;
+  const int own = a.r * a.sw + a.r;  // window index of the chunk's first cell
 
-  const int ntap = a.nA + a.nG + a.nGT;
-  for (int k = threadIdx.x; k < ntap; k += BLOCK) {
-    const int* o = k < a.nA          ? a.offA + 2 * k
-                   : k < a.nA + a.nG ? a.offG + 2 * (k - a.nA)
-                                     : a.offGT + 2 * (k - a.nA - a.nG);
-    soff[k] = o[0] * a.pitch + o[1];
+  // tap k of the three operators in one list: its window offset
+  auto op_tap = [&](int k, int* op) {
+    *op = k < a.n[0] ? 0 : k < a.n[0] + a.n[1] ? 1 : 2;
+    return k - (*op > 0 ? a.n[0] : 0) - (*op > 1 ? a.n[1] : 0);
+  };
+  for (int k = tid; k < ntap; k += NT) {
+    int op;
+    const int t = op_tap(k, &op);
+    toff[k] = (a.off[op][2 * t] + a.r) * a.sw + a.off[op][2 * t + 1] + a.r;
+  }
+  if (SHARED) {
+    // one group of copies per operator: the setup's apply of A waits for
+    // A's planes alone while G's and G^T's are still on their way
+    const int n_own = static_cast<int>(hi - lo);
+    for (int op = 0, k0 = 0; op < 3; k0 += a.n[op++]) {
+      for (int e = tid; e < a.n[op] * n_own; e += NT) {
+        const int t = e / n_own, c = e - t * n_own;
+        gdm::copy_async(planes + (k0 + t) * a.chunk + c,
+                        a.pl[op] + t * a.cells + lo + c, true);
+      }
+      gdm::commit_group();
+    }
+    for (int c = tid; c < n_own; c += NT) kx[c] = a.x[lo + c];
   }
   __syncthreads();
-  const int* sA = soff;
-  const int* sG = soff + a.nA;
-  const int* sGT = sG + a.nG;
 
-  const long long cells = static_cast<long long>(a.rows) * a.pitch;
-  T* r = a.work;
-  T* z = r + cells;
-  T* p = z + cells;
-  T* Ap = p + cells;
-  T* t = Ap + cells;
-  T* zz = a.precond ? z : r;  // the preconditioned residual
-  const long long start =
-      static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * BLOCK;
-  double* slot_pAp = a.partials;
-  double* slot_rr = a.partials + gridDim.x;
-  double* slot_rz = a.partials + 2 * gridDim.x;
-  const bool lead = threadIdx.x == 0;
-  auto node = [&](long long idx) {
-    return gdm::is_node(static_cast<int>(idx / a.pitch),
-                        static_cast<int>(idx % a.pitch), a.n0, a.n1, a.r);
+  auto node = [&](long long i) {  // cells < 2^31: 32-bit division
+    const int ii = static_cast<int>(i);
+    return gdm::is_node(ii / a.pitch, ii % a.pitch, a.n0, a.n1, a.r);
+  };
+  // the padded cell that window index w of the chunk at c0 stands for
+  auto cell = [&](long long c0, int w) {
+    const int row = min(w / a.sw, 2 * a.r);
+    return c0 - a.r + static_cast<long long>(row - a.r) * a.pitch +
+           (w - row * a.sw);
+  };
+  // The window of the chunk at c0: win[w] = f(g) for the padded cell g it
+  // stands for, zero outside the array.
+  auto fill = [&](long long c0, auto&& f) {
+    __syncthreads();  // the window may still be read
+#pragma unroll 4
+    for (int w = tid; w < win_len; w += NT) {
+      const long long g = cell(c0, w);
+      win[w] = g >= 0 && g < a.cells ? f(g) : T(0);
+    }
+    __syncthreads();
+  };
+  // Operator `op` at the chunk's cells [c0, c0 + C) from the window:
+  // out(c, i, v) with v the band sum at node cells, zero elsewhere.  The
+  // taps go in order, eight loads ahead of their fma chain.
+  auto band = [&](int op, long long c0, int C, auto&& out) {
+    const int k0 = op == 0 ? 0 : op == 1 ? a.n[0] : a.n[0] + a.n[1];
+    const int* to = toff + k0;
+    const int n = a.n[op];
+    for (int c = tid; c < C; c += NT) {
+      const long long i = c0 + c;
+      const T* wc = win + c;
+      const T* pc = SHARED ? planes + k0 * a.chunk + c : a.pl[op] + i;
+      const long long ps = SHARED ? a.chunk : a.cells;
+      auto plane = [&](int t) {
+        return SHARED ? pc[t * ps] : __ldg(pc + t * ps);
+      };
+      T acc = T(0);
+      int t = 0;
+      for (; t + 8 <= n; t += 8) {
+        int o[8];
+        T pv[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) o[k] = to[t + k];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) pv[k] = plane(t + k);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc = fma_rn(pv[k], wc[o[k]], acc);
+      }
+      for (; t < n; ++t) acc = fma_rn(plane(t), wc[to[t]], acc);
+      out(c, i, node(i) ? acc : T(0));
+    }
+  };
+  // The block's sum of v in a fixed order; valid in thread 0.
+  auto block_sum = [&](double v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    __syncthreads();  // scr may still be read
+    if ((tid & 31) == 0) scr[tid >> 5] = v;
+    __syncthreads();
+    double s = 0.0;
+    if (tid == 0)
+      for (int w = 0; w < NWARP; ++w) s += scr[w];
+    return s;
+  };
+  // The totals of one or two slot arrays after a grid sync, the same in
+  // every block: warp 0 reads the G slots 32 lanes wide in slot order and
+  // reduces them with a fixed shuffle tree; lane 0's sums are broadcast.
+  auto totals = [&](const double* s0, const double* s1, double* t0,
+                    double* t1) {
+    if (tid < 32) {
+      double v0 = 0.0, v1 = 0.0;
+      for (int i = tid; i < G; i += 32) {
+        v0 += __ldcg(s0 + i);
+        if (s1) v1 += __ldcg(s1 + i);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        v0 += __shfl_down_sync(0xffffffffu, v0, o);
+        v1 += __shfl_down_sync(0xffffffffu, v1, o);
+      }
+      if (tid == 0) {
+        scr[NWARP] = v0;
+        scr[NWARP + 1] = v1;
+      }
+    }
+    __syncthreads();
+    *t0 = scr[NWARP];
+    if (t1) *t1 = scr[NWARP + 1];
+    __syncthreads();
   };
 
-  // r = b - A x0, z = B r, p = z
-  for (long long i = start; i < cells; i += stride) {
-    r[i] = a.b[i] - (node(i) ? band_at(a.plA, sA, a.nA, cells, i, a.x) : T(0));
+  const long long cells = a.cells;
+  T* rb[2] = {a.work, a.work + cells};
+  T* pb[2] = {a.work + 2 * cells, a.work + 3 * cells};
+  T* Ap = a.work + 4 * cells;
+  T* t = a.work + 5 * cells;
+  T* z = a.work + 6 * cells;
+  double* slot_pAp = a.partials;
+  double* slot_rr = a.partials + G;
+  double* slot_rz = a.partials + 2 * G;
+  const bool lead = tid == 0;
+  auto chunk_of = [&](long long c0) {
+    return static_cast<int>(min(static_cast<long long>(a.chunk), hi - c0));
+  };
+  auto vec = [](const T* v) {
+    return [v](long long g) { return __ldcg(v + g); };
+  };
+  // this cell's r: kept in shared memory, or from device memory
+  auto own_r = [&](const T* r, int c, long long i) {
+    return SHARED ? kr[c] : __ldcg(r + i);
+  };
+
+  // r = b - A x0, and with a preconditioner t = G r, z = G^T t
+  double srr = 0.0, srz = 0.0;
+  for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+    if (SHARED) gdm::wait_group<2>();  // A's planes
+    fill(c0, vec(a.x));
+    band(0, c0, chunk_of(c0), [&](int c, long long i, T v) {
+      const T ri = __ldg(a.b + i) - v;
+      rb[0][i] = ri;
+      if (SHARED) kr[c] = ri;
+      srr += static_cast<double>(ri) * ri;
+    });
   }
-  grid.sync();
   if (a.precond) {
-    for (long long i = start; i < cells; i += stride) {
-      t[i] = node(i) ? band_at(a.plG, sG, a.nG, cells, i, r) : T(0);
+    grid.sync();
+    for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+      if (SHARED) gdm::wait_group<1>();  // G's planes
+      fill(c0, vec(rb[0]));
+      band(1, c0, chunk_of(c0), [&](int, long long i, T v) { t[i] = v; });
     }
     grid.sync();
-    for (long long i = start; i < cells; i += stride) {
-      z[i] = node(i) ? band_at(a.plGT, sGT, a.nGT, cells, i, t) : T(0);
+    for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+      if (SHARED) gdm::wait_group<0>();  // G^T's planes
+      fill(c0, vec(t));
+      band(2, c0, chunk_of(c0), [&](int c, long long i, T v) {
+        z[i] = v;
+        srz += static_cast<double>(own_r(rb[0], c, i)) * v;
+      });
     }
+    srz = block_sum(srz);
+    if (lead) slot_rz[blockIdx.x] = srz;
   }
-  double srz = 0.0, srr = 0.0;
-  for (long long i = start; i < cells; i += stride) {
-    const T ri = r[i], zi = zz[i];
-    srz += static_cast<double>(ri) * zi;
-    srr += static_cast<double>(ri) * ri;
-    p[i] = zi;
-  }
-  srz = block_sum(srz, red);
-  if (lead) slot_rz[blockIdx.x] = srz;
-  srr = block_sum(srr, red);
+  srr = block_sum(srr);
   if (lead) slot_rr[blockIdx.x] = srr;
   grid.sync();
-  double rz = grid_total(slot_rz, &bcast);
-  const double nr0 = sqrt(grid_total(slot_rr, &bcast));
+  double rr0, rz;
+  totals(slot_rr, a.precond ? slot_rz : nullptr, &rr0, &rz);
+  if (!a.precond) rz = rr0;
+  const double nr0 = sqrt(rr0);
   const double tol = fmax(a.abs_tol, a.rel_tol * nr0);
   double nr = nr0;
   int it = 0;
+  T beta = T(0);
 
   while (it < a.max_iter && nr > tol) {
-    // Ap = A p and p^T A p
+    T* pold = pb[(it + 1) & 1];
+    T* pnew = pb[it & 1];
+    T* rold = rb[it & 1];
+    T* rnew = rb[(it + 1) & 1];
+    const T* zz = a.precond ? z : rold;  // the preconditioned residual
+    // A: p = z + beta p, Ap = A p, p^T A p
     double s = 0.0;
-    for (long long i = start; i < cells; i += stride) {
-      const T v = node(i) ? band_at(a.plA, sA, a.nA, cells, i, p) : T(0);
-      Ap[i] = v;
-      s += static_cast<double>(p[i]) * v;
+    for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+      fill(c0, [&](long long g) {
+        return it == 0 ? __ldcg(zz + g)
+                       : fma_rn(beta, __ldcg(pold + g), __ldcg(zz + g));
+      });
+      const int C = chunk_of(c0);
+      for (int c = tid; c < C; c += NT) {
+        pnew[c0 + c] = win[own + c];
+        if (SHARED) kp[c] = win[own + c];
+      }
+      band(0, c0, C, [&](int c, long long i, T v) {
+        Ap[i] = v;
+        s += static_cast<double>(win[own + c]) * v;
+      });
     }
-    s = block_sum(s, red);
+    s = block_sum(s);
     if (lead) slot_pAp[blockIdx.x] = s;
     grid.sync();
-    const double pAp = grid_total(slot_pAp, &bcast);
+    double pAp;
+    totals(slot_pAp, nullptr, &pAp, nullptr);
     const T alpha = static_cast<T>(pAp <= 0.0 ? 0.0 : rz / pAp);
-    // x += alpha p, r -= alpha Ap, and r^T r
+    // B: r -= alpha Ap, x += alpha p, t = G r, r^T r
     s = 0.0;
-    for (long long i = start; i < cells; i += stride) {
-      a.x[i] += alpha * p[i];
-      const T ri = r[i] - alpha * Ap[i];
-      r[i] = ri;
-      s += static_cast<double>(ri) * ri;
+    for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+      fill(c0, [&](long long g) {
+        return fma_rn(-alpha, __ldcg(Ap + g), __ldcg(rold + g));
+      });
+      const int C = chunk_of(c0);
+      for (int c = tid; c < C; c += NT) {
+        const long long i = c0 + c;
+        const T ri = win[own + c];
+        rnew[i] = ri;
+        if (SHARED) {
+          kr[c] = ri;
+          kx[c] = fma_rn(alpha, kp[c], kx[c]);
+          a.x[i] = kx[c];
+        } else {
+          a.x[i] = fma_rn(alpha, __ldcg(pnew + i), a.x[i]);
+        }
+        s += static_cast<double>(ri) * ri;
+      }
+      if (a.precond) band(1, c0, C, [&](int, long long i, T v) { t[i] = v; });
     }
-    s = block_sum(s, red);
+    s = block_sum(s);
     if (lead) slot_rr[blockIdx.x] = s;
     grid.sync();
-    double rz_new;
     if (a.precond) {
-      // z = G^T (G r) and r^T z
-      for (long long i = start; i < cells; i += stride) {
-        t[i] = node(i) ? band_at(a.plG, sG, a.nG, cells, i, r) : T(0);
-      }
-      grid.sync();
+      // C: z = G^T t, r^T z
       s = 0.0;
-      for (long long i = start; i < cells; i += stride) {
-        const T v = node(i) ? band_at(a.plGT, sGT, a.nGT, cells, i, t) : T(0);
-        z[i] = v;
-        s += static_cast<double>(r[i]) * v;
+      for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+        fill(c0, vec(t));
+        band(2, c0, chunk_of(c0), [&](int c, long long i, T v) {
+          z[i] = v;
+          s += static_cast<double>(own_r(rnew, c, i)) * v;
+        });
       }
-      s = block_sum(s, red);
+      s = block_sum(s);
       if (lead) slot_rz[blockIdx.x] = s;
       grid.sync();
-      rz_new = grid_total(slot_rz, &bcast);
-    } else {
-      rz_new = grid_total(slot_rr, &bcast);
     }
-    nr = sqrt(grid_total(slot_rr, &bcast));
-    const T beta = static_cast<T>(rz <= 0.0 ? 0.0 : rz_new / rz);
-    for (long long i = start; i < cells; i += stride) {
-      p[i] = zz[i] + beta * p[i];
-    }
+    double rr, rz_new;
+    totals(slot_rr, a.precond ? slot_rz : nullptr, &rr, &rz_new);
+    if (!a.precond) rz_new = rr;
+    nr = sqrt(rr);
+    beta = static_cast<T>(rz <= 0.0 ? 0.0 : rz_new / rz);
     rz = rz_new;
     ++it;
-    grid.sync();
   }
 
   // the true residual from one fresh apply
   double s = 0.0;
-  for (long long i = start; i < cells; i += stride) {
-    const T v =
-        a.b[i] - (node(i) ? band_at(a.plA, sA, a.nA, cells, i, a.x) : T(0));
-    s += static_cast<double>(v) * v;
+  for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+    fill(c0, vec(a.x));
+    band(0, c0, chunk_of(c0), [&](int, long long i, T v) {
+      const T ri = __ldg(a.b + i) - v;
+      s += static_cast<double>(ri) * ri;
+    });
   }
-  s = block_sum(s, red);
+  s = block_sum(s);
   if (lead) slot_pAp[blockIdx.x] = s;
   grid.sync();
   if (blockIdx.x == 0) {
-    const double true_rr = grid_total(slot_pAp, &bcast);
+    double true_rr;
+    totals(slot_pAp, nullptr, &true_rr, nullptr);
     if (lead) {
       a.stats[0] = static_cast<float>(sqrt(true_rr));
       a.stats[1] = static_cast<float>(it);
@@ -249,103 +396,116 @@ __global__ void __launch_bounds__(BLOCK) resident_cg_kernel(Args<T> a) {
   }
 }
 
-template <typename T>
-int grid_blocks(int cells, int n_taps, int* nblocks) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int coop = 0;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+template <typename T, bool SHARED>
+int launch(const Args<T>& a, int blocks, int smem, cudaStream_t stream) {
+  auto kernel = resident_cg_kernel<T, SHARED>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, resident_cg_kernel<T>, BLOCK,
-      static_cast<size_t>(n_taps) * sizeof(int));
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                    smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int need = (cells + BLOCK - 1) / BLOCK;
-  *nblocks = need < per_sm * sms ? need : per_sm * sms;
-  return 0;
+  Args<T> args = a;
+  void* params[] = {&args};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                  dim3(blocks), dim3(NT), params,
+                                  static_cast<size_t>(smem), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* b, void* x, const void* plA, const void* offA, int nA,
-           const void* plG, const void* offG, int nG, const void* plGT,
-           const void* offGT, int nGT, int precond, void* work,
-           void* partials, int nblocks, void* stats, int rows, int pitch,
-           int n0, int n1, int r, int max_iter, double rel_tol,
-           double abs_tol, void* stream) {
+int solve(const void* b, void* x, const void* plA, const void* offA, int nA,
+          const void* plG, const void* offG, int nG, const void* plGT,
+          const void* offGT, int nGT, int precond, void* work,
+          void* partials, void* stats, int rows, int pitch, int n0, int n1,
+          int r, int max_iter, double rel_tol, double abs_tol, int shared,
+          int blocks, int chunk, int sw, int smem, void* stream) {
+  if (blocks < 1 || chunk < 1 || sw < 1 || r < 0 || nA < 1 ||
+      (precond && (nG < 1 || nGT < 1)) ||
+      static_cast<long long>(rows) * pitch >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a;
   a.b = static_cast<const T*>(b);
   a.x = static_cast<T*>(x);
-  a.plA = static_cast<const T*>(plA);
-  a.offA = static_cast<const int*>(offA);
-  a.nA = nA;
-  a.plG = static_cast<const T*>(plG);
-  a.offG = static_cast<const int*>(offG);
-  a.nG = nG;
-  a.plGT = static_cast<const T*>(plGT);
-  a.offGT = static_cast<const int*>(offGT);
-  a.nGT = nGT;
+  const void* pl[3] = {plA, plG, plGT};
+  const void* off[3] = {offA, offG, offGT};
+  const int n[3] = {nA, precond ? nG : 0, precond ? nGT : 0};
+  for (int k = 0; k < 3; ++k) {
+    a.pl[k] = static_cast<const T*>(pl[k]);
+    a.off[k] = static_cast<const int*>(off[k]);
+    a.n[k] = n[k];
+  }
   a.precond = precond;
   a.work = static_cast<T*>(work);
   a.partials = static_cast<double*>(partials);
   a.stats = static_cast<float*>(stats);
-  a.rows = rows;
+  a.cells = static_cast<long long>(rows) * pitch;
   a.pitch = pitch;
   a.n0 = n0;
   a.n1 = n1;
   a.r = r;
+  a.chunk = chunk;
+  a.sw = sw;
   a.max_iter = max_iter;
   a.rel_tol = rel_tol;
   a.abs_tol = abs_tol;
-  void* params[] = {&a};
-  const size_t smem = static_cast<size_t>(nA + nG + nGT) * sizeof(int);
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(resident_cg_kernel<T>), dim3(nblocks),
-      dim3(BLOCK), params, smem, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return shared ? launch<T, true>(a, blocks, smem, s)
+                : launch<T, false>(a, blocks, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-int gdm_resident_cg_blocks_f32(int cells, int n_taps, int* nblocks) {
-  return grid_blocks<float>(cells, n_taps, nblocks);
+// The card's SM count and the shared memory one block may opt in to;
+// cudaErrorNotSupported where the card has no cooperative launch.
+int gdm_resident_cg_limits(int* sms, int* smem_optin) {
+  int dev = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return coop ? 0 : static_cast<int>(cudaErrorNotSupported);
 }
 
-int gdm_resident_cg_blocks_f64(int cells, int n_taps, int* nblocks) {
-  return grid_blocks<double>(cells, n_taps, nblocks);
-}
-
+// shared: 1 keeps the planes in shared memory, 0 in device memory;
+// blocks, chunk, sw and smem (dynamic shared bytes) as
+// gdm_torch/ops/resident.py::resident_plan lays them out.
 int gdm_resident_cg_f32(const void* b, void* x, const void* plA,
                         const void* offA, int nA, const void* plG,
                         const void* offG, int nG, const void* plGT,
                         const void* offGT, int nGT, int precond, void* work,
-                        void* partials, int nblocks, void* stats, int rows,
-                        int pitch, int n0, int n1, int r, int max_iter,
-                        double rel_tol, double abs_tol, void* stream) {
-  return launch<float>(b, x, plA, offA, nA, plG, offG, nG, plGT, offGT, nGT,
-                       precond, work, partials, nblocks, stats, rows, pitch,
-                       n0, n1, r, max_iter, rel_tol, abs_tol, stream);
+                        void* partials, void* stats, int rows, int pitch,
+                        int n0, int n1, int r, int max_iter, double rel_tol,
+                        double abs_tol, int shared, int blocks, int chunk,
+                        int sw, int smem, void* stream) {
+  return solve<float>(b, x, plA, offA, nA, plG, offG, nG, plGT, offGT, nGT,
+                      precond, work, partials, stats, rows, pitch, n0, n1, r,
+                      max_iter, rel_tol, abs_tol, shared, blocks, chunk, sw,
+                      smem, stream);
 }
 
 int gdm_resident_cg_f64(const void* b, void* x, const void* plA,
                         const void* offA, int nA, const void* plG,
                         const void* offG, int nG, const void* plGT,
                         const void* offGT, int nGT, int precond, void* work,
-                        void* partials, int nblocks, void* stats, int rows,
-                        int pitch, int n0, int n1, int r, int max_iter,
-                        double rel_tol, double abs_tol, void* stream) {
-  return launch<double>(b, x, plA, offA, nA, plG, offG, nG, plGT, offGT, nGT,
-                        precond, work, partials, nblocks, stats, rows, pitch,
-                        n0, n1, r, max_iter, rel_tol, abs_tol, stream);
+                        void* partials, void* stats, int rows, int pitch,
+                        int n0, int n1, int r, int max_iter, double rel_tol,
+                        double abs_tol, int shared, int blocks, int chunk,
+                        int sw, int smem, void* stream) {
+  return solve<double>(b, x, plA, offA, nA, plG, offG, nG, plGT, offGT, nGT,
+                       precond, work, partials, stats, rows, pitch, n0, n1,
+                       r, max_iter, rel_tol, abs_tol, shared, blocks, chunk,
+                       sw, smem, stream);
 }
 
 }  // extern "C"

@@ -65,12 +65,9 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_cutband_apply_{dt}")
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
-        fn = getattr(lib, f"gdm_resident_cg_blocks_{dt}")
-        fn.argtypes = [I, I, ctypes.POINTER(I)]
-        fn.restype = I
         fn = getattr(lib, f"gdm_resident_cg_{dt}")
-        fn.argtypes = [P, P, P, P, I, P, P, I, P, P, I, I, P, P, I, P,
-                       I, I, I, I, I, I, D, D, P]
+        fn.argtypes = [P, P, P, P, I, P, P, I, P, P, I, I, P, P, P,
+                       I, I, I, I, I, I, D, D] + [I] * 5 + [P]
         fn.restype = I
         fn = getattr(lib, f"gdm_laplace2_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
@@ -90,14 +87,16 @@ def _declare(lib):
             fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I] + (
                 [I] * n_extra) + [P]
             fn.restype = I
-    # gdm's micro-benchmarks (gdm_torch/benchmarks/)
     IP = ctypes.POINTER(I)
+    lib.gdm_resident_cg_limits.argtypes = [IP, IP]
+    lib.gdm_resident_cg_limits.restype = I
+    # gdm's micro-benchmarks (gdm_torch/benchmarks/)
     lib.gdm_micro_stage1_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
     for dt in ("f32", "bf16"):
         getattr(lib, f"gdm_micro_relayout_{dt}").argtypes = [
             P, P, P, I, I, I, I, I, P]
     lib.gdm_micro_stream_f32.argtypes = [P, P, P, P] + [I] * 10 + [IP, P]
-    lib.gdm_micro_auto_f32.argtypes = [P, P, P] + [I] * 6 + [IP, P]
+    lib.gdm_micro_auto_f32.argtypes = [P, P, P] + [I] * 7 + [IP, P]
     for fn in ("gdm_micro_stage1_f32", "gdm_micro_relayout_f32",
                "gdm_micro_relayout_bf16", "gdm_micro_stream_f32",
                "gdm_micro_auto_f32"):

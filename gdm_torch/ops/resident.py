@@ -1,11 +1,19 @@
 """K2: the whole preconditioned CG of a 2D band system in one launch.
 
 Port of gdm/ops/pallas_resident.py (``make_resident_cg``).  The CUDA
-kernel is gdm_torch/csrc/resident.cu, a cooperative persistent kernel;
-its source note says what bounds it on the card and why gdm's VMEM
-budget gate has no counterpart here.  ``resident_cg`` launches it for
-CUDA tensors and runs the plain torch version ``resident_cg_plain`` for
-CPU tensors; there is no other switch.
+kernel is gdm_torch/csrc/resident.cu, a cooperative persistent kernel
+with one block per SM; its source note says what bounds it on the card
+and what its design does about it.  ``resident_cg`` launches it for CUDA
+tensors and runs the plain torch version ``resident_cg_plain`` for CPU
+tensors; there is no other switch.
+
+The kernel has two bodies, one launch each: ``"shared"`` keeps every
+block's slice of the A, G and G^T planes in shared memory for the whole
+solve (gdm's VMEM residency), ``"device"`` reads them from device memory
+where they do not fit.  ``resident_plan`` picks the body from the bytes
+and lays out the shared memory; the launcher takes its plan, and a CUDA
+tensor launches one body or raises.  There is no size above which the
+solve refuses: the device body stages as few cells at a time as it must.
 
 Both compute exactly what the TPU kernel computes: the ReductionControl
 stop ``it < max_iter and ||r|| > max(abs_tol, rel_tol * ||r0||)`` with
@@ -18,6 +26,8 @@ by ``STATS``: the true ||b - A x||, the iteration count and ||r0||.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -75,15 +85,103 @@ def resident_cg_plain(b, x0, A: BandPlanes, G: BandPlanes = None,
     return x, stats
 
 
+BODIES = ("shared", "device")
+NT = 512                        # threads per block of csrc/resident.cu
+SCRATCH_BYTES = 8 * (NT // 32 + 8)   # its reduction scratch, in doubles
+H100_SMS = 132
+H100_SMEM = 232448              # shared memory an H100 block may opt in to
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentPlan:
+    """How csrc/resident.cu runs one solve: ``blocks`` blocks (one per
+    SM), block b owning cells [b cells / blocks, (b + 1) cells / blocks)
+    of the flat padded array and staging ``chunk`` of them at a time (its
+    whole range in the ``"shared"`` body) in a window of 2r + 1 rows of
+    stride ``sw``; ``smem`` bytes of dynamic shared memory."""
+    body: str
+    blocks: int
+    chunk: int
+    sw: int
+    smem: int
+
+
+def _layout_bytes(layout: PaddedLayout, n_taps: int, itemsize: int,
+                  chunk: int, planes: bool):
+    """(shared bytes, sw) of a block staging ``chunk`` cells, as
+    csrc/resident.cu lays them out: the scratch, with ``planes`` the
+    planes' slices, then the window, with ``planes`` the block's own p, r
+    and x, and the taps' window offsets."""
+    r = layout.r
+    sw = min(layout.pitch, chunk + 2 * r)
+    window = 2 * r * sw + chunk + 2 * r
+    values = window + ((n_taps + 3) * chunk if planes else 0)
+    return SCRATCH_BYTES + itemsize * values + 4 * n_taps, sw
+
+
+@functools.lru_cache(maxsize=None)
+def resident_plan(layout: PaddedLayout, n_taps: int, itemsize: int,
+                  sms: int = H100_SMS, smem_max: int = H100_SMEM,
+                  body: str = None) -> ResidentPlan:
+    """The body K2 runs for ``n_taps`` planes (A, G and G^T together) of
+    ``itemsize`` bytes on ``layout``, on a card of ``sms`` SMs whose
+    blocks may take ``smem_max`` bytes of shared memory: ``"shared"``
+    when every block's slice of the planes fits beside its window,
+    ``"device"`` otherwise, with the largest chunk whose window fits.
+    ``body`` forces one; a forced ``"shared"`` that does not fit raises
+    ValueError."""
+    if body not in (None,) + BODIES:
+        raise ValueError(f"body must be None or one of {BODIES}, not "
+                         f"{body!r}")
+    cells = layout.rows * layout.pitch
+    own = -(-cells // sms)
+    smem, sw = _layout_bytes(layout, n_taps, itemsize, own, True)
+    if body == "shared" or (body is None and smem <= smem_max):
+        if smem > smem_max:
+            raise ValueError(
+                f"the shared body needs {smem} bytes of shared memory a "
+                f"block for {n_taps} planes over {own} cells; the card "
+                f"gives {smem_max}")
+        return ResidentPlan("shared", sms, own, sw, smem)
+    lo, hi = 1, own     # the window of one cell always fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _layout_bytes(layout, n_taps, itemsize, mid, False)[0] <= smem_max:
+            lo = mid
+        else:
+            hi = mid - 1
+    smem, sw = _layout_bytes(layout, n_taps, itemsize, lo, False)
+    return ResidentPlan("device", sms, lo, sw, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(index: int) -> tuple:
+    """(SMs, shared bytes a block may opt in to) of CUDA card ``index``;
+    raises where it has no cooperative launch."""
+    kl = _build.kernels()
+    sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(kl, kl.lib.gdm_resident_cg_limits(
+            ctypes.byref(sms), ctypes.byref(smem)), "resident CG: the card")
+    return sms.value, smem.value
+
+
 def resident_cg(b, x0, A: BandPlanes, G: BandPlanes = None,
                 GT: BandPlanes = None, max_iter: int = 50,
-                rel_tol: float = 1e-5, abs_tol: float = 1e-12):
+                rel_tol: float = 1e-5, abs_tol: float = 1e-12, *,
+                body: str = None):
     """One CG solve of A x = b preconditioned by G^T G (plain CG when G
     is None), on the padded layout: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors.  ``body`` ("shared" or "device")
+    forces the kernel's body, for tests and measurements; by default
+    ``resident_plan`` picks it.  ``resident_cg.launches`` counts every
+    launch, ``resident_cg.body_launches`` each body's."""
     ops = [A] if G is None else [A, G, GT]
     if (G is None) != (GT is None):
         raise ValueError("give both FSAI factors or neither")
+    if body not in (None,) + BODIES:
+        raise ValueError(f"body must be None or one of {BODIES}, not "
+                         f"{body!r}")
     layout = A.layout
     for name, v in (("b", b), ("x0", x0)):
         if v.shape != layout.shape or not v.is_contiguous():
@@ -106,18 +204,18 @@ def resident_cg(b, x0, A: BandPlanes, G: BandPlanes = None,
         raise ValueError(f"the CUDA resident CG takes float32 or float64, "
                          f"not {b.dtype}")
     kl = _build.kernels()
-    cells = layout.rows * layout.pitch
     n_taps = sum(len(op.taps) for op in ops)
+    plan = resident_plan(layout, n_taps, b.element_size(),
+                         *card_limits(b.device.index
+                                      if b.device.index is not None
+                                      else torch.cuda.current_device()),
+                         body=body)
     Gp = G if G is not None else A  # any valid pointers when unused
     GTp = GT if GT is not None else A
     with torch.cuda.device(b.device):
-        nblocks = ctypes.c_int(0)
-        _build.check(kl, getattr(kl.lib, f"gdm_resident_cg_blocks_{suffix}")(
-            cells, n_taps, ctypes.byref(nblocks)),
-            "resident CG: cooperative grid sizing")
         x = x0.clone()
-        work = torch.empty((5,) + layout.shape, dtype=b.dtype, device=b.device)
-        partials = torch.empty(3 * nblocks.value, dtype=torch.float64,
+        work = torch.empty((7,) + layout.shape, dtype=b.dtype, device=b.device)
+        partials = torch.empty(3 * plan.blocks, dtype=torch.float64,
                                device=b.device)
         stats = torch.empty(3, dtype=torch.float32, device=b.device)
         err = getattr(kl.lib, f"gdm_resident_cg_{suffix}")(
@@ -128,15 +226,20 @@ def resident_cg(b, x0, A: BandPlanes, G: BandPlanes = None,
             GTp.planes.data_ptr(), GTp.offsets.data_ptr(),
             len(GT.taps) if GT is not None else 0,
             int(G is not None), work.data_ptr(), partials.data_ptr(),
-            nblocks.value, stats.data_ptr(), layout.rows, layout.pitch,
-            layout.n0, layout.n1, layout.r, int(max_iter), float(rel_tol),
-            float(abs_tol), _build.stream_handle(b.device))
-    _build.check(kl, err, "resident CG cooperative launch")
+            stats.data_ptr(), layout.rows, layout.pitch, layout.n0,
+            layout.n1, layout.r, int(max_iter), float(rel_tol),
+            float(abs_tol), int(plan.body == "shared"), plan.blocks,
+            plan.chunk, plan.sw, plan.smem,
+            _build.stream_handle(b.device))
+    _build.check(kl, err, f"resident CG ({plan.body} body) cooperative "
+                 f"launch")
     resident_cg.launches += 1
+    resident_cg.body_launches[plan.body] += 1
     return x, stats
 
 
 resident_cg.launches = 0
+resident_cg.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def make_resident_cg(stA, stG=None, stGT=None, max_iter: int = 50,

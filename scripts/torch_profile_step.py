@@ -139,7 +139,8 @@ def main():
           f"({nosync_call * 1e3 / its:.1f} us/it), device time "
           f"{nosync_dev:.3f} ms ({nosync_dev * 1e3 / its:.1f} us/it)")
     print(f"launches so far: K1 {cutband.band_apply.launches}, "
-          f"K2 {resident.resident_cg.launches}")
+          f"K2 {resident.resident_cg.launches} "
+          f"({resident.resident_cg.body_launches})")
     print(card)
 
 

@@ -110,9 +110,9 @@ def test_band_apply_rejects(ops24, cuda_device):
         cutband.band_apply(u.half(), bp16)
 
 
-def _check_cg(b, x0, args, dtype):
+def _check_cg(b, x0, args, dtype, body=None):
     before = resident.resident_cg.launches
-    xk, sk = resident.resident_cg(b, x0, *args)
+    xk, sk = resident.resident_cg(b, x0, *args, body=body)
     assert resident.resident_cg.launches == before + 1
     xp, sp = resident.resident_cg_plain(b, x0, *args)
     sk, sp = resident.read_stats(sk), resident.read_stats(sp)
@@ -148,6 +148,79 @@ def test_resident_cg_unpreconditioned(uncut16, cuda_device, dtype):
         device=cuda_device))
     _check_cg(b, torch.zeros_like(b), (A, None, None, 120, 1e-6, 1e-12),
               dtype)
+
+
+BODIES = list(resident.BODIES)
+
+
+def _bodies_cg(b, args, dtype):
+    """Both bodies of K2 on one system: each against the plain twin
+    (``_check_cg``), each launching its own body once and the other not,
+    and the two taking the same number of iterations."""
+    iterations = set()
+    for body in BODIES:
+        before = dict(resident.resident_cg.body_launches)
+        _check_cg(b, torch.zeros_like(b), args, dtype, body)
+        after = resident.resident_cg.body_launches
+        assert {k: after[k] - before[k] for k in BODIES} == {
+            k: int(k == body) for k in BODIES}
+        _, stats = resident.resident_cg(b, torch.zeros_like(b), *args,
+                                        body=body)
+        iterations.add(resident.read_stats(stats)["iterations"])
+    assert len(iterations) == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_resident_cg_bodies_match_plain(ops24, cuda_device, dtype):
+    """K2's shared-memory and device-memory bodies, FSAI-preconditioned."""
+    grid, _, ops, layout = ops24
+    A, G, GT = (cutband.band_planes(ops[k], layout, cuda_device, dtype)
+                for k in ("mass", "G", "GT"))
+    b = layout.pad(torch.as_tensor(
+        np.random.default_rng(3).standard_normal(grid.n_nodes), dtype=dtype,
+        device=cuda_device))
+    _bodies_cg(b, (A, G, GT, 40, 1e-5, 1e-12), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_resident_cg_bodies_unpreconditioned(uncut16, cuda_device, dtype):
+    grid, mass, layout = uncut16
+    A = cutband.band_planes(mass, layout, cuda_device, dtype)
+    b = layout.pad(torch.as_tensor(
+        np.random.default_rng(4).standard_normal(grid.n_nodes), dtype=dtype,
+        device=cuda_device))
+    _bodies_cg(b, (A, None, None, 120, 1e-6, 1e-12), dtype)
+
+
+def test_resident_cg_picks_device_body(cuda_device):
+    """At 160^2 in float64 the planes (34.6 MB) do not fit the blocks'
+    shared memory: the launcher picks the device body on its own."""
+    grid, _, mass, _ = flagship_operators(160)
+    G, GT = fsai_factors(mass)
+    layout = cutband.layout_for(grid, max(mass.radius, G.radius))
+    A, Gp, GTp = (cutband.band_planes(s, layout, cuda_device, torch.float64)
+                  for s in (mass, G, GT))
+    n_taps = len(A.taps) + len(Gp.taps) + len(GTp.taps)
+    assert resident.resident_plan(
+        layout, n_taps, 8, *resident.card_limits(
+            torch.cuda.current_device())).body == "device"
+    b = layout.pad(torch.as_tensor(
+        np.random.default_rng(5).standard_normal(grid.n_nodes),
+        dtype=torch.float64, device=cuda_device))
+    before = dict(resident.resident_cg.body_launches)
+    _check_cg(b, torch.zeros_like(b), (A, Gp, GTp, 40, 1e-5, 1e-12),
+              torch.float64)
+    after = resident.resident_cg.body_launches
+    assert (after["device"], after["shared"]) == (before["device"] + 1,
+                                                  before["shared"])
+
+
+def test_resident_cg_rejects_body(ops24, cuda_device):
+    grid, _, ops, layout = ops24
+    A = cutband.band_planes(ops["mass"], layout, cuda_device, torch.float32)
+    b = torch.zeros(layout.shape, device=cuda_device)
+    with pytest.raises(ValueError, match="body"):
+        resident.resident_cg(b, b, A, body="vmem")
 
 
 def test_verified_solver_routes_on_card(ops24, cuda_device):
@@ -818,7 +891,13 @@ def test_stream_micro_matches_plain(cuda_device, mode, n0, n1, tile_r, nb,
         assert (y - yp).abs().max().item() <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("n0,n1,tile_r", STREAM_CASES)
+# M4's units are whole rows: Rp = 48, 384, 1056 and 1089 rows (W2 = 128,
+# 256, 1024, 1152) in units of 32, 16, 4 and 4 rows in "dma" (48 and 1089
+# not a multiple) and 48, 32, 8 and 7 in "both" (1089 not a multiple)
+AUTO_CASES = STREAM_CASES + [(1000, 1100, 99)]
+
+
+@pytest.mark.parametrize("n0,n1,tile_r", AUTO_CASES)
 @pytest.mark.parametrize("mode", som.AUTO_MODES)
 def test_auto_micro_matches_plain(cuda_device, mode, n0, n1, tile_r):
     """M4 against its twin: "dma" exactly, "both" within 1e-6 of the sum

@@ -288,3 +288,34 @@ def test_micro_builders_raise_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+@pytest.mark.parametrize("n0,n1,tile_r,mode,rows,units", [
+    (4096, 4096, 96, "dma", 1, 4128),   # one 16.5 KB row a unit
+    (4096, 4096, 96, "both", 2, 2064),
+    (1024, 1024, 96, "dma", 4, 264),
+    (1024, 1024, 96, "both", 7, 151),   # Rp = 1056, the last unit short
+    (40, 60, 16, "dma", 32, 2),         # W2 = 128: Rp = 48, the last short
+    (40, 60, 16, "both", 48, 1),
+])
+def test_auto_ring_geometry(n0, n1, tile_r, mode, rows, units):
+    """M4's ring: units of whole rows of the (Rp, W2) array, as many as
+    come nearest the mode's stage bytes (16 KB in "dma", 32 KB in
+    "both"), four stages of u in "dma", three of u and y in "both"."""
+    apply, shape, _ = som.make_auto_micro(mode, n0, n1, tile_r, device="cpu")
+    _, stages, threads = som.AUTO_RING[mode]
+    buffers = 2 if mode == "both" else 1
+    assert apply.ring == som.AutoRing(
+        rows, units, stages, buffers,
+        128 + stages * buffers * rows * 4 * shape[1], threads)
+    assert (units - 1) * rows < shape[0] <= units * rows
+    assert apply.geom.sw is None
+
+
+def test_auto_ring_rejects_wide_rows():
+    """Rows of 14080 columns: four stages of one row fit "dma" (225,408
+    bytes) but not "both", which keeps three of u and three of y."""
+    assert som.make_auto_micro("dma", 64, 14000, device="cpu")[0].ring.smem \
+        == 128 + 4 * 4 * 14080
+    with pytest.raises(ValueError, match="shared memory"):
+        som.make_auto_micro("both", 64, 14000, device="cpu")

@@ -141,3 +141,84 @@ def test_wrapper_checks(mass24):
         solve(b[:, :-1])
     with pytest.raises(ValueError):
         resident.make_resident_cg(tops[0], tops[1], None)
+
+
+# ---- the kernel's plan: which body, and its shared-memory layout ---------
+
+from gdm_torch.ops.cutband import PaddedLayout  # noqa: E402
+
+FLAGSHIP128 = PaddedLayout(129, 129, 4)   # 137 x 140 cells
+N_TAPS = 77 + 41 + 41                      # A, G and G^T of the flagship
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_plan_keeps_flagship_planes_in_shared_memory(itemsize):
+    """At 128^2 every block owns 146 cells (19180 over 132 SMs) and keeps
+    their slice of all 159 planes beside its window (8 rows of the
+    140-cell pitch plus 146 + 8 cells) and its own p, r and x."""
+    plan = resident.resident_plan(FLAGSHIP128, N_TAPS, itemsize)
+    smem = 192 + itemsize * (159 * 146 + (8 * 140 + 146 + 8) + 3 * 146) \
+        + 4 * 159
+    assert plan == resident.ResidentPlan("shared", 132, 146, 140, smem)
+    assert smem == {4: 100532, 8: 200236}[itemsize] <= resident.H100_SMEM
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_plan_reads_256_planes_from_device_memory(itemsize):
+    """The 256^2 wave preset's planes (45 MB in float32) do not fit the
+    blocks' shared memory: the device body, each block's 539 cells
+    staged at once."""
+    layout = PaddedLayout(257, 257, 4)     # 265 x 268 cells
+    plan = resident.resident_plan(layout, N_TAPS, itemsize)
+    assert (plan.body, plan.chunk, plan.sw) == ("device", 539, 268)
+    assert 159 * 539 * itemsize > resident.H100_SMEM
+    assert plan.smem == 192 + itemsize * (8 * 268 + 539 + 8) + 4 * 159
+    with pytest.raises(ValueError, match="shared body"):
+        resident.resident_plan(layout, N_TAPS, itemsize, body="shared")
+
+
+@pytest.mark.parametrize("n,itemsize,body", [
+    (138, 8, "shared"), (140, 8, "device"), (200, 4, "shared"),
+    (204, 4, "device")])
+def test_plan_switches_bodies_by_bytes(n, itemsize, body):
+    """float64 leaves shared memory above ~138^2, float32 above ~200^2."""
+    plan = resident.resident_plan(PaddedLayout(n + 1, n + 1, 4), N_TAPS,
+                                  itemsize)
+    assert plan.body == body and plan.smem <= resident.H100_SMEM
+
+
+def test_plan_cuts_chunks_to_fit():
+    """No size gate: at 4096^2 in float64 the window of a whole range
+    does not fit, so the device body stages the largest chunk whose rows
+    of the window (shorter than the pitch) do."""
+    layout = PaddedLayout(4097, 4097, 4)
+    plan = resident.resident_plan(layout, N_TAPS, 8)
+    cells = layout.rows * layout.pitch
+    assert plan.body == "device" and plan.chunk < -(-cells // 132)
+    assert plan.sw == plan.chunk + 8 < layout.pitch
+    assert plan.smem <= resident.H100_SMEM < resident._layout_bytes(
+        layout, N_TAPS, 8, plan.chunk + 1, False)[0]
+
+
+def test_plan_forced_body():
+    plan = resident.resident_plan(FLAGSHIP128, N_TAPS, 4, body="device")
+    assert (plan.body, plan.chunk) == ("device", 146)
+    assert plan.smem == 192 + 4 * (8 * 140 + 146 + 8) + 4 * 159
+    with pytest.raises(ValueError, match="body"):
+        resident.resident_plan(FLAGSHIP128, N_TAPS, 4, body="vmem")
+
+
+def test_body_keyword_on_cpu(mass24):
+    """On CPU tensors ``body`` is checked and the plain version runs."""
+    _, tops = mass24
+    A, G, GT = (resident.band_planes(s, resident.layout_for(tops[0].grid, 4),
+                                     "cpu", torch.float64) for s in tops)
+    b = A.layout.pad(torch.as_tensor(
+        np.random.default_rng(7).standard_normal(tops[0].grid.n_nodes)))
+    x0 = torch.zeros_like(b)
+    want, _ = resident.resident_cg_plain(b, x0, A, G, GT, 40, 1e-6)
+    for body in (None, "shared", "device"):
+        x, _ = resident.resident_cg(b, x0, A, G, GT, 40, 1e-6, body=body)
+        assert torch.equal(x, want)
+    with pytest.raises(ValueError, match="body"):
+        resident.resident_cg(b, x0, A, G, GT, body="vmem")
