@@ -57,7 +57,10 @@ Run from the repository root:  python3 chip_smoke.py
    K5 (the 3D Laplace with the plane coupling on the tensor cores)
    against its plain twin at 160^3 and 256^3, p = 3, with K4 timed
    beside it in turns (K4, K5, K5, K4), and torch.matmul alone on stage
-   3's dense coupling at 161^3 (the yardstick for stage 3 only); then
+   3's dense coupling at 161^3 (the yardstick for stage 3 only); K5 at
+   65^3 against its plain twin and one torch.sparse CSR SpMV of its
+   operator there (assembled on the host with scipy.sparse.kron from the
+   band tables, about 9.4e7 nonzeros: K5's library yardstick); then
    gdm's 3D dispatch through the public laplace_apply_fn, the launch
    counts reset just before each: Grid(3, (160,)*3) launches K5 and not
    K4, Grid(3, (510, 64, 64)) (N0 + 2p = 517 > 512) K4 and not K5, held
@@ -109,16 +112,22 @@ Run from the repository root:  python3 chip_smoke.py
    relative residual (converged, not stopped at max_iter), the same
    solve in float64 on the card (iterations within 1), the L2 error
    against sin(pi x) sin(pi y), median times of the public solve and of
-   its CG phase, device busy time, and the K3 launches (> 0); K3 against
-   its plain twin at every level shape of the solve's multigrid
-   hierarchy (1025^2 down to 9^2 nodes); the CG phase of the bench's own
+   its CG phase, device busy time and K3's device time and share of it
+   (profiler), and the K3 launches (> 0); K3 against its plain twin at
+   every level shape of the solve's multigrid hierarchy (1025^2 down to
+   9^2 nodes), and at each its launches per CG phase (from the counters,
+   each level's apply wrapped), its device time by events in turns
+   against K3s (K3s, K3, K3, K3s) and its bound, printed as one JSON
+   line {"levels": ..., "rows": [...]}; the CG phase of the bench's own
    problem (right-hand side 1) timed the same way; at 128^2 the float32
    card solution against the float64 CPU solution (rel_tol 1e-4:
    iterations within 1, relative difference <= 1e-3);
 13. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
    relative residual, L2 error, K5 launches (> 0; K4 none: every level
-   has N0 + 2p <= 512), the kernel the dispatch picks (K5) against its
-   plain twin at every level shape (65^3 down to 9^3 nodes); at 16^3 the
+   has N0 + 2p <= 512), K5's device time and share per CG phase, the
+   kernel the dispatch picks (K5) against its plain twin at every level
+   shape (65^3 down to 9^3 nodes) with its launches, device time in
+   turns against K4 (K4, K5, K5, K4) and bound, as in phase 12; at 16^3 the
    float32 card solution against the float64 CPU solution as in
    phase 12.
 
@@ -130,10 +139,10 @@ device ms of the kernel and of the twin, the bound from the bytes and
 operations of the measured inputs (M1's row modes over the bf16
 tensor-core peak, M2's over the shared-memory rate), ``library_ms``:
 one PyTorch call computing the same function, where there is one (K1
-and K3: a torch.sparse CSR SpMV of the operator; M2:
-x.t().contiguous(); M4: u * 1.0000001), else null (no call runs K2's
-preconditioned CG; K4's and K5's 161^3 CSR would hold ~1.4e9
-nonzeros), and
+and K3: a torch.sparse CSR SpMV of the operator; K5: the same at 65^3,
+named by the row's ``library_at``; M2: x.t().contiguous(); M4:
+u * 1.0000001), else null (no call runs K2's preconditioned CG; K4's
+161^3 CSR would hold ~1.4e9 nonzeros), and
 ``ms_by``/``plain_ms_by``, the method that took ``ms`` and
 ``plain_ms``: "events" or "profiler", as ``device_ms`` says), the card
 line, and last
@@ -290,18 +299,61 @@ def kernel_vs_plain(name, kernel, plain, u, n_nodes):
     return err, ms, pms
 
 
-def levels_vs_plain(mg, dev, dtype):
-    """Hold the kernel gdm's dispatch picks for each level of the
-    multigrid hierarchy ``mg`` (K3 in 2D; K5 in 3D while N0 + 2p <= 512,
-    else K4) against its plain twin at the level's node shape: the
-    shapes the solve gives the kernel.  Returns the largest max abs
-    error and the names of the kernels held."""
+def level_launches(sysf, kernel):
+    """Launches of ``kernel`` (a wrapper with a ``launches`` count) per
+    level shape over one CG phase of the Poisson system ``sysf``: each
+    level's apply (and the system's own) is wrapped to add the count's
+    growth during its calls to its shape, then put back."""
     import torch
 
-    from gdm_torch.ops import fast
+    mg = sysf.precond.__self__
+    by_shape = {}
 
+    def counted(f, shape):
+        def g(u):
+            before = kernel.launches
+            y = f(u)
+            by_shape[shape] = by_shape.get(shape, 0) + (kernel.launches -
+                                                        before)
+            return y
+        return g
+
+    saved = [lvl.apply for lvl in mg.levels], sysf.apply
+    for lvl in mg.levels:
+        lvl.apply = counted(lvl.apply, lvl.grid.nodes)
+    sysf.apply = counted(sysf.apply, mg.levels[0].grid.nodes)
+    try:
+        sysf.run(rel_tol=1e-3)
+        torch.cuda.synchronize()
+    finally:
+        for lvl, f in zip(mg.levels, saved[0]):
+            lvl.apply = f
+        sysf.apply = saved[1]
+    return by_shape
+
+
+def levels_vs_plain(sysf, dev, dtype, tag):
+    """Hold the kernel gdm's dispatch picks for each level of the
+    multigrid hierarchy behind the Poisson system ``sysf`` (K3 in 2D; K5
+    in 3D while N0 + 2p <= 512, else K4) against its plain twin at the
+    level's node shape: the shapes the solve gives the kernel.  Per
+    level, also its launches over one CG phase (from the counters), its
+    device time by events and its bound, timed in turns against an
+    anchor of the same operator (anchor, kernel, kernel, anchor; the
+    anchor is K3s in 2D and K4 in 3D).  Prints the per-level table as a JSON line
+    and returns the largest max abs error, the names of the kernels held
+    and the rows."""
+    import torch
+
+    from gdm_torch.ops import fast, stencil2, stencil3
+
+    mg = sysf.precond.__self__
+    dim = mg.levels[0].grid.dim
+    kernel = stencil2.laplace2_apply if dim == 2 else (
+        stencil3.laplace3_mxu_apply)
+    launches = level_launches(sysf, kernel)
     rng = np.random.default_rng(1)
-    worst, names = 0.0, set()
+    worst, names, rows = 0.0, set(), []
     for lvl in mg.levels:
         g = lvl.grid
         apply = fast.best_padded_laplace(g, dev, dtype)[0]
@@ -312,12 +364,37 @@ def levels_vs_plain(mg, dev, dtype):
         err = (yk - yp).abs().max().item()
         rel = err / yp.abs().max().item()
         name = apply.kernel.__name__
-        print(f"  level {g.nodes}: {name} vs plain max abs err {err:.3e} "
-              f"(rel {rel:.3e})")
         check(rel <= 1e-5, f"level {g.nodes}: max error {rel:.3e} of max|y|")
         worst = max(worst, err)
         names.add(name)
-    return worst, names
+        if dim == 2:
+            bt = stencil2.laplace2_bands(g, dev, dtype)
+            aname, anchor = "K3s", stencil2.laplace2_stream_apply
+        else:
+            bt = stencil3.laplace3_bands(g, dev, dtype)
+            aname, anchor = "K4", stencil3.laplace3_apply
+        (a1, a2), (k1, k2) = turns(aname, lambda: anchor(u, bt), name,
+                                   lambda: apply(u))
+        ms = mean_ms((k1, k2))
+        bnd = separable_bound(g.n_nodes, 2 * g.degree + 1,
+                              4 if dim == 2 else 7, u.element_size())
+        n = launches.get(g.nodes, 0)
+        rows.append({"nodes": list(g.nodes), "kernel": name,
+                     "launches": n, "us": ms * 1e3,
+                     "bound_us": bnd[0] * 1e3,
+                     "anchor": aname, "anchor_us": (a1 + a2) / 2 * 1e3,
+                     "ratio": (a1 + a2) / (k1 + k2),
+                     "us_per_phase": n * ms * 1e3,
+                     "max_abs_err": err})
+        print(f"  level {g.nodes}: {name} vs plain max abs err {err:.3e} "
+              f"(rel {rel:.3e}); {n} launches per CG phase; bound "
+              f"{bnd[0] * 1e3:.2f} us ({bnd[1]})")
+        del u, yk, yp
+    total = sum(r["us_per_phase"] for r in rows)
+    print(f"  {tag}: {name} device time per CG phase from the levels "
+          f"{total:.1f} us over {sum(r['launches'] for r in rows)} launches")
+    print(json.dumps({"levels": tag, "rows": rows}))
+    return worst, names, rows
 
 
 def tc_wrappers():
@@ -1048,7 +1125,15 @@ def solve_phase(dim, n, dev, f32, f64, n_check):
         grid, sin_rhs, rel_tol=1e-3, precondition="mg", device=dev,
         dtype=f32), n=5)
     cg_ms, cg_all = wall_ms(lambda: sysf.run(rel_tol=1e-3), n=10, warmup=2)
-    busy, launches, top = device_breakdown(lambda: sysf.run(rel_tol=1e-3))
+    busy, launches, items = device_breakdown(
+        lambda: sysf.run(rel_tol=1e-3), top=None)
+    # the dispatched kernel's own device items (K3 in 2D, K5 in 3D)
+    symbol = "laplace2_kernel<" if dim == 2 else "laplace3_mxu_kernel<"
+    k_ms = sum(ms for name, ms, _ in items if symbol in name)
+    k_n = sum(cnt for name, _, cnt in items if symbol in name)
+    print(f"{tag}: {symbol[:-1]} {k_ms * 1e3:.1f} us x{k_n:.1f} per CG "
+          f"phase ({k_ms / busy:.1%} of device busy {busy:.3f} ms)")
+    top = items[:6]
     print(f"{tag}: public solve median {solve_ms:.1f} ms over 5 "
           f"({', '.join(f'{t:.1f}' for t in solve_all)}); CG phase median "
           f"{cg_ms:.3f} ms over 10 (min {min(cg_all):.3f}, max "
@@ -1058,8 +1143,7 @@ def solve_phase(dim, n, dev, f32, f64, n_check):
     for name, ms, cnt in top:
         print(f"    {ms * 1e3:9.1f} us  x{cnt:6.1f}  {name[:90]}")
     # the multigrid behind the system's preconditioner (a bound method)
-    level_err, level_kernels = levels_vs_plain(sysf.precond.__self__, dev,
-                                               f32)
+    level_err, level_kernels, _ = levels_vs_plain(sysf, dev, f32, tag)
     check(level_kernels == ({"laplace2_apply"} if dim == 2
                             else {"laplace3_mxu_apply"}),
           f"{tag}: the dispatch picked {level_kernels} on the levels")
@@ -1152,6 +1236,30 @@ def laplace2_csr(bt, nodes):
                       (ml[i, k][:, None] * mr[j, l_][None, :]).reshape(-1)))
     rows, cols, vals = (torch.cat(x) for x in zip(*parts))
     return sparse_csr(rows, cols, vals, n0 * n1)
+
+
+def laplace3_csr(bt):
+    """K5's operator S0 (x) M1 (x) M2 + M0 (x) S1 (x) M2 + M0 (x) M1 (x)
+    S2 as a CSR matrix over the row-major (n0, n1, n2) nodes, assembled
+    on the host with scipy.sparse.kron from the band tables in float64
+    and moved to the bands' device and dtype."""
+    import scipy.sparse as sp
+    import torch
+
+    from gdm_torch.ops import stencil3
+
+    (s0, s1, s2), (m0, m1, m2) = (
+        [sp.csr_matrix(stencil3.band_matrix(b.double()).cpu().numpy())
+         for b in bands] for bands in (bt.s, bt.m))
+    a = (sp.kron(s0, sp.kron(m1, m2)) + sp.kron(m0, sp.kron(s1, m2)) +
+         sp.kron(m0, sp.kron(m1, s2))).tocsr()
+    a.sort_indices()
+    ref = bt.s[0]
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.from_numpy(a.data), size=a.shape, dtype=ref.dtype,
+        device=ref.device)
 
 
 def spmv_ms(csr, u, y_ref, what):
@@ -1349,6 +1457,13 @@ def main():
         k3s_err = max(k3s_err, err)
         turns("K3", lambda: k3(u, bt), "K3s", lambda: k3s(u, bt))
     k3s_ms, k3s_plain_ms, g4096 = ms, pms, grid2
+    # K3's plan at 1024^2 p=3 runs every block in one wave at the
+    # occupancy of the built kernel
+    plan = stencil2.k3_plan(g2[3].nodes, 3, f32)
+    occ = stencil2.k3_occupancy(plan.rs, f32)
+    print(f"K3 plan at 1024^2 p=3: {plan}; {plan.blocks} blocks, "
+          f"{occ} blocks an SM ({occ * 132} at once on 132 SMs)")
+    check(plan.blocks <= occ * 132, "K3's 1024^2 launch takes two waves")
     del u, bt
     # K3s through its public entry point: no solve routes to it, so this
     # is its path
@@ -1450,6 +1565,11 @@ def main():
         "K5 160^3 p=3", lambda v: k5(v, bt3), lambda v: k5_plain(v, bt3), u,
         g3.n_nodes)
     turns("K4", lambda: k4(u, bt3), "K5", lambda: k5(u, bt3))
+    plan = stencil3.k5_plan(g3.nodes, 3, f32)
+    occ = stencil3.k5_occupancy(plan.slots, f32)
+    print(f"K5 plan at 161^3 p=3: {plan}; {plan.blocks} blocks, {occ} "
+          f"blocks an SM")
+    check(occ >= 3, "K5 fits fewer than three blocks an SM at 161^3")
     n0 = g3.nodes[0]
     coupling = torch.cat([stencil3.band_matrix(bt3.s[0]),
                           stencil3.band_matrix(bt3.m[0])], dim=1)
@@ -1475,6 +1595,23 @@ def main():
     k4_err = max(k4_err, err)
     turns("K4", lambda: k4(u, bt3b), "K5", lambda: k5(u, bt3b))
     del u, bt3b
+    # K5's library yardstick: one torch.sparse CSR SpMV of its operator at
+    # 65^3, the 64^3 solve's finest level (about 9.4e7 nonzeros; at 161^3
+    # the matrix would hold ~1.4e9)
+    g65 = Grid(3, (64, 64, 64), (0.0,) * 3, (1.0,) * 3)
+    bt65 = stencil3.laplace3_bands(g65, dev, f32)
+    u = torch.as_tensor(rng.standard_normal(g65.nodes), dtype=f32,
+                        device=dev)
+    err, _, _ = kernel_vs_plain(
+        "K5 65^3 p=3", lambda v: k5(v, bt65), lambda v: k5_plain(v, bt65), u,
+        g65.n_nodes)
+    k5_err = max(k5_err, err)
+    t0 = time.perf_counter()
+    csr = laplace3_csr(bt65)
+    print(f"K5 65^3: the operator's CSR assembled on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    k5_lib = spmv_ms(csr, u, k5_plain(u, bt65), "K5 65^3")
+    del csr, u, bt65
 
     # ---- gdm's 3D dispatch through the public apply ------------------------
     for cells, want, other in (((160, 160, 160), "laplace3_mxu", "laplace3"),
@@ -1553,9 +1690,10 @@ def main():
         row("laplace3_apply (K4)", "gdm_torch/csrc/laplace3.cu",
             "gdm/ops/pallas_stencil2.py:1056", k4_launches, k4_err, k4_ms,
             k4_plain_ms, separable_bound(g3.n_nodes, 7, 7)),
-        row("laplace3_mxu_apply (K5)", "gdm_torch/csrc/laplace3_mxu.cu",
-            "gdm/ops/pallas_stencil2.py:1946", counts3["laplace3_mxu"],
-            k5_err, k5_ms, k5_plain_ms, separable_bound(g3.n_nodes, 7, 7)),
+        {**row("laplace3_mxu_apply (K5)", "gdm_torch/csrc/laplace3_mxu.cu",
+               "gdm/ops/pallas_stencil2.py:1946", counts3["laplace3_mxu"],
+               k5_err, k5_ms, k5_plain_ms, separable_bound(g3.n_nodes, 7, 7),
+               k5_lib), "library_at": "65^3"},
         *micro_rows,
     ]}))
     print(card)

@@ -30,6 +30,30 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, bool valid) {
                "l"(src), "n"(static_cast<int>(sizeof(T))), "r"(n));
 }
 
+// N elements from 16-byte aligned shared memory into registers, 16
+// bytes a load (N a multiple of 16 / sizeof(T)): a band row that every
+// lane of a warp reads costs N / 4 (float) or N / 2 (double) broadcast
+// loads instead of N.
+template <typename T, int N>
+__device__ __forceinline__ void load_row16(const T* p, T (&out)[N]) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  static_assert(N % V == 0, "load_row16: N must fill whole 16-byte loads");
+#pragma unroll
+  for (int i = 0; i < N; i += V) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      out[i] = x.x;
+      out[i + 1] = x.y;
+      out[i + 2] = x.z;
+      out[i + 3] = x.w;
+    } else {
+      const double2 x = *reinterpret_cast<const double2*>(p + i);
+      out[i] = x.x;
+      out[i + 1] = x.y;
+    }
+  }
+}
+
 // Close this thread's group of copies issued since the last commit.
 __device__ __forceinline__ void commit_group() {
   asm volatile("cp.async.commit_group;\n" ::);

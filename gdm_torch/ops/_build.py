@@ -70,7 +70,7 @@ def _declare(lib):
                        I, I, I, I, I, I, D, D] + [I] * 5 + [P]
         fn.restype = I
         fn = getattr(lib, f"gdm_laplace2_apply_{dt}")
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
         fn = getattr(lib, f"gdm_laplace2_stream_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
@@ -82,12 +82,16 @@ def _declare(lib):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
             fn.restype = I
-        for k, n_extra in (("laplace3", 1), ("laplace3_mxu", 0)):
+        for k, n_extra in (("laplace3", 1), ("laplace3_mxu", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I] + (
                 [I] * n_extra) + [P]
             fn.restype = I
     IP = ctypes.POINTER(I)
+    for k in ("laplace2", "laplace3_mxu"):
+        fn = getattr(lib, f"gdm_{k}_occupancy")
+        fn.argtypes = [I, I, IP]
+        fn.restype = I
     lib.gdm_resident_cg_limits.argtypes = [IP, IP]
     lib.gdm_resident_cg_limits.restype = I
     # gdm's micro-benchmarks (gdm_torch/benchmarks/)

@@ -21,6 +21,9 @@ card.  Each wrapper (``laplace2_apply``, ``laplace2_stream_apply``,
 ``laplace2_mxucol_apply``, ...) launches its kernel for a CUDA tensor
 and runs its plain torch twin for a CPU tensor; there is no other
 switch.  Every twin is K3's plain column-then-row computation.
+``k3_plan`` picks K3's launch from the shape (its tiles and the output
+rows a thread keeps in registers); tests/test_torch_plans.py holds it on
+the CPU.
 
 K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes;
 the tensor-core schedules run their products as 3xTF32 in float32 and on
@@ -34,6 +37,7 @@ here ``pad`` and ``unpad`` are reshapes and cost no copy.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -42,6 +46,7 @@ import torch
 from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
+from . import _build
 from ._padded import launch, padded_apply, positive_int
 from .tensor import apply_banded
 
@@ -119,13 +124,114 @@ def _launch(u: torch.Tensor, bt: Bands2, fn: str, what: str, extra=()):
                   extra)
 
 
+# ---- K3's launch plan (csrc/laplace2.cu) ----
+
+SM_COUNT = 132           # SMs of an H100 SXM
+K3_COLS = 32             # the most columns of a tile: one warp's lanes
+K3_WARPS = 4             # warps of a block, each a row segment of the tile
+K3_ROWS = (8, 4, 2)      # output rows a thread (rs), most first
+K3_MAX_RS_P = 7          # above this p only rs = 2 (registers)
+K3_THREADS = 32768       # the most rows a thread while the grid keeps this
+                         # many threads busy
+K3_BLOCKS_PER_SM = 9     # float32, p <= 3: __launch_bounds__(128, 9)
+
+
+@dataclasses.dataclass(frozen=True)
+class K3Plan:
+    """How K3 cuts the (n0, n1) nodes into tiles, one block of K3_WARPS
+    warps each: ``tiles`` = (along rows, along columns), each axis split
+    evenly (a tile holds the floor or the ceiling of n / tiles), so the
+    largest tile is ``rows`` x ``cols``; a thread owns one column of
+    ``rs`` consecutive output rows; ``smem`` bytes of shared memory per
+    block."""
+    rows: int
+    cols: int
+    tiles: tuple
+    rs: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles[0] * self.tiles[1]
+
+
+def k3_smem(p: int, itemsize: int, rs: int) -> int:
+    """Bytes of shared memory of one K3 block, as laplace2.cu's Geom lays
+    it out: the u tile (4 rs + 2p rows, pitch 32 + 2p), the tile rows'
+    A0 and B0 bands (pitch 2p + 1 rounded up to 4, for 16-byte loads)
+    and above p = 7 the lane columns' A1 and B1."""
+    k, ty = 2 * p + 1, K3_WARPS * rs
+    coef = 0 if p <= K3_MAX_RS_P else 2 * k * K3_COLS
+    return itemsize * ((ty + 2 * p) * (K3_COLS + 2 * p) +
+                       2 * ty * _rnd(k, 4) + coef)
+
+
+def _even(n: int, most: int):
+    """(parts, largest part) of an even split of n into parts of at most
+    ``most``."""
+    parts = -(-n // most)
+    return parts, -(-n // parts)
+
+
+def _k3_plan(nodes, p, itemsize, rs) -> K3Plan:
+    n0, n1 = nodes
+    ntr, r = _even(n0, K3_WARPS * rs)
+    ntc, c = _even(n1, K3_COLS)
+    return K3Plan(r, c, (ntr, ntc), rs, k3_smem(p, itemsize, rs))
+
+
+def k3_plans(nodes, p: int, dtype) -> list:
+    """Every plan K3 can launch for ``nodes``: each rs of K3_ROWS (only
+    2 above p = 7)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return [_k3_plan(tuple(nodes), p, itemsize, rs) for rs in K3_ROWS
+            if rs == 2 or p <= K3_MAX_RS_P]
+
+
+def k3_plan(nodes, p: int, dtype) -> K3Plan:
+    """K3's launch plan for the (n0, n1) nodes: the most output rows a
+    thread (rs of K3_ROWS) that still puts K3_THREADS threads to work,
+    the fewest where none does (more, shorter tiles: at 257^2 and below
+    tiles of 8 rows), and rs = 2 above p = 7."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nodes = tuple(nodes)
+    for rs in K3_ROWS:
+        plan = _k3_plan(nodes, p, itemsize, rs)
+        threads = -(-nodes[0] // rs) * plan.tiles[1] * K3_COLS
+        if p > K3_MAX_RS_P or threads >= K3_THREADS:
+            break
+    if p > K3_MAX_RS_P:
+        plan = _k3_plan(nodes, p, itemsize, 2)
+    return plan
+
+
+def _launch_plan(u: torch.Tensor, bt: Bands2, plan: K3Plan) -> torch.Tensor:
+    """K3 on the CUDA tensor ``u`` with the launch plan ``plan``; counts
+    nothing (``laplace2_apply`` does)."""
+    return _launch(u, bt, "laplace2_apply", "K3", (*plan.tiles, plan.rs))
+
+
+def k3_occupancy(rs: int, dtype) -> int:
+    """Blocks of K3 one SM of the card holds at p = 3 (the solves'
+    degree) with rs output rows a thread, as the CUDA runtime's
+    occupancy calculator reports them for the built kernel (its
+    registers and shared memory)."""
+    kl = _build.kernels()
+    out = ctypes.c_int(0)
+    err = kl.lib.gdm_laplace2_occupancy(
+        rs, int(dtype == torch.float64), ctypes.byref(out))
+    _build.check(kl, err, "K3 occupancy")
+    return out.value
+
+
 def laplace2_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
-    """y = A0 U A1^T + B0 U B1^T: the CUDA kernel K3 for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    """y = A0 U A1^T + B0 U B1^T: the CUDA kernel K3, launched as
+    ``k3_plan`` says, for a CUDA tensor, the plain version for a CPU
+    tensor."""
     _check(u, bt)
     if u.device.type == "cpu":
         return laplace2_apply_plain(u, bt)
-    y = _launch(u, bt, "laplace2_apply", "K3")
+    y = _launch_plan(u, bt, k3_plan(bt.shape, bt.p, u.dtype))
     laplace2_apply.launches += 1
     return y
 

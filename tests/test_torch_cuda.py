@@ -268,6 +268,10 @@ LAPLACE2_CASES = [
     (5, (48, 40)),
     (3, (200, 130)),   # many tiles
     (15, (40, 33)),    # the largest degree K3 takes
+    # stencil2.k3_plan's rows a thread: 8 here, 4 in the next, 2 in the
+    # small cases above (tests/test_torch_plans.py holds that on the CPU)
+    (3, (300, 1024)),
+    (3, (160, 1024)),
 ]
 
 
@@ -411,24 +415,17 @@ LAPLACE3_MXU_CASES = [
     (3, (40, 20, 70)),   # ragged tiles along every axis, several windows
     (7, (9, 8, 10)),     # the largest degree K5 takes
     (7, (40, 17, 33)),
-    # K5's launcher picks the plane chunk from the grid of tiles; these
-    # reach chunks of 32 and 64 planes, each with a ragged last chunk
+    # stencil3.k5_plan picks the box (planes, rows) from the grid of
+    # boxes and the u slots a warp from the blocks an SM holds; these and
+    # the small cases above reach every box of K5_BOXES and 1, 2 and 3
+    # slots over float32 and float64 (tests/test_torch_plans.py holds
+    # that on the CPU)
     (3, (39, 191, 351)),
     (3, (69, 191, 351)),
+    (3, (32, 64, 64)),
+    (3, (32, 32, 64)),
+    (3, (16, 32, 32)),
 ]
-
-
-def _k5_chunk(nodes):
-    """The plane chunk laplace3_mxu.cu's launch_p picks for ``nodes``."""
-    n0, n1, n2 = nodes
-    cols = -(-n2 // 32) * -(-n1 // 8)
-    return next((c for c in (64, 32) if cols * -(-n0 // c) >= 4 * 132), 16)
-
-
-def test_laplace3_mxu_cases_reach_every_chunk():
-    chunks = {_k5_chunk(tuple(c + 1 for c in cells))
-              for _, cells in LAPLACE3_MXU_CASES}
-    assert chunks == {16, 32, 64}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -447,10 +444,13 @@ def test_laplace3_mxu_matches_plain(cuda_device, p, cells, dtype):
     assert _rel(stencil3.laplace3_apply(u, bt), yp) <= _tol(dtype)
 
 
-@pytest.mark.parametrize("cells,kernel", [
+DISPATCH_CASES = [
     ((505, 4, 4), "laplace3_mxu_apply"),   # N0 + 2p = 512: K5
     ((506, 4, 4), "laplace3_apply"),       # N0 + 2p = 513: K4
-])
+]
+
+
+@pytest.mark.parametrize("cells,kernel", DISPATCH_CASES)
 def test_dispatch_routes_by_plane_count(cuda_device, cells, kernel):
     grid = Grid(3, cells, (0.0,) * 3, (1.0,) * 3)
     other = ({"laplace3_mxu_apply", "laplace3_apply"} - {kernel}).pop()

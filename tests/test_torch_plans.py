@@ -1,0 +1,198 @@
+"""The launch plans of K5 (``stencil3.k5_plan``) and K3
+(``stencil2.k3_plan``), on the CPU: no card is needed.
+
+Each plan cuts the node array into boxes (K5) or tiles (K3), one block
+each, by an even split of every axis; the kernels recompute the same
+split from the plan's counts (csrc/laplace3_mxu.cu ``box``,
+csrc/laplace2.cu).  These tests simulate that split in numpy for every
+level shape of the 1024^2 and 64^3 multigrid hierarchies, the bench's
+matvec sizes and every shape of the card tests' case lists
+(tests/test_torch_cuda.py), and hold each plan to its duties: every node
+in exactly one block, no sliver box or tile, the block counts that
+fill the card, and the card cases reaching every branch of the plans.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+import test_torch_cuda as card
+from gdm_torch.ops import stencil2, stencil3
+
+DTYPES = [torch.float32, torch.float64]
+SM = 132
+# level shapes (nodes) of the 1024^2 and 64^3 MG-CG hierarchies, p = 3
+LEVELS2 = [(2**k + 1,) * 2 for k in range(10, 2, -1)]
+LEVELS3 = [(2**k + 1,) * 3 for k in range(6, 2, -1)]
+BENCH2 = [(2049, 2049), (4097, 4097)]
+BENCH3 = [(161,) * 3, (257,) * 3]
+
+
+def _nodes(cells):
+    return tuple(c + 1 for c in cells)
+
+
+def _card_cases3():
+    """(nodes, p, dtype) of every K5 launch in the card tests."""
+    cases = [(_nodes(c), p) for p, c in card.LAPLACE3_MXU_CASES]
+    cases += [(_nodes(c), 3) for c, k in card.DISPATCH_CASES
+              if k == "laplace3_mxu_apply"]
+    return [(n, p, dt) for (n, p) in cases for dt in DTYPES]
+
+
+def _card_cases2():
+    """(nodes, p, dtype) of every K3 launch in the card tests."""
+    cases = [(_nodes(c), p) for p, c in card.LAPLACE2_CASES]
+    cases.append(((38, 46), 3))   # test_laplace2_four_factor_bands
+    return [(n, p, dt) for (n, p) in cases for dt in DTYPES]
+
+
+CASES3 = ([(n, 3, dt) for n in LEVELS3 + BENCH3 for dt in DTYPES]
+          + _card_cases3())
+CASES2 = ([(n, 3, dt) for n in LEVELS2 + BENCH2 for dt in DTYPES]
+          + [((1025, 1025), 5, torch.float32)] + _card_cases2())
+
+
+def _ids(cases):
+    return [f"{'x'.join(map(str, n))}-p{p}-{str(dt)[6:]}"
+            for n, p, dt in cases]
+
+
+def _boxes(n, parts):
+    """(start, size) of an even split of n into ``parts``, as the
+    kernels compute it."""
+    base, rem = divmod(n, parts)
+    return [(b * base + min(b, rem), base + (b < rem)) for b in range(parts)]
+
+
+# ---- K5 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("nodes,p,dtype", CASES3, ids=_ids(CASES3))
+def test_k5_plan_covers_every_node_once(nodes, p, dtype):
+    plan = stencil3.k5_plan(nodes, p, dtype)
+    count = np.zeros(nodes, np.int32)
+    axes = [_boxes(n, nt) for n, nt in zip(nodes, plan.grid)]
+    assert plan.boxes(nodes) == tuple(axes)
+    for (a, s0), (b, s1), (c, s2) in itertools.product(*axes):
+        count[a:a + s0, b:b + s1, c:c + s2] += 1
+    assert (count == 1).all()
+    # the largest box is the plan's, and fits the kernel's box
+    big = tuple(max(s for _, s in ax) for ax in axes)
+    assert big == (plan.chunk, *plan.tile)
+    assert all(b <= m for b, m in zip(big, stencil3.K5_BOX))
+    assert plan.smem <= stencil3.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("nodes,p,dtype", CASES3, ids=_ids(CASES3))
+def test_k5_plan_no_slivers(nodes, p, dtype):
+    """No box along axis 1 or 2 holds less than half of the plan's tile,
+    and none walks 2p halo planes for a single output plane."""
+    plan = stencil3.k5_plan(nodes, p, dtype)
+    planes, rows, cols = plan.boxes(nodes)
+    for ax, most in ((rows, plan.tile[0]), (cols, plan.tile[1])):
+        assert min(s for _, s in ax) * 2 >= most
+    if nodes[0] >= 2:
+        assert min(s for _, s in planes) >= 2
+
+
+@pytest.mark.parametrize("nodes", [(65,) * 3, (33,) * 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_plan_fills_the_card_at_small_levels(nodes, dtype):
+    assert stencil3.k5_plan(nodes, 3, dtype).blocks >= SM
+
+
+@pytest.mark.parametrize("nodes", BENCH3)
+def test_k5_plan_three_blocks_an_sm_at_bench_sizes(nodes):
+    plan = stencil3.k5_plan(nodes, 3, torch.float32)
+    assert plan.slots == 1
+    assert stencil3.blocks_per_sm(plan.smem) >= 3
+    assert plan.blocks > 3 * SM
+
+
+def test_k5_card_cases_reach_every_branch():
+    """Every box of K5_BOXES and every slot count of K5_SLOTS, over the
+    card tests' K5 cases in float32 and float64."""
+    reached = {(stencil3.k5_plan(n, p, dt).box, stencil3.k5_plan(
+        n, p, dt).slots) for n, p, dt in _card_cases3()}
+    assert {b for b, _ in reached} == set(stencil3.K5_BOXES)
+    assert {s for _, s in reached} == set(stencil3.K5_SLOTS)
+
+
+def test_k5_smem_matches_the_kernel_layout():
+    """k5_smem against laplace3_mxu.cu's Geom, worked by hand at p = 3
+    float32: [P ; T] 48 x 264, C slice 16 x 56, u slots 8 x 544 (one
+    slot a warp; two: 8704) over the 16 x 264 y stage, 2 x 8 x 8 band
+    rows (pitch 7 rounded up to 8), each array on 32 elements."""
+    assert stencil3.k5_smem(3, 4, 1) == 4 * (12672 + 896 + 4352 + 64 + 64)
+    assert stencil3.k5_smem(3, 4, 2) == 4 * (12672 + 896 + 8704 + 64 + 64)
+    # every degree and dtype the kernel takes fits one block with a slot
+    for p, itemsize in itertools.product((1, 3, 5, 7), (4, 8)):
+        assert stencil3.k5_smem(p, itemsize, 1) <= stencil3.SMEM_BLOCK
+
+
+# ---- K3 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("nodes,p,dtype", CASES2, ids=_ids(CASES2))
+def test_k3_plan_covers_every_node_once(nodes, p, dtype):
+    plan = stencil2.k3_plan(nodes, p, dtype)
+    ntr, ntc = plan.tiles
+    count = np.zeros(nodes, np.int32)
+    rows, cols = _boxes(nodes[0], ntr), _boxes(nodes[1], ntc)
+    # warp w of a tile owns its rows w rs .. w rs + rs, lane c column c
+    for (a, s0), (b, s1) in itertools.product(rows, cols):
+        assert s0 <= stencil2.K3_WARPS * plan.rs and s1 <= 32
+        for w in range(stencil2.K3_WARPS):
+            lo = min(w * plan.rs, s0)
+            hi = min(lo + plan.rs, s0)
+            count[a + lo:a + hi, b:b + s1] += 1
+    assert (count == 1).all()
+    assert max(s for _, s in rows) == plan.rows
+    assert max(s for _, s in cols) == plan.cols
+    assert plan.smem == stencil2.k3_smem(p, 8 if dtype == torch.float64
+                                         else 4, plan.rs)
+    assert plan.smem <= stencil2.SMEM_MAX
+    if p > stencil2.K3_MAX_RS_P:
+        assert plan.rs == 2
+
+
+@pytest.mark.parametrize("nodes,p,dtype", CASES2, ids=_ids(CASES2))
+def test_k3_plan_no_slivers(nodes, p, dtype):
+    """No tile holds less than half of the plan's tile along either
+    axis."""
+    plan = stencil2.k3_plan(nodes, p, dtype)
+    for n, parts, most in ((nodes[0], plan.tiles[0], plan.rows),
+                           (nodes[1], plan.tiles[1], plan.cols)):
+        assert min(s for _, s in _boxes(n, parts)) * 2 >= most
+
+
+def test_k3_plan_one_wave_at_1025():
+    """1025^2, p = 3, float32: every block resident at once, at the nine
+    blocks an SM that the kernel's __launch_bounds__ asks for (ptxas:
+    no spill; chip_smoke.py checks the runtime's occupancy)."""
+    plan = stencil2.k3_plan((1025, 1025), 3, torch.float32)
+    assert plan.rs == 8
+    assert plan.blocks <= SM * stencil2.K3_BLOCKS_PER_SM
+    assert plan.blocks > SM * (stencil2.K3_BLOCKS_PER_SM - 1)
+
+
+@pytest.mark.parametrize("nodes", LEVELS2)
+def test_k3_plan_spreads_small_levels(nodes):
+    """At every level the plan launches a block for each SM, or as many
+    blocks as any plan can (shorter tiles at 257^2 and below)."""
+    plan = stencil2.k3_plan(nodes, 3, torch.float32)
+    most = max(pl.blocks for pl in stencil2.k3_plans(nodes, 3,
+                                                     torch.float32))
+    assert plan.blocks >= min(SM, most)
+    if nodes[0] <= 257:
+        assert plan.rs == 2 and plan.rows <= 8
+
+
+def test_k3_card_cases_reach_every_branch():
+    """Every rs of K3_ROWS and the p > 7 body (A1, B1 in shared
+    memory), over the card tests' K3 cases."""
+    plans = [(stencil2.k3_plan(n, p, dt), p) for n, p, dt in _card_cases2()]
+    assert {pl.rs for pl, _ in plans} == set(stencil2.K3_ROWS)
+    assert any(p > stencil2.K3_MAX_RS_P for _, p in plans)
+    assert any(p <= stencil2.K3_MAX_RS_P for _, p in plans)
