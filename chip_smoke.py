@@ -7,12 +7,14 @@ Run from the repository root:  python3 chip_smoke.py
    versions; fails at once when torch sees no CUDA device;
 2. builds the hand-written kernels from gdm_torch/csrc/ and prints the
    build time and nvcc's register/shared-memory report;
-3. K1 (band apply) against its plain torch version, float32, on the
-   flagship 128^2 mass and stiffness bands: max error <= 1e-5 of max|y|,
-   guard cells zero; device time per apply (``device_ms``: CUDA events
-   around a run queued behind a spin kernel) and median time per call
-   with its launch (CUDA events around each call); one torch.sparse CSR
-   SpMV of the same operator (the library yardstick);
+3. K1 (band apply) against its plain torch version on the flagship's
+   mass and stiffness bands at 128^2 and 512^2, float32 (max error <=
+   1e-5 of max|y|) and float64 (<= 1e-12), guard cells zero, with the
+   plan cutband.k1_plan picks; device time per apply (``device_ms``:
+   CUDA events around a run queued behind a spin kernel) beside its
+   bound and median time per call with its launch (CUDA events around
+   each call); in float32 one torch.sparse CSR SpMV of the same
+   operator (the library yardstick);
 4. K2 (one-launch FSAI-CG), both bodies (planes in shared memory and in
    device memory) against its plain version at 128^2 (cut mass + FSAI
    factors), float32: iteration counts equal between the bodies and
@@ -37,10 +39,12 @@ Run from the repository root:  python3 chip_smoke.py
    2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
    per-call times, GB/s at 8 bytes per node (read u, write y), and at
    1024^2 p=3 one torch.sparse CSR SpMV of the same operator; in each
-   case K3s (K3's operator streamed through a cp.async ring) against the
-   same twin the same way, and the two timed in turns (K3, K3s, K3s,
-   K3); then K3s once through its public make_padded_laplace2_stream at
-   4096^2, the launch counts reset just before: K3s's own path;
+   case K3s (K3's operator streamed by a producer warp through an
+   mbarrier ring) against the same twin the same way, and the two timed
+   in turns (K3, K3s, K3s, K3); K3s also at 1024^2 p = 15 and at 1024^2
+   p = 3 in float64 (<= 1e-12); then K3s once through its public
+   make_padded_laplace2_stream at 4096^2, the launch counts reset just
+   before: K3s's own path;
 7. the tensor-core schedules of K3's operator, K3c (column stage as a
    window product on the tensor cores), K3f (both stages), K3h (column
    stage split by rows between FMA and tensor-core warps) and K3p (K3h
@@ -117,7 +121,7 @@ Run from the repository root:  python3 chip_smoke.py
    every level shape of the solve's multigrid hierarchy (1025^2 down to
    9^2 nodes), and at each its launches per CG phase (from the counters,
    each level's apply wrapped), its device time by events in turns
-   against K3s (K3s, K3, K3, K3s) and its bound, printed as one JSON
+   against K3h (K3h, K3, K3, K3h) and its bound, printed as one JSON
    line {"levels": ..., "rows": [...]}; the CG phase of the bench's own
    problem (right-hand side 1) timed the same way; at 128^2 the float32
    card solution against the float64 CPU solution (rel_tol 1e-4:
@@ -274,9 +278,10 @@ def sin_exact(m, c):
     return v
 
 
-def kernel_vs_plain(name, kernel, plain, u, n_nodes):
-    """Hold a Laplace kernel against its plain twin on ``u``; print and
-    return (max abs error, device ms, plain device ms)."""
+def kernel_vs_plain(name, kernel, plain, u, n_nodes, tol=1e-5):
+    """Hold a Laplace kernel against its plain twin on ``u`` (max error
+    <= tol of max|y|); print and return (max abs error, device ms, plain
+    device ms)."""
     import torch
 
     yk = kernel(u)
@@ -284,15 +289,15 @@ def kernel_vs_plain(name, kernel, plain, u, n_nodes):
     torch.cuda.synchronize()
     err = (yk - yp).abs().max().item()
     rel = err / yp.abs().max().item()
-    check(rel <= 1e-5, f"{name}: max error {rel:.3e} of max|y|")
+    check(rel <= tol, f"{name}: max error {rel:.3e} of max|y|")
     del yk, yp
     ms = device_ms(lambda: kernel(u))
     pms = device_ms(lambda: plain(u), n=10)
     cms = call_ms(lambda: kernel(u))
     cpms = call_ms(lambda: plain(u), n=10)
-    gbs = 8 * n_nodes / (ms * 1e-3) / 1e9
+    gbs = 2 * u.element_size() * n_nodes / (ms * 1e-3) / 1e9
     print(f"{name}: max abs err {err:.3e} (rel {rel:.3e}); device time: "
-          f"kernel {ms * 1e3:.2f} us ({gbs:.0f} GB/s at 8 B/node, "
+          f"kernel {ms * 1e3:.2f} us ({gbs:.0f} GB/s of u and y, "
           f"{n_nodes / (ms * 1e-3) / 1e9:.1f} GDoF/s), plain "
           f"{pms * 1e3:.2f} us; per call with launch: kernel "
           f"{cms * 1e3:.2f} us, plain {cpms * 1e3:.2f} us")
@@ -339,8 +344,9 @@ def levels_vs_plain(sysf, dev, dtype, tag):
     level's node shape: the shapes the solve gives the kernel.  Per
     level, also its launches over one CG phase (from the counters), its
     device time by events and its bound, timed in turns against an
-    anchor of the same operator (anchor, kernel, kernel, anchor; the
-    anchor is K3s in 2D and K4 in 3D).  Prints the per-level table as a JSON line
+    anchor of the same operator that no recent redesign changed (anchor,
+    kernel, kernel, anchor; the anchor is K3h in 2D, since K3s was
+    redesigned, and K4 in 3D).  Prints the per-level table as a JSON line
     and returns the largest max abs error, the names of the kernels held
     and the rows."""
     import torch
@@ -369,7 +375,7 @@ def levels_vs_plain(sysf, dev, dtype, tag):
         names.add(name)
         if dim == 2:
             bt = stencil2.laplace2_bands(g, dev, dtype)
-            aname, anchor = "K3s", stencil2.laplace2_stream_apply
+            aname, anchor = "K3h", stencil2.laplace2_hybrid_apply
         else:
             bt = stencil3.laplace3_bands(g, dev, dtype)
             aname, anchor = "K4", stencil3.laplace3_apply
@@ -570,6 +576,69 @@ def row_phase(rng, dev, g2, g4096, four):
         if name.startswith("make_padded"):
             launches[want] = counts[want]
     return err_max, ms_at, plain_at, launches
+
+
+def k1_phase(rng, dev, layout128, ops128):
+    """K1 against its plain version on the flagship's mass and stiffness
+    bands at 128^2 and 512^2, in float32 (max error <= 1e-5 of max|y|)
+    and float64 (<= 1e-12), guard cells zero; device and per-call times,
+    and in float32 one torch.sparse CSR SpMV of the same operator.
+    Returns (largest float32 error, then per 128^2 float32 band: device
+    ms, plain ms, bound, library ms)."""
+    import torch
+
+    from gdm_torch.entry import flagship_operators
+    from gdm_torch.ops import cutband
+
+    grid512, _, mass512, stiff512 = flagship_operators(512)
+    layout512 = cutband.layout_for(grid512, max(mass512.radius,
+                                                stiff512.radius))
+    err32, rows = 0.0, ([], [], [], [])
+    for n, layout, ops in ((N_GRID, layout128, ops128),
+                           (512, layout512, (mass512, stiff512))):
+        for dt in (torch.float32, torch.float64):
+            for name, st in zip(("mass", "stiffness"), ops):
+                what = f"K1 {n}^2 {name} {str(dt)[6:]}"
+                bp = cutband.band_planes(st, layout, dev, dt)
+                u = layout.pad(torch.as_tensor(
+                    rng.standard_normal(st.grid.n_nodes), dtype=dt,
+                    device=dev))
+                yk = cutband.band_apply(u, bp)
+                yp = cutband.band_apply_plain(u, bp)
+                torch.cuda.synchronize()
+                err = (yk - yp).abs().max().item()
+                rel = err / yp.abs().max().item()
+                guard = yk.clone()
+                layout.interior(guard).zero_()
+                tol = 1e-5 if dt == torch.float32 else 1e-12
+                check(rel <= tol, f"{what}: max error {rel:.3e} of max|y|")
+                check(guard.abs().max().item() == 0.0,
+                      f"{what}: guard not zero")
+                ms = device_ms(lambda: cutband.band_apply(u, bp))
+                pms = device_ms(lambda: cutband.band_apply_plain(u, bp))
+                cms = call_ms(lambda: cutband.band_apply(u, bp))
+                cells = layout.rows * layout.pitch
+                nbytes = u.element_size() * (bp.planes.numel() + 2 * cells)
+                plan = cutband.k1_plan(layout.rows, layout.pitch,
+                                       len(bp.taps), dt, layout.r)
+                bnd = bound(nbytes, 2 * len(bp.taps) * cells)
+                print(f"{what}: {len(bp.taps)} taps, layout {layout.shape}, "
+                      f"plan {plan.groups} tap groups x {plan.blocks} "
+                      f"blocks; max abs err {err:.3e} (rel {rel:.3e}); "
+                      f"device time: kernel {ms * 1e3:.2f} us "
+                      f"({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of "
+                      f"planes+u+y; bound {bnd[0] * 1e3:.2f} us), plain "
+                      f"{pms * 1e3:.2f} us; per call with launch: kernel "
+                      f"{cms * 1e3:.2f} us")
+                if dt != torch.float32:
+                    continue
+                err32 = max(err32, err)
+                lib = spmv_ms(band_planes_csr(bp, layout), u, yp, what)
+                if n == N_GRID:
+                    for acc, x in zip(rows, (ms, pms, bnd, lib)):
+                        acc.append(x)
+                del bp, u, yk, yp, guard
+    return (err32, *rows)
 
 
 def k2_solves(b, x0, args, bodies, what):
@@ -1322,38 +1391,8 @@ def main():
     N = grid.n_nodes
 
     # ---- K1 against its plain version ------------------------------------
-    k1_err, k1_ms, k1_plain_ms, k1_bound, k1_lib = 0.0, [], [], [], []
-    for name, st in (("mass", mass), ("stiffness", stiff)):
-        bp = cutband.band_planes(st, layout, dev, f32)
-        u = layout.pad(torch.as_tensor(rng.standard_normal(N), dtype=f32,
-                                       device=dev))
-        yk = cutband.band_apply(u, bp)
-        yp = cutband.band_apply_plain(u, bp)
-        torch.cuda.synchronize()
-        err = (yk - yp).abs().max().item()
-        rel = err / yp.abs().max().item()
-        guard = yk.clone()
-        layout.interior(guard).zero_()
-        check(rel <= 1e-5, f"K1 {name}: max error {rel:.3e} of max|y|")
-        check(guard.abs().max().item() == 0.0, f"K1 {name}: guard not zero")
-        ms = device_ms(lambda: cutband.band_apply(u, bp))
-        pms = device_ms(lambda: cutband.band_apply_plain(u, bp))
-        cms = call_ms(lambda: cutband.band_apply(u, bp))
-        cpms = call_ms(lambda: cutband.band_apply_plain(u, bp))
-        cells = layout.rows * layout.pitch
-        gbs = (len(bp.taps) + 2) * 4 * cells / (ms * 1e-3) / 1e9
-        print(f"K1 {name}: {len(bp.taps)} taps, max abs err {err:.3e} "
-              f"(rel {rel:.3e}); device time: kernel {ms * 1e3:.2f} us "
-              f"({gbs:.0f} GB/s of planes+u+y), plain {pms * 1e3:.2f} us; "
-              f"per call with launch: kernel {cms * 1e3:.2f} us, plain "
-              f"{cpms * 1e3:.2f} us")
-        k1_err = max(k1_err, err)
-        k1_ms.append(ms)
-        k1_plain_ms.append(pms)
-        k1_bound.append(bound(4 * (bp.planes.numel() + 2 * cells),
-                              2 * len(bp.taps) * cells))
-        k1_lib.append(spmv_ms(band_planes_csr(bp, layout), u, yp,
-                              f"K1 {name}"))
+    k1_err, k1_ms, k1_plain_ms, k1_bound, k1_lib = k1_phase(
+        rng, dev, layout, (mass, stiff))
 
     # ---- K2's two bodies against its plain version -------------------------
     k2 = k2_phase(rng, dev, grid, mass, G, GT, layout)
@@ -1394,12 +1433,17 @@ def main():
     check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()),
           "state not finite")
 
-    # the step's device work and K2's share of it (profiler)
-    busy, n_dev, top = device_breakdown(lambda: step(t, dt, u, v))
+    # the step's device work and K2's and K1's shares of it (profiler)
+    busy, n_dev, top = device_breakdown(lambda: step(t, dt, u, v),
+                                        top=None)
     k2_busy = sum(ms for name, ms, _ in top if "resident_cg" in name)
+    k1_busy = sum(ms for name, ms, _ in top if "cutband_apply" in name)
+    k1_n = sum(cnt for name, _, cnt in top if "cutband_apply" in name)
     print(f"step device busy {busy:.4f} ms, {n_dev:.0f} device items; K2 "
-          f"{k2_busy:.4f} ms ({k2_busy / busy:.1%}); idle share of the "
+          f"{k2_busy:.4f} ms ({k2_busy / busy:.1%}); K1 {k1_busy:.4f} ms "
+          f"x{k1_n:.1f} ({k1_busy / busy:.1%}); idle share of the "
           f"median step {1 - busy / statistics.median(step_ms):.3f}")
+    top = top[:6]
     for name, ms, cnt in top:
         print(f"    {ms * 1e3:9.1f} us  x{cnt:5.1f}  {name[:90]}")
 
@@ -1457,6 +1501,22 @@ def main():
         k3s_err = max(k3s_err, err)
         turns("K3", lambda: k3(u, bt), "K3s", lambda: k3s(u, bt))
     k3s_ms, k3s_plain_ms, g4096 = ms, pms, grid2
+    # K3s alone at the largest degree and in float64 (K3s's plan and both
+    # of its row-stage bodies; float64 rows shift by one of two elements)
+    g1024_15 = Grid(15, (1024, 1024), (0.0, 0.0), (1.0, 1.0))
+    for name, grid2, dt, tol in (("1024^2 p=15", g1024_15, f32, 1e-5),
+                                 ("1024^2 p=3 float64", g2[3],
+                                  torch.float64, 1e-12)):
+        bt = stencil2.laplace2_bands(grid2, dev, dt)
+        u = torch.as_tensor(rng.standard_normal(grid2.nodes), dtype=dt,
+                            device=dev)
+        err, _, _ = kernel_vs_plain(
+            f"K3s {name}", lambda v: k3s(v, bt), lambda v: k3_plain(v, bt), u,
+            grid2.n_nodes, tol)
+        if dt == f32:
+            k3s_err = max(k3s_err, err)
+        print(f"  K3s plan at {name}: "
+              f"{stencil2.k3s_plan(grid2.nodes, grid2.degree, dt)}")
     # K3's plan at 1024^2 p=3 runs every block in one wave at the
     # occupancy of the built kernel
     plan = stencil2.k3_plan(g2[3].nodes, 3, f32)

@@ -9,6 +9,17 @@
 
 #include <cuda_runtime.h>
 
+// Clock stamps of a block's phases: scripts/torch_k1_k3s_breakdown.py
+// compiles a copy of a kernel with GDM_STAMP, GDM_STAMP_ADD and
+// GDM_CLOCK defined (and gdm_gtimer, the %globaltimer); in the kernels'
+// own build the stamps are empty, their arguments are never evaluated,
+// and GDM_CLOCK() is 0.
+#ifndef GDM_STAMP
+#define GDM_STAMP(cond, slot, value)
+#define GDM_STAMP_ADD(cond, slot, value)
+#define GDM_CLOCK() 0LL
+#endif
+
 namespace gdm {
 
 __device__ __forceinline__ float fma_(float a, float b, float c) {
@@ -54,6 +65,67 @@ __device__ __forceinline__ void load_row16(const T* p, T (&out)[N]) {
   }
 }
 
+// mbarriers in shared memory (a 64-bit word each).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar,
+                                         int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the inits visible before the block's first barrier.
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on `bar` by this thread.
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Add `bytes` to the transactions `bar`'s current phase waits for.
+__device__ __forceinline__ void bar_expect_tx(unsigned long long* bar,
+                                              unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy (the TMA unit) of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) global -> shared, completing its bytes on
+// `bar` (which bar_expect_tx must have been told of).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until `bar` has completed the phase of parity `parity`.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // Close this thread's group of copies issued since the last commit.
 __device__ __forceinline__ void commit_group() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -63,6 +135,37 @@ __device__ __forceinline__ void commit_group() {
 template <int N>
 __device__ __forceinline__ void wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Programmatic dependent launch (Hopper; K1 takes it): a kernel
+// launched with launch_overlapped may start while the kernel before it
+// in the stream finishes.  grid_dep_wait() returns once that kernel has
+// ended and its writes are visible (at once on a plain launch): a kernel
+// reads what earlier kernels write, and writes anything, only after it.
+// grid_dep_release() lets the next such launch start its own set-up.
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dep_release() {
+  asm volatile("griddepcontrol.launch_dependents;\n" :::);
+}
+
+template <typename... Params, typename... Args>
+inline cudaError_t launch_overlapped(void (*kernel)(Params...), dim3 grid,
+                                     dim3 block, size_t smem,
+                                     cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // True iff the padded-layout cell (row, col) holds a grid node.

@@ -63,7 +63,7 @@ def _declare(lib):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"gdm_cutband_apply_{dt}")
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P] + [I] * 10 + [P]
         fn.restype = I
         fn = getattr(lib, f"gdm_resident_cg_{dt}")
         fn.argtypes = [P, P, P, P, I, P, P, I, P, P, I, I, P, P, P,
@@ -73,7 +73,7 @@ def _declare(lib):
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
         fn = getattr(lib, f"gdm_laplace2_stream_apply_{dt}")
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P] + [I] * 6 + [P]
         fn.restype = I
         for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_fullmxu", 1),
                            ("laplace2_hybrid", 2), ("laplace2_hybp", 2),

@@ -3,9 +3,10 @@
 Port of gdm/ops/pallas_cutband.py (``make_padded_stencil2``, the TPU
 kernel under gdm/cut/fastapply.py::fast_stencil_bundle).  The CUDA
 kernel is gdm_torch/csrc/cutband.cu; its source note says what bounds it
-on the card.  ``band_apply`` launches it for a CUDA tensor and runs the
+on the card.  ``band_apply`` launches it, as ``k1_plan`` picks from the
+layout, the tap count and the dtype, for a CUDA tensor and runs the
 plain torch version ``band_apply_plain`` for a CPU tensor; there is no
-other switch.
+other switch.  tests/test_torch_plans.py holds the plan on the CPU.
 
 The padded layout (``PaddedLayout``) is the one layout of the flagship
 path: K1, K2 (gdm_torch/ops/resident.py) and the RK state all use it.
@@ -26,6 +27,7 @@ tap-major, (T, rows, pitch), zero outside the node block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -136,12 +138,112 @@ def band_apply_plain(u: torch.Tensor, bp: BandPlanes) -> torch.Tensor:
     return y
 
 
-def band_apply(u: torch.Tensor, bp: BandPlanes) -> torch.Tensor:
-    """y = band * u on the padded layout: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
-    _check(u, bp)
-    if u.device.type == "cpu":
-        return band_apply_plain(u, bp)
+# ---- K1's launch plan (csrc/cutband.cu) ----
+
+SMEM_MAX = 232448       # bytes of shared memory an H100 block may use
+K1_THREADS = 256        # threads of a block
+K1_WIDTH = 32           # cells across a tile
+K1_GROUPS = (1, 2, 4, 8)  # tap groups a cell's taps split into
+K1_INFLIGHT = (12, 24)  # taps a thread loads at once (the kernel's MAXT)
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """How K1 cuts the (rows, pitch) layout: a thread owns ``vec``
+    adjacent cells of a row (16 bytes) and one of ``groups`` tap groups
+    (the taps split evenly), and loads ``inflight`` of its taps at once;
+    a block of K1_THREADS threads holds a tile of at most ``tile_rows``
+    rows by K1_WIDTH cells once for each group.  ``tiles`` = (along
+    rows, along vectors), each axis split evenly, so the largest tile is
+    ``rows`` x ``cols`` cells; ``smem`` bytes of shared memory a
+    block."""
+    groups: int
+    inflight: int
+    vec: int
+    tile_rows: int
+    rows: int
+    cols: int
+    tiles: tuple
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles[0] * self.tiles[1]
+
+    @property
+    def args(self) -> tuple:
+        """The plan's integer launch arguments, in the kernel's order."""
+        return (self.groups, *self.tiles, self.inflight)
+
+
+def _even(n: int, most: int):
+    """(parts, largest part) of an even split of n into parts of at most
+    ``most``."""
+    parts = -(-n // most)
+    return parts, -(-n // parts)
+
+
+def k1_tile_pitch(r: int) -> int:
+    """The u tile's pitch in cells: K1_WIDTH + 2r rounded up to 1 mod 32
+    (a float32 warp's four rows then hit 32 distinct banks)."""
+    return (K1_WIDTH + 2 * r + 30) // 32 * 32 + 1
+
+
+def k1_smem(itemsize: int, r: int, groups: int, taps: int) -> int:
+    """Bytes of shared memory of one K1 block, as cutband.cu lays it
+    out: with more than one group every thread's partial sums (a 16-byte
+    vector), the u tile with its r-wide halo and the taps' flat offsets
+    (int32)."""
+    vec = 16 // itemsize
+    tile_rows = K1_THREADS * vec // (K1_WIDTH * groups)
+    red = K1_THREADS * 16 if groups > 1 else 0
+    return (red + itemsize * (tile_rows + 2 * r) * k1_tile_pitch(r)
+            + 4 * taps)
+
+
+def _k1_plan(rows, pitch, taps, itemsize, r, groups) -> K1Plan:
+    vec = 16 // itemsize
+    tile_rows = K1_THREADS * vec // (K1_WIDTH * groups)
+    ntr, th = _even(rows, tile_rows)
+    ntc, tq = _even(pitch // vec, K1_WIDTH // vec)
+    per_group = -(-taps // groups)
+    inflight = next((m for m in K1_INFLIGHT if per_group <= m),
+                    K1_INFLIGHT[-1])
+    return K1Plan(groups, inflight, vec, tile_rows, th, tq * vec,
+                  (ntr, ntc), k1_smem(itemsize, r, groups, taps))
+
+
+def k1_plans(rows: int, pitch: int, taps: int, dtype, r: int) -> list:
+    """Every plan K1 can launch on a (rows, pitch) layout of guard width
+    r with ``taps`` taps: one for each tap-group count of K1_GROUPS up
+    to the taps, whose block fits the card's shared memory."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if pitch % 4:
+        raise ValueError(f"K1 needs a pitch that is a multiple of 4, not "
+                         f"{pitch}")
+    plans = [_k1_plan(rows, pitch, taps, itemsize, r, g) for g in K1_GROUPS
+             if g == 1 or g <= taps]
+    return [pl for pl in plans if pl.smem <= SMEM_MAX]
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plan(rows: int, pitch: int, taps: int, dtype, r: int) -> K1Plan:
+    """K1's launch plan: the most tap groups (at the flagship's 77 taps
+    eight groups of 9-10, each thread's taps all in flight at once),
+    the fastest plan of every sweep at 128^2 and 512^2; raises
+    ValueError when no plan fits a block.  Cached: the wrapper asks on
+    every launch."""
+    plans = k1_plans(rows, pitch, taps, dtype, r)
+    if not plans:
+        raise ValueError(f"no K1 plan fits an H100 block: {taps} taps, "
+                         f"guard width {r}, {dtype}")
+    return plans[-1]
+
+
+def _launch_plan(u: torch.Tensor, bp: BandPlanes,
+                 plan: K1Plan) -> torch.Tensor:
+    """K1 on the CUDA tensor ``u`` with the launch plan ``plan``; counts
+    nothing (``band_apply`` does)."""
     if u.device.type != "cuda":
         raise ValueError(f"no band apply for device {u.device}")
     fns = {torch.float32: "gdm_cutband_apply_f32",
@@ -156,8 +258,21 @@ def band_apply(u: torch.Tensor, bp: BandPlanes) -> torch.Tensor:
         err = getattr(kl.lib, fns[u.dtype])(
             u.data_ptr(), bp.planes.data_ptr(), bp.offsets.data_ptr(),
             y.data_ptr(), len(bp.taps), lay.rows, lay.pitch, lay.n0, lay.n1,
-            lay.r, _build.stream_handle(u.device))
+            lay.r, *plan.args, _build.stream_handle(u.device))
     _build.check(kl, err, "cutband apply launch")
+    return y
+
+
+def band_apply(u: torch.Tensor, bp: BandPlanes) -> torch.Tensor:
+    """y = band * u on the padded layout: the CUDA kernel, launched as
+    ``k1_plan`` says, for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    _check(u, bp)
+    if u.device.type == "cpu":
+        return band_apply_plain(u, bp)
+    lay = bp.layout
+    y = _launch_plan(u, bp, k1_plan(lay.rows, lay.pitch, len(bp.taps),
+                                    u.dtype, lay.r))
     band_apply.launches += 1
     return y
 
@@ -170,8 +285,8 @@ def make_padded_stencil2(st, device="cuda", dtype=torch.float32,
     """(apply_padded, pad, unpad, shape) for a 2D StencilOperator, as in
     gdm; ``layout`` defaults to the operator's own radius.  ``tile_r``,
     gdm's row tile (sized to the TPU's VMEM), is taken and has no effect:
-    K1 has no row tile (one thread per node, 32 x 8 nodes per block), and
-    the tile does not change the function.  A value that is not a
+    K1's tile comes from ``k1_plan`` (at most 32 cells across), and the
+    tile does not change the function.  A value that is not a
     positive integer raises ValueError."""
     positive_int("tile_r", tile_r)
     if layout is None:

@@ -22,7 +22,8 @@ card.  Each wrapper (``laplace2_apply``, ``laplace2_stream_apply``,
 and runs its plain torch twin for a CPU tensor; there is no other
 switch.  Every twin is K3's plain column-then-row computation.
 ``k3_plan`` picks K3's launch from the shape (its tiles and the output
-rows a thread keeps in registers); tests/test_torch_plans.py holds it on
+rows a thread keeps in registers), ``k3s_plan`` K3s's (its strip width
+and its strips and segments); tests/test_torch_plans.py holds both on
 the CPU.
 
 K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes;
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -205,9 +207,11 @@ def k3_plan(nodes, p: int, dtype) -> K3Plan:
     return plan
 
 
-def _launch_plan(u: torch.Tensor, bt: Bands2, plan: K3Plan) -> torch.Tensor:
-    """K3 on the CUDA tensor ``u`` with the launch plan ``plan``; counts
-    nothing (``laplace2_apply`` does)."""
+def _launch_plan(u: torch.Tensor, bt: Bands2, plan) -> torch.Tensor:
+    """K3 (a K3Plan) or K3s (a K3sPlan) on the CUDA tensor ``u`` with the
+    launch plan ``plan``; counts nothing (the wrappers do)."""
+    if isinstance(plan, K3sPlan):
+        return _launch(u, bt, "laplace2_stream_apply", "K3s", plan.args)
     return _launch(u, bt, "laplace2_apply", "K3", (*plan.tiles, plan.rs))
 
 
@@ -244,14 +248,113 @@ def laplace2_stream_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
     return laplace2_apply_plain(u, bt)
 
 
+# ---- K3s's launch plan (csrc/laplace2_stream.cu) ----
+
+K3S_COLS = (256, 128, 64)  # strip widths: consumer threads of a block
+K3S_BAR_BYTES = 128        # the ring's mbarriers, before the slots
+K3S_PER_SM = (2, 4, 6, 8)  # blocks a plan aims to put on each SM
+K3S_WAVE = 4               # ... and the one k3s_plan picks: one wave at
+                           # __launch_bounds__(160, 4) (float32, p <= 3)
+K3S_MIN_SEG = 8            # the fewest output rows of a segment (its 2p
+                           # halo rows are streamed twice)
+
+
+def k3s_slots(p: int) -> int:
+    """Slots of K3s's copy ring, each of 2p + 1 u rows."""
+    return 4 if p <= 7 else 2
+
+
+@dataclasses.dataclass(frozen=True)
+class K3sPlan:
+    """How K3s cuts the (n0, n1) nodes: strips of at most ``cols``
+    columns (a consumer thread each, a producer warp beside them) and
+    segments of rows, one block a (segment, strip), ``tiles`` = (along
+    rows, along columns), each axis split evenly, so the largest block
+    is ``rows`` x ``width`` nodes; ``smem`` bytes of shared memory per
+    block."""
+    cols: int
+    width: int
+    rows: int
+    tiles: tuple
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles[0] * self.tiles[1]
+
+    @property
+    def args(self) -> tuple:
+        """The plan's integer launch arguments, in the kernel's order."""
+        return (self.cols, *self.tiles)
+
+
+def k3s_smem(p: int, itemsize: int, cols: int, rows: int) -> int:
+    """Bytes of shared memory of one K3s block with strips of ``cols``
+    and segments of ``rows`` rows, as laplace2_stream.cu's Geom lays it
+    out: the mbarriers; ``k3s_slots(p)`` slots of 2p + 1 u rows and one
+    zero row, each cols + 2p elements rounded out to 16 bytes at both
+    ends; the segment's A0 and B0 band rows as copied (rounded out the
+    same way) and again at a pitch of 2p + 1 rounded up to 16 bytes."""
+    vec, k = 16 // itemsize, 2 * p + 1
+    up = _rnd(cols + 2 * p + 2 * vec - 2, vec)
+    raw = _rnd(rows * k + 2 * vec - 2, vec)
+    return K3S_BAR_BYTES + itemsize * ((k3s_slots(p) * k + 1) * up +
+                                       2 * raw + 2 * rows * _rnd(k, vec))
+
+
+def _k3s_plan(nodes, p, itemsize, cols, per_sm) -> K3sPlan:
+    """The even split for strips of ``cols`` and ``per_sm`` blocks an
+    SM: segments of K3S_MIN_SEG rows at the least, more segments where
+    a segment's band rows would not fit a block."""
+    n0, n1 = nodes
+    ntc, width = _even(n1, cols)
+    ntr = max(1, min(SM_COUNT * per_sm // ntc, n0 // K3S_MIN_SEG))
+    while k3s_smem(p, itemsize, cols, -(-n0 // ntr)) > SMEM_MAX:
+        ntr += 1
+    rows = -(-n0 // ntr)
+    return K3sPlan(cols, width, rows, (ntr, ntc),
+                   k3s_smem(p, itemsize, cols, rows))
+
+
+def k3s_plans(nodes, p: int, dtype) -> list:
+    """Every plan K3s can launch for ``nodes``: each strip width of
+    K3S_COLS with the segments of each wave of K3S_PER_SM (duplicates
+    dropped)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plans = []
+    for cols in K3S_COLS:
+        for per_sm in K3S_PER_SM:
+            plan = _k3s_plan(tuple(nodes), p, itemsize, cols, per_sm)
+            if plan not in plans:
+                plans.append(plan)
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def _k3s_plan_cached(nodes: tuple, p: int, dtype) -> K3sPlan:
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n1 = nodes[1]
+    cols = 256 if n1 >= 2048 else 128 if n1 >= 512 else 64
+    return _k3s_plan(nodes, p, itemsize, cols, K3S_WAVE)
+
+
+def k3s_plan(nodes, p: int, dtype) -> K3sPlan:
+    """K3s's launch plan for the (n0, n1) nodes: strips of 256 columns
+    from 2048 columns up, 128 from 512, else 64, and as many segments as
+    put K3S_WAVE blocks on each SM (never below K3S_MIN_SEG rows).
+    Cached: the wrapper asks on every launch."""
+    return _k3s_plan_cached(tuple(nodes), p, dtype)
+
+
 def laplace2_stream_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
-    """K3's operator through the streaming kernel K3s (persistent blocks
-    and an asynchronous-copy ring) for a CUDA tensor, the plain version
-    for a CPU tensor."""
+    """K3's operator through the streaming kernel K3s (a producer warp
+    feeding an mbarrier ring of u rows, consumer threads with V and W
+    in registers), launched as ``k3s_plan`` says, for a CUDA tensor,
+    the plain version for a CPU tensor."""
     _check(u, bt)
     if u.device.type == "cpu":
         return laplace2_stream_apply_plain(u, bt)
-    y = _launch(u, bt, "laplace2_stream_apply", "K3s")
+    y = _launch_plan(u, bt, k3s_plan(bt.shape, bt.p, u.dtype))
     laplace2_stream_apply.launches += 1
     return y
 
@@ -266,9 +369,9 @@ def make_padded_laplace2_stream(grid: Grid, device="cuda",
     operator, band tables and node array as ``make_padded_laplace2``.
 
     ``tile_r``, gdm's row tile (sized to the TPU's VMEM), is taken and has
-    no effect: K3s's tile is fixed at 32 x 32 nodes (csrc/
-    laplace2_stream.cu), and the tile does not change the function.  A
-    value that is not a positive integer raises ValueError."""
+    no effect: K3s's strips and segments come from ``k3s_plan``, and the
+    tile does not change the function.  A value that is not a positive
+    integer raises ValueError."""
     positive_int("tile_r", tile_r)
     bt = laplace2_bands(grid, device, dtype, bands)
     return padded_apply(bt, laplace2_stream_apply,

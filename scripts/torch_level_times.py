@@ -6,7 +6,8 @@
 Times, with CUDA events (``device_ms``), the kernel gdm's dispatch picks
 at every multigrid level shape of the 1024^2 (2D, K3) and 64^3 (3D, K5)
 MG-CG solves, p = 3, float32, each in turns against an unchanged anchor
-of the same operator (K3s in 2D, K4 in 3D), with its launches per CG
+of the same operator (K3h in 2D, K4 in 3D; K3s, the earlier 2D anchor,
+has itself been redesigned), with its launches per CG
 phase and the kernel's device time and share per CG phase (profiler);
 then the matvec sizes: K3 at 1024^2 (p = 3, 5), 2048^2, 4096^2 in turns
 against K3s and K3h, K5 at 161^3 and 257^3 in turns against K4.

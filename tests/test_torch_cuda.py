@@ -95,6 +95,75 @@ def test_band_apply_matches_plain(ops24, cuda_device, name, dtype):
     assert torch.count_nonzero(guard) == 0
 
 
+# (n0, n1, r, taps) of synthetic bands whose cutband.k1_plan reaches
+# every branch of the kernel between them and test_band_apply_every_plan:
+# one tap group and several, 12 and 24 taps in flight, one load round and
+# several (tests/test_torch_plans.py holds that on the CPU)
+K1_CASES = [
+    (25, 25, 4, 77),     # eight groups of 9-10 taps
+    (40, 40, 1, 9),      # radius 1: eight groups of one or two taps
+    (200, 250, 4, 81),
+    (60, 70, 6, 150),    # eight groups of 18-19 taps: 24 in flight
+    (50, 40, 8, 250),    # eight groups of 31-32 taps: two rounds of 24
+    (300, 600, 4, 5),    # five taps: four groups
+    (100, 100, 2, 1),    # one tap: one group
+    (513, 513, 4, 77),   # the flagship's 512^2 layout
+]
+
+
+def _random_band(n0, n1, r, n_taps, dtype, device, seed=0):
+    """BandPlanes of ``n_taps`` distinct random offsets within radius r
+    (the centre first) with random coefficients on the nodes, zero on
+    the guard frame, as band_planes lays them out."""
+    rng = np.random.default_rng(seed)
+    lay = cutband.PaddedLayout(n0, n1, r)
+    offs = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)
+            if (dy, dx) != (0, 0)]
+    pick = rng.choice(len(offs), n_taps - 1, replace=False)
+    taps = ((0, 0),) + tuple(sorted(offs[k] for k in pick))
+    planes = np.zeros((n_taps,) + lay.shape)
+    planes[:, r:r + n0, r:r + n1] = rng.standard_normal((n_taps, n0, n1))
+    return cutband.BandPlanes(
+        taps, torch.as_tensor(planes, dtype=dtype, device=device),
+        torch.as_tensor(np.asarray(taps, np.int32).reshape(-1, 2),
+                        device=device), lay)
+
+
+def _check_band(bp, y, u, dtype):
+    yp = cutband.band_apply_plain(u, bp)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= _tol(dtype)
+    guard = y.clone()
+    bp.layout.interior(guard).zero_()
+    assert torch.count_nonzero(guard) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n0,n1,r,taps", K1_CASES)
+def test_band_apply_plans_match_plain(cuda_device, n0, n1, r, taps, dtype):
+    """K1 as k1_plan launches it, against the plain version, on random
+    bands (u random on the guard frame too, which every tap of a guard
+    cell and no tap of a node may reach)."""
+    bp = _random_band(n0, n1, r, taps, dtype, cuda_device)
+    u = _rand(bp.layout.shape, 1, dtype, cuda_device)
+    before = cutband.band_apply.launches
+    y = cutband.band_apply(u, bp)
+    assert cutband.band_apply.launches == before + 1
+    _check_band(bp, y, u, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_band_apply_every_plan(cuda_device, dtype):
+    """Every plan k1_plans lists, through the private launch hook."""
+    bp = _random_band(200, 250, 4, 77, dtype, cuda_device, seed=2)
+    u = _rand(bp.layout.shape, 3, dtype, cuda_device)
+    lay = bp.layout
+    plans = cutband.k1_plans(lay.rows, lay.pitch, 77, dtype, lay.r)
+    assert {pl.groups for pl in plans} == set(cutband.K1_GROUPS)
+    for plan in plans:
+        _check_band(bp, cutband._launch_plan(u, bp, plan), u, dtype)
+
+
 def test_band_apply_rejects(ops24, cuda_device):
     grid, _, ops, layout = ops24
     bp = cutband.band_planes(ops["mass"], layout, cuda_device,
@@ -471,6 +540,12 @@ LAPLACE2_STREAM_CASES = [
     (15, (40, 33)),      # the largest degree K3s takes
     (7, (300, 1000)),
     (3, (1500, 2100)),   # several tiles per segment, ragged last tile
+    # stencil2.k3s_plan's strip widths: 64 in the small cases above, 128
+    # at (300, 1000), 256 at (1500, 2100) and here, with one strip and
+    # with many; float64 rows (8 bytes) shift by one of two elements
+    (1, (2048, 2048)),
+    (3, (30, 4096)),
+    (3, (10, 300)),      # one segment: fewer than 2 x K3S_MIN_SEG rows
 ]
 
 
@@ -486,6 +561,42 @@ def test_laplace2_stream_matches_plain(cuda_device, p, cells, dtype):
     yp = stencil2.laplace2_stream_apply_plain(u, bt)
     torch.cuda.synchronize()
     assert _rel(yk, yp) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_laplace2_stream_every_plan(cuda_device, dtype):
+    """Every plan k3s_plans lists, through the private launch hook, on
+    rows of 1001 nodes (each 4 or 8 bytes past the last row's 16-byte
+    shift)."""
+    grid = Grid(3, (300, 1000), (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 8, dtype, cuda_device)
+    yp = stencil2.laplace2_stream_apply_plain(u, bt)
+    plans = stencil2.k3s_plans(grid.nodes, 3, dtype)
+    assert {pl.cols for pl in plans} == set(stencil2.K3S_COLS)
+    for plan in plans:
+        y = stencil2._launch_plan(u, bt, plan)
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= _tol(dtype), plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_laplace2_stream_unaligned_input(cuda_device, offset, dtype):
+    """u starting 1, 2 or 3 elements past its storage's start (a view
+    into a larger tensor; 4, 8 or 12 bytes past a 16-byte boundary in
+    float32, 8, 0 or 8 in float64): the copies' 16-byte middles follow
+    the address."""
+    grid = Grid(3, (70, 300), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    n = grid.n_nodes
+    flat = _rand((n + offset,), 9, dtype, cuda_device)
+    u = flat[offset:].view(grid.nodes)
+    assert u.is_contiguous()
+    y = stencil2.laplace2_stream_apply(u, bt)
+    yp = stencil2.laplace2_stream_apply_plain(u, bt)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= _tol(dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,5 +1,6 @@
-"""The launch plans of K5 (``stencil3.k5_plan``) and K3
-(``stencil2.k3_plan``), on the CPU: no card is needed.
+"""The launch plans of K5 (``stencil3.k5_plan``), K3
+(``stencil2.k3_plan``), K1 (``cutband.k1_plan``) and K3s
+(``stencil2.k3s_plan``), on the CPU: no card is needed.
 
 Each plan cuts the node array into boxes (K5) or tiles (K3), one block
 each, by an even split of every axis; the kernels recompute the same
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 import test_torch_cuda as card
-from gdm_torch.ops import stencil2, stencil3
+from gdm_torch.ops import cutband, stencil2, stencil3
 
 DTYPES = [torch.float32, torch.float64]
 SM = 132
@@ -196,3 +197,187 @@ def test_k3_card_cases_reach_every_branch():
     assert {pl.rs for pl, _ in plans} == set(stencil2.K3_ROWS)
     assert any(p > stencil2.K3_MAX_RS_P for _, p in plans)
     assert any(p <= stencil2.K3_MAX_RS_P for _, p in plans)
+
+
+# ---- K1 ---------------------------------------------------------------------
+
+# (n0, n1, r, taps): the flagship's 128^2, 256^2 and 512^2 layouts (77
+# taps, guard width 4) and every card case (tests/test_torch_cuda.py)
+K1_LAYOUTS = ([(n + 1, n + 1, 4, 77) for n in (128, 256, 512)]
+              + [(25, 25, 4, t) for t in (9, 25, 41, 77, 81)]
+              + list(card.K1_CASES))
+K1_CASES = [(*lay, dt) for lay in K1_LAYOUTS for dt in DTYPES]
+
+
+def _k1_ids(cases):
+    return [f"{n0}x{n1}-r{r}-t{t}-{str(dt)[6:]}"
+            for n0, n1, r, t, dt in cases]
+
+
+def _k1(n0, n1, r, taps, dtype):
+    lay = cutband.PaddedLayout(n0, n1, r)
+    return lay, cutband.k1_plan(lay.rows, lay.pitch, taps, dtype, r)
+
+
+@pytest.mark.parametrize("n0,n1,r,taps,dtype", K1_CASES,
+                         ids=_k1_ids(K1_CASES))
+def test_k1_plan_covers_every_cell_and_tap_once(n0, n1, r, taps, dtype):
+    """Simulates cutband.cu's split: tile (tr, tc) holds rows and vectors
+    of an even split; thread (g, c) of its block owns vector c % (32 /
+    vec) and row c // (32 / vec) of the tile, and tap group g (an even
+    split of the taps).  Every cell of the layout is one thread slot's,
+    once for each group, and the groups partition the taps."""
+    lay, plan = _k1(n0, n1, r, taps, dtype)
+    vec, g, th = plan.vec, plan.groups, plan.tile_rows
+    tq_most = cutband.K1_WIDTH // vec
+    cells = cutband.K1_THREADS // g
+    assert cells % 32 == 0 and cells == th * tq_most
+    rows = _boxes(lay.rows, plan.tiles[0])
+    quads = _boxes(lay.pitch // vec, plan.tiles[1])
+    count = np.zeros(lay.shape, np.int32)
+    for (i0, t0), (q0, tq) in itertools.product(rows, quads):
+        assert t0 <= th and tq <= tq_most
+        c = np.arange(cells)
+        ry, qx = c // tq_most, c % tq_most
+        mine = (ry < t0) & (qx < tq)
+        for row, v in zip(i0 + ry[mine], q0 + qx[mine]):
+            count[row, v * vec:(v + 1) * vec] += 1
+    assert (count == 1).all()
+    taps_of = np.zeros(taps, np.int32)
+    for lo, size in _boxes(taps, g):
+        taps_of[lo:lo + size] += 1
+    assert (taps_of == 1).all()
+    assert max(s for _, s in rows) == plan.rows
+    assert max(s for _, s in quads) * vec == plan.cols
+
+
+@pytest.mark.parametrize("n0,n1,r,taps,dtype", K1_CASES,
+                         ids=_k1_ids(K1_CASES))
+def test_k1_plan_no_slivers_and_fits(n0, n1, r, taps, dtype):
+    """No tile holds less than half of the plan's tile along either axis
+    (nor a tap group less than half of the largest), a group's taps fit
+    the taps in flight unless there are more than the most it takes,
+    and a block's shared memory fits the card."""
+    lay, plan = _k1(n0, n1, r, taps, dtype)
+    for n, parts in ((lay.rows, plan.tiles[0]),
+                     (lay.pitch // plan.vec, plan.tiles[1]),
+                     (taps, plan.groups)):
+        sizes = [s for _, s in _boxes(n, parts)]
+        assert min(sizes) * 2 >= max(sizes) and min(sizes) >= 1
+    per_group = -(-taps // plan.groups)
+    assert plan.inflight >= per_group or (
+        plan.inflight == max(cutband.K1_INFLIGHT))
+    assert plan.smem <= cutband.SMEM_MAX
+    assert plan.groups <= max(taps, 1)
+
+
+def test_k1_plan_at_the_flagship_sizes():
+    """The flagship's 77 taps: eight groups of 9-10 taps, all in flight
+    (12); 175 blocks at 128^2, 2227 at 512^2."""
+    for n, blocks in ((129, 175), (513, 2227)):
+        _, plan = _k1(n, n, 4, 77, torch.float32)
+        assert (plan.groups, plan.inflight, plan.blocks) == (8, 12, blocks)
+
+
+def test_k1_smem_matches_the_kernel_layout():
+    """k1_smem against cutband.cu's layout, by hand at r = 4, 77 taps:
+    float32, eight groups: 256 partial-sum vectors of 16 bytes, the u
+    tile (4 + 8 rows at a pitch of 65) and 77 int offsets; float64, one
+    group: no partial sums, 16 + 8 rows."""
+    assert cutband.k1_tile_pitch(4) == 65
+    assert cutband.k1_smem(4, 4, 8, 77) == 256 * 16 + 4 * 12 * 65 + 308
+    assert cutband.k1_smem(8, 4, 1, 77) == 8 * (16 + 8) * 65 + 308
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cutband.k1_plans(137, 142, 77, torch.float32, 4)
+
+
+def test_k1_card_cases_reach_every_branch():
+    """The card tests' K1 cases (as k1_plan launches them) with every
+    plan of test_band_apply_every_plan (200 x 250 nodes, 77 taps):
+    every tap-group count of K1_GROUPS, each count of K1_INFLIGHT, and
+    groups of one load round and of several, in float32 and float64."""
+    for dt in DTYPES:
+        plans = [(_k1(*case, dt)[1], case[3]) for case in card.K1_CASES]
+        lay = cutband.PaddedLayout(200, 250, 4)
+        plans += [(pl, 77) for pl in cutband.k1_plans(
+            lay.rows, lay.pitch, 77, dt, 4)]
+        assert {pl.groups for pl, _ in plans} == set(cutband.K1_GROUPS)
+        assert {pl.inflight for pl, _ in plans} == set(cutband.K1_INFLIGHT)
+        assert {-(-t // pl.groups) > pl.inflight
+                for pl, t in plans} == {True, False}
+
+
+# ---- K3s --------------------------------------------------------------------
+
+K3S_SHAPES = [(2**k + 1,) * 2 for k in range(12, 2, -1)]
+K3S_CASES = ([(n, p, dt) for n in K3S_SHAPES for p in (1, 3, 5, 15)
+              for dt in DTYPES]
+             + [(_nodes(c), p, dt) for p, c in card.LAPLACE2_STREAM_CASES
+                for dt in DTYPES])
+
+
+@pytest.mark.parametrize("nodes,p,dtype", K3S_CASES, ids=_ids(K3S_CASES))
+def test_k3s_plan_covers_every_node_once(nodes, p, dtype):
+    """Simulates laplace2_stream.cu's split: block (segment, strip) of an
+    even split of the rows and the columns, consumer thread tx of a
+    block the strip's column tx while tx < its width."""
+    plan = stencil2.k3s_plan(nodes, p, dtype)
+    rows, cols = _boxes(nodes[0], plan.tiles[0]), _boxes(nodes[1],
+                                                         plan.tiles[1])
+    count = np.zeros(nodes, np.int32)
+    for (a, s0), (b, s1) in itertools.product(rows, cols):
+        assert s1 <= plan.cols
+        tx = np.arange(plan.cols)
+        count[a:a + s0, b + tx[tx < s1]] += 1
+    assert (count == 1).all()
+    assert max(s for _, s in rows) == plan.rows
+    assert max(s for _, s in cols) == plan.width
+
+
+@pytest.mark.parametrize("nodes,p,dtype", K3S_CASES, ids=_ids(K3S_CASES))
+def test_k3s_plan_no_slivers_and_fits(nodes, p, dtype):
+    """No segment or strip holds less than half of the largest, every
+    segment has K3S_MIN_SEG rows unless the grid has fewer, and a
+    block's shared memory fits the card."""
+    plan = stencil2.k3s_plan(nodes, p, dtype)
+    for n, parts in zip(nodes, plan.tiles):
+        sizes = [s for _, s in _boxes(n, parts)]
+        assert min(sizes) * 2 >= max(sizes)
+    assert min(s for _, s in _boxes(nodes[0], plan.tiles[0])) >= min(
+        stencil2.K3S_MIN_SEG, nodes[0])
+    assert plan.smem <= stencil2.SMEM_MAX
+
+
+@pytest.mark.parametrize("nodes", BENCH2 + [(1025, 1025)])
+def test_k3s_plan_one_wave_at_bench_sizes(nodes):
+    """At the bench's matvec sizes the plan's blocks fill K3S_WAVE an SM
+    at most: one wave of resident blocks, wide strips."""
+    plan = stencil2.k3s_plan(nodes, 3, torch.float32)
+    assert plan.blocks <= SM * stencil2.K3S_WAVE
+    assert plan.width * 10 >= plan.cols * 8   # strips at least 80% full
+
+
+def test_k3s_smem_matches_the_kernel_layout():
+    """k3s_smem against laplace2_stream.cu's Geom, by hand at p = 3,
+    float32, 256 columns, 133 rows: 128 bytes of mbarriers, 4 slots of 7
+    u rows and a zero row at a pitch of 256 + 6 + 6 = 268, the A0 and B0
+    rows as copied (133 x 7 + 6 = 937, rounded to 940) and at a pitch
+    of 8."""
+    assert stencil2.k3s_smem(3, 4, 256, 133) == 128 + 4 * (
+        29 * 268 + 2 * 940 + 2 * 133 * 8)
+    # float64 at p = 15: 2 slots of 31 rows, a u row 256 + 30 + 2 = 288,
+    # bands 31 -> 32
+    assert stencil2.k3s_smem(15, 8, 256, 40) == 128 + 8 * (
+        63 * 288 + 2 * 1242 + 2 * 40 * 32)
+
+
+def test_k3s_card_cases_reach_every_branch():
+    """Every strip width of K3S_COLS, one segment and several, one strip
+    and several, and both row-stage bodies (16-byte band rows up to
+    p = 7, scalar above), over the card tests' K3s cases."""
+    plans = [(stencil2.k3s_plan(_nodes(c), p, torch.float32), p)
+             for p, c in card.LAPLACE2_STREAM_CASES]
+    assert {pl.cols for pl, _ in plans} == set(stencil2.K3S_COLS)
+    assert {pl.tiles[0] > 1 for pl, _ in plans} == {True, False}
+    assert {pl.tiles[1] > 1 for pl, _ in plans} == {True, False}
+    assert {p > 7 for _, p in plans} == {True, False}
