@@ -59,9 +59,12 @@ Run from the repository root:  python3 chip_smoke.py
    kernel launched once and nothing else;
 8. K4 (3D Laplace) against its plain twin at 160^3, p = 3, the same way;
    K5 (the 3D Laplace with the plane coupling on the tensor cores)
-   against its plain twin at 160^3 and 256^3, p = 3, with K4 timed
-   beside it in turns (K4, K5, K5, K4), and torch.matmul alone on stage
-   3's dense coupling at 161^3 (the yardstick for stage 3 only); K5 at
+   against its plain twin at 160^3 and 256^3, p = 3, and torch.matmul
+   alone on stage 3's dense coupling at 161^3 (the yardstick for stage
+   3 only); K4 against its plain twin at 161^3, 257^3 and 511 x 65 x 65
+   nodes (the shape gdm's dispatch sends it), float32 (<= 1e-5 of
+   max|y|) and float64 (<= 1e-12), with the plan stencil3.k4_plan picks,
+   and in float32 timed in turns against K5 (K4, K5, K5, K4); K5 at
    65^3 against its plain twin and one torch.sparse CSR SpMV of its
    operator there (assembled on the host with scipy.sparse.kron from the
    band tables, about 9.4e7 nonzeros: K5's library yardstick); then
@@ -100,7 +103,10 @@ Run from the repository root:  python3 chip_smoke.py
    (make_micro, every mode at 1024^2 and 4096^2: "dma" and "dma_out"
    exactly, "both" within 1e-6 of the sum of |terms|, the sinks within
    1e-5 of theirs), M4 (make_auto_micro: "dma" exactly, "both" as M3's)
-   and M5 (make_sepbuf_micro, exactly), each against its plain twin;
+   and M5 (make_sepbuf_micro, exactly), each against its plain twin,
+   with M1's row plans at 1024^2 and, as "rowsonly"'s library yardstick,
+   one torch.bmm of the concatenated bf16 operands ((5, 256, 1632) x
+   (5, 1632, 1152), a float32 output where torch.bmm takes out_dtype);
    device times by events, in turns where modes are compared, and gdm's
    derived rows: one shifted read and one FMA a pass in us per MDoF
    (against K3 in turns), M2's us per M elements against the
@@ -144,8 +150,9 @@ operations of the measured inputs (M1's row modes over the bf16
 tensor-core peak, M2's over the shared-memory rate), ``library_ms``:
 one PyTorch call computing the same function, where there is one (K1
 and K3: a torch.sparse CSR SpMV of the operator; K5: the same at 65^3,
-named by the row's ``library_at``; M2: x.t().contiguous(); M4:
-u * 1.0000001), else null (no call runs K2's preconditioned CG; K4's
+named by the row's ``library_at``; M1 "rowsonly": torch.bmm of the
+concatenated operands; M2: x.t().contiguous(); M4: u * 1.0000001), else
+null (no call runs K2's preconditioned CG; K4's
 161^3 CSR would hold ~1.4e9 nonzeros), and
 ``ms_by``/``plain_ms_by``, the method that took ``ms`` and
 ``plain_ms``: "events" or "profiler", as ``device_ms`` says), the card
@@ -346,7 +353,9 @@ def levels_vs_plain(sysf, dev, dtype, tag):
     device time by events and its bound, timed in turns against an
     anchor of the same operator that no recent redesign changed (anchor,
     kernel, kernel, anchor; the anchor is K3h in 2D, since K3s was
-    redesigned, and K4 in 3D).  Prints the per-level table as a JSON line
+    redesigned, and K4 in 3D, the other schedule of the operator, whose
+    band-sum design changed after K5's).  Prints the per-level table as a
+    JSON line
     and returns the largest max abs error, the names of the kernels held
     and the rows."""
     import torch
@@ -871,6 +880,51 @@ RELAYOUT_SHAPES = [((512, 128), "float32"), ((128, 128), "float32"),
                    ((512, 128), "bfloat16"), ((48, 256), "float32")]
 
 
+def bmm_yardstick(u, tables, g):
+    """M1 "rowsonly"'s library yardstick: one torch.bmm of the
+    concatenated bf16 operands, [Bh | Bh | Bl] (n_tiles, tile_r, 3 x 2
+    T_ext) times [hi; hi; lo; lo; hi; hi] (n_tiles, 3 x 2 T_ext, W2), with
+    a float32 output where the installed torch.bmm takes out_dtype, else
+    a bf16 output (it says which).  Timed by events; the port never calls
+    it.  Returns ms."""
+    import torch
+
+    tiles = u.unfold(0, g.t_ext, g.tile_r).transpose(1, 2)
+    hi = tiles.to(torch.bfloat16)
+    lo = (tiles - hi.float()).to(torch.bfloat16)
+    bh, bl = (t.reshape(g.n_tiles, g.tile_r, 2 * g.t_ext) for t in tables)
+    a = torch.cat([bh, bh, bl], dim=2).contiguous()
+    b = torch.cat([hi, hi, lo, lo, hi, hi], dim=1).contiguous()
+    ref = mxu_micro_plain_rows(u, tables, g)
+    try:
+        y = torch.bmm(a, b, out_dtype=torch.float32)
+        out = "float32 (out_dtype)"
+
+        def call():
+            return torch.bmm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        y = torch.bmm(a, b)
+        out = "bf16 (this torch.bmm takes no out_dtype)"
+
+        def call():
+            return torch.bmm(a, b)
+    torch.cuda.synchronize()
+    err = (y.float().reshape(ref.shape) - ref).abs().max().item()
+    ms = device_ms(call)
+    print(f"  library yardstick: torch.bmm {tuple(a.shape)} x "
+          f"{tuple(b.shape)} bf16, {out} output: {ms * 1e3:.2f} us "
+          f"(max error {err / ref.abs().max().item():.2e} of max|y|)")
+    return ms
+
+
+def mxu_micro_plain_rows(u, tables, g):
+    """The "rowsonly" outputs of the plain twin, (n_tiles tile_r, W2)."""
+    from gdm_torch.benchmarks import mxu_micro
+
+    return mxu_micro.stage1_micro_plain(u, *tables, "rowsonly",
+                                        g)[g.h:g.h + g.rp]
+
+
 def micro_phase(rng, dev):
     """Phase 11: gdm's micro-benchmarks M1-M5 through their public
     builders, each mode held against its plain twin and timed, gdm's
@@ -959,12 +1013,16 @@ def micro_phase(rng, dev):
                 bound(col_bytes, 4 * k * g.rp * g.w2), None)
             depth = 2 * g.t_ext
             row_bytes = 4 * 2 * g.shape[0] * g.w2 + 2 * 2 * g.rp * depth
+            for mode in ("rowsonly", "dotsonly"):
+                print(f"  M1 {mode} plan: "
+                      f"{mxu_micro.stage1_row_plan(g, mode)}")
             at["M1 rows"] = (
                 "rowsonly", t["rowsonly"],
                 device_ms(lambda: mxu_micro.stage1_micro_plain(
                     u, *aps["rowsonly"].tables, "rowsonly", g), n=5),
                 bound(row_bytes, 3 * 2 * g.rp * depth * g.w2,
-                      peak=BF16_FLOPS), None)
+                      peak=BF16_FLOPS),
+                bmm_yardstick(u, aps["rowsonly"].tables, g))
         del aps, u
 
     # ---- M2: transposes in shared memory --------------------------------
@@ -1649,12 +1707,31 @@ def main():
         "K5 256^3 p=3", lambda v: k5(v, bt3b), lambda v: k5_plain(v, bt3b),
         u, g3b.n_nodes)
     k5_err = max(k5_err, err)
-    err, _, _ = kernel_vs_plain(
-        "K4 256^3 p=3", lambda v: k4(v, bt3b), lambda v: k5_plain(v, bt3b),
-        u, g3b.n_nodes)
-    k4_err = max(k4_err, err)
-    turns("K4", lambda: k4(u, bt3b), "K5", lambda: k5(u, bt3b))
     del u, bt3b
+    # K4 against its plain twin at 161^3, 257^3 and the shape gdm's
+    # dispatch sends it (510 x 64 x 64 cells), in float32 and float64,
+    # with its plan, and in turns against K5 (K4, K5, K5, K4)
+    for cells in ((160,) * 3, (256,) * 3, (510, 64, 64)):
+        gk = Grid(3, cells, (0.0,) * 3, (1.0,) * 3)
+        tag = "x".join(map(str, gk.nodes))
+        for dt, tol in ((f32, 1e-5), (torch.float64, 1e-12)):
+            btk = stencil3.laplace3_bands(gk, dev, dt)
+            u = torch.as_tensor(rng.standard_normal(gk.nodes), dtype=dt,
+                                device=dev)
+            if (cells, dt) != ((160,) * 3, f32):   # 161^3 float32: above
+                err, _, _ = kernel_vs_plain(
+                    f"K4 {tag} p=3 {str(dt)[6:]}", lambda v: k4(v, btk),
+                    lambda v: stencil3.laplace3_apply_plain(v, btk), u,
+                    gk.n_nodes, tol)
+                if dt == f32:
+                    k4_err = max(k4_err, err)
+            plan = stencil3.k4_plan(gk.nodes, 3, dt)
+            print(f"  K4 plan at {tag} {str(dt)[6:]}: {plan}; {plan.blocks} "
+                  f"blocks, stages 1-2 on {plan.recompute:.3f} planes an "
+                  f"output plane")
+            if dt == f32:
+                turns("K4", lambda: k4(u, btk), "K5", lambda: k5(u, btk))
+            del u, btk
     # K5's library yardstick: one torch.sparse CSR SpMV of its operator at
     # 65^3, the 64^3 solve's finest level (about 9.4e7 nonzeros; at 161^3
     # the matrix would hold ~1.4e9)

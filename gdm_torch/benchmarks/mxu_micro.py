@@ -20,13 +20,17 @@ The kernels are gdm_torch/csrc/micro_stage1.cu and micro_relayout.cu;
 their source notes say what bounds them.  Each wrapper
 (``stage1_micro_apply``, ``relayout_apply``) launches its kernel for a
 CUDA tensor, counted on its ``launches``, and runs its plain torch twin
-for a CPU tensor.  Run on a card:
+for a CPU tensor.  M1's row products run on TMA loads and wgmma in
+blocks of N columns and one or two warpgroups of 64 rows, as the built
+library's row plan picks them (``stage1_row_plan``; ``stage1_row_plans``
+and the private ``_launch_row_plan`` run every plan).  Run on a card:
 
     python -m gdm_torch.benchmarks.mxu_micro [quick]
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import sys
 
@@ -193,6 +197,61 @@ def stage1_micro_apply(u: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
 
 
 stage1_micro_apply.launches = 0
+
+
+# ---- the row modes' launch plans (csrc/micro_stage1.cu's row_plan) ------
+
+ROW_PLAN_N = (128, 96, 64, 32)   # output columns a block of the TMA kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """How M1's row modes cut the outputs: blocks of ``n`` columns and
+    ``wgs`` warpgroups of 64 rows of one tile (TMA loads, wgmma);
+    ``blocks`` and ``smem`` bytes of shared memory a block."""
+    n: int
+    wgs: int
+    blocks: int
+    smem: int
+
+
+def _row_plan_query(g: Stage1Geom, mode: str, n: int, wgs: int) -> RowPlan:
+    from ..ops import _build
+
+    kl = _build.kernels()
+    out = (ctypes.c_int * 4)()
+    err = kl.lib.gdm_micro_stage1_rows_plan(
+        g.tile_r, g.n_tiles, g.w2, int(mode == "rowsonly"), n, wgs, out)
+    _build.check(kl, err, "M1 row plan")
+    return RowPlan(*out)
+
+
+def stage1_row_plan(g: Stage1Geom, mode: str) -> RowPlan:
+    """The plan ``stage1_micro_apply`` launches a row mode with, as the
+    built library picks it (row_plan in csrc/micro_stage1.cu)."""
+    return _row_plan_query(g, mode, -1, 0)
+
+
+def stage1_row_plans(g: Stage1Geom, mode: str) -> list:
+    """Every plan the row kernel can launch for ``g``: each N of
+    ROW_PLAN_N with one and two warpgroups."""
+    return [_row_plan_query(g, mode, n, wgs) for n in ROW_PLAN_N
+            for wgs in (1, 2)]
+
+
+def _launch_row_plan(u: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
+                     mode: str, g: Stage1Geom, plan: RowPlan) -> torch.Tensor:
+    """A row mode on the CUDA tensor ``u`` with the launch plan ``plan``;
+    counts nothing (``stage1_micro_apply`` does)."""
+    if mode not in ("rowsonly", "dotsonly"):
+        raise ValueError(f"only the row products take a row plan, not "
+                         f"{mode!r}")
+    y = torch.empty_like(u)
+    _kernel.run("gdm_micro_stage1_rows_f32", f"M1 {mode}", u.device,
+                u.data_ptr(), t0.data_ptr(), t1.data_ptr(), y.data_ptr(),
+                int(mode == "rowsonly"), g.h, g.tile_r, g.n_tiles, g.w2,
+                plan.n, plan.wgs)
+    return y
 
 
 def make_stage1_micro(grid: Grid, mode: str, device="cuda",

@@ -81,7 +81,9 @@ def device_ms(fn, n=20, warmup=3):
     If that fails too (fn waits on the device, or its launches fill the
     device's launch queue, as a plain twin of hundreds of small kernels
     does), the time is ``profiled_ms``'s kernel sum.  Returns an Ms
-    that names its method."""
+    that names its method.  A first call, untimed, builds or loads what
+    fn needs, so that a build does not set the spin's length."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(warmup):

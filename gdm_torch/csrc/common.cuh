@@ -9,6 +9,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 // Clock stamps of a block's phases: scripts/torch_k1_k3s_breakdown.py
 // compiles a copy of a kernel with GDM_STAMP, GDM_STAMP_ADD and
 // GDM_CLOCK defined (and gdm_gtimer, the %globaltimer); in the kernels'
@@ -124,6 +126,52 @@ __device__ __forceinline__ void bar_wait(unsigned long long* bar,
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// One arrival on `bar` by this thread that also adds `bytes` to the
+// transactions its current phase waits for (the TMA producer's arrival).
+__device__ __forceinline__ void bar_arrive_expect_tx(unsigned long long* bar,
+                                                     unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Part k of an even split of n into `parts`: the first n mod parts parts
+// one larger (the split every launch plan of gdm_torch/ops/ simulates).
+__device__ __forceinline__ void part(int n, int parts, int k, int& lo,
+                                     int& size) {
+  const int base = n / parts;
+  const int rem = n - base * parts;
+  lo = k * base + min(k, rem);
+  size = base + (k < rem ? 1 : 0);
+}
+
+// Elements [e_lo, e_hi) of `base` (e_lo may be negative) into `dst`, a
+// 16-byte aligned row of shared memory that stands for the 16 bytes
+// around element e_lo: one bulk copy of the span rounded out to 16
+// bytes, clipped to [lo, hi), completing on `bar`.  Element e_lo lands
+// at dst[(base's misalignment + e_lo) mod (16 / sizeof(T))].
+template <typename T>
+__device__ __forceinline__ void copy_span(T* dst, const T* base,
+                                          long long e_lo, long long e_hi,
+                                          uintptr_t lo, uintptr_t hi,
+                                          unsigned long long* bar) {
+  const uintptr_t b = reinterpret_cast<uintptr_t>(base);
+  const uintptr_t a16 = (b + e_lo * static_cast<long long>(sizeof(T))) &
+                        ~static_cast<uintptr_t>(15);
+  const uintptr_t start = a16 > lo ? a16 : lo;
+  uintptr_t end = (b + e_hi * static_cast<long long>(sizeof(T)) + 15) &
+                  ~static_cast<uintptr_t>(15);
+  end = end < hi ? end : hi;
+  if (end > start) {
+    const unsigned bytes = static_cast<unsigned>(end - start);
+    bar_expect_tx(bar, bytes);
+    bulk_copy(dst + (start - a16) / sizeof(T),
+              reinterpret_cast<const void*>(start), bytes, bar);
+  }
 }
 
 // Close this thread's group of copies issued since the last commit.

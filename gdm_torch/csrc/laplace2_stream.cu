@@ -90,38 +90,6 @@ struct Flag {
   static constexpr bool value = V;
 };
 
-__device__ __forceinline__ void part(int n, int parts, int k, int& lo,
-                                     int& size) {
-  const int base = n / parts;
-  const int rem = n - base * parts;
-  lo = k * base + min(k, rem);
-  size = base + (k < rem ? 1 : 0);
-}
-
-// Elements [e_lo, e_hi) of `base` (e_lo may be negative) into `dst`, a
-// 16-byte aligned row of shared memory that stands for the 16 bytes
-// around element e_lo: one bulk copy of the span rounded out to 16
-// bytes, clipped to [lo, hi), completing on `bar`.
-template <typename T>
-__device__ __forceinline__ void copy_span(T* dst, const T* base,
-                                          long long e_lo, long long e_hi,
-                                          uintptr_t lo, uintptr_t hi,
-                                          unsigned long long* bar) {
-  const uintptr_t b = reinterpret_cast<uintptr_t>(base);
-  const uintptr_t a16 = (b + e_lo * static_cast<long long>(sizeof(T))) &
-                        ~static_cast<uintptr_t>(15);
-  const uintptr_t start = a16 > lo ? a16 : lo;
-  uintptr_t end = (b + e_hi * static_cast<long long>(sizeof(T)) + 15) &
-                  ~static_cast<uintptr_t>(15);
-  end = end < hi ? end : hi;
-  if (end > start) {
-    const unsigned bytes = static_cast<unsigned>(end - start);
-    gdm::bar_expect_tx(bar, bytes);
-    gdm::bulk_copy(dst + (start - a16) / sizeof(T),
-                   reinterpret_cast<const void*>(start), bytes, bar);
-  }
-}
-
 template <typename T, int P>
 __global__ void __launch_bounds__(128 + 32, (Geom<T, P>::MIN_BLOCKS))
 laplace2_stream_kernel(const T* __restrict__ u, const T* __restrict__ a0,
@@ -151,8 +119,8 @@ laplace2_stream_kernel(const T* __restrict__ u, const T* __restrict__ a0,
   const int tid = threadIdx.x;
 
   int s_lo, seg, j0, t2;
-  part(n0, ntr, blockIdx.x / ntc, s_lo, seg);
-  part(n1, ntc, blockIdx.x % ntc, j0, t2);
+  gdm::part(n0, ntr, blockIdx.x / ntc, s_lo, seg);
+  gdm::part(n1, ntc, blockIdx.x % ntc, j0, t2);
   const int m_rows = seg + 2 * P;  // u rows the block streams
   const int chunks = (m_rows + K - 1) / K;
   // element e of a table sits (mis + e) mod VEC elements past a 16-byte
@@ -185,12 +153,12 @@ laplace2_stream_kernel(const T* __restrict__ u, const T* __restrict__ a0,
     // ---- the producer: one thread issues every copy ----
     if (tid != nc) return;
     const long long nb = static_cast<long long>(n0) * K;
-    copy_span(raw_a, a0, static_cast<long long>(s_lo) * K,
-              static_cast<long long>(s_lo + seg) * K, lo16(a0), hi16(a0, nb),
-              bands);
-    copy_span(raw_b, b0, static_cast<long long>(s_lo) * K,
-              static_cast<long long>(s_lo + seg) * K, lo16(b0), hi16(b0, nb),
-              bands);
+    gdm::copy_span(raw_a, a0, static_cast<long long>(s_lo) * K,
+                   static_cast<long long>(s_lo + seg) * K, lo16(a0),
+                   hi16(a0, nb), bands);
+    gdm::copy_span(raw_b, b0, static_cast<long long>(s_lo) * K,
+                   static_cast<long long>(s_lo + seg) * K, lo16(b0),
+                   hi16(b0, nb), bands);
     gdm::bar_arrive(bands);
     const uintptr_t u_lo = lo16(u);
     const uintptr_t u_hi = hi16(u, static_cast<long long>(n0) * n1);
@@ -208,7 +176,8 @@ laplace2_stream_kernel(const T* __restrict__ u, const T* __restrict__ a0,
         const int gi = s_lo - P + k * K + rr;
         if (gi < 0 || gi >= n0) continue;  // zero rows: no copy
         const long long f = static_cast<long long>(gi) * n1 + j0 - P;
-        copy_span(st + rr * up, u, f, f + t2 + 2 * P, u_lo, u_hi, full + sl);
+        gdm::copy_span(st + rr * up, u, f, f + t2 + 2 * P, u_lo, u_hi,
+                       full + sl);
       }
       gdm::bar_arrive(full + sl);
     }

@@ -82,7 +82,7 @@ def _declare(lib):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
             fn.restype = I
-        for k, n_extra in (("laplace3", 1), ("laplace3_mxu", 4)):
+        for k, n_extra in (("laplace3", 5), ("laplace3_mxu", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I] + (
                 [I] * n_extra) + [P]
@@ -92,16 +92,21 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_{k}_occupancy")
         fn.argtypes = [I, I, IP]
         fn.restype = I
+    lib.gdm_laplace3_occupancy.argtypes = [I] * 4 + [IP]
+    lib.gdm_laplace3_occupancy.restype = I
     lib.gdm_resident_cg_limits.argtypes = [IP, IP]
     lib.gdm_resident_cg_limits.restype = I
     # gdm's micro-benchmarks (gdm_torch/benchmarks/)
     lib.gdm_micro_stage1_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+    lib.gdm_micro_stage1_rows_f32.argtypes = [P, P, P, P] + [I] * 7 + [P]
+    lib.gdm_micro_stage1_rows_plan.argtypes = [I] * 6 + [IP]
     for dt in ("f32", "bf16"):
         getattr(lib, f"gdm_micro_relayout_{dt}").argtypes = [
             P, P, P, I, I, I, I, I, P]
     lib.gdm_micro_stream_f32.argtypes = [P, P, P, P] + [I] * 10 + [IP, P]
     lib.gdm_micro_auto_f32.argtypes = [P, P, P] + [I] * 7 + [IP, P]
-    for fn in ("gdm_micro_stage1_f32", "gdm_micro_relayout_f32",
+    for fn in ("gdm_micro_stage1_f32", "gdm_micro_stage1_rows_f32",
+               "gdm_micro_stage1_rows_plan", "gdm_micro_relayout_f32",
                "gdm_micro_relayout_bf16", "gdm_micro_stream_f32",
                "gdm_micro_auto_f32"):
         getattr(lib, fn).restype = I

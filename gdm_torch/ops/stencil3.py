@@ -5,22 +5,25 @@ Port of gdm/ops/pallas_stencil2.py: ``make_padded_laplace3`` (K4) and
 ``make_padded_laplace3_mxu`` (K5), two schedules of one operator, which
 gdm's dispatch ``best_padded_laplace`` (gdm_torch/ops/fast.py here)
 picks between by the plane count.  Both run gdm's stages
-(A = U M2^T, B = U S2^T; P = M1 A, T = S1 A + M1 B; y = S0 P + M0 T)
-with the intermediates in shared memory.  K4 (gdm_torch/csrc/
-laplace3.cu) does all three as band sums; K5 (laplace3_mxu.cu) does the
-plane coupling, stage 3, as a dense product y = [S0 | M0] [P ; T] on the
-tensor cores.  ``laplace3_apply`` and ``laplace3_mxu_apply`` launch
+(A = U M2^T, B = U S2^T; P = M1 A, T = S1 A + M1 B; y = S0 P + M0 T).
+K4 (gdm_torch/csrc/laplace3.cu) does all three as band sums with the
+intermediates in registers; K5 (laplace3_mxu.cu) keeps them in shared
+memory and does the plane coupling, stage 3, as a dense product
+y = [S0 | M0] [P ; T] on the tensor cores.  ``laplace3_apply`` and ``laplace3_mxu_apply`` launch
 their kernel for a CUDA tensor and run the plain torch version for a
-CPU tensor; there is no other switch.  ``k5_plan`` picks K5's launch
-from the shape (its boxes of output planes, rows and columns, and the u
-slots a warp); tests/test_torch_plans.py holds it on the CPU.  The node array is the contiguous
-(N0, N1, N2) field: ``pad`` and ``unpad`` are reshapes.
+CPU tensor; there is no other switch.  ``k4_plan`` picks K4's launch
+from the shape (its chunk of planes; strips, runs of rows and the rows a
+thread follow from the shape), ``k5_plan`` K5's (its boxes of output
+planes, rows and columns, and the u slots a warp);
+tests/test_torch_plans.py holds both on the CPU.  The node array is the
+contiguous (N0, N1, N2) field: ``pad`` and ``unpad`` are reshapes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -56,10 +59,10 @@ def laplace3_bands(grid: Grid, device="cuda", dtype=torch.float32) -> Bands3:
     p = grid.degree
     if p > MAX_DEGREE:
         raise ValueError(
-            f"K4 and K5 take odd degrees p <= {MAX_DEGREE}, not {p}: their "
-            f"shared-memory plane windows (K4 2p+1 planes of 16 x 32 nodes, "
-            f"K5 16+2p planes of 8 x 32) fit one H100 block up to "
-            f"p = {MAX_DEGREE}")
+            f"K4 and K5 take odd degrees p <= {MAX_DEGREE}, not {p}: they "
+            f"are built for those (K4's register ring of 2p+1 output "
+            f"planes, K5's shared-memory window of 16+2p planes of 8 x 32 "
+            f"nodes, which fits one H100 block up to p = {MAX_DEGREE})")
 
     def tab(band):
         return torch.as_tensor(band, dtype=dtype, device=device).contiguous()
@@ -100,16 +103,15 @@ def _launch(u: torch.Tensor, bt: Bands3, fn: str, what: str, extra=()):
 
 def laplace3_apply(u: torch.Tensor, bt: Bands3,
                    tile_planes=None) -> torch.Tensor:
-    """The 3D Laplace apply through K4: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor.  ``tile_planes``: the
-    planes of axis 0 one block marches over (gdm's tile of planes); by
-    default the launcher's choice, the longest of 64, 32, 16, 8 that
-    keeps about four blocks per SM."""
+    """The 3D Laplace apply through K4: the CUDA kernel, launched as
+    ``k4_plan`` says, for a CUDA tensor, the plain version for a CPU
+    tensor.  ``tile_planes``: the most planes of axis 0 one block
+    marches over (gdm's tile of planes); by default the plan's chunk."""
     _check(u, bt)
     tile_planes = positive_int("tile_planes", tile_planes)
     if u.device.type == "cpu":
         return laplace3_apply_plain(u, bt)
-    y = _launch(u, bt, "laplace3_apply", "K4", (tile_planes or 0,))
+    y = _launch_plan(u, bt, k4_plan(bt.shape, bt.p, u.dtype, tile_planes))
     laplace3_apply.launches += 1
     return y
 
@@ -276,9 +278,12 @@ def k5_occupancy(slots: int, dtype) -> int:
     return out.value
 
 
-def _launch_plan(u: torch.Tensor, bt: Bands3, plan: K5Plan) -> torch.Tensor:
-    """K5 on the CUDA tensor ``u`` with the launch plan ``plan``; counts
-    nothing (``laplace3_mxu_apply`` does)."""
+def _launch_plan(u: torch.Tensor, bt: Bands3, plan) -> torch.Tensor:
+    """K4 (a K4Plan) or K5 (a K5Plan) on the CUDA tensor ``u`` with the
+    launch plan ``plan``; counts nothing (the wrappers do)."""
+    if isinstance(plan, K4Plan):
+        return _launch(u, bt, "laplace3_apply", "K4",
+                       (plan.strips, *plan.grid, plan.smem))
     return _launch(u, bt, "laplace3_mxu_apply", "K5",
                    (*plan.grid, plan.slots))
 
@@ -296,6 +301,189 @@ def laplace3_mxu_apply(u: torch.Tensor, bt: Bands3) -> torch.Tensor:
 
 
 laplace3_mxu_apply.launches = 0
+
+
+# ---- K4's launch plan (csrc/laplace3.cu) ----
+
+K4_SEG_STRIPS = 6   # strips (consumer warps) of a block's segment
+K4_SLOTS = 4        # planes in the copy ring
+K4_LANES = 32       # the widest strip of columns: one a lane
+K4_BAR_BYTES = 128  # the ring's mbarriers, before the ring
+# rows a thread owns, by (degree, float64), from the registers a thread
+# takes (laplace3.cu's k4_rows)
+K4_ROWS = {(1, False): 8, (3, False): 4, (5, False): 4, (7, False): 2,
+           (1, True): 4, (3, True): 2, (5, True): 2, (7, True): 2}
+K4_MIN_CHUNK = 8    # the fewest output planes of a default chunk (each
+                    # chunk streams 2p halo planes)
+
+
+def k4_rows(p: int, itemsize: int) -> int:
+    """Output rows a K4 thread owns at degree p (laplace3.cu's
+    k4_rows)."""
+    return K4_ROWS[(p, itemsize == 8)]
+
+
+def k4_smem(p: int, itemsize: int, n2: int, strips: int, segments: int,
+            chunk: int) -> int:
+    """Bytes of shared memory of one K4 block, as laplace3.cu's Geom lays
+    it out: the mbarriers; K4_SLOTS ring slots, each the R + 2p rows of
+    the tile as one span of the node array (R + 2p) n2 + 2p elements
+    when one segment spans the width, else R + 2p rows at a pitch of the
+    widest segment + 2p elements (with 32 more for the lanes past a
+    strip, and 16 bytes at each end); the run's R rows of [M1 | S1] and
+    the chunk's chunk + 2p rows of [S0 | M0] entries, each half at a
+    pitch of 2p + 1 rounded up to 16 bytes.  The launcher refuses a plan
+    whose bytes differ from its own count."""
+    vec, k = 16 // itemsize, 2 * p + 1
+    r, kp = k4_rows(p, itemsize), _rnd(k, vec)
+    if segments == 1:
+        slot = _rnd((r + 2 * p) * n2 + 2 * p + K4_LANES + 2 * vec, vec)
+    else:
+        width = -(-strips // segments) * -(-n2 // strips)
+        slot = (r + 2 * p) * _rnd(width + 2 * p + K4_LANES + 2 * vec, vec)
+    return K4_BAR_BYTES + itemsize * (K4_SLOTS * slot + 2 * r * kp +
+                                      2 * (chunk + 2 * p) * kp)
+
+
+@dataclasses.dataclass(frozen=True)
+class K4Plan:
+    """How K4 cuts the (n0, n1, n2) nodes: the n2 columns into ``strips``
+    strips of at most K4_LANES (one consumer warp each, a thread one
+    column), the n1 rows into ``runs`` runs of at most ``rows`` rows (a
+    thread's rows), ``grid`` = (segments of at most K4_SEG_STRIPS strips,
+    runs, chunks of at most ``chunk`` output planes), every split even
+    (its parts differ by at most one); ``smem`` bytes of shared memory a
+    block; ``p`` the degree."""
+    rows: int
+    runs: int
+    strips: int
+    grid: tuple
+    chunk: int
+    smem: int
+    p: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def warps(self) -> int:
+        """Consumer warps of the widest segment (a block has one more,
+        the producer)."""
+        return -(-self.strips // self.grid[0])
+
+    def boxes(self, nodes):
+        """(start, size) of every chunk of planes, run of rows and strip
+        of columns, as the kernel cuts them, and the strips of each
+        segment as (first strip, strips)."""
+        n0, n1, n2 = nodes
+        return (even_boxes(n0, self.grid[2]), even_boxes(n1, self.runs),
+                even_boxes(n2, self.strips),
+                even_boxes(self.strips, self.grid[0]))
+
+    @property
+    def recompute(self) -> float:
+        """Planes stages 1-2 run on per output plane at the largest
+        chunk: (chunk + 2p) / chunk."""
+        return (self.chunk + 2 * self.p) / self.chunk
+
+
+def _k4_plan(nodes, p, itemsize, chunk) -> K4Plan:
+    n0, n1, n2 = nodes
+    r = k4_rows(p, itemsize)
+    strips = -(-n2 // K4_LANES)
+    segments = -(-strips // K4_SEG_STRIPS)
+    nt0 = -(-n0 // chunk)
+    chunk = -(-n0 // nt0)
+    return K4Plan(r, -(-n1 // r), strips, (segments, -(-n1 // r), nt0),
+                  chunk, k4_smem(p, itemsize, n2, strips, segments, chunk), p)
+
+
+def _k4_cost(nodes, p, dtype, itemsize, nt0, occupancy) -> tuple:
+    """The time model of a K4 launch with nt0 chunks: the waves of blocks
+    (at occupancy(p, dtype, warps, smem) an SM) times the planes a block
+    streams (its chunk + 2p), then the planes streamed in all."""
+    plan = _k4_plan(nodes, p, itemsize, -(-nodes[0] // nt0))
+    slots = SM_COUNT * occupancy(p, dtype, plan.warps, plan.smem)
+    planes = plan.chunk + 2 * p
+    return -(-plan.blocks // slots) * planes, plan.grid[2] * planes
+
+
+def _k4_chunk(nodes, p, dtype, itemsize, occupancy) -> int:
+    """The chunk of the least modelled time (_k4_cost) among chunks of
+    K4_MIN_CHUNK planes and more (of the whole axis where it has fewer)
+    that fit a block's shared memory."""
+    n0 = nodes[0]
+    best = None
+    for nt0 in range(1, max(1, n0 // K4_MIN_CHUNK) + 1):
+        chunk = -(-n0 // nt0)
+        if _k4_plan(nodes, p, itemsize, chunk).smem > SMEM_BLOCK:
+            continue
+        cost = _k4_cost(nodes, p, dtype, itemsize, nt0, occupancy)
+        if best is None or cost < best[0]:
+            best = (cost, chunk)
+    if best is None:   # no chunk of K4_MIN_CHUNK fits: the longest that does
+        chunk = K4_MIN_CHUNK
+        while chunk > 1 and _k4_plan(nodes, p, itemsize,
+                                     chunk).smem > SMEM_BLOCK:
+            chunk -= 1
+        return chunk
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_plan_cached(nodes: tuple, p: int, dtype, planes,
+                    occupancy) -> K4Plan:
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if planes is None:
+        chunk = _k4_chunk(nodes, p, dtype, itemsize, occupancy)
+    else:
+        chunk = min(planes, nodes[0])
+        while chunk > 1 and _k4_plan(nodes, p, itemsize,
+                                     chunk).smem > SMEM_BLOCK:
+            chunk -= 1
+    return _k4_plan(nodes, p, itemsize, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def k4_occupancy(p: int, dtype, warps: int, smem: int) -> int:
+    """Blocks of K4 one SM of the card holds with ``warps`` consumer
+    warps and ``smem`` bytes of shared memory, as the CUDA runtime's
+    occupancy calculator reports them for the built kernel (cached)."""
+    kl = _build.kernels()
+    out = ctypes.c_int(0)
+    err = kl.lib.gdm_laplace3_occupancy(p, int(dtype == torch.float64),
+                                        warps, smem, ctypes.byref(out))
+    _build.check(kl, err, "K4 occupancy")
+    return out.value
+
+
+def k4_plan(nodes, p: int, dtype, planes=None,
+            occupancy=k4_occupancy) -> K4Plan:
+    """K4's launch plan for the (n0, n1, n2) nodes: chunks of at most
+    ``planes`` output planes (gdm's tile_planes) where given, else the
+    chunk of K4_MIN_CHUNK planes or more (where the grid has them) whose
+    waves of blocks times planes a block streams is least, at
+    ``occupancy(p, dtype, warps, smem)`` blocks an SM (by default the
+    built kernel's, which needs the card; the CPU tests pass a model of
+    their own); a chunk too long for a block's shared memory is cut.
+    Cached: the wrapper asks on every launch."""
+    return _k4_plan_cached(tuple(nodes), p, dtype, planes, occupancy)
+
+
+def k4_plans(nodes, p: int, dtype, occupancy=k4_occupancy) -> list:
+    """Every plan the sweeps time for ``nodes``: k4_plan's own and the
+    chunks of 1, 2, 3, 4, 6 and 8 chunks along axis 0 (duplicates and
+    chunks below two planes dropped)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nodes = tuple(nodes)
+    plans = [k4_plan(nodes, p, dtype, occupancy=occupancy)]
+    for nt0 in (1, 2, 3, 4, 6, 8):
+        chunk = -(-nodes[0] // nt0)
+        plan = _k4_plan(nodes, p, itemsize, chunk)
+        if chunk >= 2 and plan.smem <= SMEM_BLOCK and plan not in plans:
+            plans.append(plan)
+    return plans
 
 
 def make_padded_laplace3(grid: Grid, device="cuda", dtype=torch.float32,

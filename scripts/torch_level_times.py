@@ -5,12 +5,14 @@
 
 Times, with CUDA events (``device_ms``), the kernel gdm's dispatch picks
 at every multigrid level shape of the 1024^2 (2D, K3) and 64^3 (3D, K5)
-MG-CG solves, p = 3, float32, each in turns against an unchanged anchor
-of the same operator (K3h in 2D, K4 in 3D; K3s, the earlier 2D anchor,
-has itself been redesigned), with its launches per CG
-phase and the kernel's device time and share per CG phase (profiler);
-then the matvec sizes: K3 at 1024^2 (p = 3, 5), 2048^2, 4096^2 in turns
-against K3s and K3h, K5 at 161^3 and 257^3 in turns against K4.
+MG-CG solves, p = 3, float32, each in turns against the other schedule
+of its operator (K3h in 2D; K4 in 3D, whose band-sum design changed
+after K5's, so its times there moved while K5's did not), with its
+launches per CG phase and the
+kernel's device time and share per CG phase (profiler); then the matvec
+sizes: K3 at 1024^2 (p = 3, 5), 2048^2, 4096^2 in turns against K3s and
+K3h, and K4 at 161^3, 257^3 and 511 x 65 x 65 (the shape gdm's dispatch
+sends K4) in turns against K5, the unchanged 3D anchor.
 
 ``--root DIR`` imports ``gdm_torch`` from the checkout DIR instead of
 this one (so one call can time two trees on one card, each in its own
@@ -95,14 +97,14 @@ def main():
         if args.sweep:
             sweep(cs, 2, g.nodes, dev, f32, p)
         del u, bt
-    for n in (160, 256):
-        g = Grid(3, (n,) * 3, (0.0,) * 3, (1.0,) * 3)
+    for cells in ((160,) * 3, (256,) * 3, (510, 64, 64)):
+        g = Grid(3, cells, (0.0,) * 3, (1.0,) * 3)
         bt = stencil3.laplace3_bands(g, dev, f32)
         u = torch.as_tensor(rng.standard_normal(g.nodes), dtype=f32,
                             device=dev)
-        print(f"{n + 1}^3 p=3:")
-        cs.turns("K4", lambda: stencil3.laplace3_apply(u, bt), "K5",
-                 lambda: stencil3.laplace3_mxu_apply(u, bt))
+        print(f"{'x'.join(map(str, g.nodes))} p=3:")
+        cs.turns("K5 (anchor)", lambda: stencil3.laplace3_mxu_apply(u, bt),
+                 "K4", lambda: stencil3.laplace3_apply(u, bt))
         if args.sweep:
             sweep(cs, 3, g.nodes, dev, f32)
         del u, bt

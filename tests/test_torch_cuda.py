@@ -22,6 +22,8 @@ class; the Poisson solve on the card to the CPU float64 solve's
 iteration count (float64: equal; float32: within 1).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -398,26 +400,14 @@ LAPLACE3_CASES = [
     (5, (10, 9, 11)),    # anisotropic, one-sided bands
     (3, (40, 20, 70)),   # ragged tiles along every axis, several chunks
     (7, (9, 8, 10)),     # the largest degree K4 takes
-    # K4's launcher picks the plane chunk from the grid of tiles; these
-    # reach chunks of 16, 32 and 64 planes, each with a ragged last chunk
+    (1, (20, 30, 16)),   # the smallest degree, odd N2
+    # long axes 0 and 2 and a short axis 1 (several segments), and a tall
+    # single strip of many runs (one chunk in float64)
     (3, (24, 176, 680)),
     (3, (44, 176, 680)),
     (3, (96, 176, 680)),
+    (5, (16, 100, 30)),
 ]
-
-
-def _k4_chunk(nodes):
-    """The plane chunk laplace3.cu's launch_p picks for ``nodes``."""
-    n0, n1, n2 = nodes
-    cols = -(-n2 // 32) * -(-n1 // 16)
-    return next((c for c in (64, 32, 16) if cols * -(-n0 // c) >= 4 * 132),
-                8)
-
-
-def test_laplace3_cases_reach_every_chunk():
-    chunks = {_k4_chunk(tuple(c + 1 for c in cells))
-              for _, cells in LAPLACE3_CASES}
-    assert chunks == {8, 16, 32, 64}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -432,6 +422,38 @@ def test_laplace3_matches_plain(cuda_device, p, cells, dtype):
     yp = stencil3.laplace3_apply_plain(u, bt)
     torch.cuda.synchronize()
     assert _rel(yk, yp) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_laplace3_every_plan(cuda_device, dtype):
+    """Every chunk k4_plans lists gives the same function."""
+    grid = Grid(3, (60, 33, 40), (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
+    bt = stencil3.laplace3_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 21, dtype, cuda_device)
+    yp = stencil3.laplace3_apply_plain(u, bt)
+    plans = stencil3.k4_plans(grid.nodes, 3, dtype)
+    assert len(plans) > 2
+    for plan in plans:
+        y = stencil3._launch_plan(u, bt, plan)
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= _tol(dtype), plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_laplace3_refuses_a_plan_off_its_layout(cuda_device, dtype):
+    """The launcher holds the plan to its own layout: shared memory that
+    differs from the kernel's count, more rows a run than a thread owns,
+    or a strip wider than a warp raise."""
+    grid = Grid(3, (60, 33, 40), (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
+    bt = stencil3.laplace3_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 21, dtype, cuda_device)
+    plan = stencil3.k4_plan(grid.nodes, 3, dtype)
+    seg, runs, chunks = plan.grid
+    for bad in (dataclasses.replace(plan, smem=plan.smem + 16),
+                dataclasses.replace(plan, grid=(seg, runs - 1, chunks)),
+                dataclasses.replace(plan, strips=1)):
+        with pytest.raises(RuntimeError, match="K4"):
+            stencil3._launch_plan(u, bt, bad)
 
 
 def test_laplace_rejects(cuda_device):
@@ -897,11 +919,15 @@ def test_fast_cut_apply_matches_k1(flagship64, cuda_device, kind, rows):
     assert _rel(y, yk1) <= _row_tol(rows, torch.float32)
 
 
-@pytest.mark.parametrize("planes", [1, 5, 13, 64])
+TILE_PLANES_CELLS = (40, 20, 70)
+TILE_PLANES = [1, 5, 13, 64]
+
+
+@pytest.mark.parametrize("planes", TILE_PLANES)
 def test_laplace3_tile_planes(cuda_device, planes):
     """gdm's tile_planes is K4's chunk of planes per block: any chunk
     gives the same function."""
-    grid = Grid(3, (40, 20, 70), (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
+    grid = Grid(3, TILE_PLANES_CELLS, (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
     apply, pad, unpad, _ = stencil3.make_padded_laplace3(
         grid, cuda_device, tile_planes=planes)
     assert apply.options == {"tile_planes": planes}
@@ -931,15 +957,24 @@ def _launched_only(name, run):
     return out
 
 
-@pytest.mark.parametrize("p,cells,tile_r", [(3, (40, 40), 16),
-                                            (5, (100, 70), 256),
-                                            (3, (300, 130), 64)])
+M1_CASES = [(3, (40, 40), 16),
+            (5, (100, 70), 256),
+            (3, (300, 130), 64),
+            (3, (600, 40), 600),
+            (3, (1024, 1024), 256),   # gdm's own shape
+            (3, (300, 1000), 64)]
+
+
+@pytest.mark.parametrize("p,cells,tile_r", M1_CASES)
 @pytest.mark.parametrize("mode", mxu_micro.MODES)
 def test_stage1_micro_matches_plain(cuda_device, mode, p, cells, tile_r):
     """M1 against its twin: the column modes within 1e-6 of the sum of
     |terms| (FMAs against multiply-adds), the bf16x3 row modes within 1e-5
-    of max|y|, "splitsonly" exactly; ragged N0 (41, 101 and 301 nodes
-    in tiles of 16, 104 and 64 rows)."""
+    of max|y|, "splitsonly" exactly; ragged N0 (41, 101, 301 and 601
+    nodes in tiles of 16, 104, 64 and 600 rows: T_ext = 120 is no
+    multiple of 16 and its 64-deep chunks end ragged, and the 600-row
+    tiles' ten chunks go round the row kernel's panel ring), gdm's
+    1024^2 and 1025 x 1001 nodes in tiles of 64 rows (wider plans)."""
     grid = Grid(p, cells, (0.0, 0.0), (1.0, 1.0))
     apply, shape = mxu_micro.make_stage1_micro(grid, mode, cuda_device,
                                                tile_r=tile_r)
@@ -957,6 +992,42 @@ def test_stage1_micro_matches_plain(cuda_device, mode, p, cells, tile_r):
         assert err <= 1e-6 * mxu_micro.stage1_term_scale(u, *apply.tables,
                                                          mode, g)
     assert not y[:g.h].any() and not y[g.h + g.rp:].any()
+
+
+@pytest.mark.parametrize("mode", ["rowsonly", "dotsonly"])
+@pytest.mark.parametrize("p,cells,tile_r", M1_CASES[1:3])
+def test_stage1_rows_every_plan(cuda_device, mode, p, cells, tile_r):
+    """Every plan of M1's row kernel (each N with one and two
+    warpgroups) gives the twin's function within 1e-5 of max|y|, zero
+    guard rows included."""
+    grid = Grid(p, cells, (0.0, 0.0), (1.0, 1.0))
+    apply, shape = mxu_micro.make_stage1_micro(grid, mode, cuda_device,
+                                               tile_r=tile_r)
+    g = apply.geom
+    u = _rand(shape, 22, torch.float32, cuda_device)
+    yp = mxu_micro.stage1_micro_plain(u, *apply.tables, mode, g)
+    plans = mxu_micro.stage1_row_plans(g, mode)
+    assert {pl.n for pl in plans} == {32, 64, 96, 128}
+    assert mxu_micro.stage1_row_plan(g, mode) in plans
+    for plan in plans:
+        y = mxu_micro._launch_row_plan(u, *apply.tables, mode, g, plan)
+        torch.cuda.synchronize()
+        err = (y - yp).abs().max().item()
+        assert err <= 1e-5 * yp.abs().max().item(), plan
+
+
+def test_stage1_row_plans_reach_every_branch(cuda_device):
+    """The card cases' default row plans take 32 columns and more, with
+    one and two warpgroups."""
+    picked = set()
+    for p, cells, tile_r in M1_CASES:
+        grid = Grid(p, cells, (0.0, 0.0), (1.0, 1.0))
+        for mode in ("rowsonly", "dotsonly"):
+            g = mxu_micro.make_stage1_micro(grid, mode, cuda_device,
+                                            tile_r=tile_r)[0].geom
+            pl = mxu_micro.stage1_row_plan(g, mode)
+            picked.add((pl.n == 32, pl.wgs))
+    assert picked == {(True, 1), (True, 2), (False, 1), (False, 2)}
 
 
 @pytest.mark.parametrize("pad", [True, False])

@@ -1,6 +1,7 @@
 """The launch plans of K5 (``stencil3.k5_plan``), K3
-(``stencil2.k3_plan``), K1 (``cutband.k1_plan``) and K3s
-(``stencil2.k3s_plan``), on the CPU: no card is needed.
+(``stencil2.k3_plan``), K1 (``cutband.k1_plan``), K3s
+(``stencil2.k3s_plan``) and K4 (``stencil3.k4_plan``), on the CPU: no
+card is needed.
 
 Each plan cuts the node array into boxes (K5) or tiles (K3), one block
 each, by an even split of every axis; the kernels recompute the same
@@ -381,3 +382,161 @@ def test_k3s_card_cases_reach_every_branch():
     assert {pl.tiles[0] > 1 for pl, _ in plans} == {True, False}
     assert {pl.tiles[1] > 1 for pl, _ in plans} == {True, False}
     assert {p > 7 for _, p in plans} == {True, False}
+
+
+# ---- K4 ---------------------------------------------------------------------
+
+K4_SHAPES = LEVELS3 + BENCH3 + [(511, 65, 65), (1025, 33, 33), (517, 9, 9)]
+
+# registers a thread of laplace3.cu takes, by (degree, float64), from
+# ptxas -v of its sm_90a build: the CPU's stand-in for the card, where
+# k4_plan asks the runtime for the blocks an SM holds
+K4_REGS = {(1, False): 128, (3, False): 128, (5, False): 180,
+           (7, False): 173, (1, True): 120, (3, True): 165, (5, True): 238,
+           (7, True): 255}
+
+
+def k4_occupancy_model(p, dtype, warps, smem):
+    """Blocks of K4 one H100 SM holds: its 64K registers over the block's
+    warps + 1 at K4_REGS a thread (allocated in multiples of 8), and its
+    shared memory (1 KB reserved a block)."""
+    regs = -(-K4_REGS[(p, dtype == torch.float64)] // 8) * 8
+    return max(1, min(65536 // (regs * 32 * (warps + 1)),
+                      stencil3.SMEM_SM // (smem + 1024),
+                      2048 // (32 * (warps + 1))))
+
+
+def _k4_plan(nodes, p, dtype, planes=None):
+    return stencil3.k4_plan(nodes, p, dtype, planes, k4_occupancy_model)
+
+
+def _card_cases4():
+    """(nodes, p, dtype, planes) of every K4 launch in the card tests."""
+    cases = [(_nodes(c), p, None) for p, c in card.LAPLACE3_CASES]
+    cases += [(_nodes(c), p, None) for p, c in card.LAPLACE3_MXU_CASES]
+    cases += [(_nodes(c), 3, None) for c, k in card.DISPATCH_CASES
+              if k == "laplace3_apply"]
+    cases += [(_nodes(card.TILE_PLANES_CELLS), 3, pl)
+              for pl in card.TILE_PLANES]
+    return [(n, p, dt, pl) for (n, p, pl) in cases for dt in DTYPES]
+
+
+CASES4 = ([(n, p, dt, None) for n in K4_SHAPES for p in (1, 3, 5, 7)
+           for dt in DTYPES] + _card_cases4())
+
+
+def _k4_ids(cases):
+    return [f"{'x'.join(map(str, n))}-p{p}-{str(dt)[6:]}-t{pl}"
+            for n, p, dt, pl in cases]
+
+
+@pytest.mark.parametrize("nodes,p,dtype,planes", CASES4, ids=_k4_ids(CASES4))
+def test_k4_plan_covers_every_node_once(nodes, p, dtype, planes):
+    """Simulates laplace3.cu's split: block (segment, run, chunk) of even
+    splits; warp w of a segment takes strip k0 + w of its even share of
+    the strips, lane c of a warp column c of the strip, and each thread
+    the rs rows of the block's run; every output node is one thread's,
+    once."""
+    plan = _k4_plan(nodes, p, dtype, planes)
+    chunks, runs, strips, segments = plan.boxes(nodes)
+    assert len(chunks) == plan.grid[2] and len(runs) == plan.grid[1]
+    assert len(strips) == plan.strips and len(segments) == plan.grid[0]
+    count = np.zeros(nodes, np.int32)
+    for (k0, ns), (r0, rs) in itertools.product(segments, runs):
+        assert ns <= stencil3.K4_SEG_STRIPS and rs <= plan.rows
+        for w in range(ns):
+            j0, t2 = strips[k0 + w]
+            assert t2 <= stencil3.K4_LANES
+            for q0, cq in chunks:
+                count[q0:q0 + cq, r0:r0 + rs, j0:j0 + t2] += 1
+    assert (count == 1).all()
+    assert max(s for _, s in chunks) == plan.chunk
+    assert max(s for _, s in segments) == plan.warps
+    if planes is not None:
+        assert plan.chunk <= planes
+    itemsize = 8 if dtype == torch.float64 else 4
+    assert plan.rows == stencil3.k4_rows(p, itemsize)
+    assert plan.smem == stencil3.k4_smem(p, itemsize, nodes[2], plan.strips,
+                                         plan.grid[0], plan.chunk)
+
+
+@pytest.mark.parametrize("nodes,p,dtype,planes", CASES4, ids=_k4_ids(CASES4))
+def test_k4_plan_no_slivers_and_fits(nodes, p, dtype, planes):
+    """No chunk, run, strip or segment holds less than half of the
+    largest; a default chunk holds K4_MIN_CHUNK planes unless the grid
+    has fewer; a block's shared memory fits the card."""
+    plan = _k4_plan(nodes, p, dtype, planes)
+    for part in plan.boxes(nodes):
+        sizes = [s for _, s in part]
+        assert min(sizes) * 2 >= max(sizes) and min(sizes) >= 1
+    if planes is None:
+        assert min(s for _, s in plan.boxes(nodes)[0]) >= min(
+            stencil3.K4_MIN_CHUNK, nodes[0])
+    assert plan.smem <= stencil3.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("nodes", [(161,) * 3, (511, 65, 65), (257,) * 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k4_plan_fills_the_card(nodes, dtype):
+    """At the bench's sizes and the shape gdm's dispatch sends K4 (510 x
+    64 x 64 cells) the plan launches a block for every SM in at most two
+    waves (at the blocks an SM holds), and its chunks recompute stages
+    1-2 on at most 2p planes of 8."""
+    plan = _k4_plan(nodes, 3, dtype)
+    slots = SM * k4_occupancy_model(3, dtype, plan.warps, plan.smem)
+    assert SM <= plan.blocks <= 2 * slots
+    assert plan.recompute <= (8 + 6) / 8
+
+
+def test_k4_plan_is_the_least_modelled_time():
+    """The default chunk minimises waves x planes a block streams among
+    the chunks of K4_MIN_CHUNK planes and more; on the card it was the
+    fastest chunk swept at 161^3 (float32 and float64, p = 3, 5), 257^3
+    and 511 x 65 x 65 (PERF.md)."""
+    picks = {((161,) * 3, 3, torch.float32): 27,
+             ((161,) * 3, 3, torch.float64): 54,
+             ((161,) * 3, 5, torch.float32): 54,
+             ((257,) * 3, 3, torch.float32): 129,
+             ((511, 65, 65), 3, torch.float32): 17}
+    for (nodes, p, dtype), chunk in picks.items():
+        assert _k4_plan(nodes, p, dtype).chunk == chunk
+        assert _k4_plan(nodes, p, dtype) in stencil3.k4_plans(
+            nodes, p, dtype, k4_occupancy_model)
+
+
+def test_k4_rows_and_smem_match_the_kernel_layout():
+    """k4_rows and k4_smem against laplace3.cu's k4_rows and Geom, by
+    hand.  Rows a thread: float32 8 at p = 1, 4 at p = 3 and 5, 2 at
+    p = 7; float64 4 at p = 1, else 2.  Bytes at 161^3, p = 3, float32,
+    chunk 27, one segment: 128 of mbarriers, 4 slots of (4 + 6) rows of
+    161 nodes as one span, with 6 + 32 + 8 elements more (1656), the
+    run's 4 rows of [M1 | S1] and the chunk's 27 + 6 rows of [S0 | M0],
+    each half at a pitch of 7 rounded up to 8; at 257^3, chunk 129: two
+    segments of at most 5 strips of 29 columns, rows at a pitch of 145 +
+    6 + 32 + 8 rounded up to 4 (192)."""
+    assert [stencil3.k4_rows(p, 4) for p in (1, 3, 5, 7)] == [8, 4, 4, 2]
+    assert [stencil3.k4_rows(p, 8) for p in (1, 3, 5, 7)] == [4, 2, 2, 2]
+    assert stencil3.k4_smem(3, 4, 161, 6, 1, 27) == 128 + 4 * (
+        4 * 1656 + 2 * 4 * 8 + 2 * 33 * 8)
+    assert stencil3.k4_smem(3, 4, 257, 9, 2, 129) == 128 + 4 * (
+        4 * 10 * 192 + 2 * 4 * 8 + 2 * 135 * 8)
+    # every degree and dtype fits one block at a whole segment of 192
+    # columns and a chunk of 128 planes
+    for p, itemsize in itertools.product((1, 3, 5, 7), (4, 8)):
+        assert stencil3.k4_smem(p, itemsize, 192, 6, 1, 128) <= (
+            stencil3.SMEM_BLOCK)
+
+
+def test_k4_card_cases_reach_every_branch():
+    """The card tests' K4 cases reach every rows-a-thread of the kernel
+    (8, 4, 2), one segment (one copy a plane) and several (a copy a row),
+    segments of fewer strips than the widest, one chunk and several,
+    default chunks and gdm's tile_planes, in float32 and float64."""
+    plans = [(_k4_plan(n, p, dt, pl), n, pl)
+             for n, p, dt, pl in _card_cases4()]
+    assert {pl.rows for pl, _, _ in plans} == {8, 4, 2}
+    assert {pl.grid[0] > 1 for pl, _, _ in plans} == {True, False}
+    assert any(min(s for _, s in pl.boxes(n)[3]) < pl.warps
+               for pl, n, _ in plans)
+    assert {pl.grid[2] > 1 for pl, _, _ in plans} == {True, False}
+    assert {t is None for _, _, t in plans} == {True, False}
