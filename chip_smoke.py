@@ -99,10 +99,13 @@ Run from the repository root:  python3 chip_smoke.py
    1024^2 p=3, p=5 and 2048^2 p=3: the column modes within 1e-6 of the
    sum of |terms| of an output, the bf16x3 row modes within 1e-5 of
    max|y|, "splitsonly" exactly), M2 (relayout_apply, 4096 steps, at
-   gdm's shapes and K5's ring tile (48, 256), both pitches, exactly), M3
-   (make_micro, every mode at 1024^2 and 4096^2: "dma" and "dma_out"
-   exactly, "both" within 1e-6 of the sum of |terms|, the sinks within
-   1e-5 of theirs), M4 (make_auto_micro: "dma" exactly, "both" as M3's)
+   gdm's shapes and K5's ring tile (48, 256), both pitches, exactly;
+   every branch of relayout_plan: (32, 16) with 3 steps and (100, 70)
+   with 7, float32 and bf16), M3 (make_micro, every mode at 1024^2 and
+   4096^2: "dma" and "dma_out" exactly, "both" within 1e-6 of the sum
+   of |terms|, the sinks within 1e-5 of theirs; "both" and "dma" at every
+   plan of m3_plans at 40 x 60 and 1024^2, at the card's SMs and at two,
+   every branch of m3_plan), M4 (make_auto_micro: "dma" exactly, "both" as M3's)
    and M5 (make_sepbuf_micro, exactly), each against its plain twin,
    with M1's row plans at 1024^2 and, as "rowsonly"'s library yardstick,
    one torch.bmm of the concatenated bf16 operands ((5, 256, 1632) x
@@ -112,7 +115,8 @@ Run from the repository root:  python3 chip_smoke.py
    (against K3 in turns), M2's us per M elements against the
    shared-memory bound, M3's overlap fraction at 1024^2 and 4096^2 (its
    five modes on one grid of blocks), the compute time at K = 3 against
-   7 (it must grow), M4 against u * 1.0000001, M5 against M3; then, for
+   7 (it must grow), M3's "dma" against M4's, M4 against u * 1.0000001,
+   M5 against M3; then, for
    each row of the kernels line (M1's column and row modes apart), its
    builder, mode and shape once with the counts reset: its own kernel
    once and nothing else;
@@ -149,7 +153,9 @@ device ms of the kernel and of the twin, the bound from the bytes and
 operations of the measured inputs (M1's row modes over the bf16
 tensor-core peak, M2's over the shared-memory rate), ``library_ms``:
 one PyTorch call computing the same function, where there is one (K1
-and K3: a torch.sparse CSR SpMV of the operator; K5: the same at 65^3,
+and K3: a torch.sparse CSR SpMV of the operator; K3c, K3f, K3h, K3p,
+K3/mxu, K3/mxu3, K3/mxu3p and K0, which compute K3's operator at 1024^2
+p=3: K3's SpMV there; K5: the same at 65^3,
 named by the row's ``library_at``; M1 "rowsonly": torch.bmm of the
 concatenated operands; M2: x.t().contiguous(); M4: u * 1.0000001), else
 null (no call runs K2's preconditioned CG; K4's
@@ -161,6 +167,7 @@ line, and last
 result line).
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -878,6 +885,12 @@ MICRO_KERNELS = {
 RELAYOUT_SHAPES = [((512, 128), "float32"), ((128, 128), "float32"),
                    ((1024, 128), "float32"), ((512, 256), "float32"),
                    ((512, 128), "bfloat16"), ((48, 256), "float32")]
+# the branches of relayout_plan the shapes above do not reach: fewer steps
+# than warps, fewer blocks than SMs
+RELAYOUT_BRANCH_CASES = [((32, 16), 3), ((100, 70), 7)]
+# the layouts M3's every plan runs at: one strip over all of W2, strips of
+# 32, 64 and 128 columns; at two SMs a block streams a run of units
+M3_PLAN_CASES = [(40, 60, 16), (1024, 1024, 96)]
 
 
 def bmm_yardstick(u, tables, g):
@@ -1056,6 +1069,16 @@ def micro_phase(rng, dev):
             at["M2"] = ("padded", mean_ms(tp),
                         device_ms(lambda: mxu_micro.relayout_apply_plain(
                             x, steps)), bnd, lib)
+    for shape, n_steps in RELAYOUT_BRANCH_CASES:
+        for dt in (f32, torch.bfloat16):
+            x = rand(shape, dt)
+            plan = mxu_micro.relayout_plan(*shape, n_steps, dt, sms)
+            for pad in (True, False):
+                held(("M2", "padded" if pad else "unpadded"),
+                     mxu_micro.relayout_apply(x, n_steps, pad).float(),
+                     mxu_micro.relayout_apply_plain(x, n_steps).float(), 0.0,
+                     1.0, f"M2 {shape} {str(dt)[6:]} {n_steps} steps "
+                     f"pad={pad} ({plan})")
 
     # ---- M3, M4, M5: copies under compute -------------------------------
     for n in (1024, 4096):
@@ -1115,6 +1138,7 @@ def micro_phase(rng, dev):
                      f"{alt.geom.sw}) against nb 2 nsplit 1")
                 turns("both nb 2 nsplit 1", lambda: aps["both"](u),
                       f"both nb {nb} nsplit {nsplit}", lambda: alt(u))
+        print(f"{tag}: plan {aps['both'].plan}")
         del aps
         # M4 on the (Rp, W2) rows, M5 on M3's array
         a4 = {m: som.make_auto_micro(m, n, n, device=dev)[0]
@@ -1129,6 +1153,12 @@ def micro_phase(rng, dev):
                  1.0 if mode == "dma" else scale4, f"M4 {n}^2 {mode}")
         t4, tl = turns("M4 dma", lambda: a4["dma"](u4), "u * 1.0000001",
                        lambda: u4 * som.AUTO_SCALE)
+        m3dma = som.make_micro("dma", n, n, device=dev)[0]
+        t3d, t4d = turns("M3 dma", lambda: m3dma(u), "M4 dma",
+                         lambda: a4["dma"](u4))
+        print(f"M3 {n}^2 dma {mean_ms(t3d) * 1e3:.2f} us against M4's "
+              f"{mean_ms(t4d) * 1e3:.2f} us (the same bytes; "
+              f"{mean_ms(t3d) / mean_ms(t4d):.3f}x)")
         t4b = device_ms(lambda: a4["both"](u4))
         print(f"M4 {n}^2 ({a4['dma'].ring}, "
               f"{som.auto_micro_apply.blocks} blocks): dma "
@@ -1142,7 +1172,6 @@ def micro_phase(rng, dev):
             held(("M5", mode), ap(u), som.sepbuf_micro_plain(u, ap.geom,
                                                              mode), 0.0,
                  1.0, f"M5 {n}^2 {mode}")
-        m3dma = som.make_micro("dma", n, n, device=dev)[0]
         t3d, t5d = turns("M3 dma", lambda: m3dma(u), "M5 dma",
                          lambda: a5["dma"](u))
         t5i = device_ms(lambda: a5["dma_in"](u))
@@ -1158,6 +1187,27 @@ def micro_phase(rng, dev):
                             u, a5["dma"].geom, "dma")),
                         bound(8 * u.numel(), 0), None)
         del a4, a5, u, u4
+
+    # every plan of m3_plans, at the card's SMs and at two (runs of units a
+    # block, across strips), "both" and "dma" against the twin at the
+    # plan's strip
+    for n0, n1, tile_r in M3_PLAN_CASES:
+        aps = {m: som.make_micro(m, n0, n1, tile_r, device=dev)[0]
+               for m in ("both", "dma")}
+        g = aps["both"].geom
+        u = rand((g.r_ext, g.w2))
+        scale = som.stream_term_scale(u, aps["both"].coef)
+        for n_sms in (sms, 2):
+            for plan in som.m3_plans(n0, n1, tile_r, 7, 2, 1, n_sms):
+                gp = dataclasses.replace(g, sw=plan.sw)
+                for mode, ap in aps.items():
+                    held(("M3", mode),
+                         som._launch_m3_plan(u, ap.coef, gp, mode, plan),
+                         som.stream_micro_plain(u, ap.coef, gp, mode),
+                         1e-6 if mode == "both" else 0.0,
+                         scale if mode == "both" else 1.0,
+                         f"M3 {n0} x {n1} {mode} at {n_sms} SMs, {plan}")
+        del aps, u
 
     # ---- each kernels row's builder, mode and shape once, the counts reset
     # just before: M1's column and row kernels at 1024^2 p=3, M2 at
@@ -1819,10 +1869,11 @@ def main():
             separable_bound(g4096.n_nodes, 7, 4)),
         *(row(f"laplace2_{b}_apply ({k})", f"gdm_torch/csrc/laplace2_{b}.cu",
               at, tc_launches[k], tc_err[k], tc_ms[k], tc_plain_ms,
-              separable_bound(g2[3].n_nodes, 7, 4))
+              separable_bound(g2[3].n_nodes, 7, 4), k3_lib)
           for k, (b, at) in TC_BUILDERS.items()),
         *(row(f"{fn} ({k})", src, at, row_launches[k], row_err[k],
-              row_ms[k], row_plain_ms, separable_bound(g2[3].n_nodes, 7, 4))
+              row_ms[k], row_plain_ms, separable_bound(g2[3].n_nodes, 7, 4),
+              k3_lib)
           for k, (fn, src, at, _) in ROW_KERNELS.items()),
         row("laplace3_apply (K4)", "gdm_torch/csrc/laplace3.cu",
             "gdm/ops/pallas_stencil2.py:1056", k4_launches, k4_err, k4_ms,

@@ -325,11 +325,85 @@ def relayout_scale(steps: int, dtype) -> torch.Tensor:
     return torch.tensor(float(s), dtype=torch.float32).to(dtype)
 
 
-def relayout_groups(rows: int, lanes: int, steps: int) -> int:
-    """The groups of blocks the kernel shares the steps among: about four
-    blocks per SM of an H100 (132 SMs) over the 32 x 32 sub-tiles."""
-    tiles = -(-rows // 32) * -(-lanes // 32)
-    return max(1, min(steps, -(-4 * 132 // tiles)))
+# M2's launch on the card (csrc/micro_relayout.cu): sub-tiles of 128-byte
+# rows, two buffers of one a warp; warps a block by dtype, 128 KB of
+# shared memory a block, so an SM holds one block and the plan's one
+# block an SM is what runs
+RELAYOUT_ROW_BYTES = 128
+RELAYOUT_WARPS = {torch.float32: 16, torch.bfloat16: 8}
+RELAYOUT_SWEEP_WARPS = (4, 8, 12, 16)   # the kernel takes at most 16
+SMS = 132                    # an H100 SXM's SMs
+SMEM_MAX = 232448            # shared memory an H100 block may use
+
+
+@dataclasses.dataclass(frozen=True)
+class RelayoutPlan:
+    """M2's launch: ``edge`` x ``edge`` sub-tiles of 128-byte rows
+    (``sub_rows`` x ``sub_cols`` of them over the tile), ``warps`` warps
+    a block, each with two sub-tile buffers, ``blocks`` blocks, ``smem``
+    bytes of shared memory a block.  Warp w of the N = blocks x warps
+    runs the steps [w T // N, (w + 1) T // N) of the T = n_sub x steps
+    (sub-tile-major), in whole pairs of steps where ``steps`` is even:
+    the ranges differ by at most one step (pair)."""
+    edge: int
+    sub_rows: int
+    sub_cols: int
+    warps: int
+    blocks: int
+    smem: int
+
+    @property
+    def n_sub(self) -> int:
+        return self.sub_rows * self.sub_cols
+
+
+def relayout_plan(rows: int, lanes: int, steps: int, dtype,
+                  sms: int = SMS, warps: int = None) -> RelayoutPlan:
+    """M2's plan for a (rows, lanes) tile of ``dtype`` and ``steps``
+    steps: sub-tiles of 32 float32 or 64 bf16 elements a side, one
+    block an SM (``sms`` of them, as long as there is a step for each of
+    their warps) of RELAYOUT_WARPS[dtype] warps, or ``warps``."""
+    edge = RELAYOUT_ROW_BYTES // torch.empty(0, dtype=dtype).element_size()
+    sub_rows, sub_cols = -(-rows // edge), -(-lanes // edge)
+    # the ranges' units: steps, or pairs of steps where steps is even
+    total = sub_rows * sub_cols * steps // (2 if steps % 2 == 0 else 1)
+    warps = min(RELAYOUT_WARPS[dtype] if warps is None else warps, total)
+    blocks = max(1, min(sms, total // warps))
+    return RelayoutPlan(edge, sub_rows, sub_cols, warps, blocks,
+                        2 * warps * edge * RELAYOUT_ROW_BYTES)
+
+
+def relayout_plans(rows: int, lanes: int, steps: int, dtype,
+                   sms: int = SMS) -> list:
+    """Every plan of RELAYOUT_SWEEP_WARPS warps a block whose shared
+    memory fits a block (duplicates dropped)."""
+    plans = [relayout_plan(rows, lanes, steps, dtype, sms, w)
+             for w in RELAYOUT_SWEEP_WARPS]
+    return list(dict.fromkeys(pl for pl in plans if pl.smem <= SMEM_MAX))
+
+
+def _check_relayout(x, steps):
+    if x.dim() != 2:
+        raise ValueError(f"M2 transposes a 2D tile, not shape "
+                         f"{tuple(x.shape)}")
+    if int(steps) != steps or steps < 1:
+        raise ValueError(f"steps must be a positive integer, not {steps}")
+    _kernel.check_input(x, "M2", x.shape, tuple(RELAYOUT_DTYPES))
+
+
+def _launch_relayout_plan(x: torch.Tensor, steps: int, pad: bool,
+                          plan: RelayoutPlan) -> torch.Tensor:
+    """M2 on the CUDA tensor ``x`` with the launch plan ``plan``; counts
+    nothing (``relayout_apply`` does)."""
+    _check_relayout(x, steps)
+    rows, lanes = x.shape
+    y = torch.empty((lanes, rows), dtype=x.dtype, device=x.device)
+    _kernel.run(f"gdm_micro_relayout_{RELAYOUT_DTYPES[x.dtype]}", "M2",
+                x.device, x.data_ptr(), y.data_ptr(), rows, lanes,
+                int(steps), float(relayout_scale(steps, x.dtype).float()),
+                plan.edge, plan.warps, plan.blocks, plan.smem,
+                int(bool(pad)))
+    return y
 
 
 def relayout_apply_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
@@ -340,25 +414,20 @@ def relayout_apply_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
 
 def relayout_apply(x: torch.Tensor, steps: int = 4096,
                    pad: bool = True) -> torch.Tensor:
-    """M2: y = x^T after ``steps`` transposes of x in shared memory (pad:
-    the sub-tile pitch padded by one element against bank conflicts),
-    the CUDA kernel (csrc/micro_relayout.cu) for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    if x.dim() != 2:
-        raise ValueError(f"M2 transposes a 2D tile, not shape "
-                         f"{tuple(x.shape)}")
-    if int(steps) != steps or steps < 1:
-        raise ValueError(f"steps must be a positive integer, not {steps}")
-    _kernel.check_input(x, "M2", x.shape, tuple(RELAYOUT_DTYPES))
+    """M2: y = x^T after ``steps`` transposes of x in shared memory, the
+    CUDA kernel (csrc/micro_relayout.cu, launched from ``relayout_plan``)
+    for a CUDA tensor, the plain version for a CPU tensor.  ``pad=True``
+    (gdm's padded pitch against bank conflicts) swizzles the 16-byte
+    chunks of each sub-tile row, so no access conflicts; ``pad=False``
+    lays the rows out plain, and a warp's transposed accesses then fall
+    eight to a bank group.  Both compute the same y."""
+    _check_relayout(x, steps)
     if x.device.type == "cpu":
         return relayout_apply_plain(x, steps)
-    rows, lanes = x.shape
-    y = torch.empty((lanes, rows), dtype=x.dtype, device=x.device)
-    sink = torch.empty(1, dtype=torch.float32, device=x.device)
-    _kernel.run(f"gdm_micro_relayout_{RELAYOUT_DTYPES[x.dtype]}", "M2",
-                x.device, x.data_ptr(), y.data_ptr(), sink.data_ptr(), rows,
-                lanes, int(steps), relayout_groups(rows, lanes, steps),
-                int(bool(pad)))
+    plan = relayout_plan(*x.shape, int(steps), x.dtype,
+                         torch.cuda.get_device_properties(
+                             x.device).multi_processor_count)
+    y = _launch_relayout_plan(x, steps, pad, plan)
     relayout_apply.launches += 1
     return y
 

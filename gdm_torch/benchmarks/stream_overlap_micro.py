@@ -2,15 +2,15 @@
 
 Port of gdm's benchmarks/stream_overlap_micro.py: can the copies of the
 next tiles hide under the FMA work of this one?  ``make_micro`` (M3)
-streams tiles of tile_r rows (with 2H = 16 halo rows) through a ring of
-``nb`` shared-memory slots, each tile copied as ``nsplit`` separately
-waited row chunks, in gdm's modes ``"compute"`` (no traffic),
+streams tiles of tile_r rows through a ring of ``nb`` shared-memory
+slots, each tile copied as ``nsplit`` row chunks of their own, in gdm's
+modes ``"compute"`` (no traffic),
 ``"dma"`` (copies, no stencil), ``"both"`` (copies and a K-tap
 separable stencil), ``"dma_in"`` and ``"dma_out"``;
 ``make_auto_micro`` (M4) streams the same array, gdm's automatic
 BlockSpec pipeline, in units of whole rows through a ring of bulk
 copies (``auto_ring``);
-``make_sepbuf_micro`` (M5) is M3's two-slot ring with one buffer per slot
+``make_sepbuf_micro`` (M5) is a two-slot ring with one buffer per slot
 and static slot indices.  ``main`` prints gdm's rows and the overlap
 fraction, (t_compute + t_dma - t_both) / (t_compute + t_dma -
 max(t_compute, t_dma)): 1 when the copies hide under the compute
@@ -23,7 +23,9 @@ there.  Each wrapper (``stream_micro_apply``, ``auto_micro_apply``,
 ``sepbuf_micro_apply``) launches its kernel for a CUDA tensor, counted
 on its ``launches``, and runs its plain torch twin for a CPU tensor.
 "compute" and "dma_in" return a sink, one float per (tile, column
-strip), instead of y.  Run on a card:
+strip), instead of y.  M3 launches from a plan picked from the layout
+(``m3_plan``: the column strip, the blocks; ``m3_plans`` and the private
+``_launch_m3_plan`` run every plan).  Run on a card:
 
     python -m gdm_torch.benchmarks.stream_overlap_micro [N0 N1 tile_r nb nsplit [modes...]]
 
@@ -50,8 +52,10 @@ SEPBUF_MODES = ("dma", "dma_in")
 SINK_MODES = ("compute", "dma_in")
 H = 8                        # gdm's guard rows
 SMEM_MAX = 232448            # shared memory an H100 block may use
-SMEM_TWO = 113 * 1024        # at most this per block for two on an SM
-STRIPS = (64, 32)            # the card's column strips, widest first
+SMEM_SM = 233472             # shared memory of an H100 SM
+SMEM_TWO = 113 * 1024        # M5: at most this per block for two on an SM
+STRIPS = (64, 32)            # M5's column strips, widest first
+SMS = 132                    # an H100 SXM's SMs
 
 
 def _rnd(n: int, m: int) -> int:
@@ -61,9 +65,9 @@ def _rnd(n: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class StreamGeom:
     """gdm's layout: W2 = rnd(N1 + 2p, 128) columns, Rp = rnd(N0, tile_r)
-    rows in n_tiles tiles, R_ext = Rp + 2H; T_ext = tile_r + 2H rows a
-    tile copies; sw, the column strip of M3's and M5's rings (see
-    ``strip_width``; None for M4, whose units are whole rows)."""
+    rows in n_tiles tiles, R_ext = Rp + 2H; T_ext = tile_r + 2H rows
+    of gdm's tile; sw, the column strip of M3's ring (``m3_plan``) or
+    M5's (``strip_width``), None for M4, whose units are whole rows."""
     n0: int
     n1: int
     tile_r: int
@@ -104,8 +108,8 @@ class StreamGeom:
 
 
 def ring_bytes(tile_r: int, k: int, sw: int, slots: int):
-    """Shared memory of one M3 or M5 block as csrc/micro_stream.cu lays
-    it out: the ring's slots (T_ext rows of sw + 2 rnd(p, 4) columns,
+    """Shared memory of one M5 block as csrc/micro_stream.cu lays it
+    out: the ring's slots (T_ext rows of sw + 2 rnd(p, 4) columns,
     plus the rows' column-0 values), the stencil's V rows and a
     reduction scratch."""
     p = (k - 1) // 2
@@ -115,7 +119,7 @@ def ring_bytes(tile_r: int, k: int, sw: int, slots: int):
 
 
 def strip_width(tile_r: int, k: int, slots: int):
-    """The card's column strip: the widest of 64 and 32 columns whose
+    """M5's column strip: the widest of 64 and 32 columns whose
     block fits twice on an SM, else the widest that fits once; a ring
     that does not fit raises ValueError."""
     for limit in (SMEM_TWO, SMEM_MAX):
@@ -129,16 +133,17 @@ def strip_width(tile_r: int, k: int, slots: int):
         f"take a smaller tile_r or fewer slots")
 
 
-def _geometry(n0, n1, tile_r, k, slots=None) -> StreamGeom:
-    """gdm's layout, with the strip of a ring of ``slots`` slots (M3,
-    M5), or none (M4)."""
+def _geometry(n0, n1, tile_r, k, slots=None, sw=None) -> StreamGeom:
+    """gdm's layout, with M5's strip for a ring of ``slots`` slots, the
+    strip ``sw`` (M3), or none (M4)."""
     for name, v in (("N0", n0), ("N1", n1), ("tile_r", tile_r)):
         if int(v) != v or v < 1:
             raise ValueError(f"{name} must be a positive integer, not {v}")
     if k not in (3, 5, 7):
         raise ValueError(f"the card's micro kernels take K = 3, 5 or 7 "
                          f"taps, not {k}")
-    sw = None if slots is None else strip_width(int(tile_r), k, slots)
+    if slots is not None:
+        sw = strip_width(int(tile_r), k, slots)
     return StreamGeom(int(n0), int(n1), int(tile_r), k, sw)
 
 
@@ -227,28 +232,176 @@ def _check_coef(coef, u, g):
                          f"on {u.device}")
 
 
-def _stream_launch(u, coef, g, mode, sep, nb, nsplit, what):
-    """Launch M3 (sep 0) or M5 (sep 1); returns y or the sink and the
-    grid's block count."""
+# ---- M3's launch plan ------------------------------------------------------
+
+M3_STRIPS = (128, 64, 32)    # M3's column strips, widest first
+M3_GROUPS = (2, 4, 1)        # consumer row groups a block, preferred first
+M3_HALO = 4                  # halo columns a side: p <= 3, 16 bytes
+M3_MAX_NB = 8                # slots a ring
+M3_MAX_NSPLIT = 8            # copies (mbarriers) a unit
+
+
+@dataclasses.dataclass(frozen=True)
+class M3Plan:
+    """M3's launch (csrc/micro_stream.cu, ``m3_kernel``): column strips
+    of ``sw`` columns, ``units`` = n_tiles x n_strips (tile, strip)
+    units, ``blocks`` blocks of ``threads`` = sw groups + 32 threads
+    (``groups`` row groups of a consumer thread a column, each over an
+    even run of the unit's tile_r output rows, and a producer warp),
+    ``smem`` bytes a block: nb slots of ``nbox`` boxes of ``box_rows``
+    rows (a multiple of 4, so every box starts 128-byte aligned) at a
+    pitch of sw + 8, which cover the ``rows`` = tile_r + 2p rows of a
+    unit, copied in nsplit chunks of boxes.  In "dma", "both" and "dma_in" the blocks draw the units from
+    the plan's ticket counter (``_m3_tickets``); in "compute" and
+    "dma_out" block b takes [b U // G, (b + 1) U // G), strip-major."""
+    sw: int
+    groups: int
+    n_strips: int
+    units: int
+    blocks: int
+    threads: int
+    rows: int
+    box_rows: int
+    nbox: int
+    nb: int
+    nsplit: int
+    smem: int
+
+
+def m3_smem(nb: int, nsplit: int, slot_rows: int, sw: int) -> int:
+    """An M3 block's shared memory as m3_kernel lays it out: nb x nsplit
+    `full`, nb `empty` and nb `halo` mbarriers, a 2 x 16-float scratch
+    and the slots' units (8 ints), rounded to 128 bytes, then nb slots
+    of ``slot_rows`` rows of sw + 8 floats, each rounded to 128 bytes."""
+    bars = _rnd(8 * nb * (nsplit + 2) + 128 + 32, 128)
+    return bars + nb * _rnd(4 * slot_rows * (sw + 2 * M3_HALO), 128)
+
+
+def m3_boxes(rows: int, nsplit: int):
+    """(box_rows, nbox): the boxes of a unit's ``rows`` rows, nsplit
+    chunks of at least one box each: boxes of ceil(rows / nsplit) rows
+    rounded up to 4, or, where that leaves fewer boxes than chunks,
+    rounded down; at most 256 rows (a tensor map's box).  None when
+    nsplit asks for more chunks than the unit has 4-row boxes."""
+    per = -(-rows // nsplit)
+    box = min(256, _rnd(per, 4))
+    if -(-rows // box) < nsplit:
+        box = per // 4 * 4
+    if box < 4:
+        return None
+    return box, -(-rows // box)
+
+
+def _m3_plan(g: StreamGeom, nb: int, nsplit: int, sw: int, groups: int,
+             sms: int):
+    """The plan of strip ``sw``: as many blocks as the SMs hold at once
+    (by shared memory and threads), at most one a unit; None when a
+    block's ring does not fit."""
+    rows = g.tile_r + 2 * g.p
+    box_rows, nbox = m3_boxes(rows, nsplit)
+    smem = m3_smem(nb, nsplit, box_rows * nbox, sw)
+    if smem > SMEM_MAX:
+        return None
+    threads = sw * groups + 32
+    per_sm = min(SMEM_SM // (smem + 1024), 2048 // threads)
+    units = g.n_tiles * (g.w2 // sw)
+    return M3Plan(sw, groups, g.w2 // sw, units, min(units, sms * per_sm),
+                  threads, rows, box_rows, nbox, nb, nsplit, smem)
+
+
+def m3_plan_cost(plan: M3Plan, sms: int = SMS) -> float:
+    """The plan's modelled time, in units of an even, halo-free stream
+    over the whole card: the strip's halo columns, (sw + 8) / sw, times
+    the most units a block takes over the mean (a unit is the grain of
+    the balance), times the card's share of idle SMs when there are
+    fewer blocks than SMs."""
+    mean = plan.units / plan.blocks
+    return ((plan.sw + 2 * M3_HALO) / plan.sw * -(-plan.units // plan.blocks)
+            / mean * max(1.0, sms / plan.blocks))
+
+
+def m3_plans(n0: int, n1: int, tile_r: int, k: int, nb: int = 2,
+             nsplit: int = 1, sms: int = SMS) -> list:
+    """Every plan M3 can launch for the layout: one a strip of M3_STRIPS
+    whose ring fits a block and row groups of M3_GROUPS (no more than
+    tile_r)."""
+    _check_ring(nb, nsplit)
+    g = _geometry(n0, n1, tile_r, k)
+    if m3_boxes(g.tile_r + 2 * g.p, nsplit) is None:
+        raise ValueError(f"nsplit = {nsplit} copies a unit of "
+                         f"{g.tile_r + 2 * g.p} rows: at most one a 4-row "
+                         f"box")
+    plans = [pl for sw in M3_STRIPS for groups in M3_GROUPS
+             if groups <= g.tile_r
+             and (pl := _m3_plan(g, nb, nsplit, sw, groups, sms)) is not None]
+    if not plans:
+        raise ValueError(
+            f"a ring of {nb} slots of {g.tile_r + 2 * g.p} rows needs "
+            f"{m3_smem(nb, nsplit, g.tile_r + 2 * g.p, M3_STRIPS[-1])} "
+            f"bytes of shared memory at the narrowest strip; an H100 "
+            f"block has {SMEM_MAX}: take a smaller tile_r or fewer slots")
+    return plans
+
+
+def m3_plan(n0: int, n1: int, tile_r: int, k: int, nb: int = 2,
+            nsplit: int = 1, sms: int = SMS) -> M3Plan:
+    """M3's plan for gdm's (N0, N1, tile_r, K, nb, nsplit): the plan of
+    ``m3_plans`` of least ``m3_plan_cost``, on a tie the widest strip and
+    the first row groups of M3_GROUPS."""
+    plans = m3_plans(n0, n1, tile_r, k, nb, nsplit, sms)
+    return min(plans, key=lambda pl: (m3_plan_cost(pl, sms), -pl.sw,
+                                      M3_GROUPS.index(pl.groups)))
+
+
+# the ticket counter of each (device, plan), and its launches that drew
+# tickets: a launch of "dma", "both" or "dma_in" draws units + blocks
+_M3_TICKETS = {}
+
+
+def _m3_tickets(device, plan: M3Plan, mode: str):
+    """(counter, base) for a launch of ``plan`` in ``mode``: the plan's
+    8-byte ticket counter on ``device`` (made at its first launch) and
+    the count it stands at when this launch starts."""
+    key = (device, plan)
+    if key not in _M3_TICKETS:
+        _M3_TICKETS[key] = [torch.zeros(1, dtype=torch.int64, device=device),
+                            0]
+    entry = _M3_TICKETS[key]
+    base = entry[1] * (plan.units + plan.blocks)
+    if mode in ("dma", "both", "dma_in"):
+        entry[1] += 1
+    return entry[0], base
+
+
+def _launch_m3_plan(u, coef, g, mode, plan: M3Plan):
+    """M3 in ``mode`` on the CUDA tensor u with ``plan`` (g's strip must
+    be the plan's); y, or the sink in "compute" and "dma_in".  Counts
+    nothing (``stream_micro_apply`` does)."""
+    if g.sw != plan.sw:
+        raise ValueError(f"M3: the layout's strip of {g.sw} columns is not "
+                         f"the plan's {plan.sw}")
     if u.data_ptr() % 16:
-        raise ValueError(f"{what}: u must be 16-byte aligned")
+        raise ValueError("M3: u must be 16-byte aligned")
     # y, or the sink in its place: the kernel writes one of the two
     out = (torch.empty((g.n_tiles, g.n_strips), dtype=torch.float32,
                        device=u.device) if mode in SINK_MODES
            else torch.empty_like(u))
-    blocks = ctypes.c_int()
-    _kernel.run("gdm_micro_stream_f32", f"{what} {mode}", u.device,
+    tickets, base = _m3_tickets(u.device, plan, mode)
+    _kernel.run("gdm_micro_stream_f32", f"M3 {mode}", u.device,
                 u.data_ptr(), coef.data_ptr(), out.data_ptr(), out.data_ptr(),
-                MODES.index(mode), sep, g.p, H, g.tile_r, g.n_tiles, g.w2,
-                g.sw, nb, nsplit, ctypes.byref(blocks))
-    return out, blocks.value
+                MODES.index(mode), g.p, g.tile_r, g.n_tiles, g.w2, plan.sw,
+                plan.nb, plan.nsplit, plan.box_rows, plan.nbox, plan.groups,
+                plan.blocks, plan.threads, plan.smem, tickets.data_ptr(),
+                base)
+    return out
 
 
 def stream_micro_apply(u: torch.Tensor, coef: torch.Tensor, g: StreamGeom,
                        mode: str, nb: int = 2, nsplit: int = 1):
-    """M3 in mode ``mode``: the CUDA kernel (csrc/micro_stream.cu) for a
-    CUDA tensor, the plain version for a CPU tensor; y, or the sink in
-    "compute" and "dma_in"."""
+    """M3 in mode ``mode``: the CUDA kernel (csrc/micro_stream.cu,
+    launched from ``m3_plan``) for a CUDA tensor, the plain version for a
+    CPU tensor; y, or the sink in "compute" and "dma_in".  ``g`` is
+    ``make_micro``'s layout, with the plan's strip."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     _check_ring(nb, nsplit)
@@ -256,8 +409,11 @@ def stream_micro_apply(u: torch.Tensor, coef: torch.Tensor, g: StreamGeom,
     _check_coef(coef, u, g)
     if u.device.type == "cpu":
         return stream_micro_plain(u, coef, g, mode)
-    out, stream_micro_apply.blocks = _stream_launch(u, coef, g, mode, 0, nb,
-                                                    nsplit, "M3")
+    plan = m3_plan(g.n0, g.n1, g.tile_r, g.k, nb, nsplit,
+                   torch.cuda.get_device_properties(
+                       u.device).multi_processor_count)
+    out = _launch_m3_plan(u, coef, g, mode, plan)
+    stream_micro_apply.blocks = plan.blocks
     stream_micro_apply.launches += 1
     return out
 
@@ -270,29 +426,32 @@ def _check_ring(nb, nsplit):
     for name, v in (("nb", nb), ("nsplit", nsplit)):
         if int(v) != v or v < 1:
             raise ValueError(f"{name} must be a positive integer, not {v}")
-    if nb < 2 or (nb - 1) * nsplit > 12:
-        raise ValueError(f"the ring takes nb >= 2 slots and at most 12 "
-                         f"copy groups in flight, (nb - 1) nsplit; not nb = "
-                         f"{nb}, nsplit = {nsplit}")
+    if not 2 <= nb <= M3_MAX_NB or nsplit > M3_MAX_NSPLIT:
+        raise ValueError(f"the ring takes 2 to {M3_MAX_NB} slots of at most "
+                         f"{M3_MAX_NSPLIT} copies a unit; not nb = {nb}, "
+                         f"nsplit = {nsplit}")
 
 
 def make_micro(mode: str, N0: int = 4096, N1: int = 4096, tile_r: int = 96,
                K: int = 7, nb: int = 2, nsplit: int = 1, device="cuda"):
     """(apply_fn, (R_ext, W2), n_dof) of M3, as gdm's make_micro; the
     card unless ``device="cpu"`` is asked for.  ``apply_fn.geom`` is the
-    layout (with the card's column strip) and ``apply_fn.coef`` gdm's
+    layout (with the plan's column strip), ``apply_fn.plan`` the launch
+    plan (``m3_plan`` at an H100's 132 SMs) and ``apply_fn.coef`` gdm's
     coefficients."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
-    _check_ring(nb, nsplit)
     device = _device.resolve(device)
-    g = _geometry(N0, N1, tile_r, K, nb)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else SMS)
+    plan = m3_plan(N0, N1, tile_r, K, nb, nsplit, sms)
+    g = _geometry(N0, N1, tile_r, K, sw=plan.sw)
     coef = stream_coef(g, device)
 
     def apply_fn(u_pad):
         return stream_micro_apply(u_pad, coef, g, mode, nb, nsplit)
 
-    apply_fn.geom, apply_fn.coef = g, coef
+    apply_fn.geom, apply_fn.coef, apply_fn.plan = g, coef, plan
     return apply_fn, (g.r_ext, g.w2), g.n_dof
 
 
@@ -428,7 +587,16 @@ def sepbuf_micro_apply(u: torch.Tensor, coef: torch.Tensor, g: StreamGeom,
     _check_coef(coef, u, g)
     if u.device.type == "cpu":
         return sepbuf_micro_plain(u, g, mode)
-    out, _ = _stream_launch(u, coef, g, mode, 1, 2, 1, "M5")
+    if u.data_ptr() % 16:
+        raise ValueError("M5: u must be 16-byte aligned")
+    # y, or the sink in its place: the kernel writes one of the two
+    out = (torch.empty((g.n_tiles, g.n_strips), dtype=torch.float32,
+                       device=u.device) if mode in SINK_MODES
+           else torch.empty_like(u))
+    blocks = ctypes.c_int()
+    _kernel.run("gdm_micro_sepbuf_f32", f"M5 {mode}", u.device, u.data_ptr(),
+                out.data_ptr(), out.data_ptr(), MODES.index(mode), g.p, H,
+                g.tile_r, g.n_tiles, g.w2, g.sw, ctypes.byref(blocks))
     sepbuf_micro_apply.launches += 1
     return out
 

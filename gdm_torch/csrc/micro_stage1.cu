@@ -77,8 +77,12 @@
 
 #include "common.cuh"
 #include "tc_window.cuh"
+#include "tma.cuh"
 
 namespace {
+
+using gdm::tensor_map_2d;
+using gdm::tma_load_2d;
 
 using gdm::tc::bf16;
 
@@ -297,18 +301,6 @@ template <int PENDING>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
                : "memory");
-}
-
-// The box of `tm` at (column c0, row c1) into dst, completing on bar.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm,
-                                            int c0, int c1,
-                                            unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(gdm::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(gdm::smem_addr(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
@@ -580,54 +572,6 @@ int launch_cols(const float* u, const float* cs, const float* cm, float* y,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, a CUDA driver API entry, found through the
-// runtime (no -lcuda at link time); looked up once.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(f);
-    }
-  }
-  return fn;
-}
-
-// A 2D row-major tensor map of (rows, cols) elements of `type`, boxes of
-// box_rows x box_cols, zero fill outside the array.
-int tensor_map_2d(CUtensorMap* tm, CUtensorMapDataType type, int elem,
-                  const void* base, int rows, int cols, int box_rows,
-                  int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t ones[2] = {1, 1};
-  const CUresult r = encode(
-      tm, type, 2, const_cast<void*>(base), dims, strides, box, ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The row modes' launch: N columns and WGS warpgroups of 64 rows a block.

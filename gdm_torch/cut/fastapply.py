@@ -162,13 +162,17 @@ def make_fast_cut_apply(st: StencilOperator, op: CutOperators, pairs,
     return apply
 
 
-def fast_stencil_apply(st: StencilOperator, device="cuda",
-                       dtype=torch.float32):
+def fast_stencil_apply(st: StencilOperator, op=None, kind: str = None,
+                       dt: float = None, inactive_identity: bool = True,
+                       device="cuda", dtype=torch.float32):
     """K1's flat-vector apply of ``st`` for a 2D grid, None otherwise
     (callers keep ``st.apply``), on the card unless ``device="cpu"`` is
-    asked for.  gdm's ``op``, ``kind``, ``dt`` and ``inactive_identity``
-    are left out: gdm reads none of them (the split apply stays opt-in
-    through ``make_fast_cut_apply``)."""
+    asked for.  ``op``, ``kind``, ``dt`` and ``inactive_identity`` take
+    gdm's call forms in gdm's positions, ``fast_stencil_apply(st, op,
+    kind)`` and ``inactive_identity=False``, and have no effect: gdm
+    reads none of them (its split apply stays opt-in through
+    ``make_fast_cut_apply``).  ``op`` and ``kind`` default to None,
+    which gdm's callers never rely on."""
     device = _device.resolve(device)
     if st.grid.dim != 2:
         return None

@@ -219,13 +219,17 @@ class VerifiedSolver:
 
 
 def _streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
-                     abs_tol, layout, device, dtype):
+                     abs_tol, layout, device, dtype, apply_fn=None):
     """The exact-arithmetic (recurrence-honest at working precision)
-    band-CG path: solvers.cg on the padded layout over K1 applies,
-    preconditioned by the band-form Schwarz preconditioner (by the FSAI
-    factors when there are no windows).  Returns
-    solve_with_info(b_pad) -> (x_pad, {"iterations", "residual"})."""
-    apS, _, _ = fast_stencil_bundle(st, device, dtype, layout)
+    band-CG path: solvers.cg on the padded layout over K1 applies (or,
+    when ``apply_fn`` is given, over ``apply_fn`` of the flat node
+    vector, padded back into the layout), preconditioned by the
+    band-form Schwarz preconditioner (by the FSAI factors when there are
+    no windows).  Returns solve_with_info(b_pad) -> (x_pad,
+    {"iterations", "residual"})."""
+    apS, pad_s, unpad_s = fast_stencil_bundle(st, device, dtype, layout)
+    if apply_fn is not None:
+        apS = lambda v: pad_s(apply_fn(unpad_s(v)))  # noqa: E731
     if windows is not None and np.asarray(windows).size:
         pre_pad = fast_stencil_bundle(schwarz_band(st, windows, dtype),
                                       device, dtype, layout)[0]
@@ -244,8 +248,9 @@ def _streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
 
 def verified_fsai_solver(st: StencilOperator, windows=None,
                          max_iter: int = 50, rel_tol: float = 1e-5,
-                         abs_tol: float = 1e-12, R: int = None,
-                         slack: float = 10.0, probe: bool = True,
+                         abs_tol: float = 1e-12, apply_fn=None,
+                         R: int = None, slack: float = 10.0,
+                         probe: bool = True, interpret: bool = False,
                          resident_max_iter: int = None, device="cuda",
                          dtype=torch.float32) -> VerifiedSolver:
     """Self-verifying best solve for an SPD 2D band system.
@@ -264,8 +269,14 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
       residual; on failure the solve is rerun through the streamed path
       from x0 = 0.
 
-    ``resident_max_iter`` cripples the resident path (detection tests).
-    Solves take and return arrays in the solver's ``layout``.
+    The parameters stand in gdm's positional order, ``device`` and
+    ``dtype`` after them.  ``apply_fn``, gdm's operator of the streamed
+    CG, is that CG's operator when given: a function of the flat node
+    vector, run on the layout through its pad and unpad (the resident
+    path stays on the band).  ``interpret`` names gdm's TPU interpreter
+    and has no effect.  ``resident_max_iter`` cripples the resident path
+    (detection tests).  Solves take and return arrays in the solver's
+    ``layout``.
     """
     device = _device.resolve(device)
     rel_f = max(rel_tol, 1e-6)
@@ -273,7 +284,7 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
     G, GT = fsai_factors(st, R)
     layout = layout_for(st.grid, max(st.radius, G.radius))
     streamed = _streamed_solver(st, windows, max_iter, rel_tol, abs_tol,
-                                layout, device, dtype)
+                                layout, device, dtype, apply_fn)
     solve_r, pad_r, _, _ = make_resident_cg(
         st, G, GT,
         max_iter=(resident_max_iter if resident_max_iter is not None

@@ -102,12 +102,15 @@ def _declare(lib):
     lib.gdm_micro_stage1_rows_plan.argtypes = [I] * 6 + [IP]
     for dt in ("f32", "bf16"):
         getattr(lib, f"gdm_micro_relayout_{dt}").argtypes = [
-            P, P, P, I, I, I, I, I, P]
-    lib.gdm_micro_stream_f32.argtypes = [P, P, P, P] + [I] * 10 + [IP, P]
+            P, P, I, I, I, ctypes.c_float, I, I, I, I, I, P]
+    lib.gdm_micro_stream_f32.argtypes = [P, P, P, P] + [I] * 14 + [
+        P, ctypes.c_longlong, P]
+    lib.gdm_micro_sepbuf_f32.argtypes = [P, P, P] + [I] * 7 + [IP, P]
     lib.gdm_micro_auto_f32.argtypes = [P, P, P] + [I] * 7 + [IP, P]
     for fn in ("gdm_micro_stage1_f32", "gdm_micro_stage1_rows_f32",
                "gdm_micro_stage1_rows_plan", "gdm_micro_relayout_f32",
                "gdm_micro_relayout_bf16", "gdm_micro_stream_f32",
+               "gdm_micro_sepbuf_f32",
                "gdm_micro_auto_f32"):
         getattr(lib, fn).restype = I
     lib.gdm_cuda_error_string.argtypes = [I]

@@ -66,6 +66,11 @@ __device__ __forceinline__ long long gdm_gtimer() {
 #define GDM_STAMP_ADD(cond, slot, value) \\
   do { if (cond) GDM_BLOCK_STAMPS[slot] += (value); } while (0)
 #define GDM_CLOCK() clock64()
+__device__ __forceinline__ unsigned gdm_smid() {
+  unsigned r;
+  asm volatile("mov.u32 %%0, %%%%smid;" : "=r"(r));
+  return r;
+}
 """ % (NB, NS, NB, NS)
 
 READER = """
@@ -205,7 +210,8 @@ def report(lib, phases, end, clock, what, ms, ms_stamped):
 
 def run_stamped(lib, fn_name, argtypes, args, check, phases, end, clock,
                 what, ms):
-    """Run the stamped copy's C entry once on ``args``, check its output
+    """Run the stamped copy's C entry once on ``args`` (or on what the
+    callable ``args`` returns at each call), check its output
     (``check()``), time it and print its stamps."""
     import torch
 
@@ -216,7 +222,7 @@ def run_stamped(lib, fn_name, argtypes, args, check, phases, end, clock,
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = fn(*args, stream)
+        err = fn(*(args() if callable(args) else args), stream)
         assert err == 0, (fn_name, err)
 
     run()

@@ -1030,16 +1030,38 @@ def test_stage1_row_plans_reach_every_branch(cuda_device):
     assert picked == {(True, 1), (True, 2), (False, 1), (False, 2)}
 
 
+RELAYOUT_CASES = [((32, 16), 3), ((48, 256), 5), ((100, 70), 1),
+                  ((512, 128), 64)]
+# (shape, steps) of test_relayout_every_plan, run at the card's SMs and at
+# RELAYOUT_FEW_SMS
+RELAYOUT_PLAN_CASES = [((100, 70), 7), ((512, 128), 64)]
+RELAYOUT_FEW_SMS = 3
+
+
 @pytest.mark.parametrize("pad", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,steps", [((32, 16), 3), ((48, 256), 5),
-                                         ((100, 70), 1), ((512, 128), 64)])
+@pytest.mark.parametrize("shape,steps", RELAYOUT_CASES)
 def test_relayout_matches_plain(cuda_device, shape, steps, dtype, pad):
     """M2: x^T exactly, at ragged sub-tiles and both pitches."""
     x = _rand(shape, 21, torch.float32, cuda_device).to(dtype)
     y = _launched_only("M2", lambda: mxu_micro.relayout_apply(x, steps, pad))
     assert y.equal(mxu_micro.relayout_apply_plain(x, steps))
     assert y.equal(x.t())
+
+
+@pytest.mark.parametrize("pad", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,steps", RELAYOUT_PLAN_CASES)
+@pytest.mark.parametrize("sms", [132, RELAYOUT_FEW_SMS])
+def test_relayout_every_plan(cuda_device, shape, steps, dtype, pad, sms):
+    """Every plan of ``relayout_plans`` (each warps a block), at the
+    card's SMs and at RELAYOUT_FEW_SMS (a warp's range then spans several sub-tiles and
+    starts at odd and even steps), gives x^T exactly."""
+    x = _rand(shape, 25, torch.float32, cuda_device).to(dtype)
+    for plan in mxu_micro.relayout_plans(*shape, steps, dtype, sms):
+        y = mxu_micro._launch_relayout_plan(x, steps, pad, plan)
+        torch.cuda.synchronize()
+        assert y.equal(x.t()), plan
 
 
 STREAM_CASES = [(40, 60, 16), (300, 250, 96), (1000, 1000, 96)]
@@ -1071,6 +1093,62 @@ def test_stream_micro_matches_plain(cuda_device, mode, n0, n1, tile_r, nb,
         scale = per * (som.stream_term_scale(u, apply.coef)
                        if mode == "compute" else u.abs().max().item())
         assert (y - yp).abs().max().item() <= 1e-5 * scale
+
+
+# (nb, nsplit) of test_stream_micro_every_plan, run at the card's SMs and
+# at STREAM_FEW_SMS
+STREAM_PLAN_RINGS = [(2, 1), (3, 2)]
+STREAM_FEW_SMS = 2
+
+
+@pytest.mark.parametrize("nb,nsplit", STREAM_PLAN_RINGS)
+@pytest.mark.parametrize("sms", [132, STREAM_FEW_SMS])
+@pytest.mark.parametrize("n0,n1,tile_r", STREAM_CASES)
+@pytest.mark.parametrize("mode", som.MODES)
+def test_stream_micro_every_plan(cuda_device, mode, n0, n1, tile_r, sms, nb,
+                                 nsplit):
+    """Every plan of ``m3_plans`` (strips of 128, 64 and 32 columns) at the
+    card's SMs and at STREAM_FEW_SMS (a block then streams a run of units through its
+    ring, across strips) against the twin at the plan's strip: "dma" and
+    "dma_out" exactly, "both" within 1e-6 of the sum of |terms|, the
+    sinks within 1e-5 of theirs."""
+    apply, shape, _ = som.make_micro(mode, n0, n1, tile_r, nb=nb,
+                                     nsplit=nsplit, device=cuda_device)
+    u = _rand(shape, 26, torch.float32, cuda_device)
+    for plan in som.m3_plans(n0, n1, tile_r, 7, nb, nsplit, sms):
+        g = dataclasses.replace(apply.geom, sw=plan.sw)
+        y = som._launch_m3_plan(u, apply.coef, g, mode, plan)
+        yp = som.stream_micro_plain(u, apply.coef, g, mode)
+        torch.cuda.synchronize()
+        assert y.shape == yp.shape, plan
+        err = (y - yp).abs().max().item()
+        if mode in ("dma", "dma_out"):
+            assert err == 0.0, plan
+        elif mode == "both":
+            assert err <= 1e-6 * som.stream_term_scale(u, apply.coef), plan
+        else:
+            scale = g.tile_r * g.sw * (
+                som.stream_term_scale(u, apply.coef) if mode == "compute"
+                else u.abs().max().item())
+            assert err <= 1e-5 * scale, plan
+
+
+@pytest.mark.parametrize("mode", ["both", "dma"])
+def test_stream_micro_deepest_ring(cuda_device, mode):
+    """The deepest ring the plan takes, nb = 8 slots of nsplit = 8 box
+    chunks each (72 mbarriers), at 300 x 250: the plan's shared memory is
+    the kernel's layout, and the outputs are the twin's."""
+    apply, shape, _ = som.make_micro(mode, 300, 250, 96, nb=8, nsplit=8,
+                                     device=cuda_device)
+    u = _rand(shape, 27, torch.float32, cuda_device)
+    y = _launched_only("M3", lambda: apply(u))
+    yp = som.stream_micro_plain(u, apply.coef, apply.geom, mode)
+    torch.cuda.synchronize()
+    if mode == "dma":
+        assert y.equal(yp)
+    else:
+        scale = som.stream_term_scale(u, apply.coef)
+        assert (y - yp).abs().max().item() <= 1e-6 * scale
 
 
 # M4's units are whole rows: Rp = 48, 384, 1056 and 1089 rows (W2 = 128,

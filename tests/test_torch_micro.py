@@ -229,10 +229,12 @@ def test_sepbuf_micro_matches_gdm():
 
 def test_micro_geometry():
     """gdm's padded shapes and the card's strips: a 4096^2 tile of 96 rows
-    goes in strips of 64 columns at nb = 2 and 3."""
+    goes in strips of 128 columns at nb = 2 and 3 (m3_plan), 1024^2 in
+    strips of 64."""
     for nb in (2, 3):
-        _, shape, n_dof = som.make_micro("both", nb=nb, device="cpu")
+        ap, shape, n_dof = som.make_micro("both", nb=nb, device="cpu")
         assert shape == (4096 + 32 + 16, 4224) and n_dof == 4096**2
+        assert ap.geom.sw == ap.plan.sw == 128
     grid = Grid(3, (1024, 1024), (0.0, 0.0), (1.0, 1.0))
     _, shape = mxu_micro.make_stage1_micro(grid, "full", "cpu")
     assert shape == (1280 + 16, 1152)       # 1025 nodes in 256-row tiles
@@ -242,7 +244,7 @@ def test_micro_geometry():
 @pytest.mark.parametrize("call", [
     lambda: som.make_micro("both", K=9, device="cpu"),
     lambda: som.make_micro("both", nb=1, device="cpu"),
-    lambda: som.make_micro("both", nb=5, nsplit=4, device="cpu"),
+    lambda: som.make_micro("both", nb=3, nsplit=9, device="cpu"),
     lambda: som.make_micro("nope", device="cpu"),
     lambda: som.make_micro("both", tile_r=2000, nb=4, device="cpu"),
     lambda: som.make_auto_micro("dma_in", device="cpu"),

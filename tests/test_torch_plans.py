@@ -1,7 +1,8 @@
 """The launch plans of K5 (``stencil3.k5_plan``), K3
 (``stencil2.k3_plan``), K1 (``cutband.k1_plan``), K3s
-(``stencil2.k3s_plan``) and K4 (``stencil3.k4_plan``), on the CPU: no
-card is needed.
+(``stencil2.k3s_plan``), K4 (``stencil3.k4_plan``), M2
+(``mxu_micro.relayout_plan``) and M3 (``stream_overlap_micro.m3_plan``),
+on the CPU: no card is needed.
 
 Each plan cuts the node array into boxes (K5) or tiles (K3), one block
 each, by an even split of every axis; the kernels recompute the same
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 import test_torch_cuda as card
+from gdm_torch.benchmarks import mxu_micro, stream_overlap_micro as som
 from gdm_torch.ops import cutband, stencil2, stencil3
 
 DTYPES = [torch.float32, torch.float64]
@@ -540,3 +542,268 @@ def test_k4_card_cases_reach_every_branch():
                for pl, n, _ in plans)
     assert {pl.grid[2] > 1 for pl, _, _ in plans} == {True, False}
     assert {t is None for _, _, t in plans} == {True, False}
+
+
+# ---- M2 ---------------------------------------------------------------------
+
+RELAYOUT_DTYPES = [torch.float32, torch.bfloat16]
+# chip_smoke.py's shapes at 4096 steps, and the card tests' cases
+RELAYOUT_PLAN_CASES = (
+    [(shape, 4096, sms) for shape in [(512, 128), (128, 128), (1024, 128),
+                                      (512, 256), (48, 256)]
+     for sms in (SM,)]
+    + [(shape, steps, SM) for shape, steps in card.RELAYOUT_CASES]
+    + [(shape, steps, sms) for shape, steps in card.RELAYOUT_PLAN_CASES
+       for sms in (SM, card.RELAYOUT_FEW_SMS)])
+
+
+def _relayout_ids(cases):
+    return [f"{r}x{c}-{steps}-sm{sms}" for (r, c), steps, sms in cases]
+
+
+def _relayout_ranges(plan, steps):
+    """The steps [lo, hi) of each warp, warp-major within each block, as
+    micro_relayout.cu cuts the n_sub x steps of the tile: in pairs of
+    steps where steps is even."""
+    n = plan.blocks * plan.warps
+    pair = 2 if steps % 2 == 0 else 1
+    total = plan.n_sub * steps // pair
+    w = np.arange(n + 1, dtype=np.int64)
+    edges = pair * (w * total // n)
+    return edges[:-1], edges[1:]
+
+
+@pytest.mark.parametrize("dtype", RELAYOUT_DTYPES)
+@pytest.mark.parametrize("shape,steps,sms", RELAYOUT_PLAN_CASES,
+                         ids=_relayout_ids(RELAYOUT_PLAN_CASES))
+def test_relayout_plan_covers_every_step_once(shape, steps, sms, dtype):
+    """The sub-tiles cover the tile, and the warps' ranges cover every
+    (sub-tile, step) once, each range at least one step; so exactly one
+    warp runs each sub-tile's last step and stores its part of y."""
+    plans = mxu_micro.relayout_plans(*shape, steps, dtype, sms)
+    plans.append(mxu_micro.relayout_plan(*shape, steps, dtype, sms))
+    for plan in plans:
+        e = plan.edge
+        assert e * plan.edge * torch.empty(0, dtype=dtype).element_size() \
+            == e * 128
+        assert (plan.sub_rows - 1) * e < shape[0] <= plan.sub_rows * e
+        assert (plan.sub_cols - 1) * e < shape[1] <= plan.sub_cols * e
+        lo, hi = _relayout_ranges(plan, steps)
+        assert lo[0] == 0 and hi[-1] == plan.n_sub * steps
+        assert (lo[1:] == hi[:-1]).all() and (hi > lo).all()
+        lasts = np.arange(1, plan.n_sub + 1) * steps - 1
+        owners = ((lo[None, :] <= lasts[:, None])
+                  & (lasts[:, None] < hi[None, :])).sum(axis=1)
+        assert (owners == 1).all()
+
+
+@pytest.mark.parametrize("dtype", RELAYOUT_DTYPES)
+@pytest.mark.parametrize("shape,steps,sms", RELAYOUT_PLAN_CASES,
+                         ids=_relayout_ids(RELAYOUT_PLAN_CASES))
+def test_relayout_plan_equal_work_on_every_sm(shape, steps, sms, dtype):
+    """One block an SM while there is a step (pair) for each warp, every
+    block the same warps, and the blocks' steps differ by at most one
+    step (pair) a warp: every SM gets the same work.  The default plan's
+    shared memory admits one block an SM."""
+    plan = mxu_micro.relayout_plan(*shape, steps, dtype, sms)
+    pair = 2 if steps % 2 == 0 else 1
+    total = plan.n_sub * steps // pair
+    assert plan.blocks == min(sms, total // plan.warps)
+    lo, hi = _relayout_ranges(plan, steps)
+    per_block = (hi - lo).reshape(plan.blocks, plan.warps).sum(axis=1)
+    assert per_block.max() - per_block.min() <= pair * plan.warps
+    if pair == 2:
+        assert (lo % 2 == 0).all()
+    assert plan.smem == 2 * plan.warps * plan.edge * 128 <= som.SMEM_MAX
+    if plan.warps == mxu_micro.RELAYOUT_WARPS[dtype]:
+        assert 2 * (plan.smem + 1024) > som.SMEM_SM
+
+
+def test_relayout_plan_at_gdms_shape():
+    """(512, 128) float32, 4096 steps: 64 sub-tiles of 32 x 32, 132
+    blocks of 16 warps, 124 or 126 steps a warp (62 or 63 pairs); bf16
+    16 sub-tiles of 64 x 64, 132 blocks of 8 warps."""
+    plan = mxu_micro.relayout_plan(512, 128, 4096, torch.float32)
+    assert plan == mxu_micro.RelayoutPlan(32, 16, 4, 16, 132, 131072)
+    lo, hi = _relayout_ranges(plan, 4096)
+    assert set(hi - lo) == {124, 126}
+    plan = mxu_micro.relayout_plan(512, 128, 4096, torch.bfloat16)
+    assert plan == mxu_micro.RelayoutPlan(64, 8, 2, 8, 132, 131072)
+
+
+def test_relayout_card_cases_reach_every_branch():
+    """The card tests' plans take both sub-tile edges, fewer warps than
+    the default (fewer steps than warps) and the default, fewer blocks
+    than SMs and one an SM, warps whose range crosses into a second
+    sub-tile, and ranges that start at an odd and at an even step."""
+    seen = set()
+    for dtype in RELAYOUT_DTYPES:
+        cases = [(shape, steps, SM, None) for shape, steps in
+                 card.RELAYOUT_CASES]
+        cases += [(shape, steps, sms, w) for shape, steps in
+                  card.RELAYOUT_PLAN_CASES
+                  for sms in (SM, card.RELAYOUT_FEW_SMS)
+                  for w in [pl.warps for pl in mxu_micro.relayout_plans(
+                      *shape, steps, dtype, sms)]]
+        for shape, steps, sms, w in cases:
+            plan = mxu_micro.relayout_plan(*shape, steps, dtype, sms, w)
+            lo, hi = _relayout_ranges(plan, steps)
+            seen.add(("edge", plan.edge))
+            seen.add(("warps capped", plan.warps < (
+                w or mxu_micro.RELAYOUT_WARPS[dtype])))
+            seen.add(("blocks", plan.blocks == sms))
+            seen.add(("crosses", bool(((lo // steps) != ((hi - 1) // steps))
+                                      .any())))
+            seen |= {("odd start", bool(o)) for o in set(lo % steps % 2)}
+    assert seen == {("edge", 32), ("edge", 64), ("warps capped", True),
+                    ("warps capped", False), ("blocks", True),
+                    ("blocks", False), ("crosses", True),
+                    ("crosses", False), ("odd start", True),
+                    ("odd start", False)}
+
+
+# ---- M3 ---------------------------------------------------------------------
+
+M3_RINGS = [(2, 1), (3, 1), (2, 2), (3, 2), (4, 8)]
+M3_CASES = ([(n, n, 96, k, nb, ns, SM) for n in (1024, 4096)
+             for k in (3, 5, 7) for nb, ns in M3_RINGS]
+            + [(n0, n1, t, 7, nb, ns, SM) for n0, n1, t in card.STREAM_CASES
+               for nb, ns in [(2, 1), (2, 2), (3, 1), (3, 2)]]
+            + [(n0, n1, t, 7, nb, ns, sms) for n0, n1, t in card.STREAM_CASES
+               for nb, ns in card.STREAM_PLAN_RINGS
+               for sms in (SM, card.STREAM_FEW_SMS)])
+
+
+def _m3_ids(cases):
+    return [f"{n0}x{n1}-t{t}-K{k}-nb{nb}-ns{ns}-sm{sms}"
+            for n0, n1, t, k, nb, ns, sms in cases]
+
+
+def _m3_units(plan, n_tiles):
+    """Each block's units as (tile, strip) in m3_kernel's fixed split
+    ("compute", "dma_out"): [b U // G, (b + 1) U // G), strip-major.  The
+    copying modes draw the same U units from a ticket counter, each
+    once."""
+    g, u = plan.blocks, plan.units
+    return [[(x % n_tiles, x // n_tiles)
+             for x in range(b * u // g, (b + 1) * u // g)]
+            for b in range(g)]
+
+
+@pytest.mark.parametrize("n0,n1,tile_r,k,nb,nsplit,sms", M3_CASES,
+                         ids=_m3_ids(M3_CASES))
+def test_m3_plan_covers_every_unit_once(n0, n1, tile_r, k, nb, nsplit, sms):
+    """Simulates m3_kernel's split for every plan of m3_plans: each
+    block's units, each unit's consumer columns, output rows of its row
+    groups and slot rows.  Every output (row, column) of y is written by
+    exactly one thread, and every slot row lies inside u."""
+    for plan in som.m3_plans(n0, n1, tile_r, k, nb, nsplit, sms):
+        g = som._geometry(n0, n1, tile_r, k, sw=plan.sw)
+        assert plan.n_strips * plan.sw == g.w2
+        assert plan.units == g.n_tiles * plan.n_strips
+        assert plan.threads == plan.sw * plan.groups + 32 <= 544
+        # thread c + sw q: column c, output rows [o0[q], o1[q]) of a tile
+        count = np.zeros((g.rp, g.w2), np.int32)
+        q = np.arange(plan.groups)
+        o0, o1 = q * tile_r // plan.groups, (q + 1) * tile_r // plan.groups
+        assert (o1 > o0).all()
+        for units in _m3_units(plan, g.n_tiles):
+            assert units
+            for t, s in units:
+                for a, b in zip(o0, o1):
+                    count[t * tile_r + a:t * tile_r + b,
+                          s * plan.sw:(s + 1) * plan.sw] += 1
+                top = t * tile_r + som.H - g.p
+                assert top >= 0 and top + plan.rows <= g.r_ext
+        assert (count == 1).all()
+        assert plan.rows == tile_r + 2 * g.p
+        assert (plan.box_rows, plan.nbox) == som.m3_boxes(plan.rows, nsplit)
+
+
+@pytest.mark.parametrize("n0,n1,tile_r,k,nb,nsplit,sms", M3_CASES,
+                         ids=_m3_ids(M3_CASES))
+def test_m3_plan_fits_and_is_the_least_modelled(n0, n1, tile_r, k, nb,
+                                                nsplit, sms):
+    """Every plan's shared memory fits a block and its blocks are
+    resident at once (shared memory and threads of an SM), at most one a
+    unit; m3_plan is the plan of least modelled cost."""
+    plans = som.m3_plans(n0, n1, tile_r, k, nb, nsplit, sms)
+    for pl in plans:
+        assert pl.smem <= som.SMEM_MAX
+        per_sm = -(-pl.blocks // sms)
+        assert per_sm * (pl.smem + 1024) <= som.SMEM_SM
+        assert per_sm * pl.threads <= 2048
+        assert pl.blocks <= pl.units
+    best = som.m3_plan(n0, n1, tile_r, k, nb, nsplit, sms)
+    assert som.m3_plan_cost(best, sms) == min(som.m3_plan_cost(pl, sms)
+                                              for pl in plans)
+
+
+def test_m3_smem_matches_the_kernel_layout():
+    """m3_smem against m3_kernel's layout by hand: nb = 2, nsplit = 1:
+    2 + 2 + 2 mbarriers (48 bytes), 128 bytes of scratch and 32 of slot
+    units in 256 bytes, two slots of 104 rows of 136 floats (56,576
+    bytes, a multiple of 128); nb = 8, nsplit = 4: 48 mbarriers, 544
+    bytes in 640, slots of 24 rows of 40 floats; 33 rows of 40 floats
+    round up to 5,376 bytes."""
+    assert som.m3_smem(2, 1, 104, 128) == 256 + 2 * 104 * 136 * 4
+    assert som.m3_smem(8, 4, 24, 32) == 640 + 8 * 24 * 40 * 4
+    assert som.m3_smem(2, 1, 33, 32) == 256 + 2 * 5376
+
+
+@pytest.mark.parametrize("rows", [3, 9, 22, 102, 106, 606, 1030])
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 4, 8])
+def test_m3_boxes_cover_a_unit(rows, nsplit):
+    """A unit's boxes: 4 to 256 rows each, a multiple of 4 (a box starts
+    128-byte aligned at every pitch), covering its rows with less than a
+    box to spare, at least one box a chunk; or a refusal where nsplit
+    asks for more chunks than 4-row boxes."""
+    boxes = som.m3_boxes(rows, nsplit)
+    if boxes is None:
+        assert nsplit > -(-rows // 4)
+        return
+    box_rows, nbox = boxes
+    assert 4 <= box_rows <= 256 and box_rows % 4 == 0
+    assert (nbox - 1) * box_rows < rows <= nbox * box_rows
+    chunks = [(c + 1) * nbox // nsplit - c * nbox // nsplit
+              for c in range(nsplit)]
+    assert min(chunks) >= 1 and sum(chunks) == nbox
+    for sw in som.M3_STRIPS:
+        assert box_rows * (sw + 8) * 4 % 128 == 0
+
+
+def test_m3_plan_at_the_bench_shapes():
+    """gdm's 4096^2 (tile_r 96, nb 2) in strips of 128 columns: 1419
+    units over 264 blocks, two an SM, of two row groups; 1024^2 in
+    strips of 64, one unit a block."""
+    pl = som.m3_plan(4096, 4096, 96, 7)
+    assert (pl.sw, pl.groups, pl.units, pl.blocks, pl.threads) == (
+        128, 2, 1419, 264, 288)
+    pl = som.m3_plan(1024, 1024, 96, 7)
+    assert (pl.sw, pl.units, pl.blocks) == (64, 198, 198)
+
+
+def test_m3_card_cases_reach_every_branch():
+    """The card tests' M3 plans take every row groups of M3_GROUPS, every
+    strip of M3_STRIPS, one strip over all of W2 (both halos wrap in one row) and
+    several, blocks of one unit and of several, and a block whose units
+    span two strips."""
+    seen = set()
+    for n0, n1, t in card.STREAM_CASES:
+        for nb, ns in card.STREAM_PLAN_RINGS:
+            for sms in (SM, card.STREAM_FEW_SMS):
+                for pl in som.m3_plans(n0, n1, t, 7, nb, ns, sms):
+                    n_tiles = pl.units // pl.n_strips
+                    blocks = _m3_units(pl, n_tiles)
+                    seen.add(("groups", pl.groups))
+                    seen.add(("sw", pl.sw))
+                    seen.add(("one strip", pl.n_strips == 1))
+                    seen.add(("units a block",
+                              any(len(b) > 1 for b in blocks)))
+                    seen.add(("two strips", any(len({s for _, s in b}) > 1
+                                                for b in blocks)))
+    assert seen == {("groups", 1), ("groups", 2), ("groups", 4), ("sw", 32),
+                    ("sw", 64), ("sw", 128), ("one strip", True),
+                    ("one strip", False), ("units a block", True),
+                    ("units a block", False), ("two strips", True),
+                    ("two strips", False)}

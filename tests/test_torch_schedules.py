@@ -375,3 +375,106 @@ def test_gdm_builder_keywords_refused(call, match):
     reason, never TypeError."""
     with pytest.raises(ValueError, match=match):
         call()
+
+
+# ---- gdm's call forms of fast_stencil_apply and verified_fsai_solver ------
+
+@pytest.fixture(scope="module")
+def cut_mass24():
+    """The flagship's 24^2 cut mass (the disc of radius 1), with its cut
+    operators and Schwarz windows."""
+    gc = Grid(3, (24, 24), (-1.21, -1.21), (1.21, 1.21))
+    geo = CutGeometry.build(gc, lambda m: np.sqrt(sum(x**2 for x in m))
+                            - 1.0, 3)
+    op = CutOperators(geo, INSIDE)
+    return op, assemble_stencil(op, "mass", 0.25 * np.sqrt(3.0))
+
+
+@pytest.mark.parametrize("form", ["positional", "inactive_identity",
+                                  "all of gdm's"])
+def test_fast_stencil_apply_takes_gdms_call_forms(cut_mass24, form):
+    """gdm's callers' forms, fast_stencil_apply(st, op, "mass") and
+    inactive_identity=False, return K1's plain apply, equal to the
+    port's own keyword form: the four gdm arguments change nothing."""
+    op, st = cut_mass24
+    ref = fastapply.fast_stencil_apply(st, device="cpu", dtype=F64)
+    if form == "positional":
+        apply = fastapply.fast_stencil_apply(st, op, "mass", device="cpu",
+                                             dtype=F64)
+    elif form == "inactive_identity":
+        apply = fastapply.fast_stencil_apply(st, op, "mass",
+                                             inactive_identity=False,
+                                             device="cpu", dtype=F64)
+    else:
+        apply = fastapply.fast_stencil_apply(st, op, "mass", 0.01, False,
+                                             device="cpu", dtype=F64)
+    u = torch.as_tensor(np.random.default_rng(61).standard_normal(
+        st.grid.n_nodes))
+    before = cutband.band_apply.launches
+    assert apply(u).equal(ref(u))
+    np.testing.assert_allclose(apply(u).numpy(), st.apply(u).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    assert cutband.band_apply.launches == before
+
+
+def test_verified_fsai_solver_takes_gdms_positional_order():
+    """gdm's order (st, windows, max_iter, rel_tol, abs_tol, apply_fn, R,
+    slack, probe, interpret, resident_max_iter): the sixth positional
+    argument is apply_fn, not R, and device and dtype come last."""
+    names = list(inspect.signature(fsai.verified_fsai_solver).parameters)
+    assert names == ["st", "windows", "max_iter", "rel_tol", "abs_tol",
+                     "apply_fn", "R", "slack", "probe", "interpret",
+                     "resident_max_iter", "device", "dtype"]
+
+
+def _counted(fn):
+    def apply(u):
+        apply.calls += 1
+        return fn(u)
+    apply.calls = 0
+    return apply
+
+
+@pytest.mark.parametrize("positional", [False, True])
+def test_verified_fsai_solver_streamed_cg_runs_apply_fn(cut_mass24,
+                                                        positional):
+    """apply_fn is the operator of the streamed fallback's CG: with the
+    resident path crippled (as tests/test_torch_verified.py does), every
+    solve goes to the streamed CG, which calls apply_fn; an apply_fn of
+    twice the mass halves the answer.  interpret=False is taken.  The
+    sixth positional argument lands in apply_fn."""
+    op, st = cut_mass24
+    kw = dict(max_iter=200, rel_tol=1e-6, interpret=False,
+              resident_max_iter=1, device="cpu", dtype=F64)
+    b = torch.as_tensor(np.random.default_rng(62).standard_normal(
+        st.grid.n_nodes))
+    plain = fsai.verified_fsai_solver(st, op.w_cut, **kw)
+    assert plain.path == "streamed"
+    x_plain = plain.layout.unpad(plain(plain.layout.pad(b)))
+    k1 = fastapply.fast_stencil_apply(st, device="cpu", dtype=F64)
+    twice = _counted(lambda u: 2.0 * k1(u))
+    if positional:
+        vs = fsai.verified_fsai_solver(
+            st, op.w_cut, kw.pop("max_iter"), kw.pop("rel_tol"), 1e-12,
+            twice, **kw)
+    else:
+        vs = fsai.verified_fsai_solver(st, op.w_cut, apply_fn=twice, **kw)
+    assert vs.path == "streamed" and twice.calls == 0
+    x, info = vs.solve_with_info(vs.layout.pad(b))
+    assert info["fallback"] is False and twice.calls >= info["iterations"] > 0
+    x = vs.layout.unpad(x)
+    assert _rel(2.0 * x, x_plain) <= 1e-12
+
+
+def test_verified_fsai_solver_resident_path_ignores_apply_fn(cut_mass24):
+    """The resident path stays on the band: a healthy solve never calls
+    apply_fn."""
+    op, st = cut_mass24
+    twice = _counted(lambda u: 2.0 * st.apply(u))
+    vs = fsai.verified_fsai_solver(st, op.w_cut, 60, 1e-5, apply_fn=twice,
+                                   interpret=False, device="cpu", dtype=F64)
+    assert vs.path == "resident-verified"
+    n = st.grid.n_nodes
+    vs(vs.layout.pad(torch.as_tensor(
+        np.random.default_rng(63).standard_normal(n))))
+    assert twice.calls == 0 and vs.fallback_count == 0
