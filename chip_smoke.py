@@ -52,7 +52,9 @@ Run from the repository root:  python3 chip_smoke.py
    and 4096^2 p=3 in float32 (max error <= 1e-5 of max|y|) and at
    1024^2 p=3 in float64 (<= 1e-12), each timed in turns against K3
    (K3, K3x, K3x, K3): device and per-call times, GB/s at 8 B per node
-   (16 in float64); torch.matmul of the dense column coupling
+   (16 in float64); K3f also at 257 x 1024 .. 1027 nodes (every
+   residue of N1 mod 4) in float32 and float64, the same limits;
+   torch.matmul of the dense column coupling
    U [A1^T | B1^T] at 1024^2 alone (the yardstick for the column stage
    only); then each once through its public make_padded_laplace2_*
    builder at 1024^2, the launch counts reset just before: its own
@@ -78,9 +80,10 @@ Run from the repository root:  python3 chip_smoke.py
    twin at 1024^2 p=3, p=5 and 4096^2 p=3 in float32 (max error <= 1e-5
    of max|y| for K3/mxu and K0, <= 1e-4 for the bf16x3 modes), with four
    band factors for the three K3 modes, and at 1024^2 p=3 in float64
-   (<= 1e-12), each timed in turns against K3 (K3, X, X, K3);
-   torch.matmul of the dense row coupling [A0 | B0] [V; W] at 1024^2
-   alone (the yardstick for the row stage only); then, the launch
+   (<= 1e-12), each timed in turns against K3 (K3, X, X, K3); K0 also
+   at 257 x 1024 .. 1027 nodes (every residue of N1 mod 4) in float32
+   and float64; torch.matmul of the dense row coupling [A0 | B0] [V; W]
+   at 1024^2 alone (the yardstick for the row stage only); then, the launch
    counts reset before each, make_padded_laplace2(rows=r) for every r,
    best_padded_laplace with rows=None (K3) and rows="mxu3p", and K0's
    make_padded_laplace: each its own kernel once and nothing else;
@@ -419,6 +422,38 @@ def levels_vs_plain(sysf, dev, dtype, tag):
     return worst, names, rows
 
 
+def residues(rng, dev, kname, fn):
+    """K3f or K0 (``fn``, its wrapper) against K3's plain twin at N1 =
+    1024 .. 1027 columns (every residue of a row's start mod 16 bytes),
+    257 rows (a ragged last row unit), float32 (<= 1e-5 of max|y|) and
+    float64 (<= 1e-12); returns the largest float32 max abs error."""
+    import torch
+
+    from gdm_torch.grid import Grid
+    from gdm_torch.ops import stencil2
+
+    worst = 0.0
+    for n1 in (1024, 1025, 1026, 1027):
+        grid = Grid(3, (256, n1 - 1), (0.0, 0.0), (1.0, 1.0))
+        for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            bt = stencil2.laplace2_bands(grid, dev, dt)
+            u = torch.as_tensor(rng.standard_normal(grid.nodes), dtype=dt,
+                                device=dev)
+            yk = fn(u, bt)
+            yp = stencil2.laplace2_apply_plain(u, bt)
+            torch.cuda.synchronize()
+            err = (yk - yp).abs().max().item()
+            rel = err / yp.abs().max().item()
+            check(rel <= tol, f"{kname} at 257 x {n1}, {str(dt)[6:]}: max "
+                  f"error {rel:.3e} of max|y| (limit {tol:g})")
+            if dt == torch.float32:
+                worst = max(worst, err)
+    print(f"{kname} at 257 x 1024 .. 1027 nodes (N1 mod 4 = 0 .. 3), "
+          f"float32 and float64: within the limits (float32 max abs err "
+          f"{worst:.3e})")
+    return worst
+
+
 def tc_wrappers():
     """The wrappers of the 2D Laplace's tensor-core schedules by kernel."""
     from gdm_torch.ops import stencil2
@@ -550,6 +585,7 @@ def row_phase(rng, dev, g2, g4096, four):
             if name == "1024^2 p=3":
                 ms_at[kname] = ms
         del u, yp, bt
+    err_max["K0"] = max(err_max["K0"], residues(rng, dev, "K0", rw["K0"]))
     # the yardstick for the row stage alone: one dense product by the
     # whole row coupling [A0 | B0] of the stacked column-stage outputs
     bt = stencil2.laplace2_bands(g2[3], dev, f32)
@@ -1687,6 +1723,8 @@ def main():
             if name == "1024^2 p=3":
                 tc_ms[kname] = ms
         del u, yp, bt
+    tc_err["K3f"] = max(tc_err["K3f"],
+                        residues(rng, dev, "K3f", tc["K3f"]))
     # the yardstick for the column stage alone: one dense product by the
     # whole column coupling [A1^T | B1^T]
     bt = stencil2.laplace2_bands(g2[3], dev, f32)

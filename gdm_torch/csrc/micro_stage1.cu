@@ -78,11 +78,16 @@
 #include "common.cuh"
 #include "tc_window.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using gdm::tensor_map_2d;
 using gdm::tma_load_2d;
+using gdm::wg::sw128_desc;
+using gdm::wg::wgmma_commit;
+using gdm::wg::wgmma_fence;
+using gdm::wg::wgmma_wait;
 
 using gdm::tc::bf16;
 
@@ -177,131 +182,6 @@ constexpr int U_STAGES = 6;     // u slots in the ring
 constexpr int U_ROWS = 16;      // u rows a slot
 constexpr int A_TILE = 64 * 64 * 2;   // one warpgroup's table stage, bytes
 constexpr int SMEM_ALIGN = 1024;      // a 128-byte swizzle's repeat
-
-// wgmma m64nNk16, bf16 from shared memory (both k-major), float32
-// accumulators in registers: d += a . b.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<32> {
-  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(da), "l"(db), "n"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "n"(1));
-  }
-};
-
-template <>
-struct Wgmma<96> {
-  __device__ __forceinline__ static void mma(float (&d)[48], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(da), "l"(db), "n"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "n"(1));
-  }
-};
-
-// A shared-memory matrix descriptor of a k-major operand in 128-byte
-// swizzled rows (8 rows of 128 bytes an atom, atoms 1024 bytes apart).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
-               : "memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(bf16 a, bf16 b) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
@@ -452,7 +332,7 @@ stage1_rows_tma_kernel(const __grid_constant__ CUtensorMap tm_h,
         }
       }
       // the generic-proxy stores before wgmma's async-proxy reads
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      gdm::wg::fence_async_smem();
       __syncwarp();
       if (lane == 0) {
         gdm::bar_arrive(empty_u + st);
@@ -502,10 +382,10 @@ stage1_rows_tma_kernel(const __grid_constant__ CUtensorMap tm_h,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         if (kk < ks) {
-          Wgmma<N>::mma(acc, sw128_desc(a_st + 32 * kk),
+          gdm::wg::WgmmaBf16<N>::mma(acc, sw128_desc(a_st + 32 * kk),
                         sw128_desc(b_hi + 32 * kk));
           if (bh) {
-            Wgmma<N>::mma(acc, sw128_desc(a_st + 32 * kk),
+            gdm::wg::WgmmaBf16<N>::mma(acc, sw128_desc(a_st + 32 * kk),
                           sw128_desc(b_lo + 32 * kk));
           }
         }
@@ -519,8 +399,7 @@ stage1_rows_tma_kernel(const __grid_constant__ CUtensorMap tm_h,
       }
     }
     wgmma_wait<0>();
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) asm volatile("" : "+f"(acc[e])::"memory");
+    gdm::wg::hold(acc);
 
     // the epilogue: the accumulators through shared memory (over the table
     // ring and the panels, once every warpgroup's products are done), then

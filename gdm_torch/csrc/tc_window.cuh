@@ -1,9 +1,10 @@
 // The tensor-core band-window product and the tile stages shared by the
-// 2D Laplace schedules K3c, K3f, K3h and K3p (laplace2_mxucol.cu,
-// laplace2_fullmxu.cu, laplace2_hybrid.cu, laplace2_hybp.cu), K3's
-// tensor-core row modes K3/mxu, K3/mxu3 and K3/mxu3p
-// (laplace2_mxurows.cu, laplace2_mxu3p.cu) and K0 (laplace2_v1.cu), and
-// the 3xTF32 split that K5 (laplace3_mxu.cu) uses too.
+// 2D Laplace schedules K3c, K3h and K3p (laplace2_mxucol.cu,
+// laplace2_hybrid.cu, laplace2_hybp.cu) and K3's tensor-core row modes
+// K3/mxu, K3/mxu3 and K3/mxu3p (laplace2_mxurows.cu, laplace2_mxu3p.cu),
+// the float64 DMMA products of K3f and K0 (laplace2_fullmxu.cu,
+// laplace2_v1.cu; their float32 paths are tc_stage.cuh's), and the
+// 3xTF32 split that K5 (laplace3_mxu.cu) uses too.
 //
 // All of them compute K3's operator  y = A0 U A1^T + B0 U B1^T  from K3's
 // (N_d, 2p+1) row-major band tables (band[a][k] = entry (a, a+k-p), zero
@@ -24,11 +25,11 @@
 // form of the column stage (col_fma), which reads its coefficients from
 // the diagonals of C.
 //
-// Row stage as a window product (K3f, K3/mxu, K3/mxu3, K3/mxu3p; K0
-// takes it first): y_tile = A0w . V + B0w . W, where A0w and B0w are the
-// tile's rnd(tile_r, 16) x m windows of A0 and B0 (gdm's Bcat, split in
-// two so that V and W stay side by side as the column stage leaves them),
-// each entry taken from its own row's band.
+// Row stage as a window product (K3/mxu, K3/mxu3, K3/mxu3p): y_tile =
+// A0w . V + B0w . W, where A0w and B0w are the tile's rnd(tile_r, 16) x m
+// windows of A0 and B0 (gdm's Bcat, split in two so that V and W stay
+// side by side as the column stage leaves them), each entry taken from
+// its own row's band.
 //
 // Precision: float32 products run as 3xTF32 on the tensor cores (each
 // operand split into hi = tf32(x) and lo = tf32(x - hi); lo.hi + hi.lo +
@@ -96,11 +97,8 @@ struct Tile {
   __host__ __device__ int c_elems() const { return rnd(KD * LDV, 32); }
   __host__ __device__ int vw_elems() const { return rnd(m * LDV, 32); }
   __host__ __device__ int r_elems() const { return rnd(2 * tile_r * K, 32); }
-  // K3f's row windows [A0 | B0]: rnd(tile_r, 16) rows of pitch m + 4
+  // the row windows' pitch: m + 4
   __host__ __device__ int ldw() const { return m + 4; }
-  __host__ __device__ int w_elems() const {
-    return rnd(2 * rnd(tile_r, 16) * ldw(), 32);
-  }
 };
 
 // hi = tf32(x), lo = tf32(x - hi), element by element: the two fragments

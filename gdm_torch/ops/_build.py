@@ -75,12 +75,15 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_laplace2_stream_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P] + [I] * 6 + [P]
         fn.restype = I
-        for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_fullmxu", 1),
-                           ("laplace2_hybrid", 2), ("laplace2_hybp", 2),
-                           ("laplace2_mxu", 1), ("laplace2_mxu3", 1),
-                           ("laplace2_mxu3p", 1), ("laplace2_v1", 1)):
+        for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_hybrid", 2),
+                           ("laplace2_hybp", 2), ("laplace2_mxu", 1),
+                           ("laplace2_mxu3", 1), ("laplace2_mxu3p", 1)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
+            fn.restype = I
+        for k, n_tabs in (("laplace2_fullmxu", 3), ("laplace2_v1", 4)):
+            fn = getattr(lib, f"gdm_{k}_apply_{dt}")
+            fn.argtypes = [P] * (n_tabs + 2) + [I] * 6 + [P]
             fn.restype = I
         for k, n_extra in (("laplace3", 5), ("laplace3_mxu", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
@@ -89,6 +92,10 @@ def _declare(lib):
             fn.restype = I
     IP = ctypes.POINTER(I)
     for k in ("laplace2", "laplace3_mxu"):
+        fn = getattr(lib, f"gdm_{k}_occupancy")
+        fn.argtypes = [I, I, IP]
+        fn.restype = I
+    for k in ("laplace2_fullmxu", "laplace2_v1"):
         fn = getattr(lib, f"gdm_{k}_occupancy")
         fn.argtypes = [I, I, IP]
         fn.restype = I

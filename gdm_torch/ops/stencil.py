@@ -7,10 +7,12 @@ and ``laplace_2d_pallas_fn``, here ``laplace_2d_fn``.  Nothing in gdm
 calls either beyond its builder; K3 (gdm_torch/ops/stencil2.py) computes
 the same operator columns first.  The CUDA kernel is
 gdm_torch/csrc/laplace2_v1.cu: the row stage as window products on the
-tensor cores (3xTF32 in float32, as gdm's HIGHEST; DMMA in float64), the
-column stage on the FMA units.  ``laplace_v1_apply`` launches it for a
-CUDA tensor and runs its plain twin for a CPU tensor; there is no other
-switch.
+tensor cores (3xTF32 wgmma in float32, as gdm's HIGHEST; DMMA in
+float64) from window tables built once per band tables and row units
+(``ops.tc_tables``), the column stage on the FMA units, persistent
+blocks launched as ``stencil2.tc_plan`` says.  ``laplace_v1_apply``
+launches it for a CUDA tensor and runs its plain twin for a CPU tensor;
+there is no other switch.
 
 K0 is the Laplace only (gdm's builder takes no ``bands=``), for odd
 p <= 7 (gdm's row halo is 8 rows).  The node array is the contiguous

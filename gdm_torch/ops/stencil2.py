@@ -24,7 +24,10 @@ switch.  Every twin is K3's plain column-then-row computation.
 ``k3_plan`` picks K3's launch from the shape (its tiles and the output
 rows a thread keeps in registers), ``k3s_plan`` K3s's (its strip width
 and its strips and segments); tests/test_torch_plans.py holds both on
-the CPU.
+the CPU.  ``tc_plan`` picks K3f's and K0's (row units times column
+blocks over persistent blocks), whose window tables ``ops.tc_tables``
+builds once per band tables and row units; tests/test_torch_tc_tables.py
+holds both.
 
 K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes;
 the tensor-core schedules run their products as 3xTF32 in float32 and on
@@ -48,7 +51,7 @@ import torch
 from .. import device as _device
 from ..grid import Grid
 from ..ops1d import mass_1d, stiffness_1d
-from . import _build
+from . import _build, tc_tables
 from ._padded import launch, padded_apply, positive_int
 from .tensor import apply_banded
 
@@ -65,6 +68,10 @@ class Bands2:
     b0: torch.Tensor
     b1: torch.Tensor
     p: int
+    # K3f's and K0's window tables, built at first use (tc_tables.tables);
+    # not an argument, so every new Bands2 (replace() too) starts empty
+    tables: dict = dataclasses.field(default_factory=dict, init=False,
+                                     compare=False, repr=False)
 
     @property
     def shape(self) -> tuple:
@@ -391,14 +398,18 @@ def _rnd(n: int, m: int) -> int:
 def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     """Shared memory of one block of the tensor-core kernel ``kernel``
     ("mxucol", "fullmxu", "hybrid", "hybp", "mxu", "mxu3", "mxu3p" or
-    "v1") at degree p with tile_r output rows, as csrc/tc_window.cuh's
+    "v1") at degree p with tile_r output rows, as the kernels lay it out.
+    K3f ("fullmxu") and K0 ("v1"): tc_tables.smem_bytes (row units of 32
+    rows whatever the tile, the split window and operands, two landing
+    slots of u rows in float32).  The others as csrc/tc_window.cuh's
     ``Tile`` and the kernels lay it out: the u tile, the C slice,
     [V | W], the A0/B0 band rows or row windows, the MMA warps' scratch
     tiles (K3h, K3p, K3/mxu3p), and in K3p and K3/mxu3p two u tiles and
     two operand slots.  K3/mxu3 and K3/mxu3p keep [V | W] and the row
-    windows as bf16 hi/lo pairs in float32; K0 ("v1") keeps the u tile
-    with its columns padded to 16 and the row products ts, tm.  The
-    row modes and K0 start each array on a 128-byte line."""
+    windows as bf16 hi/lo pairs in float32.  The row modes start each
+    array on a 128-byte line."""
+    if kernel in tc_tables.KERNELS:
+        return tc_tables.smem_bytes(kernel, p, itemsize)
     tx = 32
     uw = tx + 2 * p
     kd = _rnd(uw, 8)
@@ -411,7 +422,6 @@ def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     r = _rnd(2 * tile_r * (2 * p + 1), 32)
     scr = 4 * 256
     elems = {"mxucol": u + c + vw + r,
-             "fullmxu": u + c + vw + _rnd(2 * rows * (m + 4), 32),
              "hybrid": u + c + vw + r + scr,
              "hybp": 2 * u + 3 * r + 2 * vw + c + scr}
     if kernel in elems:
@@ -420,10 +430,6 @@ def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     def line(n, size=itemsize):
         return _rnd(n * size, 128)
 
-    if kernel == "v1":
-        ldp = _rnd(uw, 16) + 4
-        return (line(m * ldp) + 2 * line(rows * (m + 4)) + line(c)
-                + 2 * line(rows * ldp))
     if itemsize == 4 and kernel in ("mxu3", "mxu3p"):
         ops = 2 * line(m * (2 * tx + 8), 2) + 4 * line(rows * (m + 8), 2)
     else:
@@ -442,9 +448,10 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
     tile_r, the block's output rows: by default the largest of 64, 48,
     32, 16 whose tile fits one H100 block at this degree and dtype (see
     ``tc_smem_bytes``; 64 for K3c, K3f, K3h, K3p, K3/mxu and K3/mxu3 at
-    every p <= 15 in float32; smaller for K3/mxu3p at high p and for
-    several kernels in float64).  As in gdm, every kernel but K3f clamps
-    it to N0 rounded up to 8.  A tile that does not fit raises.
+    every p <= 15 in float32 and for K3f and K0 always, whose shared
+    memory does not grow with the tile; smaller for K3/mxu3p at high p
+    and for several kernels in float64).  As in gdm, every kernel but K3f
+    clamps it to N0 rounded up to 8.  A tile that does not fit raises.
 
     vpu_rows, the rows of the extended tile (tile_r + 2p rows) whose
     column stage runs on the FMA units, the rest on the tensor cores:
@@ -484,16 +491,60 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
     return {"tile_r": tile_r, "vpu_rows": min(int(vpu_rows), t_ext)}
 
 
+@functools.lru_cache(maxsize=None)
+def tc_occupancy(kernel: str, p: int, dtype) -> int:
+    """Blocks of K3f ("fullmxu") or K0 ("v1") one SM of the card holds at
+    degree p, as the CUDA runtime's occupancy calculator reports them for
+    the built kernel."""
+    kl = _build.kernels()
+    out = ctypes.c_int(0)
+    err = getattr(kl.lib, f"gdm_laplace2_{kernel}_occupancy")(
+        p, int(dtype == torch.float64), ctypes.byref(out))
+    _build.check(kl, err, f"{kernel} occupancy")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(kernel: str, nodes, p: int, dtype,
+            tile_r: int) -> tc_tables.TcPlan:
+    """The launch plan of K3f ("fullmxu") or K0 ("v1") for the (n0, n1)
+    nodes with tiles of tile_r rows: row units of at most 32 rows times
+    32-column blocks, walked by one wave of persistent blocks, as many an
+    SM as the runtime's occupancy of the built kernel (which needs the
+    card).  Cached: the wrappers ask on every launch."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return tc_tables.plan(kernel, tuple(nodes), p, itemsize, int(tile_r),
+                          tc_occupancy(kernel, p, dtype), SM_COUNT)
+
+
+def _launch_tc_plan(u: torch.Tensor, bt: Bands2,
+                    plan: tc_tables.TcPlan) -> torch.Tensor:
+    """K3f or K0 on the CUDA tensor ``u`` with the plan ``plan``, from
+    the window tables of ``bt`` (built at first use); counts nothing."""
+    tab = tc_tables.tables(bt, plan.kernel, plan.tile_r)
+    if plan.kernel == "fullmxu":
+        tabs = (tab["win"], tab["ct"], tab["ru"])
+    else:
+        tabs = (bt.a1, bt.b1, tab["win"], tab["ru"])
+    return launch(u, f"laplace2_{plan.kernel}_apply", plan.kernel, tabs,
+                  bt.p, bt.shape,
+                  (tc_tables.TRB, len(plan.row_units), plan.blocks))
+
+
 def tc_apply(u, bt, kernel, what, wrapper, plain, tile_r, vpu_rows=None):
     """The wrapper of tensor-core kernel ``kernel`` (named ``what``):
     its plain twin for a CPU tensor, else the kernel, counted on
-    ``wrapper.launches``."""
+    ``wrapper.launches`` (K3f and K0 launched as ``tc_plan`` says)."""
     _check(u, bt)
     opts = tc_options(kernel, bt, tile_r, vpu_rows)
     if u.device.type == "cpu":
         return plain(u, bt)
-    y = _launch(u, bt, f"laplace2_{kernel}_apply", what,
-                tuple(opts.values()))
+    if kernel in tc_tables.KERNELS:
+        y = _launch_tc_plan(u, bt, tc_plan(kernel, bt.shape, bt.p, u.dtype,
+                                           opts["tile_r"]))
+    else:
+        y = _launch(u, bt, f"laplace2_{kernel}_apply", what,
+                    tuple(opts.values()))
     wrapper.launches += 1
     return y
 

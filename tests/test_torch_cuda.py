@@ -721,6 +721,67 @@ def test_laplace2_tc_four_factor_bands(cuda_device, kernel, dtype):
     assert _rel(wrapper(u, bt, tile_r=37), plain(u, bt)) <= _tol(dtype)
 
 
+WINDOW_KERNELS = {"fullmxu": stencil2.laplace2_fullmxu_apply,
+                  "v1": stencil.laplace_v1_apply}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n1", [1024, 1025, 1026, 1027])
+@pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
+def test_window_kernels_row_residues(cuda_device, kernel, n1, dtype):
+    """K3f and K0 at every residue of N1 mod 4 (a row's first element
+    sits N1 i mod 4 elements past a 16-byte boundary), with a ragged last
+    row unit and more units than SMs (a persistent walk)."""
+    grid = Grid(3, (199, n1 - 1), (0.0, 0.0), (1.0, 2.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, n1, dtype, cuda_device)
+    wrapper = WINDOW_KERNELS[kernel]
+    tile = stencil2.tc_options(kernel, bt)["tile_r"]
+    plan = stencil2.tc_plan(kernel, bt.shape, 3, dtype, tile)
+    assert plan.units > torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert plan.row_units[-1][1] < 32
+    before = wrapper.launches
+    yk = wrapper(u, bt)
+    assert wrapper.launches == before + 1
+    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile_r", [16, 37, 64, 100])
+@pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
+def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
+    """K3f and K0 with tiles of 16, 37, 64 and 100 rows (cut into row
+    units of at most 32; window rows past a unit are zero), four band
+    factors, p = 7 (K0's largest)."""
+    grid = Grid(7, (150, 90), (0.0, 0.0), (1.0, 1.0))
+    rng = np.random.default_rng(tile_r)
+    n0, n1 = grid.nodes
+    bands = [rng.standard_normal((n, 15)) for n in (n0, n1, n0, n1)]
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype, bands)
+    u = _rand(grid.nodes, 21, dtype, cuda_device)
+    yk = WINDOW_KERNELS[kernel](u, bt, tile_r=tile_r)
+    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _tol(dtype)
+
+
+def test_window_tables_built_once(cuda_device):
+    """The window tables are built at the first apply with a Bands2 and
+    tile, not at the second; a table build is no launch of the kernel."""
+    from gdm_torch.ops import tc_tables
+
+    grid = Grid(3, (90, 70), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, torch.float32)
+    u = _rand(grid.nodes, 22, torch.float32, cuda_device)
+    for wrapper in WINDOW_KERNELS.values():
+        before = wrapper.launches
+        y1 = wrapper(u, bt)
+        built = tc_tables.tables.builds
+        y2 = wrapper(u, bt)
+        assert tc_tables.tables.builds == built
+        assert wrapper.launches == before + 2
+        assert y1.equal(y2)
+
+
 def test_tc_builders_launch_their_own_kernel(cuda_device):
     """Each public builder launches its own kernel once per apply and no
     other kernel."""

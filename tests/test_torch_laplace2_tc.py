@@ -131,7 +131,7 @@ def test_card_tile_defaults_and_limits():
     want = {("make_padded_laplace2_mxucol", torch.float32): 64,
             ("make_padded_laplace2_mxucol", F64): 64,
             ("make_padded_laplace2_fullmxu", torch.float32): 64,
-            ("make_padded_laplace2_fullmxu", F64): 48,
+            ("make_padded_laplace2_fullmxu", F64): 64,
             ("make_padded_laplace2_hybrid", F64): 64,
             ("make_padded_laplace2_hybp", torch.float32): 64,
             ("make_padded_laplace2_hybp", F64): 32}
@@ -140,8 +140,12 @@ def test_card_tile_defaults_and_limits():
         assert make(big, "cpu", dtype)[0].options["tile_r"] == tile
         clamped = make(small, "cpu", dtype)[0].options["tile_r"]
         assert clamped == (64 if name.endswith("fullmxu") else 24)
+    # K3f walks every tile in row units of 32 rows: its shared memory does
+    # not grow with the tile, so a tile of 64 fits at p = 15 in float64
+    assert stencil2.make_padded_laplace2_fullmxu(
+        big, "cpu", F64, tile_r=64)[0].options == {"tile_r": 64}
     with pytest.raises(ValueError, match="shared memory"):
-        stencil2.make_padded_laplace2_fullmxu(big, "cpu", F64, tile_r=64)
+        stencil2.make_padded_laplace2_hybp(big, "cpu", F64, tile_r=64)
     with pytest.raises(ValueError, match="tile_r"):
         stencil2.make_padded_laplace2_mxucol(small, "cpu", F64, tile_r=0)
 
