@@ -75,15 +75,18 @@ Run from the repository root:  python3 chip_smoke.py
    K4, Grid(3, (510, 64, 64)) (N0 + 2p = 517 > 512) K4 and not K5, held
    against the plain twin;
 9. K3's tensor-core row modes K3/mxu (the row stage as a 3xTF32 window
-   product), K3/mxu3 (as bf16x3) and K3/mxu3p (K3/mxu3 pipelined across
-   tiles), and K0 (gdm's v1 Laplace, rows first), against K3's plain
-   twin at 1024^2 p=3, p=5 and 4096^2 p=3 in float32 (max error <= 1e-5
-   of max|y| for K3/mxu and K0, <= 1e-4 for the bf16x3 modes), with four
-   band factors for the three K3 modes, and at 1024^2 p=3 in float64
-   (<= 1e-12), each timed in turns against K3 (K3, X, X, K3); K0 also
-   at 257 x 1024 .. 1027 nodes (every residue of N1 mod 4) in float32
-   and float64; torch.matmul of the dense row coupling [A0 | B0] [V; W]
-   at 1024^2 alone (the yardstick for the row stage only); then, the launch
+   product), K3/mxu3 (as bf16x3) and K3/mxu3p (bf16x3 products on a
+   warpgroup of their own, under the next unit's column stage), and K0
+   (gdm's v1 Laplace, rows first), against K3's plain twin at 1024^2
+   p=3, p=5 and 4096^2 p=3 in float32 (max error <= 1e-5 of max|y| for
+   K3/mxu and K0, <= 1e-4 for the bf16x3 modes), with four band factors
+   for the three K3 modes, and at 1024^2 p=3 in float64
+   (<= 1e-12), each timed in turns against K3 (K3, X, X, K3; K3/mxu3,
+   the wmma design of the row modes, is the anchor of the wgmma K3/mxu
+   and K3/mxu3p); K0, K3/mxu and K3/mxu3p also at 257 x 1024 .. 1027
+   nodes (every residue of N1 mod 4) in float32 and float64; torch.matmul
+   of the dense row coupling [A0 | B0] [V; W] at 1024^2 alone (the
+   yardstick for the row stage only); then, the launch
    counts reset before each, make_padded_laplace2(rows=r) for every r,
    best_padded_laplace with rows=None (K3) and rows="mxu3p", and K0's
    make_padded_laplace: each its own kernel once and nothing else;
@@ -422,11 +425,12 @@ def levels_vs_plain(sysf, dev, dtype, tag):
     return worst, names, rows
 
 
-def residues(rng, dev, kname, fn):
-    """K3f or K0 (``fn``, its wrapper) against K3's plain twin at N1 =
-    1024 .. 1027 columns (every residue of a row's start mod 16 bytes),
-    257 rows (a ragged last row unit), float32 (<= 1e-5 of max|y|) and
-    float64 (<= 1e-12); returns the largest float32 max abs error."""
+def residues(rng, dev, kname, fn, tol32=1e-5):
+    """K3f, K0, K3/mxu or K3/mxu3p (``fn``, its wrapper) against K3's
+    plain twin at N1 = 1024 .. 1027 columns (every residue of a row's
+    start mod 16 bytes), 257 rows (a ragged last row unit), float32 (<=
+    ``tol32`` of max|y|) and float64 (<= 1e-12); returns the largest
+    float32 max abs error."""
     import torch
 
     from gdm_torch.grid import Grid
@@ -435,7 +439,7 @@ def residues(rng, dev, kname, fn):
     worst = 0.0
     for n1 in (1024, 1025, 1026, 1027):
         grid = Grid(3, (256, n1 - 1), (0.0, 0.0), (1.0, 1.0))
-        for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for dt, tol in ((torch.float32, tol32), (torch.float64, 1e-12)):
             bt = stencil2.laplace2_bands(grid, dev, dt)
             u = torch.as_tensor(rng.standard_normal(grid.nodes), dtype=dt,
                                 device=dev)
@@ -484,7 +488,7 @@ def row_wrappers():
 # each row mode's source and the TPU kernel body it replaces; its limit
 # against K3's twin in float32 (bf16x3 keeps about 16 significant bits)
 ROW_KERNELS = {
-    "K3/mxu": ("laplace2_mxu_apply", "gdm_torch/csrc/laplace2_mxurows.cu",
+    "K3/mxu": ("laplace2_mxu_apply", "gdm_torch/csrc/laplace2_mxu.cu",
                "gdm/ops/pallas_stencil2.py:278", 1e-5),
     "K3/mxu3": ("laplace2_mxu3_apply", "gdm_torch/csrc/laplace2_mxurows.cu",
                 "gdm/ops/pallas_stencil2.py:325", 1e-4),
@@ -585,7 +589,9 @@ def row_phase(rng, dev, g2, g4096, four):
             if name == "1024^2 p=3":
                 ms_at[kname] = ms
         del u, yp, bt
-    err_max["K0"] = max(err_max["K0"], residues(rng, dev, "K0", rw["K0"]))
+    for kname in ("K0", "K3/mxu", "K3/mxu3p"):
+        err_max[kname] = max(err_max[kname], residues(
+            rng, dev, kname, rw[kname], ROW_KERNELS[kname][3]))
     # the yardstick for the row stage alone: one dense product by the
     # whole row coupling [A0 | B0] of the stacked column-stage outputs
     bt = stencil2.laplace2_bands(g2[3], dev, f32)

@@ -1,16 +1,15 @@
-// K3/mxu and K3/mxu3: the 2D separable band apply
-// y = A0 U A1^T + B0 U B1^T  with K3's column stage on the FMA units and
-// the row stage as one window product per tile on the tensor cores.
+// K3/mxu3: the 2D separable band apply  y = A0 U A1^T + B0 U B1^T  with
+// K3's column stage on the FMA units and the row stage as one window
+// product per tile on the tensor cores.
 //
 // Replaces gdm/ops/pallas_stencil2.py::make_padded_laplace2's
-// ``kernel_mxu`` (rows="mxu": the row stage as one dense-banded product
-// at HIGHEST precision) and ``kernel_mxu3`` (rows="mxu3": the same
-// product as bf16x3), two bodies behind K3's pallas_call.  Same operator,
-// band tables and contiguous (n0, n1) node array as K3 (laplace2.cu).
-// One source, two instantiations: K3/mxu takes the product as 3xTF32,
-// which keeps float32 fidelity as gdm's HIGHEST does; K3/mxu3 as bf16x3
-// (about 16 bits of each operand, tc_window.cuh).  In float64 both run on
-// the DMMA units, unsplit.
+// ``kernel_mxu3`` (rows="mxu3": the row stage as one dense-banded product
+// as bf16x3), a body behind K3's pallas_call.  Same operator, band tables
+// and contiguous (n0, n1) node array as K3 (laplace2.cu).  This file holds
+// K3/mxu3's entries only (K3/mxu, the same design with the product as
+// 3xTF32, moved to laplace2_mxu.cu on the stage of tc_stage.cuh); its
+// kernel keeps both instantiations: bf16x3 in float32 (about 16 bits of
+// each operand, tc_window.cuh) and the DMMA product, unsplit, in float64.
 //
 // Bound on the card: K3's (memory, 8 bytes of u and y per node in
 // float32: 2.51 us at 1024^2).  The row product's depth is the extended
@@ -117,20 +116,6 @@ int launch(const void* u, const void* a0, const void* a1, const void* b0,
 
 extern "C" {
 
-int gdm_laplace2_mxu_apply_f32(const void* u, const void* a0, const void* a1,
-                               const void* b0, const void* b1, void* y, int p,
-                               int n0, int n1, int tile_r, void* stream) {
-  return launch<float, false>(u, a0, a1, b0, b1, y, p, n0, n1, tile_r,
-                              stream);
-}
-
-int gdm_laplace2_mxu_apply_f64(const void* u, const void* a0, const void* a1,
-                               const void* b0, const void* b1, void* y, int p,
-                               int n0, int n1, int tile_r, void* stream) {
-  return launch<double, false>(u, a0, a1, b0, b1, y, p, n0, n1, tile_r,
-                               stream);
-}
-
 int gdm_laplace2_mxu3_apply_f32(const void* u, const void* a0, const void* a1,
                                 const void* b0, const void* b1, void* y,
                                 int p, int n0, int n1, int tile_r,
@@ -138,7 +123,7 @@ int gdm_laplace2_mxu3_apply_f32(const void* u, const void* a0, const void* a1,
   return launch<float, true>(u, a0, a1, b0, b1, y, p, n0, n1, tile_r, stream);
 }
 
-// float64: the DMMA product, unsplit, so the same kernel as K3/mxu's
+// float64: the DMMA product, unsplit
 int gdm_laplace2_mxu3_apply_f64(const void* u, const void* a0, const void* a1,
                                 const void* b0, const void* b1, void* y,
                                 int p, int n0, int n1, int tile_r,

@@ -1,6 +1,9 @@
-// The Hopper stage that K3f (laplace2_fullmxu.cu) and K0 (laplace2_v1.cu)
-// share: window tables built once on the host, u tiles copied in one
-// unit ahead, tf32 operands split once, persistent blocks.
+// The Hopper stage that K3f (laplace2_fullmxu.cu), K0 (laplace2_v1.cu),
+// K3/mxu (laplace2_mxu.cu) and K3/mxu3p (laplace2_mxu3p.cu) share: window
+// tables built once per Bands2 and row units on the device
+// (ops/tc_tables.py), u tiles copied in one unit ahead, operands split
+// once, persistent blocks.  K3/mxu and K3/mxu3p take units
+// of 64 output columns (the CW of Geom, wgmma's M), the others 32.
 //
 // A unit is one row unit (at most TRB = 32 output rows, the rows of a
 // tile of tile_r, cut into pieces of 32 where tile_r is larger) times one
@@ -65,10 +68,11 @@ __host__ __device__ constexpr size_t line(size_t bytes) {
   return (bytes + ALIGN - 1) / ALIGN * ALIGN;
 }
 
-// The geometry of degree P and element type T.
-template <typename T, int P>
+// The geometry of degree P, element type T and CW output columns a unit
+// (K3/mxu and K3/mxu3p take 64, wgmma's M).
+template <typename T, int P, int CW = TX>
 struct Geom {
-  static constexpr int UW = TX + 2 * P;      // u columns a unit reads
+  static constexpr int UW = CW + 2 * P;      // u columns a unit reads
   static constexpr int KD = rnd(UW, 8);      // ... padded to k-steps
   static constexpr int WR = 2 * TRB;         // rows of [A0w; B0w]
   // u rows a unit reads, padded: to k-steps (float32, wgmma's N and K)
@@ -105,20 +109,20 @@ __device__ __forceinline__ int land_offset(const T* u, int gi, int j0, int p,
 }
 
 // Issue the 16-byte cp.async copies of a unit's u rows i0 - P .. i0 - P +
-// M at column j0 into the landing slot `land` (the whole warpgroup): each
-// row's span of UW elements rounded out to 16 bytes, never past the
-// array's own rounded ends.  Rows outside the grid are not copied; the
-// split reads them as zero.
-template <typename T, int P>
+// ROWS (M unless named) at column j0 into the landing slot `land` (the
+// whole warpgroup): each row's span of UW elements rounded out to 16
+// bytes, never past the array's own rounded ends.  Rows outside the grid
+// are not copied; the split reads them as zero.
+template <typename T, int P, int CW = TX, int ROWS = Geom<T, P, CW>::M>
 __device__ void issue_u_rows(T* land, const T* __restrict__ u, int i0, int j0,
                              int n0, int n1, int tid) {
-  using G = Geom<T, P>;
+  using G = Geom<T, P, CW>;
   const uintptr_t lo = reinterpret_cast<uintptr_t>(u) &
                        ~static_cast<uintptr_t>(15);
   const uintptr_t hi =
       (reinterpret_cast<uintptr_t>(u + static_cast<size_t>(n0) * n1) + 15) &
       ~static_cast<uintptr_t>(15);
-  for (int e = tid; e < G::M * G::NG; e += NT) {
+  for (int e = tid; e < ROWS * G::NG; e += NT) {
     const int r = e / G::NG;
     const int g = e % G::NG;
     const int gi = i0 - P + r;
@@ -136,32 +140,32 @@ __device__ void issue_u_rows(T* land, const T* __restrict__ u, int i0, int j0,
 
 // The landing offsets of a unit's u rows, once a unit: roff[r] = the
 // element offset of unit column 0 of row r (u row i0 - P + r) in its
-// landing row, -1 for a row outside the grid.
-template <typename T, int P>
+// landing row, -1 for a row outside the grid (rows below ROWS).
+template <typename T, int P, int ROWS = Geom<T, P>::M>
 __device__ __forceinline__ void row_offsets(int* roff, const T* u, int i0,
                                             int j0, int n0, int n1, int tid) {
-  for (int r = tid; r < Geom<T, P>::M; r += NT) {
+  for (int r = tid; r < ROWS; r += NT) {
     const int gi = i0 - P + r;
     roff[r] = gi < 0 || gi >= n0 ? -1 : land_offset(u, gi, j0, P, n1);
   }
 }
 
 // The unit columns [lo, hi) that lie in the grid and its u span.
-template <int P>
+template <int P, int CW = TX>
 struct Cols {
   int lo, hi;
   __device__ __forceinline__ Cols(int j0, int n1)
       : lo(P - j0 > 0 ? P - j0 : 0),
-        hi(n1 + P - j0 < TX + 2 * P ? n1 + P - j0 : TX + 2 * P) {}
+        hi(n1 + P - j0 < CW + 2 * P ? n1 + P - j0 : CW + 2 * P) {}
 };
 
 // Landed u at unit row r, unit column c (zero outside the grid).
-template <typename T, int P>
+template <typename T, int P, int CW = TX>
 __device__ __forceinline__ T landed(const T* land, const int* roff, int r,
-                                    int c, const Cols<P>& cols) {
+                                    int c, const Cols<P, CW>& cols) {
   const int o = roff[r];
   return o >= 0 && c >= cols.lo && c < cols.hi
-             ? land[r * Geom<T, P>::LW + o + c]
+             ? land[r * Geom<T, P, CW>::LW + o + c]
              : T(0);
 }
 
@@ -280,7 +284,10 @@ int occupancy(Kernel kernel, size_t smem, int* out) {
 // 10 the block's start and end (%globaltimer), 1 and 9 (clock64), 2 the
 // set-up done, 3 the waits for copies, 4 the u split, 5 the first
 // product, 6 its accumulators out, 7 the second product (K0: the column
-// stage), 8 the epilogue, 11 the units.
+// stage), 8 the epilogue, 11 the units.  K3/mxu's are
+// scripts/torch_k3mxu_breakdown.py's: 12 the next copies issued, 7 the
+// band rows and the wait for this unit's copies, 3 the barrier after it,
+// 4 the column stage, 5 the product, 6 y staged.
 #define GDM_TCS_PHASE(slot, t)                                     \
   do {                                                             \
     GDM_STAMP_ADD(threadIdx.x == 0, slot, GDM_CLOCK() - (t));      \

@@ -1,9 +1,9 @@
 // The tensor-core band-window product and the tile stages shared by the
 // 2D Laplace schedules K3c, K3h and K3p (laplace2_mxucol.cu,
-// laplace2_hybrid.cu, laplace2_hybp.cu) and K3's tensor-core row modes
-// K3/mxu, K3/mxu3 and K3/mxu3p (laplace2_mxurows.cu, laplace2_mxu3p.cu),
-// the float64 DMMA products of K3f and K0 (laplace2_fullmxu.cu,
-// laplace2_v1.cu; their float32 paths are tc_stage.cuh's), and the
+// laplace2_hybrid.cu, laplace2_hybp.cu) and K3's tensor-core row mode
+// K3/mxu3 (laplace2_mxurows.cu), the float64 DMMA products of K3f, K0 and
+// K3/mxu (laplace2_fullmxu.cu, laplace2_v1.cu, laplace2_mxu.cu; their
+// float32 paths and K3/mxu3p are on tc_stage.cuh's stage), and the
 // 3xTF32 split that K5 (laplace3_mxu.cu) uses too.
 //
 // All of them compute K3's operator  y = A0 U A1^T + B0 U B1^T  from K3's
@@ -25,7 +25,7 @@
 // form of the column stage (col_fma), which reads its coefficients from
 // the diagonals of C.
 //
-// Row stage as a window product (K3/mxu, K3/mxu3, K3/mxu3p): y_tile =
+// Row stage as a window product (K3/mxu3): y_tile =
 // A0w . V + B0w . W, where A0w and B0w are the tile's rnd(tile_r, 16) x m
 // windows of A0 and B0 (gdm's Bcat, split in two so that V and W stay
 // side by side as the column stage leaves them), each entry taken from
@@ -34,8 +34,8 @@
 // Precision: float32 products run as 3xTF32 on the tensor cores (each
 // operand split into hi = tf32(x) and lo = tf32(x - hi); lo.hi + hi.lo +
 // hi.hi, float32 accumulation), float64 ones on the DMMA units (m8n8k4,
-// IEEE double).  The global TF32 flag plays no part.  K3/mxu3 and
-// K3/mxu3p take their float32 row product as bf16x3 instead (gdm's
+// IEEE double).  The global TF32 flag plays no part.  K3/mxu3 takes
+// its float32 row product as bf16x3 instead (gdm's
 // pallas_stencil2.py:120-132, 325-366: each operand split into
 // hi = bf16(x) and lo = bf16(x - hi), about 16 significant bits together;
 // lo.hi + hi.lo + hi.hi on bf16 wmma, m16n16k16, float32 accumulation;
@@ -344,20 +344,6 @@ __device__ void build_row_windows(const T* __restrict__ a0,
     const bool in = r < g.tile_r && i0 + r < n0 && t >= 0 && t < K;
     const size_t at = static_cast<size_t>(i0 + r) * K + t;
     store(r, s, in ? a0[at] : T(0), in ? b0[at] : T(0));
-  }
-}
-
-// Only the band entries (r, r + t) of those windows, rows r < tile_r
-// (zero past the grid), for windows whose other entries are zero already.
-template <typename T, int P, typename Store>
-__device__ void row_window_bands(const T* __restrict__ a0,
-                                 const T* __restrict__ b0, int tile_r, int i0,
-                                 int n0, int tid, int nthreads, Store store) {
-  constexpr int K = 2 * P + 1;
-  for (int e = tid; e < tile_r * K; e += nthreads) {
-    const bool in = i0 + e / K < n0;
-    const size_t at = static_cast<size_t>(i0) * K + e;
-    store(e / K, e / K + e % K, in ? a0[at] : T(0), in ? b0[at] : T(0));
   }
 }
 

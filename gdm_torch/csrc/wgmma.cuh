@@ -1,6 +1,7 @@
 // Hopper's warpgroup matrix products (wgmma) and their shared-memory
 // operand descriptors, shared by M1's row modes (micro_stage1.cu), K3f
-// (laplace2_fullmxu.cu) and K0 (laplace2_v1.cu).
+// (laplace2_fullmxu.cu), K0 (laplace2_v1.cu), K3/mxu (laplace2_mxu.cu)
+// and K3/mxu3p (laplace2_mxu3p.cu).
 //
 // A wgmma is issued by the four warps of a warpgroup together: D (64 x N,
 // float32, in registers) += A (64 x K) . B (K x N), B read from shared
@@ -16,8 +17,9 @@
 // no operand needs one.  Two swizzled layouts are used:
 //   * 128-byte rows (M1's bf16 panels): 8 rows of 128 bytes an atom,
 //     16-byte group g of row r at g ^ (r % 8), atoms 1024 bytes apart;
-//   * 32-byte rows (the tf32 operands of K3f and K0): the operand is cut
-//     into chunks of 8 tf32 along K (one k-step), a chunk holds every row's
+//   * 32-byte rows (the tf32 operands of K3f, K0 and K3/mxu, the bf16
+//     ones of K3/mxu3p): the operand is cut into chunks of one k-step
+//     along K (8 tf32 or 16 bf16), a chunk holds every row's
 //     32 bytes, rows 32 bytes apart, and 16-byte half h of row r sits at
 //     h ^ ((r >> 2) & 1); 8-row atoms are 256 bytes apart.  A k-step's
 //     descriptor points at its chunk, so no K space is padded.
@@ -182,6 +184,28 @@ struct WgmmaBf16<128> {
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "n"(1));
+  }
+};
+
+// wgmma m64n32k16, bf16 from shared memory (both K-major), with a chain's
+// start flag as WgmmaTf32 below: d = a . b + (scale_d ? d : 0) (K3/mxu3p's
+// bf16x3 row product, laplace2_mxu3p.cu).  A k-step of 16 bf16 is 32
+// bytes a row, so the 32-byte swizzled layout and its
+// descriptor serve as they do for tf32.
+struct WgmmaBf16D32 {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

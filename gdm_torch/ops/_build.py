@@ -76,14 +76,17 @@ def _declare(lib):
         fn.argtypes = [P, P, P, P, P, P] + [I] * 6 + [P]
         fn.restype = I
         for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_hybrid", 2),
-                           ("laplace2_hybp", 2), ("laplace2_mxu", 1),
-                           ("laplace2_mxu3", 1), ("laplace2_mxu3p", 1)):
+                           ("laplace2_hybp", 2), ("laplace2_mxu3", 1)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
             fn.restype = I
         for k, n_tabs in (("laplace2_fullmxu", 3), ("laplace2_v1", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P] * (n_tabs + 2) + [I] * 6 + [P]
+            fn.restype = I
+        for k in ("laplace2_mxu", "laplace2_mxu3p"):   # + columns a unit
+            fn = getattr(lib, f"gdm_{k}_apply_{dt}")
+            fn.argtypes = [P] * 6 + [I] * 7 + [P]
             fn.restype = I
         for k, n_extra in (("laplace3", 5), ("laplace3_mxu", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
@@ -98,6 +101,10 @@ def _declare(lib):
     for k in ("laplace2_fullmxu", "laplace2_v1"):
         fn = getattr(lib, f"gdm_{k}_occupancy")
         fn.argtypes = [I, I, IP]
+        fn.restype = I
+    for k in ("laplace2_mxu", "laplace2_mxu3p"):
+        fn = getattr(lib, f"gdm_{k}_occupancy")
+        fn.argtypes = [I, I, I, IP]
         fn.restype = I
     lib.gdm_laplace3_occupancy.argtypes = [I] * 4 + [IP]
     lib.gdm_laplace3_occupancy.restype = I

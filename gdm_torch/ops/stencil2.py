@@ -7,7 +7,8 @@ Poisson CG operator and every multigrid level through, with gdm's four
 row stages behind its ``rows=`` keyword: ``"vpu"``, K3's FMA row stage;
 ``"mxu"``, K3/mxu, the row stage as a window product on the tensor cores
 at float32 fidelity; ``"mxu3"``, K3/mxu3, the same product as bf16x3;
-``"mxu3p"``, K3/mxu3p, K3/mxu3 pipelined across tiles) and five other
+``"mxu3p"``, K3/mxu3p, that product with one unit's products under the
+next unit's column stage) and five other
 schedules of the same operator that no solve dispatch routes to, in gdm
 or here: ``make_padded_laplace2_stream`` (K3s, streamed down the rows),
 ``make_padded_laplace2_mxucol`` (K3c, the column stage on the tensor
@@ -24,10 +25,10 @@ switch.  Every twin is K3's plain column-then-row computation.
 ``k3_plan`` picks K3's launch from the shape (its tiles and the output
 rows a thread keeps in registers), ``k3s_plan`` K3s's (its strip width
 and its strips and segments); tests/test_torch_plans.py holds both on
-the CPU.  ``tc_plan`` picks K3f's and K0's (row units times column
-blocks over persistent blocks), whose window tables ``ops.tc_tables``
-builds once per band tables and row units; tests/test_torch_tc_tables.py
-holds both.
+the CPU.  ``tc_plan`` picks K3f's, K0's, K3/mxu's and K3/mxu3p's (row
+units times column blocks over persistent blocks), whose window tables
+``ops.tc_tables`` builds once per band tables and row units;
+tests/test_torch_tc_tables.py holds both.
 
 K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes;
 the tensor-core schedules run their products as 3xTF32 in float32 and on
@@ -68,7 +69,8 @@ class Bands2:
     b0: torch.Tensor
     b1: torch.Tensor
     p: int
-    # K3f's and K0's window tables, built at first use (tc_tables.tables);
+    # the window tables of K3f, K0, K3/mxu and K3/mxu3p, built at first
+    # use (tc_tables.tables);
     # not an argument, so every new Bands2 (replace() too) starts empty
     tables: dict = dataclasses.field(default_factory=dict, init=False,
                                      compare=False, repr=False)
@@ -399,15 +401,15 @@ def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     """Shared memory of one block of the tensor-core kernel ``kernel``
     ("mxucol", "fullmxu", "hybrid", "hybp", "mxu", "mxu3", "mxu3p" or
     "v1") at degree p with tile_r output rows, as the kernels lay it out.
-    K3f ("fullmxu") and K0 ("v1"): tc_tables.smem_bytes (row units of 32
-    rows whatever the tile, the split window and operands, two landing
-    slots of u rows in float32).  The others as csrc/tc_window.cuh's
+    K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu") and K3/mxu3p ("mxu3p"):
+    tc_tables.smem_bytes (row units of 32 rows whatever the tile, the
+    split window and operands, two landing slots of u rows in float32).
+    The others (K3/mxu3 among them) as csrc/tc_window.cuh's
     ``Tile`` and the kernels lay it out: the u tile, the C slice,
     [V | W], the A0/B0 band rows or row windows, the MMA warps' scratch
-    tiles (K3h, K3p, K3/mxu3p), and in K3p and K3/mxu3p two u tiles and
-    two operand slots.  K3/mxu3 and K3/mxu3p keep [V | W] and the row
-    windows as bf16 hi/lo pairs in float32.  The row modes start each
-    array on a 128-byte line."""
+    tiles (K3h, K3p), and in K3p two u tiles and two operand slots.
+    K3/mxu3 keeps [V | W] and the row windows as bf16 hi/lo pairs in
+    float32; it starts each array on a 128-byte line."""
     if kernel in tc_tables.KERNELS:
         return tc_tables.smem_bytes(kernel, p, itemsize)
     tx = 32
@@ -430,15 +432,13 @@ def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     def line(n, size=itemsize):
         return _rnd(n * size, 128)
 
-    if itemsize == 4 and kernel in ("mxu3", "mxu3p"):
+    if kernel != "mxu3":
+        raise ValueError(f"no tensor-core kernel {kernel!r}")
+    if itemsize == 4:
         ops = 2 * line(m * (2 * tx + 8), 2) + 4 * line(rows * (m + 8), 2)
     else:
         ops = line(m * ldv) + 2 * line(rows * (m + 4))
-    if kernel in ("mxu", "mxu3"):
-        return line(u) + line(c) + ops
-    if kernel == "mxu3p":
-        return 2 * line(u) + line(c) + 2 * ops + line(scr)
-    raise ValueError(f"no tensor-core kernel {kernel!r}")
+    return line(u) + line(c) + ops
 
 
 def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
@@ -447,11 +447,11 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
 
     tile_r, the block's output rows: by default the largest of 64, 48,
     32, 16 whose tile fits one H100 block at this degree and dtype (see
-    ``tc_smem_bytes``; 64 for K3c, K3f, K3h, K3p, K3/mxu and K3/mxu3 at
-    every p <= 15 in float32 and for K3f and K0 always, whose shared
-    memory does not grow with the tile; smaller for K3/mxu3p at high p
-    and for several kernels in float64).  As in gdm, every kernel but K3f
-    clamps it to N0 rounded up to 8.  A tile that does not fit raises.
+    ``tc_smem_bytes``; 64 for K3c, K3h, K3p and K3/mxu3 at every p <= 15
+    in float32 and for K3f, K0, K3/mxu and K3/mxu3p always, whose shared
+    memory does not grow with the tile; smaller for several kernels in
+    float64).  As in gdm, every kernel but K3f clamps it to N0 rounded up
+    to 8.  A tile that does not fit raises.
 
     vpu_rows, the rows of the extended tile (tile_r + 2p rows) whose
     column stage runs on the FMA units, the rest on the tensor cores:
@@ -493,13 +493,17 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def tc_occupancy(kernel: str, p: int, dtype) -> int:
-    """Blocks of K3f ("fullmxu") or K0 ("v1") one SM of the card holds at
-    degree p, as the CUDA runtime's occupancy calculator reports them for
-    the built kernel."""
+    """Blocks of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu") or K3/mxu3p
+    ("mxu3p") one SM of the card holds at degree p, as the CUDA runtime's
+    occupancy calculator reports them for the built kernel."""
     kl = _build.kernels()
     out = ctypes.c_int(0)
-    err = getattr(kl.lib, f"gdm_laplace2_{kernel}_occupancy")(
-        p, int(dtype == torch.float64), ctypes.byref(out))
+    fn = getattr(kl.lib, f"gdm_laplace2_{kernel}_occupancy")
+    f64 = int(dtype == torch.float64)
+    if kernel in tc_tables.COLS:
+        err = fn(p, f64, tc_tables.cols_of(kernel), ctypes.byref(out))
+    else:
+        err = fn(p, f64, ctypes.byref(out))
     _build.check(kl, err, f"{kernel} occupancy")
     return out.value
 
@@ -507,9 +511,10 @@ def tc_occupancy(kernel: str, p: int, dtype) -> int:
 @functools.lru_cache(maxsize=None)
 def tc_plan(kernel: str, nodes, p: int, dtype,
             tile_r: int) -> tc_tables.TcPlan:
-    """The launch plan of K3f ("fullmxu") or K0 ("v1") for the (n0, n1)
-    nodes with tiles of tile_r rows: row units of at most 32 rows times
-    32-column blocks, walked by one wave of persistent blocks, as many an
+    """The launch plan of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu") or
+    K3/mxu3p ("mxu3p") for the (n0, n1) nodes with tiles of tile_r rows:
+    row units of at most 32 rows times blocks of the kernel's columns
+    (tc_tables.COLS), walked by one wave of persistent blocks, as many an
     SM as the runtime's occupancy of the built kernel (which needs the
     card).  Cached: the wrappers ask on every launch."""
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -519,22 +524,26 @@ def tc_plan(kernel: str, nodes, p: int, dtype,
 
 def _launch_tc_plan(u: torch.Tensor, bt: Bands2,
                     plan: tc_tables.TcPlan) -> torch.Tensor:
-    """K3f or K0 on the CUDA tensor ``u`` with the plan ``plan``, from
-    the window tables of ``bt`` (built at first use); counts nothing."""
+    """K3f, K0, K3/mxu or K3/mxu3p on the CUDA tensor ``u`` with the
+    plan ``plan``, from the window tables of ``bt`` (built at first use);
+    counts nothing."""
     tab = tc_tables.tables(bt, plan.kernel, plan.tile_r)
     if plan.kernel == "fullmxu":
         tabs = (tab["win"], tab["ct"], tab["ru"])
     else:
         tabs = (bt.a1, bt.b1, tab["win"], tab["ru"])
+    extra = (tc_tables.TRB, len(plan.row_units), plan.blocks)
+    if plan.kernel in tc_tables.COLS:
+        extra = (tc_tables.TRB, plan.cols) + extra[1:]
     return launch(u, f"laplace2_{plan.kernel}_apply", plan.kernel, tabs,
-                  bt.p, bt.shape,
-                  (tc_tables.TRB, len(plan.row_units), plan.blocks))
+                  bt.p, bt.shape, extra)
 
 
 def tc_apply(u, bt, kernel, what, wrapper, plain, tile_r, vpu_rows=None):
     """The wrapper of tensor-core kernel ``kernel`` (named ``what``):
     its plain twin for a CPU tensor, else the kernel, counted on
-    ``wrapper.launches`` (K3f and K0 launched as ``tc_plan`` says)."""
+    ``wrapper.launches`` (K3f, K0, K3/mxu and K3/mxu3p launched as
+    ``tc_plan`` says)."""
     _check(u, bt)
     opts = tc_options(kernel, bt, tile_r, vpu_rows)
     if u.device.type == "cpu":
@@ -622,8 +631,9 @@ laplace2_hybp_apply.launches = 0
 def laplace2_mxu_apply(u: torch.Tensor, bt: Bands2,
                        tile_r=None) -> torch.Tensor:
     """K3's operator through K3/mxu (K3's FMA column stage, the row stage
-    as a 3xTF32 window product on the tensor cores; DMMA in float64) for
-    a CUDA tensor, the plain version for a CPU tensor."""
+    as a 3xTF32 window product on the tensor cores from the cached window
+    tables; DMMA in float64) for a CUDA tensor, the plain version for a
+    CPU tensor."""
     return tc_apply(u, bt, "mxu", "K3/mxu", laplace2_mxu_apply,
                     laplace2_apply_plain, tile_r)
 
@@ -645,9 +655,11 @@ laplace2_mxu3_apply.launches = 0
 
 def laplace2_mxu3p_apply(u: torch.Tensor, bt: Bands2,
                          tile_r=None) -> torch.Tensor:
-    """K3's operator through K3/mxu3p (K3/mxu3 pipelined across the
-    tiles of a column strip by persistent blocks) for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    """K3's operator through K3/mxu3p (K3/mxu's design with the row
+    product as bf16x3 from cached bf16 window tables, on a warpgroup of
+    its own that runs one unit's products under the next unit's column
+    stage; DMMA in float64) for a CUDA tensor, the plain version for a
+    CPU tensor."""
     return tc_apply(u, bt, "mxu3p", "K3/mxu3p", laplace2_mxu3p_apply,
                     laplace2_apply_plain, tile_r)
 
@@ -690,8 +702,8 @@ def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
     stage, float32-exact), "mxu" (K3/mxu, the row stage as a window
     product on the tensor cores, 3xTF32: float32 fidelity, gdm's
     HIGHEST), "mxu3" (K3/mxu3, that product as bf16x3, within about 1e-5
-    of max|y| in float32) or "mxu3p" (K3/mxu3p, K3/mxu3 pipelined across
-    tiles).  In float64 every mode is exact to float64 (DMMA products).
+    of max|y| in float32) or "mxu3p" (K3/mxu3p, the bf16x3 products of
+    one unit under the next unit's column stage).  In float64 every mode is exact to float64 (DMMA products).
     Any other value raises; gdm takes "vpu" for any unknown string.
     tile_r: the card's tile of the row modes, as in ``tc_options``
     (gdm's TPU tile rules do not carry over); K3's "vpu" tile is fixed
@@ -706,8 +718,8 @@ def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
     products in its roll loop) and ``static_parity`` (literal slot
     indices for the TPU compiler) take None, True or False and have no
     effect: both values produce the same function, and K3/mxu3p always
-    overlaps one tile's products with the next tile's column stage on
-    separate warps.  Anything else raises ValueError.
+    overlaps one unit's products with the next unit's column stage on
+    separate warpgroups.  Anything else raises ValueError.
 
     bands: optional (A0, A1, B0, B1) numpy band matrices ((N_d, 2p+1)
     each, the Banded1D.band layout) generalizing the operator to

@@ -1,17 +1,20 @@
-"""The window tables, launch plans and shared-memory layouts of K3f and K0.
+"""The window tables, launch plans and shared-memory layouts of K3f, K0,
+K3/mxu and K3/mxu3p.
 
-K3f (csrc/laplace2_fullmxu.cu) and K0 (csrc/laplace2_v1.cu) share the
-stage of csrc/tc_stage.cuh: a persistent block of one warpgroup walks
-units of one row unit (at most ``TRB`` = 32 output rows: the rows of a
-tile of ``tile_r``, cut into pieces of 32 where the tile is taller) by
-32 output columns, row unit major, and reads its windows from tables
-built here once per ``Bands2`` and row units (tiles that give the same
-row units share them), on the device with vectorised indexing, and
-cached on the ``Bands2``:
+K3f (csrc/laplace2_fullmxu.cu), K0 (csrc/laplace2_v1.cu), K3/mxu
+(csrc/laplace2_mxu.cu) and K3/mxu3p (csrc/laplace2_mxu3p.cu) share the
+stage of csrc/tc_stage.cuh: a persistent block walks units of one row
+unit (at most ``TRB`` = 32 output rows: the rows of a tile of
+``tile_r``, cut into pieces of 32 where the tile is taller) by a block
+of output columns (``COLS``: 64, wgmma's M, for K3/mxu and K3/mxu3p,
+whose row product is transposed; 32 for K3f and K0), row unit major, and
+reads its windows from tables built here once per ``Bands2`` and row
+units (tiles that give the same row units share them), on the device
+with vectorised indexing, and cached on the ``Bands2``:
 
 - the row window of each row unit, [A0w; B0w] (64 rows by the depth M
   of its extended rows): A0w[r][s] = A0(i0 + r, s - r) for 0 <= s - r
-  <= 2p and r below the unit's rows, zero elsewhere (K3f and K0 alike);
+  <= 2p and r below the unit's rows, zero elsewhere (every kernel);
 - K3f's column slice of each 32-column block, C^T (64 rows by KD): row x
   holds A1(j0 + x, w - x) at w, row 32 + x B1's, zero past the grid.
 
@@ -21,7 +24,11 @@ no kernel splits a table entry: a window as hi's image then lo's in the
 32-byte swizzled K-major layout that wgmma reads from shared memory
 (``sw32_offset``, csrc/wgmma.cuh), C^T in the order of the wgmma A
 fragments a thread holds in registers (``frag_index``), one 16-byte load
-a thread a k-step and part.  In float64 unsplit and row-major, padded as
+a thread a k-step and part.  K3/mxu3p's bf16x3 product reads its own
+float32 windows, split into bf16 hi = bf16(x) rounded to nearest even
+(the card's cvt.rn.bf16, as gdm's B_hi) and lo = bf16(x - hi), over a
+depth padded to k-steps of 16 (``bf16_split``, ``sw16_index``).  In
+float64 every kernel reads the windows unsplit and row-major, padded as
 the DMMA fragments read them (a row pitch of M + 4, C's of 68).
 """
 
@@ -37,7 +44,13 @@ SMEM_MAX = 232448       # shared memory one H100 block may use
 SMEM_SM = 233472        # shared memory of one H100 SM
 ALIGN = 1024            # every buffer of a block starts on such a line
 LDV = 2 * TX + 4        # pitch of the float64 C (tc_window.cuh)
-KERNELS = ("fullmxu", "v1")
+KERNELS = ("fullmxu", "v1", "mxu", "mxu3p")
+COLS = {"mxu": 64, "mxu3p": 64}   # output columns a unit, where not TX
+
+
+def cols_of(kernel: str) -> int:
+    """The output columns of a unit of ``kernel`` by default."""
+    return COLS.get(kernel, TX)
 
 
 def _rnd(n: int, m: int) -> int:
@@ -46,13 +59,30 @@ def _rnd(n: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Geom:
-    """tc_stage.cuh's Geom<T, P>."""
+    """tc_stage.cuh's Geom<T, P, CW>, with the depths of K3/mxu's and
+    K3/mxu3p's column stage."""
     p: int
     itemsize: int
+    cols: int = TX
 
     @property
     def uw(self) -> int:
-        return TX + 2 * self.p
+        return self.cols + 2 * self.p
+
+    @property
+    def me(self) -> int:
+        """The extended rows a unit reads."""
+        return TRB + 2 * self.p
+
+    @property
+    def mb(self) -> int:
+        """K3/mxu3p's bf16 window depth, in k-steps of 16."""
+        return _rnd(self.me, 16)
+
+    @property
+    def lw(self) -> int:
+        vec = 16 // self.itemsize
+        return _rnd(self.uw + vec - 1, vec)
 
     @property
     def kd(self) -> int:
@@ -68,8 +98,7 @@ class Geom:
 
     @property
     def land_bytes(self) -> int:
-        vec = 16 // self.itemsize
-        return self.itemsize * self.m * _rnd(self.uw + vec - 1, vec)
+        return self.itemsize * self.m * self.lw
 
 
 def _line(n: int) -> int:
@@ -77,9 +106,12 @@ def _line(n: int) -> int:
 
 
 def smem_bytes(kernel: str, p: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block of K3f ("fullmxu") or K0
-    ("v1") at degree p, as the kernels' Smem32 and Smem64 lay it out
-    (1024 bytes of it for aligning the base); the same for every tile."""
+    """Dynamic shared memory of one block of K3f ("fullmxu"), K0 ("v1"),
+    K3/mxu ("mxu") or K3/mxu3p ("mxu3p") at degree p, as the kernels'
+    Smem structs lay it out (1024 bytes of it for aligning the base); the
+    same for every tile."""
+    if kernel in COLS:
+        return _rows_smem(kernel, p, itemsize)
     g = Geom(p, itemsize)
     m, kd, wr = g.m, g.kd, g.wr
     roff = _line(4 * m)   # the landing offsets of a unit's rows
@@ -102,6 +134,29 @@ def smem_bytes(kernel: str, p: int, itemsize: int) -> int:
     raise ValueError(f"no window-table kernel {kernel!r}")
 
 
+def _rows_smem(kernel: str, p: int, itemsize: int) -> int:
+    """K3/mxu's and K3/mxu3p's layouts (laplace2_mxu.cu's Smem32 and
+    Smem64, laplace2_mxu3p.cu's Smem), units of 64 columns."""
+    cols = COLS[kernel]
+    g = Geom(p, itemsize, cols)
+    m, lds = g.m, cols + 4
+    if itemsize == 8:   # K3/mxu's DMMA kernel, K3/mxu3p's too
+        return (_line(8 * m * (2 * cols + 4)) + _line(8 * g.wr * (m + 4))
+                + _line(8 * TRB * lds) + _line(g.land_bytes) + _line(4 * m)
+                + ALIGN)
+    if kernel == "mxu":
+        # three landing slots where two blocks an SM still fit, else two
+        base = (_line(2 * 4 * g.wr * m) + 2 * _line(2 * 4 * 64 * m)
+                + _line(4 * TRB * lds))
+        land = _line(g.land_bytes)
+        tail = _line(_rnd(4 * _rnd(g.me, 4), 8) + 8) + ALIGN
+        slots = 3 if (base + 3 * land + tail + 1024) * 2 <= SMEM_SM else 2
+        return base + slots * land + tail
+    img, mc = 2 * 64 * g.mb, _rnd(g.me, 4)
+    return (2 * _line(4 * img) + _line(2 * img) + 2 * _line(4 * TRB * lds)
+            + 2 * _line(4 * mc * g.lw) + _line(8 * mc) + _line(40) + ALIGN)
+
+
 def occupancy_model(smem: int) -> int:
     """Blocks an SM by shared memory alone, each block holding 1 KB more
     (the plans' model off the card; on it, ``stencil2.tc_occupancy``)."""
@@ -120,17 +175,18 @@ def row_units(n0: int, tile_r: int) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class TcPlan:
-    """How K3f or K0 walks the (n0, n1) nodes: row units of at most TRB
-    rows (``row_units``, each (first row, rows)) times ``n_cb`` blocks of
-    32 columns, row unit major, shared out evenly over ``blocks``
-    persistent blocks of 128 threads, ``smem`` bytes of shared memory
-    each."""
+    """How K3f, K0, K3/mxu or K3/mxu3p walks the (n0, n1) nodes: row
+    units of at most TRB rows (``row_units``, each (first row, rows))
+    times ``n_cb`` blocks of ``cols`` columns, row unit major, shared out
+    evenly over ``blocks`` persistent blocks (of 128 threads; K3/mxu3p's
+    float32 blocks of 256), ``smem`` bytes of shared memory each."""
     kernel: str
     tile_r: int
     row_units: tuple
     n_cb: int
     blocks: int
     smem: int
+    cols: int = TX
 
     @property
     def units(self) -> int:
@@ -140,12 +196,14 @@ class TcPlan:
 def plan(kernel: str, nodes, p: int, itemsize: int, tile_r: int,
          per_sm: int, sms: int) -> TcPlan:
     """The plan for ``nodes`` with ``per_sm`` blocks on each of ``sms``
-    SMs: one wave of persistent blocks, never more blocks than units."""
+    SMs and units of the kernel's columns: one wave of persistent blocks,
+    never more blocks than units."""
     n0, n1 = nodes
+    cols = cols_of(kernel)
     ru = row_units(n0, tile_r)
-    n_cb = -(-n1 // TX)
+    n_cb = -(-n1 // cols)
     return TcPlan(kernel, tile_r, ru, n_cb, min(len(ru) * n_cb, sms * per_sm),
-                  smem_bytes(kernel, p, itemsize))
+                  smem_bytes(kernel, p, itemsize), cols)
 
 
 # ---- the tables ----------------------------------------------------------
@@ -163,6 +221,50 @@ def tf32_split(x: torch.Tensor):
     """(hi, lo) = (tf32(x), tf32(x - hi)) of a float32 tensor."""
     hi = tf32_rna(x)
     return hi, tf32_rna(x - hi)
+
+
+def bf16_rne(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to bf16 (7 explicit mantissa bits) to nearest,
+    ties to even, as cvt.rn.bf16.f32, in float32: the low 16 bits zero."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def bf16_split(x: torch.Tensor):
+    """(hi, lo) = (bf16(x), bf16(x - hi)) of a float32 tensor, as bf16."""
+    hi = bf16_rne(x)
+    return hi.to(torch.bfloat16), bf16_rne(x - hi).to(torch.bfloat16)
+
+
+def sw16_index(rows: int, depth: int, device) -> torch.Tensor:
+    """The element offset of entry (r, k) of a rows x depth bf16 operand in
+    the 32-byte swizzled K-major layout (k-steps of 16 bf16, 32 bytes a
+    row: sw32_offset's bytes / 2)."""
+    r = torch.arange(rows, device=device).view(-1, 1)
+    k = torch.arange(depth, device=device).view(1, -1)
+    return ((k // 16) * rows * 16 + r * 16
+            + ((((k // 8) % 2) ^ ((r // 4) % 2)) * 8) + k % 8)
+
+
+def _image16(dense: torch.Tensor) -> torch.Tensor:
+    """(n, 2 rows depth) bf16 images, hi's then lo's, of the float32
+    (n, rows, depth) tables."""
+    n, rows, depth = dense.shape
+    idx = sw16_index(rows, depth, dense.device).reshape(-1)
+    out = torch.zeros(n, 2, rows * depth, dtype=torch.bfloat16,
+                      device=dense.device)
+    for part, x in enumerate(bf16_split(dense.reshape(n, -1))):
+        out[:, part, idx] = x
+    return out.reshape(n, -1)
+
+
+def _unimage16(img: torch.Tensor, rows: int, depth: int) -> torch.Tensor:
+    """hi + lo of each entry of ``_image16``'s images, in float64."""
+    idx = sw16_index(rows, depth, img.device).reshape(-1)
+    parts = img.reshape(img.shape[0], 2, rows * depth)[:, :, idx]
+    return parts.double().sum(1).reshape(-1, rows, depth)
 
 
 def sw32_index(rows: int, depth: int, device) -> torch.Tensor:
@@ -261,24 +363,32 @@ def ct_dense(bt, kd: int) -> torch.Tensor:
                       for band in (bt.a1, bt.b1)], dim=1)
 
 
+def _bf16_windows(bt) -> bool:
+    return bt.a0.element_size() == 4
+
+
 def tables(bt, kernel: str, tile_r: int) -> dict:
     """The tables of ``kernel`` for ``bt`` and ``tile_r``, built on first
     use and cached on ``bt`` under the row units (a second call, or a tile
     with the same row units, builds nothing): ``ru``, the
     int32 (first row, rows) pairs of the row units; ``win``, the windows
-    (n_units, image); for "fullmxu" ``ct``, the column slices (n_cb,
-    image).  ``tables.builds`` counts the tables built."""
+    (n_units, image): K3/mxu3p's in float32 its own bf16 images of depth
+    ``Geom.mb``, every other kernel's (and K3/mxu3p's in float64) the
+    same; for "fullmxu" ``ct``, the column slices (n_cb, image).
+    ``tables.builds`` counts the tables built."""
     cache = bt.tables
     g = Geom(bt.p, bt.a0.element_size())
     units = row_units(bt.shape[0], tile_r)
-    key = ("win", units)
+    bf16 = kernel == "mxu3p" and _bf16_windows(bt)
+    key = ("win16" if bf16 else "win", units)
     if key not in cache:
-        dense = window_dense(bt, g.m, units)
-        if g.itemsize == 4:
-            win = _image32(dense)
+        if bf16:
+            win = _image16(window_dense(bt, g.mb, units))
+        elif g.itemsize == 4:
+            win = _image32(window_dense(bt, g.m, units))
         else:
-            win = torch.nn.functional.pad(dense, (0, 4)).reshape(
-                len(units), -1)
+            win = torch.nn.functional.pad(window_dense(bt, g.m, units),
+                                          (0, 4)).reshape(len(units), -1)
         cache[key] = {"ru": torch.tensor(units, dtype=torch.int32,
                                          device=bt.a0.device).reshape(-1),
                       "win": win.contiguous()}
@@ -303,13 +413,15 @@ tables.builds = 0
 
 
 def dense_tables(bt, kernel: str, tile_r: int):
-    """(row units, windows (n_units, 2 TRB, m), C^T (n_cb, 64, kd) or
+    """(row units, windows (n_units, 2 TRB, depth), C^T (n_cb, 64, kd) or
     None) in float64, read back from the cached images: float32 ones as
     hi + lo."""
     g = Geom(bt.p, bt.a0.element_size())
     tab = tables(bt, kernel, tile_r)
     units = row_units(bt.shape[0], tile_r)
-    if g.itemsize == 4:
+    if kernel == "mxu3p" and _bf16_windows(bt):
+        win = _unimage16(tab["win"], g.wr, g.mb)
+    elif g.itemsize == 4:
         win = _unimage32(tab["win"], g.wr, g.m)
     else:
         win = tab["win"].reshape(len(units), g.wr, g.m + 4)[:, :, :g.m]
@@ -322,38 +434,47 @@ def dense_tables(bt, kernel: str, tile_r: int):
     return units, win.double(), None if ct is None else ct.double()
 
 
-def table_twin(u: torch.Tensor, bt, kernel: str, tile_r: int) -> torch.Tensor:
+def table_twin(u: torch.Tensor, bt, kernel: str,
+               tile_r: int) -> torch.Tensor:
     """y = A0 U A1^T + B0 U B1^T in float64 from the cached tables, a row
-    unit and a 32-column block at a time, in the kernel's order: K3f the
-    column product [V | W] = U_tile C then y = A0w V + B0w W, K0 the row
-    product [ts; tm] = [A0w; B0w] U_tile then the column sums with A1, B1
-    (no card needed)."""
+    unit and a block of the kernel's columns at a time, in the kernel's
+    order: K3f the column product [V | W] = U_tile
+    C then y = A0w V + B0w W, K0 the row product [ts; tm] = [A0w; B0w]
+    U_tile then the column sums with A1, B1, K3/mxu and K3/mxu3p the
+    column sums V, W with A1, B1 then the transposed row product y^T =
+    V^T A0w^T + W^T B0w^T over the window's depth (no card needed)."""
     p = bt.p
     n0, n1 = bt.shape
+    tx = cols_of(kernel)
     units, win, ct = dense_tables(bt, kernel, tile_r)
+    depth = win.shape[2]
     g = Geom(p, bt.a0.element_size())
-    n_cb = -(-n1 // TX)
-    ue = torch.zeros(n0 + 2 * p + g.m, n_cb * TX + g.kd, dtype=torch.float64,
-                     device=u.device)
+    n_cb = -(-n1 // tx)
+    ue = torch.zeros(n0 + 2 * p + depth, n_cb * tx + tx + 2 * p + g.kd,
+                     dtype=torch.float64, device=u.device)
     ue[p:p + n0, p:p + n1] = u.double()
-    y = torch.zeros(n0, n_cb * TX, dtype=torch.float64, device=u.device)
-    a1 = torch.nn.functional.pad(bt.a1.double(), (0, 0, 0, n_cb * TX - n1))
-    b1 = torch.nn.functional.pad(bt.b1.double(), (0, 0, 0, n_cb * TX - n1))
+    y = torch.zeros(n0, n_cb * tx, dtype=torch.float64, device=u.device)
+    a1 = torch.nn.functional.pad(bt.a1.double(), (0, 0, 0, n_cb * tx - n1))
+    b1 = torch.nn.functional.pad(bt.b1.double(), (0, 0, 0, n_cb * tx - n1))
+    x = torch.arange(tx, device=u.device)
+    taps = x.view(-1, 1) + torch.arange(2 * p + 1, device=u.device)
     for k, (i0, rows) in enumerate(units):
         aw, bw = win[k, :TRB], win[k, TRB:]
         for cb in range(n_cb):
-            j0 = cb * TX
+            j0 = cb * tx
             # u rows i0 - p .., columns j0 - p ..
-            tile = ue[i0:i0 + g.m, j0:j0 + g.kd]
+            tile = ue[i0:i0 + depth, j0:j0 + g.kd]
             if kernel == "fullmxu":
                 vw = tile @ ct[cb].t()                 # (m, 64)
                 yt = aw @ vw[:, :TX] + bw @ vw[:, TX:]
-            else:
+            elif kernel == "v1":
                 ts, tm = aw @ tile, bw @ tile          # (TRB, kd)
-                x = torch.arange(TX, device=u.device)
-                idx = x.view(-1, 1) + torch.arange(2 * p + 1,
-                                                   device=u.device)
-                yt = (ts[:, idx] * a1[j0 + x]).sum(-1) + (
-                    tm[:, idx] * b1[j0 + x]).sum(-1)
-            y[i0:i0 + rows, j0:j0 + TX] = yt[:rows]
+                yt = (ts[:, taps] * a1[j0 + x]).sum(-1) + (
+                    tm[:, taps] * b1[j0 + x]).sum(-1)
+            else:
+                tile = ue[i0:i0 + depth, j0:j0 + tx + 2 * p]
+                v = (tile[:, taps] * a1[j0 + x]).sum(-1)   # (depth, tx)
+                w = (tile[:, taps] * b1[j0 + x]).sum(-1)
+                yt = (v.t() @ aw.t() + w.t() @ bw.t()).t()
+            y[i0:i0 + rows, j0:j0 + tx] = yt[:rows]
     return y[:, :n1]

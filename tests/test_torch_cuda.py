@@ -722,17 +722,28 @@ def test_laplace2_tc_four_factor_bands(cuda_device, kernel, dtype):
 
 
 WINDOW_KERNELS = {"fullmxu": stencil2.laplace2_fullmxu_apply,
-                  "v1": stencil.laplace_v1_apply}
+                  "v1": stencil.laplace_v1_apply,
+                  "mxu": stencil2.laplace2_mxu_apply,
+                  "mxu3p": stencil2.laplace2_mxu3p_apply}
+# the rows of the residue test's grid: more units than SMs with each
+# kernel's columns a unit (32 for K3f and K0, 64 for K3/mxu and K3/mxu3p)
+RESIDUE_ROWS = {"fullmxu": 200, "v1": 200, "mxu": 257, "mxu3p": 257}
+
+
+def _window_tol(kernel, dtype):
+    """K3/mxu3p's bf16x3 product in float32: 1e-4; the others 1e-5."""
+    return _row_tol("mxu3p" if kernel == "mxu3p" else "mxu", dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n1", [1024, 1025, 1026, 1027])
 @pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
 def test_window_kernels_row_residues(cuda_device, kernel, n1, dtype):
-    """K3f and K0 at every residue of N1 mod 4 (a row's first element
-    sits N1 i mod 4 elements past a 16-byte boundary), with a ragged last
-    row unit and more units than SMs (a persistent walk)."""
-    grid = Grid(3, (199, n1 - 1), (0.0, 0.0), (1.0, 2.0))
+    """K3f, K0, K3/mxu and K3/mxu3p at every residue of N1 mod 4 (a row's
+    first element sits N1 i mod 4 elements past a 16-byte boundary), with
+    a ragged last row unit and more units than SMs (a persistent walk)."""
+    grid = Grid(3, (RESIDUE_ROWS[kernel] - 1, n1 - 1), (0.0, 0.0),
+                (1.0, 2.0))
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
     u = _rand(grid.nodes, n1, dtype, cuda_device)
     wrapper = WINDOW_KERNELS[kernel]
@@ -744,16 +755,17 @@ def test_window_kernels_row_residues(cuda_device, kernel, n1, dtype):
     before = wrapper.launches
     yk = wrapper(u, bt)
     assert wrapper.launches == before + 1
-    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _tol(dtype)
+    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _window_tol(
+        kernel, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tile_r", [16, 37, 64, 100])
 @pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
 def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
-    """K3f and K0 with tiles of 16, 37, 64 and 100 rows (cut into row
-    units of at most 32; window rows past a unit are zero), four band
-    factors, p = 7 (K0's largest)."""
+    """K3f, K0, K3/mxu and K3/mxu3p with tiles of 16, 37, 64 and 100 rows
+    (cut into row units of at most 32; window rows past a unit are zero),
+    four band factors, p = 7 (K0's largest)."""
     grid = Grid(7, (150, 90), (0.0, 0.0), (1.0, 1.0))
     rng = np.random.default_rng(tile_r)
     n0, n1 = grid.nodes
@@ -761,7 +773,45 @@ def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype, bands)
     u = _rand(grid.nodes, 21, dtype, cuda_device)
     yk = WINDOW_KERNELS[kernel](u, bt, tile_r=tile_r)
-    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _tol(dtype)
+    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _window_tol(
+        kernel, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cells", [(128, 128), (512, 512)])
+@pytest.mark.parametrize("kernel", ["mxu", "mxu3p"])
+def test_row_kernels_flagship_sizes(cuda_device, kernel, cells, dtype):
+    """K3/mxu and K3/mxu3p at the split apply's flagship sizes: fewer
+    units than SMs at 129^2 nodes (a block a unit), more at 513^2."""
+    grid = Grid(3, cells, (-1.21, -1.21), (1.21, 1.21))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 23, dtype, cuda_device)
+    tile = stencil2.tc_options(kernel, bt)["tile_r"]
+    plan = stencil2.tc_plan(kernel, bt.shape, 3, dtype, tile)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (plan.units < sms) == (cells[0] == 128)
+    assert plan.blocks <= plan.units
+    yk = WINDOW_KERNELS[kernel](u, bt)
+    assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _window_tol(
+        kernel, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["mxu", "mxu3p"])
+def test_row_kernels_refuse_a_plan_off_their_layout(cuda_device, kernel,
+                                                    dtype):
+    """The C entries hold the plan to their layout: a column width other
+    than 64 or more blocks than units raise."""
+    grid = Grid(3, (60, 100), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 25, dtype, cuda_device)
+    plan = stencil2.tc_plan(kernel, bt.shape, 3, dtype, 64)
+    bad = [dataclasses.replace(plan, cols=48),
+           dataclasses.replace(plan, cols=32),
+           dataclasses.replace(plan, blocks=plan.units + 1)]
+    for b in bad:
+        with pytest.raises(RuntimeError, match=kernel):
+            stencil2._launch_tc_plan(u, bt, b)
 
 
 def test_window_tables_built_once(cuda_device):
@@ -947,7 +997,7 @@ def test_row_modes_reject(cuda_device):
     g15 = Grid(15, (300, 140), (0.0, 0.0), (1.0, 1.0))
     with pytest.raises(ValueError, match="shared memory"):
         stencil2.make_padded_laplace2(g15, cuda_device, torch.float64,
-                                      tile_r=64, rows="mxu3p")
+                                      tile_r=64, rows="mxu3")
 
 
 @pytest.fixture(scope="module")
