@@ -52,7 +52,7 @@ Run from the repository root:  python3 chip_smoke.py
    and 4096^2 p=3 in float32 (max error <= 1e-5 of max|y|) and at
    1024^2 p=3 in float64 (<= 1e-12), each timed in turns against K3
    (K3, K3x, K3x, K3): device and per-call times, GB/s at 8 B per node
-   (16 in float64); K3f also at 257 x 1024 .. 1027 nodes (every
+   (16 in float64); K3f and K3p also at 257 x 1024 .. 1027 nodes (every
    residue of N1 mod 4) in float32 and float64, the same limits;
    torch.matmul of the dense column coupling
    U [A1^T | B1^T] at 1024^2 alone (the yardstick for the column stage
@@ -81,10 +81,9 @@ Run from the repository root:  python3 chip_smoke.py
    p=3, p=5 and 4096^2 p=3 in float32 (max error <= 1e-5 of max|y| for
    K3/mxu and K0, <= 1e-4 for the bf16x3 modes), with four band factors
    for the three K3 modes, and at 1024^2 p=3 in float64
-   (<= 1e-12), each timed in turns against K3 (K3, X, X, K3; K3/mxu3,
-   the wmma design of the row modes, is the anchor of the wgmma K3/mxu
-   and K3/mxu3p); K0, K3/mxu and K3/mxu3p also at 257 x 1024 .. 1027
-   nodes (every residue of N1 mod 4) in float32 and float64; torch.matmul
+   (<= 1e-12), each timed in turns against K3 (K3, X, X, K3); K0,
+   K3/mxu, K3/mxu3 and K3/mxu3p also at 257 x 1024 .. 1027 nodes (every
+   residue of N1 mod 4) in float32 and float64; torch.matmul
    of the dense row coupling [A0 | B0] [V; W] at 1024^2 alone (the
    yardstick for the row stage only); then, the launch
    counts reset before each, make_padded_laplace2(rows=r) for every r,
@@ -113,9 +112,13 @@ Run from the repository root:  python3 chip_smoke.py
    plan of m3_plans at 40 x 60 and 1024^2, at the card's SMs and at two,
    every branch of m3_plan), M4 (make_auto_micro: "dma" exactly, "both" as M3's)
    and M5 (make_sepbuf_micro, exactly), each against its plain twin,
-   with M1's row plans at 1024^2 and, as "rowsonly"'s library yardstick,
-   one torch.bmm of the concatenated bf16 operands ((5, 256, 1632) x
-   (5, 1632, 1152), a float32 output where torch.bmm takes out_dtype);
+   with M1's row plans at 1024^2 and, as the library yardsticks at
+   1024^2 p=3: for "rowsonly" and "dotsonly" one torch.bmm of the
+   concatenated bf16 operands ((5, 256, 1632) x (5, 1632, 1152), a
+   float32 output where torch.bmm takes out_dtype; "dotsonly"'s lo is
+   its hi), for "full" one torch.matmul of the tile rows by the dense
+   banded [C0 | C1] of its two tables (V and W apart, as K3f's row times
+   its column stage);
    device times by events, in turns where modes are compared, and gdm's
    derived rows: one shifted read and one FMA a pass in us per MDoF
    (against K3 in turns), M2's us per M elements against the
@@ -426,11 +429,11 @@ def levels_vs_plain(sysf, dev, dtype, tag):
 
 
 def residues(rng, dev, kname, fn, tol32=1e-5):
-    """K3f, K0, K3/mxu or K3/mxu3p (``fn``, its wrapper) against K3's
-    plain twin at N1 = 1024 .. 1027 columns (every residue of a row's
-    start mod 16 bytes), 257 rows (a ragged last row unit), float32 (<=
-    ``tol32`` of max|y|) and float64 (<= 1e-12); returns the largest
-    float32 max abs error."""
+    """K3f, K3p, K0, K3/mxu, K3/mxu3 or K3/mxu3p (``fn``, its wrapper)
+    against K3's plain twin at N1 = 1024 .. 1027 columns (every residue of
+    a row's start mod 16 bytes), 257 rows (a ragged last row unit),
+    float32 (<= ``tol32`` of max|y|) and float64 (<= 1e-12); returns the
+    largest float32 max abs error."""
     import torch
 
     from gdm_torch.grid import Grid
@@ -490,7 +493,7 @@ def row_wrappers():
 ROW_KERNELS = {
     "K3/mxu": ("laplace2_mxu_apply", "gdm_torch/csrc/laplace2_mxu.cu",
                "gdm/ops/pallas_stencil2.py:278", 1e-5),
-    "K3/mxu3": ("laplace2_mxu3_apply", "gdm_torch/csrc/laplace2_mxurows.cu",
+    "K3/mxu3": ("laplace2_mxu3_apply", "gdm_torch/csrc/laplace2_mxu.cu",
                 "gdm/ops/pallas_stencil2.py:325", 1e-4),
     "K3/mxu3p": ("laplace2_mxu3p_apply", "gdm_torch/csrc/laplace2_mxu3p.cu",
                  "gdm/ops/pallas_stencil2.py:382", 1e-4),
@@ -589,7 +592,7 @@ def row_phase(rng, dev, g2, g4096, four):
             if name == "1024^2 p=3":
                 ms_at[kname] = ms
         del u, yp, bt
-    for kname in ("K0", "K3/mxu", "K3/mxu3p"):
+    for kname in ("K0", "K3/mxu", "K3/mxu3", "K3/mxu3p"):
         err_max[kname] = max(err_max[kname], residues(
             rng, dev, kname, rw[kname], ROW_KERNELS[kname][3]))
     # the yardstick for the row stage alone: one dense product by the
@@ -935,22 +938,24 @@ RELAYOUT_BRANCH_CASES = [((32, 16), 3), ((100, 70), 7)]
 M3_PLAN_CASES = [(40, 60, 16), (1024, 1024, 96)]
 
 
-def bmm_yardstick(u, tables, g):
-    """M1 "rowsonly"'s library yardstick: one torch.bmm of the
-    concatenated bf16 operands, [Bh | Bh | Bl] (n_tiles, tile_r, 3 x 2
-    T_ext) times [hi; hi; lo; lo; hi; hi] (n_tiles, 3 x 2 T_ext, W2), with
-    a float32 output where the installed torch.bmm takes out_dtype, else
-    a bf16 output (it says which).  Timed by events; the port never calls
-    it.  Returns ms."""
+def bmm_yardstick(u, tables, g, mode="rowsonly"):
+    """The library yardstick of M1's row mode ``mode`` ("rowsonly" or
+    "dotsonly"): one torch.bmm of the concatenated bf16 operands, [Bh | Bh
+    | Bl] (n_tiles, tile_r, 3 x 2 T_ext) times [hi; hi; lo; lo; hi; hi]
+    (n_tiles, 3 x 2 T_ext, W2; "dotsonly" takes lo = hi, as the mode
+    does), with a float32 output where the installed torch.bmm takes
+    out_dtype, else a bf16 output (it says which).  Timed by events; the
+    port never calls it.  Returns ms."""
     import torch
 
     tiles = u.unfold(0, g.t_ext, g.tile_r).transpose(1, 2)
     hi = tiles.to(torch.bfloat16)
-    lo = (tiles - hi.float()).to(torch.bfloat16)
+    lo = hi if mode == "dotsonly" else (tiles - hi.float()).to(
+        torch.bfloat16)
     bh, bl = (t.reshape(g.n_tiles, g.tile_r, 2 * g.t_ext) for t in tables)
     a = torch.cat([bh, bh, bl], dim=2).contiguous()
     b = torch.cat([hi, hi, lo, lo, hi, hi], dim=1).contiguous()
-    ref = mxu_micro_plain_rows(u, tables, g)
+    ref = mxu_micro_plain_rows(u, tables, g, mode)
     try:
         y = torch.bmm(a, b, out_dtype=torch.float32)
         out = "float32 (out_dtype)"
@@ -966,18 +971,54 @@ def bmm_yardstick(u, tables, g):
     torch.cuda.synchronize()
     err = (y.float().reshape(ref.shape) - ref).abs().max().item()
     ms = device_ms(call)
-    print(f"  library yardstick: torch.bmm {tuple(a.shape)} x "
+    print(f"  library yardstick of {mode}: torch.bmm {tuple(a.shape)} x "
           f"{tuple(b.shape)} bf16, {out} output: {ms * 1e3:.2f} us "
           f"(max error {err / ref.abs().max().item():.2e} of max|y|)")
     return ms
 
 
-def mxu_micro_plain_rows(u, tables, g):
-    """The "rowsonly" outputs of the plain twin, (n_tiles tile_r, W2)."""
+def matmul_yardstick(u, tables, g):
+    """M1 "full"'s library yardstick: one torch.matmul of the tile rows
+    (rp, W2) by the dense banded [C0 | C1] (W2, 2 W2) of its two tables
+    (C_d[(j + l - p) mod W2][j] = table d's tap l of column j, gdm's
+    rolls), V and W apart as K3f's row times its column stage; float32
+    (torch's default "highest" precision).  Timed by events; the port
+    never calls it.  Returns ms."""
+    import torch
+
     from gdm_torch.benchmarks import mxu_micro
 
-    return mxu_micro.stage1_micro_plain(u, *tables, "rowsonly",
-                                        g)[g.h:g.h + g.rp]
+    w2, k, p = g.w2, g.k, g.p
+    j = torch.arange(w2, device=u.device).view(1, -1).expand(k, w2)
+    rows = (j + torch.arange(k, device=u.device).view(-1, 1) - p) % w2
+    mats = []
+    for t in tables:
+        c = torch.zeros(w2, w2, dtype=torch.float32, device=u.device)
+        c[rows, j] = t.float()
+        mats.append(c)
+    cat = torch.cat(mats, dim=1).contiguous()
+    uw = u[g.h:g.h + g.rp]
+    vw = torch.matmul(uw, cat)
+    ref = mxu_micro.stage1_micro_plain(u, *tables, "full", g)[g.h:g.h + g.rp]
+    torch.cuda.synchronize()
+    scale = mxu_micro.stage1_term_scale(u, *tables, "full", g)
+    err = (vw[:, :w2] + vw[:, w2:] - ref).abs().max().item()
+    check(err <= 1e-5 * scale, f"M1 full's torch.matmul yardstick: max "
+          f"error {err:.3e}, limit 1e-5 x {scale:.3e}")
+    ms = device_ms(lambda: torch.matmul(uw, cat))
+    print(f"  library yardstick of full: torch.matmul {tuple(uw.shape)} x "
+          f"{tuple(cat.shape)} float32: {ms * 1e3:.2f} us (max error "
+          f"{err:.2e}, {err / scale:.2e} of the sum of |terms|)")
+    del cat, vw
+    return ms
+
+
+def mxu_micro_plain_rows(u, tables, g, mode="rowsonly"):
+    """The outputs of a row mode of the plain twin, (n_tiles tile_r,
+    W2)."""
+    from gdm_torch.benchmarks import mxu_micro
+
+    return mxu_micro.stage1_micro_plain(u, *tables, mode, g)[g.h:g.h + g.rp]
 
 
 def micro_phase(rng, dev):
@@ -1065,7 +1106,9 @@ def micro_phase(rng, dev):
                 "full", t["full"],
                 device_ms(lambda: mxu_micro.stage1_micro_plain(
                     u, *aps["full"].tables, "full", g), n=5),
-                bound(col_bytes, 4 * k * g.rp * g.w2), None)
+                bound(col_bytes, 4 * k * g.rp * g.w2),
+                matmul_yardstick(u, aps["full"].tables, g))
+            bmm_yardstick(u, aps["dotsonly"].tables, g, "dotsonly")
             depth = 2 * g.t_ext
             row_bytes = 4 * 2 * g.shape[0] * g.w2 + 2 * 2 * g.rp * depth
             for mode in ("rowsonly", "dotsonly"):
@@ -1729,8 +1772,9 @@ def main():
             if name == "1024^2 p=3":
                 tc_ms[kname] = ms
         del u, yp, bt
-    tc_err["K3f"] = max(tc_err["K3f"],
-                        residues(rng, dev, "K3f", tc["K3f"]))
+    for kname in ("K3f", "K3p"):
+        tc_err[kname] = max(tc_err[kname],
+                            residues(rng, dev, kname, tc[kname]))
     # the yardstick for the column stage alone: one dense product by the
     # whole column coupling [A1^T | B1^T]
     bt = stencil2.laplace2_bands(g2[3], dev, f32)

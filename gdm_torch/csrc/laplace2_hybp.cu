@@ -1,188 +1,526 @@
-// K3p: K3h's split column stage pipelined across the tiles of a column
-// strip, for y = A0 U A1^T + B0 U B1^T.
+// K3p: the 2D separable band apply  y = A0 U A1^T + B0 U B1^T  with the
+// column stage split by rows between the FMA units and the tensor cores,
+// pipelined across the tiles of a column strip.
 //
-// Replaces gdm/ops/pallas_stencil2.py::make_padded_laplace2_hybp (the
-// TPU schedule that issues tile i's MXU column products before tile i's
-// VPU rows and tile i-1's row stage; no solve dispatch routes to it, in
-// gdm or here).  Same operator, band tables and contiguous (n0, n1) node
-// array as K3 (laplace2.cu).
+// Replaces gdm/ops/pallas_stencil2.py::make_padded_laplace2_hybp (its
+// pallas_call at :2483: rows [0, vpu_rows) of each extended tile take the
+// column stage as lane rolls on the VPU, rows [vpu_rows, T_ext) as banded
+// window products U . C on the MXU; tile i's products are issued before
+// tile i's VPU rows and tile i-1's row stage, so the matrix unit drains
+// under them; no solve dispatch routes to it, in gdm or here).  Same
+// operator, band tables and contiguous (n0, n1) node array as K3
+// (laplace2.cu).
 //
 // Bound on the card: K3's (memory, 2.51 us at 1024^2 and 40 us at 4096^2,
-// p = 3, float32).
+// p = 3, float32).  The design's own floor is its FMA work, K3's column
+// stage on vpu_rows of each tile's tile_r + 2p extended rows and K3's row
+// stage, with the rest of the column stage as 3xTF32 products: at 1025^2
+// p = 3 with the default split (48 of 70 rows on the FMA units) one chunk
+// of 32 rows a tile (22 of them real), 3 x 2 x 64 x 32 x 40 flops, 0.28
+// GFLOP of tensor work (0.56 us at 495 TFLOP/s of tf32).
 //
-// Design: one wave of persistent blocks (as many as fit on the SMs at
-// once, as K3s).  A block owns a 32-column strip and a segment of its
-// rows, a whole number of tiles of tile_r rows, and marches down it.  The
-// warps are specialised.  In step s the MMA warps (4-7) run tile s's
-// window product on rows [vpu_rows, tile_r + 2p) of its extended tile,
-// while the FMA warps (0-3) run tile s's K3 column FMAs on rows
-// [0, vpu_rows) and then tile s-1's row stage.  V and W are double
-// buffered, so tile s-1's row stage reads the buffer tile s does not
-// write; one barrier per step.  Tile s+1's u rows and A0/B0 rows arrive
-// meanwhile through K3s's element-wise cp.async copies (zero-filled
-// outside the grid, any row length) into a second u slot and a third
-// band slot.  The strip's C slice is built once.
-#include <algorithm>
-
+// Design (float32; tc_stage.cuh and tc_rows.cuh hold the shared stage).
+// A unit is one tile of tile_r output rows (the last one ragged) of a
+// 32-column strip, its extended rows ME = rows + 2p; the plan
+// (ops/tc_tables.py) numbers the units strip-major and gives each
+// persistent block an even run of one strip's tiles, so the strip's band
+// columns and C^T stay in registers for every unit the block takes.  Two
+// warpgroups, joined by mbarriers only (no block-wide barrier after the
+// set-up):
+//   warpgroup 1 (the tensor warpgroup) issues unit n + 1's 16-byte
+//     cp.async copies (its u rows into a ring of three landing slots, its
+//     A0 and B0 band rows from the cached padded band table into the
+//     slot's band rows), whose landing completes the slot's "landed"
+//     barrier (cp.async.mbarrier.arrive); then, for unit n, splits the
+//     landed rows [vpu_rows, ME) once into tf32 hi and lo as the 32-byte
+//     swizzled K-major B operand (32 rows a chunk) and runs [V | W]^T =
+//     C^T U^T as 3xTF32 wgmma m64n32k8 chains, C^T as A fragments in
+//     registers from K3f's cached table, and writes V and W into the
+//     unit's [V | W] slot (two slots), then arrives on the slot's "full";
+//   warpgroup 0 (the FMA warpgroup) runs unit n's column stage on rows
+//     [0, vpu_rows) (a thread per output column, A1 and B1 of its column
+//     in registers, four rows at a time; tc_rows.cuh) into the same slot,
+//     then the row stage of unit n - 1 once its "full" completes: a thread
+//     per output column walks blocks of RB output rows with V and W of
+//     RB + 2p rows in registers and each row's A0 and B0 coefficients by
+//     16-byte loads (K3's row stage), stores y coalesced, and arrives on
+//     that slot's "empty".
+// The tensor warpgroup waits on "empty" (unit n - 2's row stage done)
+// before it refills the slots unit n - 2 used.  So unit n's tensor rows
+// run under unit n's FMA rows and unit n - 1's row stage, as in gdm.
+// vpu_rows = 0 puts every row on the tensor cores, >= ME every row on the
+// FMA units.  A block takes 108 KB of shared memory at p = 3 with tiles
+// of 64 rows, so two share an SM.  (Measured on an H100, both warpgroups
+// are latency-bound: four FMA warps a block hold the row stage and the
+// FMA rows, and the tensor warpgroup's u split and copy issue take as
+// long as its share of the rows would on the FMA units;
+// scripts/torch_k3mxu3_k3p_breakdown.py prints the phases.)
+//
+// Float64: the same pipeline, the tensor rows on the DMMA units (wmma
+// m8n8k4, tc_window.cuh's col_mma) from K3f's float64 C table, unsplit,
+// through a u tile of those rows; the row stage reads its band rows from
+// the cached table in device memory (no band slots, so a block fits the
+// tiles gdm's cases take).
+#include "tc_rows.cuh"
 #include "tc_window.cuh"
 
 namespace {
 
-using namespace gdm::tc;
+using namespace gdm::tcs;
+namespace wg = gdm::wg;
 
+constexpr int SW = TX;   // columns of a strip
+using gdm::tc::rnd128;
+
+// The geometry of degree P and type T with tiles of tile_r rows; the
+// shared-memory layout (byte offsets from a 1024-byte aligned base): the
+// float32 chunk operand U^T (hi, lo; the float64 u tile and the DMMA
+// warps' scratch tiles), two [V | W] slots, three landing slots of u rows,
+// three slots of band rows (float32; float64 reads them from the table),
+// the two warpgroups' landing offsets, the mbarriers.  ops/tc_tables.py's
+// hybp_layout mirrors it.
 template <typename T, int P>
-__global__ void __launch_bounds__(NT)
-laplace2_hybp_kernel(const T* __restrict__ u, const T* __restrict__ a0,
-                     const T* __restrict__ a1, const T* __restrict__ b0,
-                     const T* __restrict__ b1, T* __restrict__ y, int n0,
-                     int n1, int tile_r, int vpu_rows, int seg_rows) {
-  using G = Tile<P>;
+struct HGeom {
+  static constexpr int K = 2 * P + 1;
+  static constexpr int UW = SW + 2 * P;      // u columns a unit reads
+  static constexpr int KD = rnd(UW, 8);      // ... padded to k-steps
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  static constexpr int LW = Geom<T, P, SW>::LW;   // landing row pitch
+  static constexpr int KP = rnd(K, VEC);     // a band row's pitch
+  static constexpr int LDV = gdm::tc::LDV;   // [V | W]'s pitch, 2 SW + 4
+  static constexpr int LDU = KD + 4;         // the float64 u tile's pitch
+  static constexpr int RB = P <= 5 ? 8 : 4;  // output rows a row block
+  static constexpr int NCH = 32;             // tensor rows a chunk
+  int tile_r, cap;
+  size_t uop, vw, land, bands, roff, bars, total;
+  __host__ __device__ explicit HGeom(int tr) : tile_r(tr) {
+    cap = rnd(rnd(tr, RB) + 2 * P, 16);   // rows of a slot
+    const size_t op = sizeof(T) == 4
+                          ? 2 * 4 * NCH * KD
+                          : 8 * cap * LDU + 4 * gdm::tc::SCR * 8;
+    uop = 0;
+    vw = rnd128(op);
+    land = vw + 2 * vw_slot();
+    bands = land + 3 * land_slot();
+    roff = bands + (sizeof(T) == 4 ? 3 * band_slot() : 0);
+    bars = roff + rnd128(4 * 2 * 2 * cap);
+    total = bars + 128 + ALIGN;
+  }
+  __host__ __device__ size_t vw_slot() const {
+    return rnd128(sizeof(T) * cap * LDV);
+  }
+  __host__ __device__ size_t land_slot() const {
+    return rnd128(sizeof(T) * cap * LW);
+  }
+  __host__ __device__ size_t band_slot() const {
+    return rnd128(sizeof(T) * rnd(tile_r, RB) * 2 * KP);
+  }
+};
+
+// Clock stamps of the FMA warpgroup (thread 0) and the tensor warpgroup
+// (thread NT): slot += the clocks since t, t restarts (empty in the
+// kernels' own build).
+#define GDM_K3P_PHASE(who, slot, t)                                   \
+  do {                                                                \
+    GDM_STAMP_ADD(threadIdx.x == (who), slot, GDM_CLOCK() - (t));     \
+    (t) = GDM_CLOCK();                                                \
+  } while (0)
+
+// The row stage of a unit: y[i0 + r][j0 + lane] = sum_t A0(i0 + r, t)
+// V[r + t] + sum_t B0(i0 + r, t) W[r + t] for the unit's `rows` rows,
+// blocks of RB rows shared out over the warpgroup's four warps, V and W of
+// a block's RB + 2p rows in registers, each row's coefficients (the band
+// slot's padded rows: A0's KP, then B0's) by 16-byte loads.
+template <typename T, int P>
+__device__ __forceinline__ void row_stage(const T* vw, const T* bands,
+                                          T* __restrict__ y, int i0,
+                                          int rows, int j0, int n1, int warp,
+                                          int lane) {
+  using G = HGeom<T, P>;
   constexpr int K = G::K;
-  const G g(tile_r);
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* base = reinterpret_cast<T*>(smem);
-  T* us = base;                           // 2 u tiles
-  T* rs = us + 2 * g.u_elems();           // 3 slots of A0 / B0 rows
-  T* vws = rs + 3 * g.r_elems();          // 2 [V | W] buffers
-  T* ct = vws + 2 * g.vw_elems();
-  T* scr = ct + g.c_elems();              // NW / 2 scratch tiles
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int j0 = blockIdx.x * TX;
-  const int seg_lo = blockIdx.y * seg_rows;
-  const int seg_hi = min(seg_lo + seg_rows, n0);
-  const int n_tiles = (seg_hi - seg_lo + tile_r - 1) / tile_r;
-  const int vr = min(vpu_rows, g.t_ext);
-
-  // tile s's u rows into u slot s % 2, its band rows into slot s % 3
-  auto issue = [&](int s) {
-    const int i0 = seg_lo + s * tile_r;
-    T* ut = us + (s % 2) * g.u_elems();
-    for (int e = tid; e < g.t_ext * G::UW; e += NT) {
-      const int r = e / G::UW;
-      const int c = e % G::UW;
-      const int gi = i0 - P + r;
-      const int gj = j0 - P + c;
-      const bool in = gi >= 0 && gi < n0 && gj >= 0 && gj < n1;
-      gdm::copy_async(ut + r * G::LDU + c,
-                      in ? u + static_cast<size_t>(gi) * n1 + gj : u, in);
+  constexpr int KP = G::KP;
+  constexpr int RB = G::RB;
+  constexpr int NV = RB + 2 * P;
+  const int j = j0 + lane;
+  for (int r0 = warp * RB; r0 < rows; r0 += 4 * RB) {
+    T v[NV], w[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      v[q] = vw[(r0 + q) * G::LDV + lane];
+      w[q] = vw[(r0 + q) * G::LDV + SW + lane];
     }
-    T* ra = rs + (s % 3) * g.r_elems();
-    for (int e = tid; e < tile_r * K; e += NT) {
-      const bool in = i0 + e / K < n0;
-      const size_t at = in ? static_cast<size_t>(i0) * K + e : 0;
-      gdm::copy_async(ra + e, a0 + at, in);
-      gdm::copy_async(ra + tile_r * K + e, b0 + at, in);
-    }
-  };
-
-  issue(0);
-  gdm::commit_group();
-  // the copies never write the padding of the u slots: zero it once
-  for (int e = tid; e < 2 * g.m * G::KD; e += NT) {
-    const int slot = e / (g.m * G::KD);
-    const int r = (e / G::KD) % g.m;
-    const int c = e % G::KD;
-    if (r >= g.t_ext || c >= G::UW)
-      us[slot * g.u_elems() + r * G::LDU + c] = T(0);
-  }
-  build_c<T, P>(ct, a1, b1, j0, n1, tid, NT);
-
-  const bool fma_warp = warp < NW / 2;
-  const int gw = fma_warp ? warp : warp - NW / 2;  // warp within its group
-  for (int s = 0; s <= n_tiles; ++s) {
-    // tile s has landed; the barrier also ends step s - 1, so its u slot,
-    // band slot and [V | W] buffer may be refilled
-    gdm::wait_group<0>();
-    __syncthreads();
-    if (s + 1 < n_tiles) issue(s + 1);
-    gdm::commit_group();
-    const T* ut = us + (s % 2) * g.u_elems();
-    T* vw = vws + (s % 2) * g.vw_elems();
-    if (fma_warp) {
-      if (s < n_tiles)
-        col_fma<T, P>(ut, ct, vw, 0, vr, lane, gw, NW / 2);
-      if (s > 0) {
-        const T* ra = rs + ((s - 1) % 3) * g.r_elems();
-        row_fma<T, P>(vws + ((s - 1) % 2) * g.vw_elems(), ra,
-                      ra + tile_r * K, y, seg_lo + (s - 1) * tile_r, j0, n0,
-                      n1, tile_r, lane, gw, NW / 2);
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      // a row past the unit reads the first row's coefficients
+      const T* c = bands + (r0 + k < rows ? r0 + k : 0) * 2 * KP;
+      T ca[KP], cb[KP];
+#pragma unroll
+      for (int e = 0; e < KP; e += G::VEC) {
+        if constexpr (sizeof(T) == 4) {
+          const float4 a = *reinterpret_cast<const float4*>(c + e);
+          const float4 b = *reinterpret_cast<const float4*>(c + KP + e);
+          ca[e] = a.x, ca[e + 1] = a.y, ca[e + 2] = a.z, ca[e + 3] = a.w;
+          cb[e] = b.x, cb[e + 1] = b.y, cb[e + 2] = b.z, cb[e + 3] = b.w;
+        } else {
+          const double2 a = *reinterpret_cast<const double2*>(c + e);
+          const double2 b = *reinterpret_cast<const double2*>(c + KP + e);
+          ca[e] = a.x, ca[e + 1] = a.y;
+          cb[e] = b.x, cb[e + 1] = b.y;
+        }
       }
-    } else if (s < n_tiles && vr < g.t_ext) {
-      col_mma<T, P>(ut, ct, vw, scr + gw * SCR, vr, g.m, gw, NW / 2, lane);
+      T sa = T(0), sb = T(0);
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        sa = gdm::fma_(ca[t], v[k + t], sa);
+        sb = gdm::fma_(cb[t], w[k + t], sb);
+      }
+      if (r0 + k < rows && j < n1)
+        y[static_cast<size_t>(i0 + r0 + k) * n1 + j] = sa + sb;
     }
   }
-  gdm::wait_group<0>();
+}
+
+// The FMA column stage of a unit's extended rows [0, vf) into the [V | W]
+// slot: output column x, blocks of four rows shared out over the four
+// warps.
+template <typename T, int P, bool EDGE>
+__device__ __forceinline__ void fma_rows(const T* ld, const int* roff,
+                                         T* vw, int vf, int me, int x,
+                                         unsigned mask,
+                                         const T (&ca)[2 * P + 1],
+                                         const T (&cb)[2 * P + 1],
+                                         int warp) {
+  using G = HGeom<T, P>;
+  for (int s0 = 4 * warp; s0 < vf; s0 += 16) {
+    T v[4], w[4];
+    column_sums<T, P, SW, 4, EDGE>(ld, roff, s0, me, x, mask, ca, cb, v, w);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (s0 + q < vf) {
+        vw[(s0 + q) * G::LDV + x] = v[q];
+        vw[(s0 + q) * G::LDV + SW + x] = w[q];
+      }
+    }
+  }
 }
 
 template <typename T, int P>
-int launch_p(const void* u, const void* a0, const void* a1, const void* b0,
-             const void* b1, void* y, int n0, int n1, int tile_r,
-             int vpu_rows, cudaStream_t stream) {
-  const Tile<P> g(tile_r);
-  const size_t smem =
-      sizeof(T) * (2 * g.u_elems() + 3 * g.r_elems() + 2 * g.vw_elems() +
-                   g.c_elems() + NW / 2 * SCR);
-  cudaError_t e = static_cast<cudaError_t>(
-      allow_smem(laplace2_hybp_kernel<T, P>, smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, laplace2_hybp_kernel<T, P>, NT, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // one wave: each strip's tiles split into as many segments as still fit
-  // the SMs at once, never below one tile per segment
-  const int strips = (n1 + TX - 1) / TX;
-  const int tiles = (n0 + tile_r - 1) / tile_r;
-  const int want = sms * (per_sm > 0 ? per_sm : 1);
-  int segs = std::max(1, std::min(want / strips, tiles));
-  const int seg_tiles = (tiles + segs - 1) / segs;
-  segs = (tiles + seg_tiles - 1) / seg_tiles;
-  const dim3 grid(strips, segs);
-  laplace2_hybp_kernel<T, P><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(a0),
-      static_cast<const T*>(a1), static_cast<const T*>(b0),
-      static_cast<const T*>(b1), static_cast<T*>(y), n0, n1, tile_r,
-      vpu_rows, seg_tiles * tile_r);
+__global__ void __launch_bounds__(2 * NT, P <= 7 ? 2 : 1)
+k3p_kernel(const T* __restrict__ u, const T* __restrict__ a1,
+           const T* __restrict__ b1, const T* __restrict__ ct_img,
+           const T* __restrict__ rb_img, T* __restrict__ y, int n0, int n1,
+           int tile_r, int vpu_rows, int n_tiles, int segs) {
+  using G = HGeom<T, P>;
+  constexpr int LDV = G::LDV;
+  constexpr int KP = G::KP;
+  const G g(tile_r);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) &
+      ~static_cast<uintptr_t>(ALIGN - 1));
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(smem + g.bars);
+  unsigned long long* lbar = bars;        // [3]: "landed"
+  unsigned long long* full = bars + 3;    // [2]
+  unsigned long long* empty = bars + 5;   // [2]
+  T* vws = reinterpret_cast<T*>(smem + g.vw);
+  T* lands = reinterpret_cast<T*>(smem + g.land);
+  T* bandss = reinterpret_cast<T*>(smem + g.bands);
+  int* roffs = reinterpret_cast<int*>(smem + g.roff);
+  const size_t vw_n = g.vw_slot() / sizeof(T);
+  const size_t land_n = g.land_slot() / sizeof(T);
+  const size_t band_n = g.band_slot() / sizeof(T);
+
+  const int tid = threadIdx.x;
+  const int cb = blockIdx.x / segs;   // the block's strip
+  const int j0 = cb * SW;
+  int t0, count;
+  gdm::part(n_tiles, segs, blockIdx.x % segs, t0, count);
+  if (count == 0) return;
+  GDM_STAMP(tid == 0, 0, gdm_gtimer());
+  GDM_STAMP(tid == 0, 1, clock64());
+  GDM_STAMP(tid == 0, 11, count);
+  long long tc = GDM_CLOCK();
+  if (tid == 0) {
+    for (int b = 0; b < 7; ++b) gdm::bar_init(bars + b, NT);
+    gdm::bar_init_fence();
+  }
+  __syncthreads();
+  GDM_STAMP(tid == 0, 2, clock64());
+  tc = GDM_CLOCK();
+
+  if (tid >= NT) {
+    // ---- the tensor warpgroup: copies and the tensor column rows ----
+    const int t = tid - NT;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    int* roff = roffs + 2 * g.cap;
+    // unit m's copies into slot m % 3: u rows, then the band rows (2 KP a
+    // row, contiguous in the padded table), completing "landed"
+    auto issue = [&](int m) {
+      const int s = m % 3;
+      const int i0 = (t0 + m) * tile_r;
+      const int rows = min(tile_r, n0 - i0);
+      issue_u_rows<T, P, SW>(lands + s * land_n, u, i0, j0, n0, n1, t,
+                             rows + 2 * P);
+      if constexpr (sizeof(T) == 4) {
+        const T* src = rb_img + static_cast<size_t>(i0) * 2 * KP;
+        T* dst = bandss + s * band_n;
+        for (int e = t; e < rows * 2 * KP / G::VEC; e += NT)
+          copy16(dst + e * G::VEC, src + e * G::VEC);
+      }
+      copies_arrive(lbar + s);
+    };
+    issue(0);
+    // C^T's A fragments of the strip (hi, lo), for every unit (float32)
+    constexpr int KS = sizeof(T) == 4 ? G::KD / 8 : 1;
+    uint32_t cfr[KS][2][4];
+    if constexpr (sizeof(T) == 4) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+                             ct_img + static_cast<size_t>(cb) * KS * 2 * 4 *
+                                          NT) +
+                         t;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint4 v = __ldg(src + (2 * kk + h) * NT);
+          cfr[kk][h][0] = v.x;
+          cfr[kk][h][1] = v.y;
+          cfr[kk][h][2] = v.z;
+          cfr[kk][h][3] = v.w;
+        }
+    }
+    const Cols<P, SW> cols(j0, n1);
+    for (int n = 0; n < count; ++n) {
+      const int i0 = (t0 + n) * tile_r;
+      const int me = min(tile_r, n0 - i0) + 2 * P;
+      const int vf = min(vpu_rows, me);
+      if (n >= 2) gdm::bar_wait(empty + (n & 1), ((n >> 1) + 1) & 1);
+      GDM_K3P_PHASE(NT, 12, tc);
+      if (n + 1 < count) issue(n + 1);
+      GDM_K3P_PHASE(NT, 13, tc);
+      int* ro = roff + (n & 1) * g.cap;
+      row_offsets<T, P>(ro, u, i0, j0, n0, n1, t, me);
+      gdm::bar_wait(lbar + n % 3, (n / 3) & 1);
+      group_sync(1);
+      GDM_K3P_PHASE(NT, 7, tc);
+      const T* ld = lands + (n % 3) * land_n;
+      T* vw = vws + (n & 1) * vw_n;
+      if constexpr (sizeof(T) == 4) {
+        float* uop = reinterpret_cast<float*>(smem + g.uop);
+        const uint32_t s_uop = gdm::smem_addr(uop);
+        constexpr uint32_t UOP_LO = 4 * G::NCH * G::KD;
+        for (int sb = vf; sb < me; sb += G::NCH) {
+          if (sb > vf) group_sync(1);   // the last chunk's products are done
+          // U^T's K-major operand: tensor rows sb .. sb + 32, 32 bytes a
+          // row a k-step chunk, two lanes a row
+          for (int e = t; e < G::NCH * (G::KD / 4); e += NT) {
+            const int ch = e / (2 * G::NCH);
+            const int r = (e / 2) % G::NCH;
+            const int c = 8 * ch + 4 * (e % 2);
+            float x[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              x[q] = sb + r < me ? landed<float, P, SW>(ld, ro, sb + r,
+                                                        c + q, cols)
+                                 : 0.f;
+            split4(uop, uop + UOP_LO / 4,
+                   wg::sw32_offset(r, c, G::NCH) / 4, x);
+          }
+          wg::fence_async_smem();
+          group_sync(1);
+          GDM_K3P_PHASE(NT, 8, tc);
+          float acc[16];
+          wg::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const uint32_t b = s_uop + kk * G::NCH * 32;
+            mma3rs<32>(acc, cfr[kk][0], cfr[kk][1], b, b + UOP_LO, kk == 0);
+          }
+          wg::wgmma_commit();
+          wg::wgmma_wait<0>();
+          wg::hold(acc);
+          GDM_K3P_PHASE(NT, 14, tc);
+          // acc = [V | W]^T: row X = 16 warp + lane / 4 (+ 8) is [V | W]'s
+          // column, column n = 8 j + 2 (lane % 4) (+ 1) extended row sb + n
+          const int xr = 16 * warp + lane / 4;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const int s = sb + 8 * j + 2 * (lane % 4) + q;
+                if (s < me) vw[s * LDV + xr + 8 * h] = acc[4 * j + 2 * h + q];
+              }
+          GDM_K3P_PHASE(NT, 15, tc);
+        }
+      } else {
+        // float64: the tensor rows' 16-row blocks as a u tile, then DMMA
+        // against C from K3f's float64 table, the block that holds vf
+        // through the warp's scratch tile (col_mma)
+        if (vf < me) {
+          double* ut = reinterpret_cast<double*>(smem + g.uop);
+          double* scr = ut + static_cast<size_t>(g.cap) * G::LDU;
+          const int r16 = vf / 16 * 16;
+          const int m = rnd(me, 16);
+          for (int e = t; e < (m - r16) * G::KD; e += NT) {
+            const int r = r16 + e / G::KD;
+            const int c = e % G::KD;
+            ut[(r - r16) * G::LDU + c] =
+                r < me ? landed<double, P, SW>(ld, ro, r, c, cols) : 0.0;
+          }
+          group_sync(1);
+          GDM_K3P_PHASE(NT, 8, tc);
+          gdm::tc::col_mma<double, P>(
+              ut - static_cast<size_t>(r16) * G::LDU,
+              ct_img + static_cast<size_t>(cb) * G::KD * LDV, vw,
+              scr + warp * gdm::tc::SCR, vf, m, warp, NT / 32, lane);
+          GDM_K3P_PHASE(NT, 14, tc);
+        }
+      }
+      gdm::bar_arrive(full + (n & 1));
+    }
+  } else {
+    // ---- the FMA warpgroup: the FMA column rows and the row stage ----
+    const int warp = tid / 32;
+    const int x = tid % 32;
+    int* roff = roffs;
+    T ca[2 * P + 1], cbv[2 * P + 1];
+    column_band_rows<T, P>(a1, b1, j0 + x, n1, ca, cbv);
+    const Cols<P, SW> cols(j0, n1);
+    const unsigned mask = tap_mask<P, SW>(x, cols);
+    const bool inner_cols = cols.lo == 0 && cols.hi == SW + 2 * P;
+    for (int n = 0; n <= count; ++n) {
+      if (n < count) {
+        const int i0 = (t0 + n) * tile_r;
+        const int me = min(tile_r, n0 - i0) + 2 * P;
+        const int vf = min(vpu_rows, me);
+        int* ro = roff + (n & 1) * g.cap;
+        row_offsets<T, P>(ro, u, i0, j0, n0, n1, tid, rnd(vf, 4));
+        gdm::bar_wait(lbar + n % 3, (n / 3) & 1);
+        group_sync(2);   // and every thread is past unit n - 1's row stage
+        GDM_K3P_PHASE(0, 3, tc);
+        const T* ld = lands + (n % 3) * land_n;
+        T* vw = vws + (n & 1) * vw_n;
+        if (inner_cols && i0 >= P && i0 - P + me <= n0)
+          fma_rows<T, P, false>(ld, ro, vw, vf, me, x, mask, ca, cbv, warp);
+        else
+          fma_rows<T, P, true>(ld, ro, vw, vf, me, x, mask, ca, cbv, warp);
+        GDM_K3P_PHASE(0, 4, tc);
+      } else {
+        group_sync(2);   // the last unit's FMA rows are written
+      }
+      if (n >= 1) {
+        const int m = n - 1;
+        const int i0 = (t0 + m) * tile_r;
+        gdm::bar_wait(full + (m & 1), (m >> 1) & 1);
+        GDM_K3P_PHASE(0, 5, tc);
+        // float64 reads the band rows from the table itself
+        const T* bands = sizeof(T) == 4
+                             ? bandss + (m % 3) * band_n
+                             : rb_img + static_cast<size_t>(i0) * 2 * KP;
+        row_stage<T, P>(vws + (m & 1) * vw_n, bands, y, i0,
+                        min(tile_r, n0 - i0), j0, n1, warp, x);
+        gdm::bar_arrive(empty + (m & 1));
+        GDM_K3P_PHASE(0, 6, tc);
+      }
+    }
+    GDM_STAMP(tid == 0, 9, clock64());
+    GDM_STAMP(tid == 0, 10, gdm_gtimer());
+  }
+  (void)tc;
+}
+
+// A plan's launch checks: tiles of tile_r >= 1 rows, n_tiles of them,
+// segs runs of tiles a strip (1 .. n_tiles), a block a (strip, run),
+// vpu_rows >= 0, shared memory within a block.
+template <typename T, int P>
+bool hybp_plan_ok(int n0, int n1, int tile_r, int vpu_rows, int n_tiles,
+                  int segs, int grid) {
+  if (tile_r < 1 || vpu_rows < 0 || n0 < 1 || n1 < 1) return false;
+  const int strips = (n1 + SW - 1) / SW;
+  return n_tiles == (n0 + tile_r - 1) / tile_r && segs >= 1 &&
+         segs <= n_tiles && grid == strips * segs &&
+         HGeom<T, P>(tile_r).total <= static_cast<size_t>(SMEM_MAX);
+}
+
+template <typename T, int P>
+int launch_p(const void* u, const void* a1, const void* b1, const void* ct,
+             const void* rb, void* y, int n0, int n1, int tile_r,
+             int vpu_rows, int n_tiles, int segs, int grid,
+             cudaStream_t stream) {
+  if (!hybp_plan_ok<T, P>(n0, n1, tile_r, vpu_rows, n_tiles, segs, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = HGeom<T, P>(tile_r).total;
+  const int e = allow_smem(k3p_kernel<T, P>, smem);
+  if (e != 0) return e;
+  k3p_kernel<T, P><<<grid, 2 * NT, smem, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(a1),
+      static_cast<const T*>(b1), static_cast<const T*>(ct),
+      static_cast<const T*>(rb), static_cast<T*>(y), n0, n1, tile_r,
+      vpu_rows, n_tiles, segs);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* u, const void* a0, const void* a1, const void* b0,
-           const void* b1, void* y, int p, int n0, int n1, int tile_r,
-           int vpu_rows, void* stream) {
-  if (tile_r < 1 || vpu_rows < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+int launch(const void* u, const void* a1, const void* b1, const void* ct,
+           const void* rb, void* y, int p, int n0, int n1, int tile_r,
+           int vpu_rows, int n_tiles, int segs, int grid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GDM_TC_DISPATCH_P(p, launch_p<T, P>(u, a0, a1, b0, b1, y, n0, n1, tile_r,
-                                      vpu_rows, s))
+  GDM_TCS_DISPATCH15(p, (launch_p<T, P>(u, a1, b1, ct, rb, y, n0, n1, tile_r,
+                                        vpu_rows, n_tiles, segs, grid, s)))
+}
+
+template <typename T, int P>
+int occupancy_p(int tile_r, int* out) {
+  if (tile_r < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = HGeom<T, P>(tile_r).total;
+  const int e = allow_smem(k3p_kernel<T, P>, smem);
+  if (e != 0) return e;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, k3p_kernel<T, P>, 2 * NT, smem));
+}
+
+template <typename T>
+int occupancy_of(int p, int tile_r, int* out) {
+  GDM_TCS_DISPATCH15(p, occupancy_p<T, P>(tile_r, out))
 }
 
 }  // namespace
 
 extern "C" {
 
-int gdm_laplace2_hybp_apply_f32(const void* u, const void* a0, const void* a1,
-                                const void* b0, const void* b1, void* y,
+// u, the band rows A1 and B1, K3f's C table of the 32-column strips
+// (float32: C^T's split fragment images; float64: C row-major), the
+// padded band-row table (A0's and B0's rows at a pitch of 2 KP) of the
+// plan (ops/tc_tables.py), y; the tile's rows, vpu_rows, the tiles, runs
+// of tiles a strip and blocks; a plan off the kernel's layout is refused
+// (cudaErrorInvalidValue).
+int gdm_laplace2_hybp_apply_f32(const void* u, const void* a1, const void* b1,
+                                const void* ct, const void* rb, void* y,
                                 int p, int n0, int n1, int tile_r,
-                                int vpu_rows, void* stream) {
-  return launch<float>(u, a0, a1, b0, b1, y, p, n0, n1, tile_r, vpu_rows,
-                       stream);
+                                int vpu_rows, int n_tiles, int segs, int grid,
+                                void* stream) {
+  return launch<float>(u, a1, b1, ct, rb, y, p, n0, n1, tile_r, vpu_rows,
+                       n_tiles, segs, grid, stream);
 }
 
-int gdm_laplace2_hybp_apply_f64(const void* u, const void* a0, const void* a1,
-                                const void* b0, const void* b1, void* y,
+int gdm_laplace2_hybp_apply_f64(const void* u, const void* a1, const void* b1,
+                                const void* ct, const void* rb, void* y,
                                 int p, int n0, int n1, int tile_r,
-                                int vpu_rows, void* stream) {
-  return launch<double>(u, a0, a1, b0, b1, y, p, n0, n1, tile_r, vpu_rows,
-                        stream);
+                                int vpu_rows, int n_tiles, int segs, int grid,
+                                void* stream) {
+  return launch<double>(u, a1, b1, ct, rb, y, p, n0, n1, tile_r, vpu_rows,
+                        n_tiles, segs, grid, stream);
+}
+
+// Blocks of the built kernel (f64: 0 float32, 1 float64) with tiles of
+// tile_r rows one SM holds.
+int gdm_laplace2_hybp_occupancy(int p, int f64, int tile_r, int* out) {
+  return f64 ? occupancy_of<double>(p, tile_r, out)
+             : occupancy_of<float>(p, tile_r, out);
 }
 
 }  // extern "C"

@@ -1,19 +1,24 @@
-// K3/mxu: the 2D separable band apply  y = A0 U A1^T + B0 U B1^T  with K3's
-// column stage on the FMA units and the row stage as one window product
-// on the tensor cores.
+// K3/mxu and K3/mxu3: the 2D separable band apply  y = A0 U A1^T + B0 U
+// B1^T  with K3's column stage on the FMA units and the row stage as one
+// window product on the tensor cores: 3xTF32 (K3/mxu) or bf16x3 (K3/mxu3).
 //
 // Replaces gdm/ops/pallas_stencil2.py::make_padded_laplace2's
 // ``kernel_mxu`` (rows="mxu": the column rolls V = U A1^T, W = U B1^T over
 // the extended tile, then the row stage Bcat . [V; W] as one dense-banded
-// product at HIGHEST precision).  Same operator, band tables and
+// product at HIGHEST precision) and ``kernel_mxu3`` (rows="mxu3": the same
+// product as bf16x3, each operand split into bf16 hi and lo, hi hi + lo hi
+// + hi lo with float32 accumulation; not pipelined across tiles, which is
+// K3/mxu3p, laplace2_mxu3p.cu).  Same operator, band tables and
 // contiguous (n0, n1) node array as K3 (laplace2.cu).
 //
 // Bound on the card: K3's (memory, 8 bytes of u and y per node in
 // float32: 2.51 us at 1024^2 p = 3).  The design's own floor is its
 // tensor work: a unit of 32 rows by 64 columns at p = 3 takes two 3xTF32
 // chains of m64n32k8 over its 40-row window, 2 x 3 x 2 x 64 x 32 x 40
-// flops, 0.55 GFLOP at 1025^2 (1.1 us at 495 TFLOP/s of tf32); its FMA
-// work is K3's column stage over the 38 extended rows of a unit.
+// flops, 0.55 GFLOP at 1025^2 (1.1 us at 495 TFLOP/s of tf32); K3/mxu3's
+// six bf16 chains of m64n32k16 over a depth of 48, 0.66 GFLOP (0.7 us at
+// 989 TFLOP/s of bf16); the FMA work of both is K3's column stage over the
+// 38 extended rows of a unit.
 //
 // Design (float32; tc_stage.cuh and tc_rows.cuh hold the shared stage): a
 // persistent block of one warpgroup walks its units (row unit k of at most
@@ -23,25 +28,30 @@
 //     one unit ahead into two);
 //   the column stage on the FMA units, a thread per output column x with
 //     its A1 and B1 band rows in registers, four extended rows at a time:
-//     V[s][x] and W[s][x] split once into tf32 hi and lo and stored as
-//     16-byte halves of the product's K-major A operands V^T and W^T;
+//     V[s][x] and W[s][x] split once (tf32 hi and lo, or bf16 hi and lo
+//     rounded to nearest even) and stored as 16-byte halves (8-byte ones
+//     at a bf16 run's odd end) of the product's K-major A operands V^T and
+//     W^T;
 //   the row stage y^T = V^T A0w^T + W^T B0w^T (tc_rows.cuh): the cached
-//     window table's two halves are the B operands as they are, two 3xTF32
-//     chains of wgmma m64n32k8 into one accumulator over the unit's window
-//     depth M = rnd(32 + 2p, 8) only (40 at p = 3);
+//     window table's two halves are the B operands as they are (the tf32
+//     table for K3/mxu, the bf16 one K3/mxu3p reads too for K3/mxu3), the
+//     product over the unit's window depth only: rnd(32 + 2p, 8) rows in
+//     two 3xTF32 chains of wgmma m64n32k8 (40 at p = 3), or rnd(32 + 2p,
+//     16) in six bf16 chains of m64n32k16 (48);
 //   the epilogue: y^T staged transposed in shared memory, whole rows of y
 //     stored coalesced; a new window, one bulk copy completing on an
 //     mbarrier, once the row product is done and only when the row unit
 //     changes.
 // No table entry is built or split in the kernel.  A unit is CW = 64
 // columns wide, wgmma's M (ops/tc_tables.py, COLS).  A block takes 107 KB
-// of shared memory at p = 3, so two share an SM.
+// (K3/mxu) or 83 KB (K3/mxu3) of shared memory at p = 3, so two share an
+// SM.
 //
 // Float64: the DMMA units (wmma m8n8k4, tc_window.cuh's Acc16<double>)
 // take the row product A0w V + B0w W, unsplit, from the float64 window
-// table, in the same persistent walk with the same column stage.  K3/mxu3p
-// (laplace2_mxu3p.cu) runs this float64 kernel too: both are DMMA
-// products, unsplit.
+// table, in the same persistent walk with the same column stage.  K3/mxu3
+// and K3/mxu3p (laplace2_mxu3p.cu) run this float64 kernel too: every
+// float64 row product is DMMA, unsplit.
 #include "tc_rows.cuh"
 #include "tc_window.cuh"
 
@@ -51,33 +61,6 @@ using namespace gdm::tcs;
 namespace wg = gdm::wg;
 
 constexpr int CW = CWR;
-
-// Shared-memory layout of a float32 block (byte offsets): the split
-// window [A0w; B0w], the split A operands V^T and W^T, staged y, NL
-// landing slots, the landing offsets and the window's mbarrier.  NL is
-// three (u copies two units ahead) where the block still leaves room for
-// its BLOCKS an SM, else two.
-template <int P>
-struct Smem32 {
-  using G = Geom<float, P, CW>;
-  static constexpr int ME = TRB + 2 * P;   // extended rows a unit reads
-  static constexpr int MC = rnd(ME, 4);    // ... that the column stage writes
-  static constexpr int LDS = CW + 4;       // pitch of staged y
-  static constexpr int BLOCKS = 2;
-  static constexpr size_t OPND = line(2 * 4 * 64 * G::M);   // hi, lo
-  static constexpr size_t WIN = 2 * 4 * G::WR * G::M;       // hi, lo
-  static constexpr size_t LAND = line(G::land_bytes);
-  static constexpr size_t TAIL = line(rnd(4 * MC, 8) + 8) + ALIGN;
-  static constexpr size_t win = 0;
-  static constexpr size_t aop = win + line(WIN);
-  static constexpr size_t stage = aop + 2 * OPND;
-  static constexpr size_t land = stage + line(4 * TRB * LDS);
-  static constexpr int NL =
-      (land + 3 * LAND + TAIL + 1024) * BLOCKS <= 233472 ? 3 : 2;
-  static constexpr size_t roff = land + NL * LAND;
-  static constexpr size_t bar = roff + rnd(4 * MC, 8);
-  static constexpr size_t total = roff + TAIL;
-};
 
 // The column stage of a unit into V^T and W^T, split into tf32 hi and lo
 // (lo's image `lo` floats after hi's): output column x at the row groups
@@ -110,25 +93,121 @@ __device__ __forceinline__ void tf32_columns(
   }
 }
 
+// The float32 row product's two forms.  Both read the window [A0w; B0w]
+// (64 rows, hi's image then lo's) and write the A operands V^T hi, V^T lo,
+// W^T hi, W^T lo (64 rows each), every image IMG bytes, in the 32-byte
+// swizzled K-major layout: k-steps of KS elements, a chunk of 64 rows x
+// 32 bytes a k-step, B0w's half of a window chunk 1024 bytes in.
+// Tf32: K3/mxu, 3xTF32 (tf32 hi/lo, wgmma m64n32k8) over the window depth
+// D = rnd(32 + 2p, 8), the cached tf32 window table.
 template <int P>
+struct Tf32 {
+  static constexpr int KS = 8;
+  static constexpr int D = rnd(TRB + 2 * P, 8);
+  static constexpr uint32_t IMG = 4 * 64 * D;
+
+  template <bool EDGE>
+  __device__ __forceinline__ static void columns(
+      const float* ld, const int* roff, int x, int gb, int ge, unsigned mask,
+      const float (&ca)[2 * P + 1], const float (&cb)[2 * P + 1],
+      unsigned char* aop) {
+    tf32_columns<P, EDGE>(ld, roff, x, gb, ge, mask, ca, cb,
+                          reinterpret_cast<float*>(aop),
+                          reinterpret_cast<float*>(aop + 2 * IMG), IMG / 4);
+  }
+
+  __device__ __forceinline__ static void product(float (&acc)[16],
+                                                 uint32_t a0, uint32_t b0) {
+#pragma unroll
+    for (int kk = 0; kk < D / KS; ++kk) {
+      const uint32_t a = a0 + kk * 64 * 32;
+      const uint32_t b = b0 + kk * 64 * 32;
+      mma3<32>(acc, a, a + IMG, b, b + IMG, kk == 0);
+      mma3<32>(acc, a + 2 * IMG, a + 3 * IMG, b + 1024, b + 1024 + IMG,
+               false);
+    }
+  }
+};
+
+// Bf16x3: K3/mxu3, bf16 hi/lo (round to nearest even) and the three
+// products hi hi + lo hi + hi lo (wgmma m64n32k16) over the window depth
+// D = rnd(32 + 2p, 16), the cached bf16 window table (K3/mxu3p's).
+template <int P>
+struct Bf16x3 {
+  static constexpr int KS = 16;
+  static constexpr int D = rnd(TRB + 2 * P, 16);
+  static constexpr uint32_t IMG = 2 * 64 * D;
+
+  template <bool EDGE>
+  __device__ __forceinline__ static void columns(
+      const float* ld, const int* roff, int x, int gb, int ge, unsigned mask,
+      const float (&ca)[2 * P + 1], const float (&cb)[2 * P + 1],
+      unsigned char* aop) {
+    bf16_columns<P, EDGE>(ld, roff, x, gb, ge, mask, ca, cb, aop, IMG);
+  }
+
+  __device__ __forceinline__ static void product(float (&acc)[16],
+                                                 uint32_t a0, uint32_t b0) {
+    using W = wg::WgmmaBf16D32;
+#pragma unroll
+    for (int kk = 0; kk < D / KS; ++kk) {
+      const uint32_t a = a0 + kk * 64 * 32;   // V^T's chunk
+      const uint32_t b = b0 + kk * 64 * 32;   // [A0w; B0w]'s chunk
+      // V^T A0w^T, then W^T B0w^T: hi hi, lo hi, hi lo
+      W::mma(acc, wg::sw32_desc(a), wg::sw32_desc(b), kk > 0);
+      W::mma(acc, wg::sw32_desc(a + IMG), wg::sw32_desc(b), 1);
+      W::mma(acc, wg::sw32_desc(a), wg::sw32_desc(b + IMG), 1);
+      const uint32_t aw = a + 2 * IMG;
+      const uint32_t bw = b + 1024;
+      W::mma(acc, wg::sw32_desc(aw), wg::sw32_desc(bw), 1);
+      W::mma(acc, wg::sw32_desc(aw + IMG), wg::sw32_desc(bw), 1);
+      W::mma(acc, wg::sw32_desc(aw), wg::sw32_desc(bw + IMG), 1);
+    }
+  }
+};
+
+// Shared-memory layout of a float32 block (byte offsets): the split
+// window [A0w; B0w], the split A operands V^T and W^T, staged y, NL
+// landing slots, the landing offsets and the window's mbarrier.  NL is
+// three (u copies two units ahead) where the block still leaves room for
+// its BLOCKS an SM, else two.
+template <int P, typename R>
+struct Smem32 {
+  using G = Geom<float, P, CW>;
+  static constexpr int ME = TRB + 2 * P;   // extended rows a unit reads
+  static constexpr int MC = rnd(ME, 4);    // ... that the column stage writes
+  static constexpr int LDS = CW + 4;       // pitch of staged y
+  static constexpr int BLOCKS = 2;
+  static constexpr size_t WIN = 2 * R::IMG;                 // hi, lo
+  static constexpr size_t LAND = line(G::land_bytes);
+  static constexpr size_t TAIL = line(rnd(4 * MC, 8) + 8) + ALIGN;
+  static constexpr size_t win = 0;
+  static constexpr size_t aop = win + line(WIN);
+  static constexpr size_t stage = aop + line(4 * R::IMG);
+  static constexpr size_t land = stage + line(4 * TRB * LDS);
+  static constexpr int NL =
+      (land + 3 * LAND + TAIL + 1024) * BLOCKS <= 233472 ? 3 : 2;
+  static constexpr size_t roff = land + NL * LAND;
+  static constexpr size_t bar = roff + rnd(4 * MC, 8);
+  static constexpr size_t total = roff + TAIL;
+};
+
+template <int P, typename R>
 __global__ void __launch_bounds__(NT, 2)
 k3mxu_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
                  const float* __restrict__ b1,
-                 const float* __restrict__ win_img, const int* __restrict__ ru,
-                 float* __restrict__ y, int n0, int n1, int n_cb, int units) {
-  using L = Smem32<P>;
-  using G = typename L::G;
-  constexpr int M = G::M;
-  constexpr int ME = L::ME;
+                 const unsigned char* __restrict__ win_img,
+                 const int* __restrict__ ru, float* __restrict__ y, int n0,
+                 int n1, int n_cb, int units) {
+  using L = Smem32<P, R>;
   constexpr int MC = L::MC;
-  constexpr int WR = G::WR;
   constexpr int LDS = L::LDS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) &
       ~static_cast<uintptr_t>(ALIGN - 1));
-  float* win = reinterpret_cast<float*>(smem + L::win);
-  float* aop = reinterpret_cast<float*>(smem + L::aop);
+  unsigned char* win = smem + L::win;
+  unsigned char* aop = smem + L::aop;
   float* stage = reinterpret_cast<float*>(smem + L::stage);
   float* land = reinterpret_cast<float*>(smem + L::land);
   constexpr int LAND = L::LAND / 4;   // a slot, in floats
@@ -138,10 +217,6 @@ k3mxu_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
       reinterpret_cast<unsigned long long*>(smem + L::bar);
   const uint32_t s_win = gdm::smem_addr(win);
   const uint32_t s_aop = gdm::smem_addr(aop);
-  constexpr uint32_t WIN_LO = 4 * WR * M;   // lo's image after hi's (bytes)
-  constexpr uint32_t A_LO = 4 * 64 * M;
-  constexpr uint32_t B0W = 32 * 32;         // B0w's half of a window chunk
-  constexpr uint32_t W_OP = L::OPND;        // W^T's operand after V^T's
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -166,9 +241,7 @@ k3mxu_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
     gdm::commit_group();
   }
   for (int i = 0; i < 4; ++i)
-    zero_smem(aop + (i / 2) * (L::OPND / 4) + (i % 2) * (A_LO / 4) +
-                  (M / 8 - 1) * 64 * 8,
-              64 * 32, tid);
+    zero_smem(aop + i * R::IMG + (R::D / R::KS - 1) * 64 * 32, 64 * 32, tid);
   if (tid == 0) {
     gdm::bar_init(wbar, 1);
     gdm::bar_init_fence();
@@ -176,18 +249,15 @@ k3mxu_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
   __syncthreads();
   if (tid == 0) {
     gdm::bar_arrive_expect_tx(wbar, L::WIN);
-    gdm::bulk_copy(win, win_img + static_cast<size_t>(ub / n_cb) * 2 * WR * M,
+    gdm::bulk_copy(win, win_img + static_cast<size_t>(ub / n_cb) * L::WIN,
                    L::WIN, wbar);
   }
   unsigned wloads = 1;    // windows asked for
   bool wpending = true;   // the last one not yet waited for
-  // the thread's output column, its groups of four extended rows, and
-  // where V^T's and W^T's entries of the column go
+  // the thread's output column and its groups of four extended rows
   const int x = tid % CW;
   int gb, ge;
   row_groups(MC, tid / CW, NT / CW, gb, ge);
-  float* vdst = aop;
-  float* wdst = aop + L::OPND / 4;
   GDM_STAMP(tid == 0, 2, clock64());
   tc = GDM_CLOCK();
 
@@ -219,11 +289,10 @@ k3mxu_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
     // the column stage into V^T and W^T, split
     const Cols<P, CW> cols(j0, n1);
     if (inner_unit<P, CW>(cols, i0, MC, n0)) {
-      tf32_columns<P, false>(ld, roff, x, gb, ge, 0u, ca, cb, vdst, wdst,
-                             A_LO / 4);
+      R::template columns<false>(ld, roff, x, gb, ge, 0u, ca, cb, aop);
     } else {
-      tf32_columns<P, true>(ld, roff, x, gb, ge, tap_mask<P, CW>(x, cols), ca,
-                            cb, vdst, wdst, A_LO / 4);
+      R::template columns<true>(ld, roff, x, gb, ge, tap_mask<P, CW>(x, cols),
+                                ca, cb, aop);
     }
     wg::fence_async_smem();
     __syncthreads();
@@ -236,14 +305,7 @@ k3mxu_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
     }
     float acc[16];
     wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < M / 8; ++kk) {
-      const uint32_t a = s_aop + kk * 64 * 32;
-      const uint32_t b = s_win + kk * WR * 32;
-      mma3<32>(acc, a, a + A_LO, b, b + WIN_LO, kk == 0);
-      mma3<32>(acc, a + W_OP, a + W_OP + A_LO, b + B0W, b + B0W + WIN_LO,
-               false);
-    }
+    R::product(acc, s_aop, s_win);
     wg::wgmma_commit();
     wg::wgmma_wait<0>();
     wg::hold(acc);
@@ -254,7 +316,7 @@ k3mxu_f32_kernel(const float* __restrict__ u, const float* __restrict__ a1,
     if (more && nk != k) {   // every thread is past its product
       if (tid == 0) {
         gdm::bar_arrive_expect_tx(wbar, L::WIN);
-        gdm::bulk_copy(win, win_img + static_cast<size_t>(nk) * 2 * WR * M,
+        gdm::bulk_copy(win, win_img + static_cast<size_t>(nk) * L::WIN,
                        L::WIN, wbar);
       }
       ++wloads;
@@ -363,63 +425,88 @@ k3mxu_f64_kernel(const double* __restrict__ u, const double* __restrict__ a1,
   }
 }
 
-template <typename T>
+// The kernels by form: F32<Tf32> (K3/mxu), F32<Bf16x3> (K3/mxu3), F64
+// (both in float64).
+template <template <int> class R>
+struct F32 {};
+struct F64 {};
+
+template <typename K>
 struct Kernels;
 
-template <>
-struct Kernels<float> {
+template <template <int> class R>
+struct Kernels<F32<R>> {
   template <int P>
-  static auto fn() { return k3mxu_f32_kernel<P>; }
+  static auto fn() { return k3mxu_f32_kernel<P, R<P>>; }
   template <int P>
-  static constexpr size_t smem() { return Smem32<P>::total; }
+  static constexpr size_t smem() { return Smem32<P, R<P>>::total; }
+  template <int P>
+  static void run(int grid, size_t smem, cudaStream_t stream, const void* u,
+                  const void* a1, const void* b1, const void* win,
+                  const int* ru, void* y, int n0, int n1, int n_cb,
+                  int units) {
+    fn<P>()<<<grid, NT, smem, stream>>>(
+        static_cast<const float*>(u), static_cast<const float*>(a1),
+        static_cast<const float*>(b1),
+        static_cast<const unsigned char*>(win), ru, static_cast<float*>(y),
+        n0, n1, n_cb, units);
+  }
 };
 
 template <>
-struct Kernels<double> {
+struct Kernels<F64> {
   template <int P>
   static auto fn() { return k3mxu_f64_kernel<P>; }
   template <int P>
   static constexpr size_t smem() { return Smem64<P>::total; }
+  template <int P>
+  static void run(int grid, size_t smem, cudaStream_t stream, const void* u,
+                  const void* a1, const void* b1, const void* win,
+                  const int* ru, void* y, int n0, int n1, int n_cb,
+                  int units) {
+    fn<P>()<<<grid, NT, smem, stream>>>(
+        static_cast<const double*>(u), static_cast<const double*>(a1),
+        static_cast<const double*>(b1), static_cast<const double*>(win), ru,
+        static_cast<double*>(y), n0, n1, n_cb, units);
+  }
 };
 
-template <typename T, int P>
+template <typename K, int P>
 int launch_p(const void* u, const void* a1, const void* b1, const void* win,
              const int* ru, void* y, int n0, int n1, int trb, int cw,
              int n_ru, int grid, cudaStream_t stream) {
-  const size_t smem = Kernels<T>::template smem<P>();
+  const size_t smem = Kernels<K>::template smem<P>();
   const int n_cb = (n1 + CW - 1) / CW;
   const int units = n_ru * n_cb;
   if (cw != CW || !plan_ok(trb, units, grid, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = Kernels<T>::template fn<P>();
-  const int e = allow_smem(kernel, smem);
+  const int e = allow_smem(Kernels<K>::template fn<P>(), smem);
   if (e != 0) return e;
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(a1),
-      static_cast<const T*>(b1), static_cast<const T*>(win), ru,
-      static_cast<T*>(y), n0, n1, n_cb, units);
+  Kernels<K>::template run<P>(grid, smem, stream, u, a1, b1, win, ru, y, n0,
+                              n1, n_cb, units);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename K>
 int launch(const void* u, const void* a1, const void* b1, const void* win,
            const void* ru, void* y, int p, int n0, int n1, int trb, int cw,
            int n_ru, int grid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* r = static_cast<const int*>(ru);
-  GDM_TCS_DISPATCH15(p, (launch_p<T, P>(u, a1, b1, win, r, y, n0, n1, trb,
+  GDM_TCS_DISPATCH15(p, (launch_p<K, P>(u, a1, b1, win, r, y, n0, n1, trb,
                                         cw, n_ru, grid, s)))
 }
 
-template <typename T, int P>
+template <typename K, int P>
 int occupancy_p(int* out) {
-  return gdm::tcs::occupancy(Kernels<T>::template fn<P>(),
-                             Kernels<T>::template smem<P>(), out);
+  return gdm::tcs::occupancy(Kernels<K>::template fn<P>(),
+                             Kernels<K>::template smem<P>(), out);
 }
 
-template <typename T>
-int occupancy_of(int p, int* out) {
-  GDM_TCS_DISPATCH15(p, occupancy_p<T, P>(out))
+template <typename K>
+int occupancy_of(int p, int cw, int* out) {
+  if (cw != CW) return static_cast<int>(cudaErrorInvalidValue);
+  GDM_TCS_DISPATCH15(p, occupancy_p<K, P>(out))
 }
 
 }  // namespace
@@ -429,28 +516,53 @@ extern "C" {
 // u, the band rows A1 and B1, the window table and the row units of the
 // plan (ops/tc_tables.py), y; the plan's rows a row unit (trb), columns a
 // unit (cw, 64), row units and blocks; a plan off the kernel's layout is
-// refused (cudaErrorInvalidValue).
+// refused (cudaErrorInvalidValue).  K3/mxu reads the tf32 window table,
+// K3/mxu3 the bf16 one (hi then lo images a row unit); both read the
+// float64 table in float64.
 int gdm_laplace2_mxu_apply_f32(const void* u, const void* a1, const void* b1,
                                const void* win, const void* ru, void* y,
                                int p, int n0, int n1, int trb, int cw,
                                int n_ru, int grid, void* stream) {
-  return launch<float>(u, a1, b1, win, ru, y, p, n0, n1, trb, cw, n_ru, grid,
-                       stream);
+  return launch<F32<Tf32>>(u, a1, b1, win, ru, y, p, n0, n1, trb, cw, n_ru,
+                           grid, stream);
 }
 
 int gdm_laplace2_mxu_apply_f64(const void* u, const void* a1, const void* b1,
                                const void* win, const void* ru, void* y,
                                int p, int n0, int n1, int trb, int cw,
                                int n_ru, int grid, void* stream) {
-  return launch<double>(u, a1, b1, win, ru, y, p, n0, n1, trb, cw, n_ru,
-                        grid, stream);
+  return launch<F64>(u, a1, b1, win, ru, y, p, n0, n1, trb, cw, n_ru, grid,
+                     stream);
+}
+
+int gdm_laplace2_mxu3_apply_f32(const void* u, const void* a1,
+                                const void* b1, const void* win,
+                                const void* ru, void* y, int p, int n0,
+                                int n1, int trb, int cw, int n_ru, int grid,
+                                void* stream) {
+  return launch<F32<Bf16x3>>(u, a1, b1, win, ru, y, p, n0, n1, trb, cw, n_ru,
+                             grid, stream);
+}
+
+int gdm_laplace2_mxu3_apply_f64(const void* u, const void* a1,
+                                const void* b1, const void* win,
+                                const void* ru, void* y, int p, int n0,
+                                int n1, int trb, int cw, int n_ru, int grid,
+                                void* stream) {
+  return launch<F64>(u, a1, b1, win, ru, y, p, n0, n1, trb, cw, n_ru, grid,
+                     stream);
 }
 
 // Blocks of the built kernel (f64: 0 float32, 1 float64) one SM holds;
 // cw must be 64.
 int gdm_laplace2_mxu_occupancy(int p, int f64, int cw, int* out) {
-  if (cw != CW) return static_cast<int>(cudaErrorInvalidValue);
-  return f64 ? occupancy_of<double>(p, out) : occupancy_of<float>(p, out);
+  return f64 ? occupancy_of<F64>(p, cw, out)
+             : occupancy_of<F32<Tf32>>(p, cw, out);
+}
+
+int gdm_laplace2_mxu3_occupancy(int p, int f64, int cw, int* out) {
+  return f64 ? occupancy_of<F64>(p, cw, out)
+             : occupancy_of<F32<Bf16x3>>(p, cw, out);
 }
 
 }  // extern "C"

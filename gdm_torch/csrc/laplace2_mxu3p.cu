@@ -42,8 +42,6 @@
 // Float64: gdm splits nothing (its interpret-mode tests split float64
 // into float32 hi and lo); the card's product is DMMA, unsplit, as K3/mxu's
 // float64 kernel (laplace2_mxu.cu) runs it, which this entry launches.
-#include <cuda_bf16.h>
-
 #include "tc_rows.cuh"
 
 extern "C" int gdm_laplace2_mxu_apply_f64(const void* u, const void* a1,
@@ -84,89 +82,6 @@ struct Smem {
   static constexpr size_t bars = roff + line(2 * 4 * MC);
   static constexpr size_t total = bars + line(5 * 8) + ALIGN;
 };
-
-__device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(NT) : "memory");
-}
-
-// Two floats as bf16 hi (round to nearest even) and lo = bf16(x - hi),
-// each pair packed low address first.
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - __low2float(h),
-                                                 b - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// The byte offset of extended row k (a multiple of 4) of output column x
-// in a 64-row bf16 operand image (32-byte swizzle, k-steps of 16 bf16).
-__device__ __forceinline__ int bf16_at(int x, int k) {
-  return (k >> 4) * 64 * 32 + x * 32 +
-         ((((k >> 3) & 1) ^ ((x >> 2) & 1)) << 4) + ((k & 7) << 1);
-}
-
-// Q (4 or 8) column sums of V and W at byte offset `at` of the slot's
-// images (V^T hi, lo, W^T hi, lo, `img` bytes apart), split into bf16: one
-// 8- or 16-byte store an image.
-template <int Q>
-__device__ __forceinline__ void put_bf16(unsigned char* slot, uint32_t img,
-                                         int at, const float (&v)[Q],
-                                         const float (&w)[Q]) {
-  uint32_t vh[Q / 2], vl[Q / 2], wh[Q / 2], wl[Q / 2];
-#pragma unroll
-  for (int i = 0; i < Q / 2; ++i) {
-    split_bf16x2(v[2 * i], v[2 * i + 1], vh[i], vl[i]);
-    split_bf16x2(w[2 * i], w[2 * i + 1], wh[i], wl[i]);
-  }
-  if constexpr (Q == 8) {
-    *reinterpret_cast<uint4*>(slot + at) = make_uint4(vh[0], vh[1], vh[2],
-                                                      vh[3]);
-    *reinterpret_cast<uint4*>(slot + img + at) =
-        make_uint4(vl[0], vl[1], vl[2], vl[3]);
-    *reinterpret_cast<uint4*>(slot + 2 * img + at) =
-        make_uint4(wh[0], wh[1], wh[2], wh[3]);
-    *reinterpret_cast<uint4*>(slot + 3 * img + at) =
-        make_uint4(wl[0], wl[1], wl[2], wl[3]);
-  } else {
-    *reinterpret_cast<uint2*>(slot + at) = make_uint2(vh[0], vh[1]);
-    *reinterpret_cast<uint2*>(slot + img + at) = make_uint2(vl[0], vl[1]);
-    *reinterpret_cast<uint2*>(slot + 2 * img + at) = make_uint2(wh[0], wh[1]);
-    *reinterpret_cast<uint2*>(slot + 3 * img + at) = make_uint2(wl[0], wl[1]);
-  }
-}
-
-// The column stage of a unit into operand slot `slot`: output column x at
-// the row groups [gb, ge) of four extended rows, eight rows (a 16-byte
-// half of the swizzled row) at a time, four at an odd start or end.
-template <int P, bool EDGE>
-__device__ __forceinline__ void bf16_columns(
-    const float* ld, const int* ro, int x, int gb, int ge, unsigned mask,
-    const float (&ca)[2 * P + 1], const float (&cb)[2 * P + 1],
-    unsigned char* slot, uint32_t img) {
-  constexpr int ME = TRB + 2 * P;
-  int g = gb;
-  if (g < ge && (g & 1)) {
-    float v[4], w[4];
-    column_sums<float, P, CWR, 4, EDGE>(ld, ro, 4 * g, ME, x, mask, ca, cb,
-                                        v, w);
-    put_bf16<4>(slot, img, bf16_at(x, 4 * g), v, w);
-    ++g;
-  }
-  for (; g + 2 <= ge; g += 2) {
-    float v[8], w[8];
-    column_sums<float, P, CWR, 8, EDGE>(ld, ro, 4 * g, ME, x, mask, ca, cb,
-                                        v, w);
-    put_bf16<8>(slot, img, bf16_at(x, 4 * g), v, w);
-  }
-  if (g < ge) {
-    float v[4], w[4];
-    column_sums<float, P, CWR, 4, EDGE>(ld, ro, 4 * g, ME, x, mask, ca, cb,
-                                        v, w);
-    put_bf16<4>(slot, img, bf16_at(x, 4 * g), v, w);
-  }
-}
 
 // Clock stamps of warpgroup 0 (thread 0) and 1 (thread NT): slot += the
 // clocks since t, t restarts (empty in the kernels' own build).

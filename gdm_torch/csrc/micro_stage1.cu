@@ -27,7 +27,7 @@
 //   "dotsonly"   the same with lo = hi (the split elided)
 //   "splitsonly" y[r] = hi[r] + lo[r] for r < tile_r (the dots elided)
 // Bh, Bl are gdm's (n_tiles tile_r, 2 T_ext) bf16 tables.  The split is
-// tc_window.cuh's split_bf16, the split of K3/mxu3.
+// tc_window.cuh's split_bf16 (round to nearest even).
 //
 // Bound on the card: the column modes move 8 bytes a node (u read, y
 // written) against 4K flops ("full"); memory bounds them (at 1024^2, p =

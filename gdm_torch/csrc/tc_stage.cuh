@@ -1,9 +1,10 @@
 // The Hopper stage that K3f (laplace2_fullmxu.cu), K0 (laplace2_v1.cu),
-// K3/mxu (laplace2_mxu.cu) and K3/mxu3p (laplace2_mxu3p.cu) share: window
-// tables built once per Bands2 and row units on the device
-// (ops/tc_tables.py), u tiles copied in one unit ahead, operands split
-// once, persistent blocks.  K3/mxu and K3/mxu3p take units
-// of 64 output columns (the CW of Geom, wgmma's M), the others 32.
+// K3/mxu and K3/mxu3 (laplace2_mxu.cu), K3/mxu3p (laplace2_mxu3p.cu) and
+// K3p (laplace2_hybp.cu) share: window tables built once per Bands2 and
+// row units on the device (ops/tc_tables.py), u tiles copied in one unit
+// ahead, operands split once, persistent blocks.  K3/mxu, K3/mxu3 and
+// K3/mxu3p take units of 64 output columns (the CW of Geom, wgmma's M),
+// the others 32; K3p's units are whole tiles of a 32-column strip.
 //
 // A unit is one row unit (at most TRB = 32 output rows, the rows of a
 // tile of tile_r, cut into pieces of 32 where tile_r is larger) times one
@@ -91,6 +92,14 @@ __device__ __forceinline__ void copy16(void* dst, const void* src) {
                : "memory");
 }
 
+// One arrival on `bar` once every cp.async this thread issued before has
+// landed (the arrival counts toward the barrier's expected count).
+__device__ __forceinline__ void copies_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
@@ -109,20 +118,21 @@ __device__ __forceinline__ int land_offset(const T* u, int gi, int j0, int p,
 }
 
 // Issue the 16-byte cp.async copies of a unit's u rows i0 - P .. i0 - P +
-// ROWS (M unless named) at column j0 into the landing slot `land` (the
-// whole warpgroup): each row's span of UW elements rounded out to 16
-// bytes, never past the array's own rounded ends.  Rows outside the grid
-// are not copied; the split reads them as zero.
+// rows (ROWS, M unless named, or a count a unit gives) at column j0 into
+// the landing slot `land` (the whole warpgroup): each row's span of UW
+// elements rounded out to 16 bytes, never past the array's own rounded
+// ends.  Rows outside the grid are not copied; the split reads them as
+// zero.
 template <typename T, int P, int CW = TX, int ROWS = Geom<T, P, CW>::M>
 __device__ void issue_u_rows(T* land, const T* __restrict__ u, int i0, int j0,
-                             int n0, int n1, int tid) {
+                             int n0, int n1, int tid, int rows = ROWS) {
   using G = Geom<T, P, CW>;
   const uintptr_t lo = reinterpret_cast<uintptr_t>(u) &
                        ~static_cast<uintptr_t>(15);
   const uintptr_t hi =
       (reinterpret_cast<uintptr_t>(u + static_cast<size_t>(n0) * n1) + 15) &
       ~static_cast<uintptr_t>(15);
-  for (int e = tid; e < ROWS * G::NG; e += NT) {
+  for (int e = tid; e < rows * G::NG; e += NT) {
     const int r = e / G::NG;
     const int g = e % G::NG;
     const int gi = i0 - P + r;
@@ -140,11 +150,13 @@ __device__ void issue_u_rows(T* land, const T* __restrict__ u, int i0, int j0,
 
 // The landing offsets of a unit's u rows, once a unit: roff[r] = the
 // element offset of unit column 0 of row r (u row i0 - P + r) in its
-// landing row, -1 for a row outside the grid (rows below ROWS).
+// landing row, -1 for a row outside the grid (rows below ROWS, or below
+// a count a unit gives).
 template <typename T, int P, int ROWS = Geom<T, P>::M>
 __device__ __forceinline__ void row_offsets(int* roff, const T* u, int i0,
-                                            int j0, int n0, int n1, int tid) {
-  for (int r = tid; r < ROWS; r += NT) {
+                                            int j0, int n0, int n1, int tid,
+                                            int rows = ROWS) {
+  for (int r = tid; r < rows; r += NT) {
     const int gi = i0 - P + r;
     roff[r] = gi < 0 || gi >= n0 ? -1 : land_offset(u, gi, j0, P, n1);
   }

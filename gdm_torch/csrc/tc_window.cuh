@@ -1,9 +1,9 @@
 // The tensor-core band-window product and the tile stages shared by the
-// 2D Laplace schedules K3c, K3h and K3p (laplace2_mxucol.cu,
-// laplace2_hybrid.cu, laplace2_hybp.cu) and K3's tensor-core row mode
-// K3/mxu3 (laplace2_mxurows.cu), the float64 DMMA products of K3f, K0 and
-// K3/mxu (laplace2_fullmxu.cu, laplace2_v1.cu, laplace2_mxu.cu; their
-// float32 paths and K3/mxu3p are on tc_stage.cuh's stage), and the
+// 2D Laplace schedules K3c and K3h (laplace2_mxucol.cu,
+// laplace2_hybrid.cu), the float64 DMMA products of K3f, K0, K3/mxu,
+// K3/mxu3 and K3p (laplace2_fullmxu.cu, laplace2_v1.cu, laplace2_mxu.cu,
+// laplace2_hybp.cu; their float32 paths and K3/mxu3p are on
+// tc_stage.cuh's stage), the bf16 split of M1 (micro_stage1.cu) and the
 // 3xTF32 split that K5 (laplace3_mxu.cu) uses too.
 //
 // All of them compute K3's operator  y = A0 U A1^T + B0 U B1^T  from K3's
@@ -20,30 +20,18 @@
 // Column stage, the window product: [V | W] = U_tile . C, where C is the
 // window's KD x 2TX slice of [A1^T | B1^T]: C[x + t][x] = A1(j0 + x, t),
 // C[x + t][TX + x] = B1(j0 + x, t), zero elsewhere.  Built per block from
-// the band rows of its own columns, so the one-sided stencils of the
-// first and last p columns come out exact.  The same C serves the FMA
-// form of the column stage (col_fma), which reads its coefficients from
-// the diagonals of C.
-//
-// Row stage as a window product (K3/mxu3): y_tile =
-// A0w . V + B0w . W, where A0w and B0w are the tile's rnd(tile_r, 16) x m
-// windows of A0 and B0 (gdm's Bcat, split in two so that V and W stay
-// side by side as the column stage leaves them), each entry taken from
-// its own row's band.
+// the band rows of its own columns (K3p reads K3f's cached table of it),
+// so the one-sided stencils of the first and last p columns come out
+// exact.  The same C serves the FMA form of the column stage (col_fma),
+// which reads its coefficients from the diagonals of C.
 //
 // Precision: float32 products run as 3xTF32 on the tensor cores (each
 // operand split into hi = tf32(x) and lo = tf32(x - hi); lo.hi + hi.lo +
 // hi.hi, float32 accumulation), float64 ones on the DMMA units (m8n8k4,
-// IEEE double).  The global TF32 flag plays no part.  K3/mxu3 takes
-// its float32 row product as bf16x3 instead (gdm's
-// pallas_stencil2.py:120-132, 325-366: each operand split into
-// hi = bf16(x) and lo = bf16(x - hi), about 16 significant bits together;
-// lo.hi + hi.lo + hi.hi on bf16 wmma, m16n16k16, float32 accumulation;
-// the dropped lo.lo term and lo's own rounding cost about 2^-17 relative
-// per product).  In float64 every mode runs on the DMMA units, unsplit:
-// gdm split float64 operands to float32 only so that its interpret-mode
-// tests ran the bf16x3 code path, and the card has no tensor core that
-// takes float32 inputs.
+// IEEE double).  The global TF32 flag plays no part.  In float64 every
+// mode runs on the DMMA units, unsplit: gdm split float64 operands to
+// float32 only so that its interpret-mode tests ran the bf16x3 code path,
+// and the card has no tensor core that takes float32 inputs.
 #pragma once
 
 #include <cstddef>
@@ -193,51 +181,12 @@ struct Acc16<double> {
 
 using bf16 = __nv_bfloat16;
 
-// pitch of the split [V | W] (bf16): a multiple of 8 elements (16 bytes),
-// as 16-bit wmma loads need
-constexpr int LDVB = 2 * TX + 8;
-
 // hi = bf16(x), lo = bf16(x - hi)
 __device__ __forceinline__ void split_bf16(float x, bf16* hi, bf16* lo) {
   const bf16 h = __float2bfloat16(x);
   *hi = h;
   *lo = __float2bfloat16(x - __bfloat162float(h));
 }
-
-// A warp's 16 x 16 float32 accumulator of bf16x3 products: acc += a . b
-// with a = a_hi + a_lo (16 x depth) and b = b_hi + b_lo (depth x 16), all
-// row-major bf16 in shared memory (depth a multiple of 16).
-struct Acc16Bf16x3 {
-  using FA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                            wmma::row_major>;
-  using FB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                            wmma::row_major>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-
-  __device__ __forceinline__ void zero() { wmma::fill_fragment(f, 0.0f); }
-
-  __device__ __forceinline__ void add(const bf16* a_hi, const bf16* a_lo,
-                                      int lda, const bf16* b_hi,
-                                      const bf16* b_lo, int ldb, int depth) {
-    for (int k0 = 0; k0 < depth; k0 += 16) {
-      FA ah, al;
-      FB bh, bl;
-      const size_t kb = static_cast<size_t>(k0) * ldb;
-      wmma::load_matrix_sync(ah, a_hi + k0, lda);
-      wmma::load_matrix_sync(al, a_lo + k0, lda);
-      wmma::load_matrix_sync(bh, b_hi + kb, ldb);
-      wmma::load_matrix_sync(bl, b_lo + kb, ldb);
-      // the small terms first
-      wmma::mma_sync(f, al, bh, f);
-      wmma::mma_sync(f, ah, bl, f);
-      wmma::mma_sync(f, ah, bh, f);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* c, int ldc) const {
-    wmma::store_matrix_sync(c, f, ldc, wmma::mem_row_major);
-  }
-};
 
 // C, the window's KD x 2TX slice of [A1^T | B1^T] for columns j0 ..
 template <typename T, int P>
@@ -325,130 +274,6 @@ __device__ __forceinline__ void col_fma(const T* ut, const T* ct, T* vw,
                      vw[r * LDV + TX + lane] = w;
                    });
 }
-
-// The row windows of output rows i0 ..: store(r, s, A0w[r][s], B0w[r][s])
-// for every entry, A0w[r][s] = A0(i0 + r, s - r) for 0 <= s - r <= 2p and
-// zero elsewhere and on rows past tile_r or the grid; rnd(tile_r, 16)
-// rows, m columns.
-template <typename T, int P, typename Store>
-__device__ void build_row_windows(const T* __restrict__ a0,
-                                  const T* __restrict__ b0, const Tile<P>& g,
-                                  int i0, int n0, int tid, int nthreads,
-                                  Store store) {
-  constexpr int K = 2 * P + 1;
-  const int rows = rnd(g.tile_r, 16);
-  for (int e = tid; e < rows * g.m; e += nthreads) {
-    const int r = e / g.m;
-    const int s = e % g.m;
-    const int t = s - r;
-    const bool in = r < g.tile_r && i0 + r < n0 && t >= 0 && t < K;
-    const size_t at = static_cast<size_t>(i0 + r) * K + t;
-    store(r, s, in ? a0[at] : T(0), in ? b0[at] : T(0));
-  }
-}
-
-// The operands of one tile's row product y_tile = A0w . V + B0w . W in
-// shared memory from ``base``: [V | W] (m rows) and the row windows A0w,
-// B0w (rnd(tile_r, 16) rows, m columns).  Unsplit, in T, the product runs
-// as Acc16<T> (3xTF32 in float32, DMMA in float64); split (float32 only),
-// as bf16 hi/lo pairs through Acc16Bf16x3.
-template <typename T, int P, bool SPLIT>
-struct RowOperands;
-
-template <typename T, int P>
-struct RowOperands<T, P, false> {
-  T* vw;
-  T* aw;
-  T* bw;
-  int ldw;
-  int m;
-
-  static __host__ __device__ size_t window_bytes(const Tile<P>& g) {
-    return rnd128(sizeof(T) * rnd(g.tile_r, 16) * g.ldw());
-  }
-  static __host__ __device__ size_t bytes(const Tile<P>& g) {
-    return rnd128(sizeof(T) * g.m * LDV) + 2 * window_bytes(g);
-  }
-  __device__ RowOperands(unsigned char* base, const Tile<P>& g)
-      : vw(reinterpret_cast<T*>(base)),
-        aw(reinterpret_cast<T*>(base + rnd128(sizeof(T) * g.m * LDV))),
-        bw(reinterpret_cast<T*>(base + rnd128(sizeof(T) * g.m * LDV) +
-                                window_bytes(g))),
-        ldw(g.ldw()),
-        m(g.m) {}
-
-  __device__ __forceinline__ void set_vw(int r, int x, T v, T w) const {
-    vw[r * LDV + x] = v;
-    vw[r * LDV + TX + x] = w;
-  }
-  __device__ __forceinline__ void set_window(int r, int s, T a, T b) const {
-    aw[r * ldw + s] = a;
-    bw[r * ldw + s] = b;
-  }
-  // the 16 x 16 block of output rows r0 .. and columns c0 .. into out
-  __device__ __forceinline__ void product(int r0, int c0, T* out,
-                                          int ldo) const {
-    Acc16<T> acc;
-    acc.zero();
-    acc.add(aw + r0 * ldw, ldw, vw + c0, LDV, m);
-    acc.add(bw + r0 * ldw, ldw, vw + TX + c0, LDV, m);
-    acc.store(out, ldo);
-  }
-};
-
-template <int P>
-struct RowOperands<float, P, true> {
-  bf16* vwh;
-  bf16* vwl;
-  bf16* awh;
-  bf16* awl;
-  bf16* bwh;
-  bf16* bwl;
-  int ldw;  // m + 8: a multiple of 8
-  int m;
-
-  static __host__ __device__ size_t vw_bytes(const Tile<P>& g) {
-    return rnd128(sizeof(bf16) * g.m * LDVB);
-  }
-  static __host__ __device__ size_t window_bytes(const Tile<P>& g) {
-    return rnd128(sizeof(bf16) * rnd(g.tile_r, 16) * (g.m + 8));
-  }
-  static __host__ __device__ size_t bytes(const Tile<P>& g) {
-    return 2 * vw_bytes(g) + 4 * window_bytes(g);
-  }
-  __device__ RowOperands(unsigned char* base, const Tile<P>& g)
-      : ldw(g.m + 8), m(g.m) {
-    const size_t v = vw_bytes(g);
-    const size_t w = window_bytes(g);
-    vwh = reinterpret_cast<bf16*>(base);
-    vwl = reinterpret_cast<bf16*>(base + v);
-    awh = reinterpret_cast<bf16*>(base + 2 * v);
-    awl = reinterpret_cast<bf16*>(base + 2 * v + w);
-    bwh = reinterpret_cast<bf16*>(base + 2 * v + 2 * w);
-    bwl = reinterpret_cast<bf16*>(base + 2 * v + 3 * w);
-  }
-
-  __device__ __forceinline__ void set_vw(int r, int x, float v,
-                                         float w) const {
-    split_bf16(v, vwh + r * LDVB + x, vwl + r * LDVB + x);
-    split_bf16(w, vwh + r * LDVB + TX + x, vwl + r * LDVB + TX + x);
-  }
-  __device__ __forceinline__ void set_window(int r, int s, float a,
-                                             float b) const {
-    split_bf16(a, awh + r * ldw + s, awl + r * ldw + s);
-    split_bf16(b, bwh + r * ldw + s, bwl + r * ldw + s);
-  }
-  __device__ __forceinline__ void product(int r0, int c0, float* out,
-                                          int ldo) const {
-    Acc16Bf16x3 acc;
-    acc.zero();
-    acc.add(awh + r0 * ldw, awl + r0 * ldw, ldw, vwh + c0, vwl + c0, LDVB,
-            m);
-    acc.add(bwh + r0 * ldw, bwl + r0 * ldw, ldw, vwh + TX + c0,
-            vwl + TX + c0, LDVB, m);
-    acc.store(out, ldo);
-  }
-};
 
 // Column stage on the tensor cores for rows [r_lo, m) of the tile: the
 // 16-row blocks from the one holding r_lo times C's four 16-column

@@ -1,7 +1,8 @@
 // Hopper's warpgroup matrix products (wgmma) and their shared-memory
 // operand descriptors, shared by M1's row modes (micro_stage1.cu), K3f
-// (laplace2_fullmxu.cu), K0 (laplace2_v1.cu), K3/mxu (laplace2_mxu.cu)
-// and K3/mxu3p (laplace2_mxu3p.cu).
+// (laplace2_fullmxu.cu), K0 (laplace2_v1.cu), K3/mxu and K3/mxu3
+// (laplace2_mxu.cu), K3/mxu3p (laplace2_mxu3p.cu) and K3p
+// (laplace2_hybp.cu).
 //
 // A wgmma is issued by the four warps of a warpgroup together: D (64 x N,
 // float32, in registers) += A (64 x K) . B (K x N), B read from shared
@@ -17,9 +18,9 @@
 // no operand needs one.  Two swizzled layouts are used:
 //   * 128-byte rows (M1's bf16 panels): 8 rows of 128 bytes an atom,
 //     16-byte group g of row r at g ^ (r % 8), atoms 1024 bytes apart;
-//   * 32-byte rows (the tf32 operands of K3f, K0 and K3/mxu, the bf16
-//     ones of K3/mxu3p): the operand is cut into chunks of one k-step
-//     along K (8 tf32 or 16 bf16), a chunk holds every row's
+//   * 32-byte rows (the tf32 operands of K3f, K0, K3/mxu and K3p, the
+//     bf16 ones of K3/mxu3 and K3/mxu3p): the operand is cut into chunks
+//     of one k-step along K (8 tf32 or 16 bf16), a chunk holds every row's
 //     32 bytes, rows 32 bytes apart, and 16-byte half h of row r sits at
 //     h ^ ((r >> 2) & 1); 8-row atoms are 256 bytes apart.  A k-step's
 //     descriptor points at its chunk, so no K space is padded.
@@ -188,8 +189,9 @@ struct WgmmaBf16<128> {
 };
 
 // wgmma m64n32k16, bf16 from shared memory (both K-major), with a chain's
-// start flag as WgmmaTf32 below: d = a . b + (scale_d ? d : 0) (K3/mxu3p's
-// bf16x3 row product, laplace2_mxu3p.cu).  A k-step of 16 bf16 is 32
+// start flag as WgmmaTf32 below: d = a . b + (scale_d ? d : 0) (the bf16x3
+// row products of K3/mxu3 and K3/mxu3p, laplace2_mxu.cu and
+// laplace2_mxu3p.cu).  A k-step of 16 bf16 is 32
 // bytes a row, so the 32-byte swizzled layout and its
 // descriptor serve as they do for tf32.
 struct WgmmaBf16D32 {
@@ -279,6 +281,26 @@ struct WgmmaTf32<48> {
 // memory as above.
 template <int N>
 struct WgmmaTf32RS;
+
+template <>
+struct WgmmaTf32RS<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
 
 template <>
 struct WgmmaTf32RS<40> {

@@ -75,8 +75,7 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_laplace2_stream_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P] + [I] * 6 + [P]
         fn.restype = I
-        for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_hybrid", 2),
-                           ("laplace2_hybp", 2), ("laplace2_mxu3", 1)):
+        for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_hybrid", 2)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
             fn.restype = I
@@ -84,10 +83,14 @@ def _declare(lib):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P] * (n_tabs + 2) + [I] * 6 + [P]
             fn.restype = I
-        for k in ("laplace2_mxu", "laplace2_mxu3p"):   # + columns a unit
+        for k in ("laplace2_mxu", "laplace2_mxu3",
+                  "laplace2_mxu3p"):   # + columns a unit
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P] * 6 + [I] * 7 + [P]
             fn.restype = I
+        fn = getattr(lib, f"gdm_laplace2_hybp_apply_{dt}")
+        fn.argtypes = [P] * 6 + [I] * 8 + [P]
+        fn.restype = I
         for k, n_extra in (("laplace3", 5), ("laplace3_mxu", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I] + (
@@ -102,7 +105,8 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_{k}_occupancy")
         fn.argtypes = [I, I, IP]
         fn.restype = I
-    for k in ("laplace2_mxu", "laplace2_mxu3p"):
+    for k in ("laplace2_mxu", "laplace2_mxu3", "laplace2_mxu3p",
+              "laplace2_hybp"):   # + columns a unit (K3p: its tile's rows)
         fn = getattr(lib, f"gdm_{k}_occupancy")
         fn.argtypes = [I, I, I, IP]
         fn.restype = I

@@ -17,17 +17,17 @@ tensor cores), ``make_padded_laplace2_hybrid`` (K3h, the column stage
 split by rows between the FMA units and the tensor cores) and
 ``make_padded_laplace2_hybp`` (K3p, K3h pipelined across tiles).  The
 CUDA kernels are gdm_torch/csrc/laplace2*.cu (the tensor-core ones share
-csrc/tc_window.cuh); their source notes say what bounds them on the
-card.  Each wrapper (``laplace2_apply``, ``laplace2_stream_apply``,
+csrc/tc_window.cuh or the stage of csrc/tc_stage.cuh); their source
+notes say what bounds them on the card.  Each wrapper (``laplace2_apply``, ``laplace2_stream_apply``,
 ``laplace2_mxucol_apply``, ...) launches its kernel for a CUDA tensor
 and runs its plain torch twin for a CPU tensor; there is no other
 switch.  Every twin is K3's plain column-then-row computation.
 ``k3_plan`` picks K3's launch from the shape (its tiles and the output
 rows a thread keeps in registers), ``k3s_plan`` K3s's (its strip width
 and its strips and segments); tests/test_torch_plans.py holds both on
-the CPU.  ``tc_plan`` picks K3f's, K0's, K3/mxu's and K3/mxu3p's (row
-units times column blocks over persistent blocks), whose window tables
-``ops.tc_tables`` builds once per band tables and row units;
+the CPU.  ``tc_plan`` picks K3f's, K0's, K3/mxu's, K3/mxu3's, K3/mxu3p's
+and K3p's (row units times column blocks over persistent blocks), whose
+tables ``ops.tc_tables`` builds once per band tables and row units;
 tests/test_torch_tc_tables.py holds both.
 
 K3 and K3s compute what gdm's f32-exact ``rows="vpu"`` kernel computes;
@@ -69,8 +69,8 @@ class Bands2:
     b0: torch.Tensor
     b1: torch.Tensor
     p: int
-    # the window tables of K3f, K0, K3/mxu and K3/mxu3p, built at first
-    # use (tc_tables.tables);
+    # the tables of K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p, built at
+    # first use (tc_tables.tables);
     # not an argument, so every new Bands2 (replace() too) starts empty
     tables: dict = dataclasses.field(default_factory=dict, init=False,
                                      compare=False, repr=False)
@@ -401,22 +401,20 @@ def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     """Shared memory of one block of the tensor-core kernel ``kernel``
     ("mxucol", "fullmxu", "hybrid", "hybp", "mxu", "mxu3", "mxu3p" or
     "v1") at degree p with tile_r output rows, as the kernels lay it out.
-    K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu") and K3/mxu3p ("mxu3p"):
-    tc_tables.smem_bytes (row units of 32 rows whatever the tile, the
-    split window and operands, two landing slots of u rows in float32).
-    The others (K3/mxu3 among them) as csrc/tc_window.cuh's
-    ``Tile`` and the kernels lay it out: the u tile, the C slice,
-    [V | W], the A0/B0 band rows or row windows, the MMA warps' scratch
-    tiles (K3h, K3p), and in K3p two u tiles and two operand slots.
-    K3/mxu3 keeps [V | W] and the row windows as bf16 hi/lo pairs in
-    float32; it starts each array on a 128-byte line."""
+    K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu"), K3/mxu3 ("mxu3"),
+    K3/mxu3p ("mxu3p") and K3p ("hybp"): tc_tables.smem_bytes (row units
+    of 32 rows whatever the tile, the split window and operands, landing
+    slots of u rows in float32; K3p's units are whole tiles: two [V | W]
+    slots and three slots of u rows and band rows of a tile).  K3c and
+    K3h as csrc/tc_window.cuh's ``Tile`` and the kernels lay it out: the
+    u tile, the C slice, [V | W], the A0/B0 band rows and K3h's MMA warps'
+    scratch tile."""
     if kernel in tc_tables.KERNELS:
-        return tc_tables.smem_bytes(kernel, p, itemsize)
+        return tc_tables.smem_bytes(kernel, p, itemsize, tile_r)
     tx = 32
     uw = tx + 2 * p
     kd = _rnd(uw, 8)
     m = _rnd(tile_r + 2 * p, 16)
-    rows = _rnd(tile_r, 16)
     ldv = 2 * tx + 4
     u = _rnd(m * (kd + 4), 32)
     c = _rnd(kd * ldv, 32)
@@ -424,21 +422,10 @@ def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     r = _rnd(2 * tile_r * (2 * p + 1), 32)
     scr = 4 * 256
     elems = {"mxucol": u + c + vw + r,
-             "hybrid": u + c + vw + r + scr,
-             "hybp": 2 * u + 3 * r + 2 * vw + c + scr}
-    if kernel in elems:
-        return elems[kernel] * itemsize
-
-    def line(n, size=itemsize):
-        return _rnd(n * size, 128)
-
-    if kernel != "mxu3":
+             "hybrid": u + c + vw + r + scr}
+    if kernel not in elems:
         raise ValueError(f"no tensor-core kernel {kernel!r}")
-    if itemsize == 4:
-        ops = 2 * line(m * (2 * tx + 8), 2) + 4 * line(rows * (m + 8), 2)
-    else:
-        ops = line(m * ldv) + 2 * line(rows * (m + 4))
-    return line(u) + line(c) + ops
+    return elems[kernel] * itemsize
 
 
 def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
@@ -447,11 +434,11 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
 
     tile_r, the block's output rows: by default the largest of 64, 48,
     32, 16 whose tile fits one H100 block at this degree and dtype (see
-    ``tc_smem_bytes``; 64 for K3c, K3h, K3p and K3/mxu3 at every p <= 15
-    in float32 and for K3f, K0, K3/mxu and K3/mxu3p always, whose shared
-    memory does not grow with the tile; smaller for several kernels in
-    float64).  As in gdm, every kernel but K3f clamps it to N0 rounded up
-    to 8.  A tile that does not fit raises.
+    ``tc_smem_bytes``; 64 for K3c and K3h at every p <= 15 in float32 and
+    for K3f, K0, K3/mxu, K3/mxu3 and K3/mxu3p always, whose shared memory
+    does not grow with the tile; for K3p 64 in float32 at every p <= 15
+    and smaller in float64 from p = 9).  As in gdm, every kernel but K3f
+    clamps it to N0 rounded up to 8.  A tile that does not fit raises.
 
     vpu_rows, the rows of the extended tile (tile_r + 2p rows) whose
     column stage runs on the FMA units, the rest on the tensor cores:
@@ -459,7 +446,11 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
     K3p default; per row the FMA units cost about 2.3x less than the
     3xTF32 window product at the card's peak rates), clamped to the
     extended tile as gdm clamps it; 0 means all tensor cores and any
-    value >= tile_r + 2p all FMAs.
+    value >= tile_r + 2p all FMAs.  K3p's unit is one tile of a
+    32-column strip, so its extended rows [0, vpu_rows) run on the FMA
+    units and the rest on the tensor cores as the value says; the ragged
+    last tile (rows + 2p extended rows) keeps the same first vpu_rows
+    rows on the FMA units (``tc_tables.hybp_rows``).
     """
     p, n0 = bt.p, bt.shape[0]
     itemsize = bt.a0.element_size()
@@ -485,16 +476,17 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
         return {"tile_r": tile_r}
     t_ext = tile_r + 2 * p
     if vpu_rows is None:
-        vpu_rows = _rnd(2 * t_ext // 3, 8)
+        vpu_rows = tc_tables.default_vpu_rows(tile_r, p)
     if int(vpu_rows) != vpu_rows or vpu_rows < 0:
         raise ValueError(f"vpu_rows must be an integer >= 0, not {vpu_rows}")
     return {"tile_r": tile_r, "vpu_rows": min(int(vpu_rows), t_ext)}
 
 
 @functools.lru_cache(maxsize=None)
-def tc_occupancy(kernel: str, p: int, dtype) -> int:
-    """Blocks of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu") or K3/mxu3p
-    ("mxu3p") one SM of the card holds at degree p, as the CUDA runtime's
+def tc_occupancy(kernel: str, p: int, dtype, tile_r=None) -> int:
+    """Blocks of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu"), K3/mxu3
+    ("mxu3"), K3/mxu3p ("mxu3p") or K3p ("hybp", with tiles of tile_r
+    rows) one SM of the card holds at degree p, as the CUDA runtime's
     occupancy calculator reports them for the built kernel."""
     kl = _build.kernels()
     out = ctypes.c_int(0)
@@ -502,6 +494,8 @@ def tc_occupancy(kernel: str, p: int, dtype) -> int:
     f64 = int(dtype == torch.float64)
     if kernel in tc_tables.COLS:
         err = fn(p, f64, tc_tables.cols_of(kernel), ctypes.byref(out))
+    elif kernel == "hybp":
+        err = fn(p, f64, int(tile_r), ctypes.byref(out))
     else:
         err = fn(p, f64, ctypes.byref(out))
     _build.check(kl, err, f"{kernel} occupancy")
@@ -511,23 +505,31 @@ def tc_occupancy(kernel: str, p: int, dtype) -> int:
 @functools.lru_cache(maxsize=None)
 def tc_plan(kernel: str, nodes, p: int, dtype,
             tile_r: int) -> tc_tables.TcPlan:
-    """The launch plan of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu") or
-    K3/mxu3p ("mxu3p") for the (n0, n1) nodes with tiles of tile_r rows:
-    row units of at most 32 rows times blocks of the kernel's columns
-    (tc_tables.COLS), walked by one wave of persistent blocks, as many an
-    SM as the runtime's occupancy of the built kernel (which needs the
-    card).  Cached: the wrappers ask on every launch."""
+    """The launch plan of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu"),
+    K3/mxu3 ("mxu3"), K3/mxu3p ("mxu3p") or K3p ("hybp") for the (n0, n1)
+    nodes with tiles of tile_r rows: row units of at most 32 rows (K3p:
+    whole tiles) times blocks of the kernel's columns (tc_tables.COLS),
+    walked by one wave of persistent blocks, as many an SM as the
+    runtime's occupancy of the built kernel (which needs the card).
+    Cached: the wrappers ask on every launch."""
     itemsize = torch.empty((), dtype=dtype).element_size()
+    occ = tc_occupancy(kernel, p, dtype,
+                       int(tile_r) if kernel == "hybp" else None)
     return tc_tables.plan(kernel, tuple(nodes), p, itemsize, int(tile_r),
-                          tc_occupancy(kernel, p, dtype), SM_COUNT)
+                          occ, SM_COUNT)
 
 
-def _launch_tc_plan(u: torch.Tensor, bt: Bands2,
-                    plan: tc_tables.TcPlan) -> torch.Tensor:
-    """K3f, K0, K3/mxu or K3/mxu3p on the CUDA tensor ``u`` with the
-    plan ``plan``, from the window tables of ``bt`` (built at first use);
-    counts nothing."""
+def _launch_tc_plan(u: torch.Tensor, bt: Bands2, plan: tc_tables.TcPlan,
+                    vpu_rows=None) -> torch.Tensor:
+    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p or K3p (with ``vpu_rows``) on
+    the CUDA tensor ``u`` with the plan ``plan``, from the tables of
+    ``bt`` (built at first use); counts nothing."""
     tab = tc_tables.tables(bt, plan.kernel, plan.tile_r)
+    if plan.kernel == "hybp":
+        return launch(u, "laplace2_hybp_apply", "K3p",
+                      (bt.a1, bt.b1, tab["ct"], tab["rb"]), bt.p, bt.shape,
+                      (plan.tile_r, vpu_rows, len(plan.row_units), plan.segs,
+                       plan.blocks))
     if plan.kernel == "fullmxu":
         tabs = (tab["win"], tab["ct"], tab["ru"])
     else:
@@ -542,15 +544,16 @@ def _launch_tc_plan(u: torch.Tensor, bt: Bands2,
 def tc_apply(u, bt, kernel, what, wrapper, plain, tile_r, vpu_rows=None):
     """The wrapper of tensor-core kernel ``kernel`` (named ``what``):
     its plain twin for a CPU tensor, else the kernel, counted on
-    ``wrapper.launches`` (K3f, K0, K3/mxu and K3/mxu3p launched as
-    ``tc_plan`` says)."""
+    ``wrapper.launches`` (K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p
+    launched as ``tc_plan`` says)."""
     _check(u, bt)
     opts = tc_options(kernel, bt, tile_r, vpu_rows)
     if u.device.type == "cpu":
         return plain(u, bt)
     if kernel in tc_tables.KERNELS:
         y = _launch_tc_plan(u, bt, tc_plan(kernel, bt.shape, bt.p, u.dtype,
-                                           opts["tile_r"]))
+                                           opts["tile_r"]),
+                            opts.get("vpu_rows"))
     else:
         y = _launch(u, bt, f"laplace2_{kernel}_apply", what,
                     tuple(opts.values()))
@@ -616,8 +619,11 @@ def laplace2_hybp_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 
 def laplace2_hybp_apply(u: torch.Tensor, bt: Bands2, tile_r=None,
                         vpu_rows=None) -> torch.Tensor:
-    """K3's operator through K3p (K3h pipelined across the tiles of a
-    column strip by persistent blocks) for a CUDA tensor, the plain
+    """K3's operator through K3p (K3h's split column stage pipelined
+    across the tiles of a column strip: persistent blocks of a tensor
+    warpgroup, the copies and the 3xTF32 column rows from K3f's cached
+    C^T, and an FMA warpgroup, the FMA column rows and the row stage,
+    joined by mbarriers; DMMA in float64) for a CUDA tensor, the plain
     version for a CPU tensor."""
     return tc_apply(u, bt, "hybp", "K3p", laplace2_hybp_apply,
                     laplace2_hybp_apply_plain, tile_r, vpu_rows)
@@ -643,9 +649,10 @@ laplace2_mxu_apply.launches = 0
 
 def laplace2_mxu3_apply(u: torch.Tensor, bt: Bands2,
                         tile_r=None) -> torch.Tensor:
-    """K3's operator through K3/mxu3 (K3/mxu with the row product as
-    bf16x3 in float32, within about 1e-5 of max|y|) for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    """K3's operator through K3/mxu3 (K3/mxu's kernel with the row
+    product as bf16x3 in float32 from the cached bf16 window tables,
+    within about 1e-5 of max|y|; DMMA in float64) for a CUDA tensor, the
+    plain version for a CPU tensor."""
     return tc_apply(u, bt, "mxu3", "K3/mxu3", laplace2_mxu3_apply,
                     laplace2_apply_plain, tile_r)
 

@@ -1,22 +1,29 @@
 """The window tables, launch plans and shared-memory layouts of K3f, K0,
-K3/mxu and K3/mxu3p.
+K3/mxu, K3/mxu3, K3/mxu3p and K3p.
 
-K3f (csrc/laplace2_fullmxu.cu), K0 (csrc/laplace2_v1.cu), K3/mxu
-(csrc/laplace2_mxu.cu) and K3/mxu3p (csrc/laplace2_mxu3p.cu) share the
-stage of csrc/tc_stage.cuh: a persistent block walks units of one row
-unit (at most ``TRB`` = 32 output rows: the rows of a tile of
-``tile_r``, cut into pieces of 32 where the tile is taller) by a block
-of output columns (``COLS``: 64, wgmma's M, for K3/mxu and K3/mxu3p,
-whose row product is transposed; 32 for K3f and K0), row unit major, and
-reads its windows from tables built here once per ``Bands2`` and row
+K3f (csrc/laplace2_fullmxu.cu), K0 (csrc/laplace2_v1.cu), K3/mxu and
+K3/mxu3 (csrc/laplace2_mxu.cu), K3/mxu3p (csrc/laplace2_mxu3p.cu) and K3p
+(csrc/laplace2_hybp.cu) share the stage of csrc/tc_stage.cuh: a
+persistent block walks units of one row unit (at most ``TRB`` = 32
+output rows: the rows of a tile of ``tile_r``, cut into pieces of 32
+where the tile is taller; K3p's row unit is the whole tile) by a block of
+output columns (``COLS``: 64, wgmma's M, for K3/mxu, K3/mxu3 and
+K3/mxu3p, whose row product is transposed; 32 for K3f, K0 and K3p), row
+unit major (K3p: strip major, each block an even run of one strip's
+tiles), and reads its tables, built here once per ``Bands2`` and row
 units (tiles that give the same row units share them), on the device
 with vectorised indexing, and cached on the ``Bands2``:
 
 - the row window of each row unit, [A0w; B0w] (64 rows by the depth M
   of its extended rows): A0w[r][s] = A0(i0 + r, s - r) for 0 <= s - r
-  <= 2p and r below the unit's rows, zero elsewhere (every kernel);
+  <= 2p and r below the unit's rows, zero elsewhere (every kernel but
+  K3p);
 - K3f's column slice of each 32-column block, C^T (64 rows by KD): row x
-  holds A1(j0 + x, w - x) at w, row 32 + x B1's, zero past the grid.
+  holds A1(j0 + x, w - x) at w, row 32 + x B1's, zero past the grid
+  (K3f's, and K3p's tensor column rows);
+- K3p's band rows: A0's and B0's rows, each padded to KP = 2p + 1
+  rounded up to 16 bytes, side by side (the FMA row stage's 16-byte
+  coefficient loads).
 
 In float32 a table is stored split, hi = tf32(x) rounded to nearest with
 ties away from zero (the card's cvt.rna.tf32) and lo = tf32(x - hi), so
@@ -24,12 +31,13 @@ no kernel splits a table entry: a window as hi's image then lo's in the
 32-byte swizzled K-major layout that wgmma reads from shared memory
 (``sw32_offset``, csrc/wgmma.cuh), C^T in the order of the wgmma A
 fragments a thread holds in registers (``frag_index``), one 16-byte load
-a thread a k-step and part.  K3/mxu3p's bf16x3 product reads its own
-float32 windows, split into bf16 hi = bf16(x) rounded to nearest even
-(the card's cvt.rn.bf16, as gdm's B_hi) and lo = bf16(x - hi), over a
-depth padded to k-steps of 16 (``bf16_split``, ``sw16_index``).  In
-float64 every kernel reads the windows unsplit and row-major, padded as
-the DMMA fragments read them (a row pitch of M + 4, C's of 68).
+a thread a k-step and part.  The bf16x3 products of K3/mxu3 and
+K3/mxu3p read their own float32 windows, split into bf16 hi = bf16(x)
+rounded to nearest even (the card's cvt.rn.bf16, as gdm's B_hi) and lo =
+bf16(x - hi), over a depth padded to k-steps of 16 (``bf16_split``,
+``sw16_index``).  K3p's band rows are unsplit (FMA operands).  In float64
+every kernel reads the windows unsplit and row-major, padded as the DMMA
+fragments read them (a row pitch of M + 4, C's of 68).
 """
 
 from __future__ import annotations
@@ -44,8 +52,9 @@ SMEM_MAX = 232448       # shared memory one H100 block may use
 SMEM_SM = 233472        # shared memory of one H100 SM
 ALIGN = 1024            # every buffer of a block starts on such a line
 LDV = 2 * TX + 4        # pitch of the float64 C (tc_window.cuh)
-KERNELS = ("fullmxu", "v1", "mxu", "mxu3p")
-COLS = {"mxu": 64, "mxu3p": 64}   # output columns a unit, where not TX
+KERNELS = ("fullmxu", "v1", "mxu", "mxu3", "mxu3p", "hybp")
+COLS = {"mxu": 64, "mxu3": 64, "mxu3p": 64}   # columns a unit, where not TX
+BF16 = ("mxu3", "mxu3p")   # float32 row products as bf16x3
 
 
 def cols_of(kernel: str) -> int:
@@ -59,8 +68,8 @@ def _rnd(n: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Geom:
-    """tc_stage.cuh's Geom<T, P, CW>, with the depths of K3/mxu's and
-    K3/mxu3p's column stage."""
+    """tc_stage.cuh's Geom<T, P, CW>, with the depths of K3/mxu's,
+    K3/mxu3's and K3/mxu3p's column stage."""
     p: int
     itemsize: int
     cols: int = TX
@@ -76,7 +85,8 @@ class Geom:
 
     @property
     def mb(self) -> int:
-        """K3/mxu3p's bf16 window depth, in k-steps of 16."""
+        """The bf16 window depth of K3/mxu3 and K3/mxu3p, in k-steps of
+        16."""
         return _rnd(self.me, 16)
 
     @property
@@ -105,11 +115,14 @@ def _line(n: int) -> int:
     return _rnd(n, ALIGN)
 
 
-def smem_bytes(kernel: str, p: int, itemsize: int) -> int:
+def smem_bytes(kernel: str, p: int, itemsize: int, tile_r=None) -> int:
     """Dynamic shared memory of one block of K3f ("fullmxu"), K0 ("v1"),
-    K3/mxu ("mxu") or K3/mxu3p ("mxu3p") at degree p, as the kernels'
-    Smem structs lay it out (1024 bytes of it for aligning the base); the
-    same for every tile."""
+    K3/mxu ("mxu"), K3/mxu3 ("mxu3"), K3/mxu3p ("mxu3p") or K3p ("hybp")
+    at degree p, as the kernels' Smem structs lay it out (1024 bytes of
+    it for aligning the base); the same for every tile but K3p's, whose
+    units are whole tiles of ``tile_r`` rows."""
+    if kernel == "hybp":
+        return hybp_smem(p, itemsize, tile_r)
     if kernel in COLS:
         return _rows_smem(kernel, p, itemsize)
     g = Geom(p, itemsize)
@@ -135,19 +148,21 @@ def smem_bytes(kernel: str, p: int, itemsize: int) -> int:
 
 
 def _rows_smem(kernel: str, p: int, itemsize: int) -> int:
-    """K3/mxu's and K3/mxu3p's layouts (laplace2_mxu.cu's Smem32 and
-    Smem64, laplace2_mxu3p.cu's Smem), units of 64 columns."""
+    """The layouts of K3/mxu and K3/mxu3 (laplace2_mxu.cu's Smem32 and
+    Smem64) and K3/mxu3p (laplace2_mxu3p.cu's Smem), units of 64
+    columns."""
     cols = COLS[kernel]
     g = Geom(p, itemsize, cols)
     m, lds = g.m, cols + 4
-    if itemsize == 8:   # K3/mxu's DMMA kernel, K3/mxu3p's too
+    if itemsize == 8:   # K3/mxu's DMMA kernel, K3/mxu3's and K3/mxu3p's too
         return (_line(8 * m * (2 * cols + 4)) + _line(8 * g.wr * (m + 4))
                 + _line(8 * TRB * lds) + _line(g.land_bytes) + _line(4 * m)
                 + ALIGN)
-    if kernel == "mxu":
+    if kernel in ("mxu", "mxu3"):
+        # an operand image (64 rows, hi or lo): tf32 or bf16
+        img = 4 * 64 * m if kernel == "mxu" else 2 * 64 * g.mb
         # three landing slots where two blocks an SM still fit, else two
-        base = (_line(2 * 4 * g.wr * m) + 2 * _line(2 * 4 * 64 * m)
-                + _line(4 * TRB * lds))
+        base = _line(2 * img) + _line(4 * img) + _line(4 * TRB * lds)
         land = _line(g.land_bytes)
         tail = _line(_rnd(4 * _rnd(g.me, 4), 8) + 8) + ALIGN
         slots = 3 if (base + 3 * land + tail + 1024) * 2 <= SMEM_SM else 2
@@ -155,6 +170,76 @@ def _rows_smem(kernel: str, p: int, itemsize: int) -> int:
     img, mc = 2 * 64 * g.mb, _rnd(g.me, 4)
     return (2 * _line(4 * img) + _line(2 * img) + 2 * _line(4 * TRB * lds)
             + 2 * _line(4 * mc * g.lw) + _line(8 * mc) + _line(40) + ALIGN)
+
+
+# ---- K3p: units of whole tiles (csrc/laplace2_hybp.cu's HGeom) ----------
+
+HYBP_CHUNK = 32   # tensor rows a chunk of K3p's float32 column product
+DMMA_SCR = 256    # elements of a DMMA warp's scratch tile (tc_window.cuh)
+
+
+def _rnd128(n: int) -> int:
+    return _rnd(n, 128)
+
+
+def hybp_rb(p: int) -> int:
+    """Output rows a block of K3p's row stage (V and W of rb + 2p rows in
+    registers)."""
+    return 8 if p <= 5 else 4
+
+
+def hybp_kp(p: int, itemsize: int) -> int:
+    """The pitch of a K3p band row (A0's or B0's): 2p + 1 rounded up to
+    16 bytes."""
+    return _rnd(2 * p + 1, 16 // itemsize)
+
+
+def hybp_layout(p: int, itemsize: int, tile_r: int) -> dict:
+    """laplace2_hybp.cu's HGeom: the rows of a slot (``cap``) and the byte
+    offsets of its regions: the float32 chunk operand U^T (hi, lo) or the
+    float64 u tile and scratch, two [V | W] slots, three landing slots,
+    three band-row slots (float32 only), the landing offsets, the
+    mbarriers."""
+    g = Geom(p, itemsize)
+    rb = hybp_rb(p)
+    cap = _rnd(_rnd(tile_r, rb) + 2 * p, 16)
+    op = (2 * 4 * HYBP_CHUNK * g.kd if itemsize == 4
+          else 8 * cap * (g.kd + 4) + 4 * DMMA_SCR * 8)
+    out = {"cap": cap, "uop": 0, "vw": _rnd128(op)}
+    out["land"] = out["vw"] + 2 * _rnd128(itemsize * cap * LDV)
+    out["bands"] = out["land"] + 3 * _rnd128(itemsize * cap * g.lw)
+    out["roff"] = out["bands"] + (3 * _rnd128(
+        itemsize * _rnd(tile_r, rb) * 2 * hybp_kp(p, itemsize))
+        if itemsize == 4 else 0)   # float64 reads the table itself
+    out["bars"] = out["roff"] + _rnd128(4 * 2 * 2 * cap)
+    out["total"] = out["bars"] + 128 + ALIGN
+    return out
+
+
+def hybp_smem(p: int, itemsize: int, tile_r: int) -> int:
+    """Dynamic shared memory of one K3p block with tiles of tile_r
+    rows."""
+    if tile_r is None or tile_r < 1:
+        raise ValueError(f"K3p's layout needs a tile of >= 1 rows, not "
+                         f"{tile_r}")
+    return hybp_layout(p, itemsize, tile_r)["total"]
+
+
+def default_vpu_rows(tile_r: int, p: int) -> int:
+    """K3p's and K3h's default vpu_rows, gdm's: two thirds of the
+    extended tile (tile_r + 2p rows) rounded up to 8."""
+    return _rnd(2 * (tile_r + 2 * p) // 3, 8)
+
+
+def hybp_rows(vpu_rows: int, rows: int, p: int) -> tuple:
+    """(FMA rows, tensor rows, float32 chunks) of a K3p unit of ``rows``
+    output rows: its extended rows [0, vpu_rows) take the column stage on
+    the FMA units, [vpu_rows, rows + 2p) on the tensor cores, in chunks of
+    HYBP_CHUNK rows (gdm's meaning of vpu_rows: 0 puts every row on the
+    tensor cores, rows + 2p or more every row on the FMA units)."""
+    me = rows + 2 * p
+    vf = min(vpu_rows, me)
+    return vf, me - vf, -(-(me - vf) // HYBP_CHUNK)
 
 
 def occupancy_model(smem: int) -> int:
@@ -175,11 +260,14 @@ def row_units(n0: int, tile_r: int) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class TcPlan:
-    """How K3f, K0, K3/mxu or K3/mxu3p walks the (n0, n1) nodes: row
-    units of at most TRB rows (``row_units``, each (first row, rows))
-    times ``n_cb`` blocks of ``cols`` columns, row unit major, shared out
+    """How K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p or K3p walks the (n0, n1)
+    nodes: row units (``row_units``, each (first row, rows): at most TRB
+    rows, K3p's whole tiles) times ``n_cb`` blocks of ``cols`` columns,
+    ``smem`` bytes of shared memory a block.  Row unit major, shared out
     evenly over ``blocks`` persistent blocks (of 128 threads; K3/mxu3p's
-    float32 blocks of 256), ``smem`` bytes of shared memory each."""
+    float32 blocks of 256), or, for K3p (``segs`` > 0), strip major with
+    each strip's tiles cut evenly into ``segs`` runs, a block (of 256
+    threads) a run: blocks = n_cb segs."""
     kernel: str
     tile_r: int
     row_units: tuple
@@ -187,21 +275,34 @@ class TcPlan:
     blocks: int
     smem: int
     cols: int = TX
+    segs: int = 0
 
     @property
     def units(self) -> int:
         return len(self.row_units) * self.n_cb
 
 
+def tile_units(n0: int, tile_r: int) -> tuple:
+    """((first row, rows), ...) of K3p's units along the rows: whole
+    tiles of tile_r rows, the last one ragged."""
+    return tuple((t0, min(tile_r, n0 - t0)) for t0 in range(0, n0, tile_r))
+
+
 def plan(kernel: str, nodes, p: int, itemsize: int, tile_r: int,
          per_sm: int, sms: int) -> TcPlan:
     """The plan for ``nodes`` with ``per_sm`` blocks on each of ``sms``
     SMs and units of the kernel's columns: one wave of persistent blocks,
-    never more blocks than units."""
+    never more blocks than units (K3p: as many runs a strip as the wave
+    holds, at least one, at most one a tile)."""
     n0, n1 = nodes
     cols = cols_of(kernel)
-    ru = row_units(n0, tile_r)
     n_cb = -(-n1 // cols)
+    if kernel == "hybp":
+        ru = tile_units(n0, tile_r)
+        segs = max(1, min(len(ru), sms * per_sm // n_cb))
+        return TcPlan(kernel, tile_r, ru, n_cb, n_cb * segs,
+                      hybp_smem(p, itemsize, tile_r), cols, segs)
+    ru = row_units(n0, tile_r)
     return TcPlan(kernel, tile_r, ru, n_cb, min(len(ru) * n_cb, sms * per_sm),
                   smem_bytes(kernel, p, itemsize), cols)
 
@@ -363,23 +464,58 @@ def ct_dense(bt, kd: int) -> torch.Tensor:
                       for band in (bt.a1, bt.b1)], dim=1)
 
 
-def _bf16_windows(bt) -> bool:
-    return bt.a0.element_size() == 4
+def _bf16_windows(bt, kernel: str) -> bool:
+    return kernel in BF16 and bt.a0.element_size() == 4
+
+
+def band_rows(bt) -> torch.Tensor:
+    """(n0, 2 kp) K3p's band rows in bt's dtype: row i holds A0(i, .)
+    then B0(i, .), each padded with zeros to kp = 2p + 1 rounded up to 16
+    bytes."""
+    kp = hybp_kp(bt.p, bt.a0.element_size())
+    pad = (0, kp - (2 * bt.p + 1))
+    return torch.cat([torch.nn.functional.pad(bt.a0, pad),
+                      torch.nn.functional.pad(bt.b0, pad)], dim=1)
+
+
+def _ct(bt) -> torch.Tensor:
+    """K3f's cached column slices C^T (built once per Bands2): float32 as
+    split fragment images, float64 as C row-major at a pitch of LDV."""
+    cache = bt.tables
+    if "ct" not in cache:
+        g = Geom(bt.p, bt.a0.element_size())
+        dense = ct_dense(bt, g.kd)
+        if g.itemsize == 4:
+            ct = _frag32(dense)
+        else:
+            ct = torch.nn.functional.pad(dense.transpose(1, 2),
+                                         (0, LDV - 64)).reshape(
+                                             dense.shape[0], -1)
+        cache["ct"] = ct.contiguous()
+        tables.builds += 1
+    return cache["ct"]
 
 
 def tables(bt, kernel: str, tile_r: int) -> dict:
     """The tables of ``kernel`` for ``bt`` and ``tile_r``, built on first
-    use and cached on ``bt`` under the row units (a second call, or a tile
-    with the same row units, builds nothing): ``ru``, the
-    int32 (first row, rows) pairs of the row units; ``win``, the windows
-    (n_units, image): K3/mxu3p's in float32 its own bf16 images of depth
-    ``Geom.mb``, every other kernel's (and K3/mxu3p's in float64) the
-    same; for "fullmxu" ``ct``, the column slices (n_cb, image).
-    ``tables.builds`` counts the tables built."""
+    use and cached on ``bt`` (a second call, or a tile with the same row
+    units, builds nothing): ``ru``, the int32 (first row, rows) pairs of
+    the row units, and ``win``, the windows (n_units, image): those of
+    K3/mxu3 and K3/mxu3p in float32 their own bf16 images of depth
+    ``Geom.mb``, every other kernel's (and theirs in float64) the same;
+    for "fullmxu" and "hybp" ``ct``, the column slices (n_cb, image),
+    the same for every tile; for "hybp" (no windows, no row units) also
+    ``rb``, the padded band rows (``band_rows``).  ``tables.builds``
+    counts the tables built."""
     cache = bt.tables
+    if kernel == "hybp":
+        if "rb" not in cache:
+            cache["rb"] = band_rows(bt).contiguous()
+            tables.builds += 1
+        return {"ct": _ct(bt), "rb": cache["rb"]}
     g = Geom(bt.p, bt.a0.element_size())
     units = row_units(bt.shape[0], tile_r)
-    bf16 = kernel == "mxu3p" and _bf16_windows(bt)
+    bf16 = _bf16_windows(bt, kernel)
     key = ("win16" if bf16 else "win", units)
     if key not in cache:
         if bf16:
@@ -395,60 +531,58 @@ def tables(bt, kernel: str, tile_r: int) -> dict:
         tables.builds += 1
     out = dict(cache[key])
     if kernel == "fullmxu":
-        if "ct" not in cache:
-            dense = ct_dense(bt, g.kd)
-            if g.itemsize == 4:
-                ct = _frag32(dense)
-            else:
-                ct = torch.nn.functional.pad(dense.transpose(1, 2),
-                                             (0, LDV - 64)).reshape(
-                                                 dense.shape[0], -1)
-            cache["ct"] = ct.contiguous()
-            tables.builds += 1
-        out["ct"] = cache["ct"]
+        out["ct"] = _ct(bt)
     return out
 
 
 tables.builds = 0
 
 
+def _dense_ct(bt, ct: torch.Tensor) -> torch.Tensor:
+    """(n_cb, 64, kd) C^T in float64 from its cached image."""
+    g = Geom(bt.p, bt.a0.element_size())
+    if g.itemsize == 4:
+        return _unfrag32(ct, g.kd)
+    return ct.reshape(-1, g.kd, LDV)[:, :, :64].transpose(1, 2).double()
+
+
 def dense_tables(bt, kernel: str, tile_r: int):
     """(row units, windows (n_units, 2 TRB, depth), C^T (n_cb, 64, kd) or
     None) in float64, read back from the cached images: float32 ones as
-    hi + lo."""
+    hi + lo (no windows for K3p)."""
     g = Geom(bt.p, bt.a0.element_size())
     tab = tables(bt, kernel, tile_r)
+    ct = None if "ct" not in tab else _dense_ct(bt, tab["ct"])
+    if kernel == "hybp":
+        return tile_units(bt.shape[0], tile_r), None, ct
     units = row_units(bt.shape[0], tile_r)
-    if kernel == "mxu3p" and _bf16_windows(bt):
+    if _bf16_windows(bt, kernel):
         win = _unimage16(tab["win"], g.wr, g.mb)
     elif g.itemsize == 4:
         win = _unimage32(tab["win"], g.wr, g.m)
     else:
         win = tab["win"].reshape(len(units), g.wr, g.m + 4)[:, :, :g.m]
-    ct = None
-    if kernel == "fullmxu":
-        if g.itemsize == 4:
-            ct = _unfrag32(tab["ct"], g.kd)
-        else:
-            ct = tab["ct"].reshape(-1, g.kd, LDV)[:, :, :64].transpose(1, 2)
-    return units, win.double(), None if ct is None else ct.double()
+    return units, win.double(), ct
 
 
-def table_twin(u: torch.Tensor, bt, kernel: str,
-               tile_r: int) -> torch.Tensor:
+def table_twin(u: torch.Tensor, bt, kernel: str, tile_r: int,
+               vpu_rows=None) -> torch.Tensor:
     """y = A0 U A1^T + B0 U B1^T in float64 from the cached tables, a row
     unit and a block of the kernel's columns at a time, in the kernel's
-    order: K3f the column product [V | W] = U_tile
-    C then y = A0w V + B0w W, K0 the row product [ts; tm] = [A0w; B0w]
-    U_tile then the column sums with A1, B1, K3/mxu and K3/mxu3p the
-    column sums V, W with A1, B1 then the transposed row product y^T =
-    V^T A0w^T + W^T B0w^T over the window's depth (no card needed)."""
+    order: K3f the column product [V | W] = U_tile C then y = A0w V + B0w
+    W, K0 the row product [ts; tm] = [A0w; B0w] U_tile then the column
+    sums with A1, B1, K3/mxu, K3/mxu3 and K3/mxu3p the column sums V, W
+    with A1, B1 then the transposed row product y^T = V^T A0w^T + W^T
+    B0w^T over the window's depth, K3p a tile's extended rows [0,
+    vpu_rows) by the column sums and the rest by the product with C^T
+    (``hybp_rows``), then the row sums from the padded band rows (no card
+    needed)."""
     p = bt.p
     n0, n1 = bt.shape
     tx = cols_of(kernel)
     units, win, ct = dense_tables(bt, kernel, tile_r)
-    depth = win.shape[2]
     g = Geom(p, bt.a0.element_size())
+    depth = tile_r + 2 * p if win is None else win.shape[2]
     n_cb = -(-n1 // tx)
     ue = torch.zeros(n0 + 2 * p + depth, n_cb * tx + tx + 2 * p + g.kd,
                      dtype=torch.float64, device=u.device)
@@ -457,11 +591,33 @@ def table_twin(u: torch.Tensor, bt, kernel: str,
     a1 = torch.nn.functional.pad(bt.a1.double(), (0, 0, 0, n_cb * tx - n1))
     b1 = torch.nn.functional.pad(bt.b1.double(), (0, 0, 0, n_cb * tx - n1))
     x = torch.arange(tx, device=u.device)
-    taps = x.view(-1, 1) + torch.arange(2 * p + 1, device=u.device)
-    for k, (i0, rows) in enumerate(units):
-        aw, bw = win[k, :TRB], win[k, TRB:]
+    k = 2 * p + 1
+    taps = x.view(-1, 1) + torch.arange(k, device=u.device)
+    if kernel == "hybp":
+        kp = hybp_kp(p, g.itemsize)
+        rb = tables(bt, kernel, tile_r)["rb"].double().reshape(n0, 2, kp)
+    for ku, (i0, rows) in enumerate(units):
         for cb in range(n_cb):
             j0 = cb * tx
+            if kernel == "hybp":
+                vf, _, _ = hybp_rows(default_vpu_rows(tile_r, p)
+                                     if vpu_rows is None else vpu_rows,
+                                     rows, p)
+                me = rows + 2 * p
+                tile = ue[i0:i0 + me, j0:j0 + g.kd]   # u rows i0 - p ..
+                cs = tile[:vf, :tx + 2 * p]
+                v = torch.cat([(cs[:, taps] * a1[j0 + x]).sum(-1),
+                               tile[vf:] @ ct[cb, :TX].t()])
+                w = torch.cat([(cs[:, taps] * b1[j0 + x]).sum(-1),
+                               tile[vf:] @ ct[cb, TX:].t()])
+                idx = (torch.arange(rows, device=u.device).view(-1, 1)
+                       + torch.arange(k, device=u.device))
+                a0r = rb[i0:i0 + rows, 0, :k].unsqueeze(-1)
+                b0r = rb[i0:i0 + rows, 1, :k].unsqueeze(-1)
+                y[i0:i0 + rows, j0:j0 + tx] = ((a0r * v[idx]).sum(1)
+                                               + (b0r * w[idx]).sum(1))
+                continue
+            aw, bw = win[ku, :TRB], win[ku, TRB:]
             # u rows i0 - p .., columns j0 - p ..
             tile = ue[i0:i0 + depth, j0:j0 + g.kd]
             if kernel == "fullmxu":

@@ -9,8 +9,8 @@ tiles at 1024^2 p = 3 and p = 5, 4096^2 p = 3 and 1024^2 p = 3 in float64
 (node arrays one larger), each held against K3's plain twin (1e-5 of
 max|y| for K3/mxu, 1e-4 for K3/mxu3p's bf16x3 product, in float32; 1e-12
 in float64) and timed in turns against K3 (csrc/laplace2.cu: X, K3, K3,
-X); K3/mxu3 (csrc/laplace2_mxurows.cu, unchanged) in turns against K3 as
-an anchor; K3f and K0 (csrc/laplace2_fullmxu.cu, csrc/laplace2_v1.cu,
+X); K3/mxu3 (K3/mxu's kernel with a bf16x3 product, csrc/laplace2_mxu.cu)
+in turns against K3 as an anchor; K3f and K0 (csrc/laplace2_fullmxu.cu, csrc/laplace2_v1.cu,
 which share the stage headers tc_stage.cuh and wgmma.cuh) at 1024^2 and
 4096^2 p = 3 in turns against K3.  The split cut apply
 (cut.fastapply.make_fast_cut_apply, K3/mxu3p its separable part) on the

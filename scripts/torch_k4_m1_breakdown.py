@@ -11,7 +11,7 @@ each in turns against K5 (csrc/laplace3_mxu.cu, the same operator,
 unchanged in this tree's redesign of K4: K4, K5, K5, K4); M1's row modes
 ("rowsonly", "dotsonly", csrc/micro_stage1.cu) at gdm's 1024^2, p = 3,
 tile_r 256, in turns against K3/mxu3 at 1024^2 p = 3 (the bf16x3 row
-product inside K3, unchanged: M1, K3/mxu3, K3/mxu3, M1).  Device times by
+product inside K3: M1, K3/mxu3, K3/mxu3, M1).  Device times by
 CUDA events (``device_ms``); a JSON line ``{"times": {...}}`` holds them
 (µs).
 

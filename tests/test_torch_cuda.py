@@ -13,8 +13,9 @@ double, the plain version in float32) and must be equal in float64.
 The separable Laplace kernels K3 and its schedules K3s, K3c, K3f, K3h
 and K3p (2D), K4 and K5 (3D) are held to the same 1e-5 / 1e-12 of
 max|y| against their plain twins (the tensor-core products of K5 and
-of the 2D schedules run as 3xTF32 in float32 and on the DMMA units in
-float64); so are K3's row modes K3/mxu (3xTF32) and K0, while K3/mxu3
+of the 2D schedules run as 3xTF32 in float32, K3p's column rows too, and
+on the DMMA units in float64); so are K3's row modes K3/mxu (3xTF32) and
+K0, while K3/mxu3
 and K3/mxu3p, whose float32 row products are bf16x3 (each operand kept
 to about 16 significant bits), are held to 1e-4 of max|y| in float32
 (1e-12 in float64, DMMA); the split cut apply against K1 to the same
@@ -692,12 +693,13 @@ def test_laplace2_tc_matches_plain(cuda_device, kernel, p, cells, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("vr", [0, 13, None, 10**6])
+@pytest.mark.parametrize("vr", [0, 5, 13, None, 10**6])
 @pytest.mark.parametrize("kernel", ["hybrid", "hybp"])
 def test_laplace2_split_rows(cuda_device, kernel, vr, dtype):
     """K3h/K3p with the column stage all on the tensor cores (0), split
-    inside a 16-row block (13), at the default split and all on the FMA
-    units (>= the extended tile), over several tiles of a strip."""
+    inside a 16-row block and inside a k-step of K3p's chunk (5, 13), at
+    the default split and all on the FMA units (>= the extended tile),
+    over several tiles of a strip."""
     grid = Grid(3, (400, 90), (0.0, 0.0), (1.0, 2.0))
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
     u = _rand(grid.nodes, 9, dtype, cuda_device)
@@ -724,24 +726,31 @@ def test_laplace2_tc_four_factor_bands(cuda_device, kernel, dtype):
 WINDOW_KERNELS = {"fullmxu": stencil2.laplace2_fullmxu_apply,
                   "v1": stencil.laplace_v1_apply,
                   "mxu": stencil2.laplace2_mxu_apply,
-                  "mxu3p": stencil2.laplace2_mxu3p_apply}
+                  "mxu3": stencil2.laplace2_mxu3_apply,
+                  "mxu3p": stencil2.laplace2_mxu3p_apply,
+                  "hybp": stencil2.laplace2_hybp_apply}
 # the rows of the residue test's grid: more units than SMs with each
-# kernel's columns a unit (32 for K3f and K0, 64 for K3/mxu and K3/mxu3p)
-RESIDUE_ROWS = {"fullmxu": 200, "v1": 200, "mxu": 257, "mxu3p": 257}
+# kernel's columns a unit (32 for K3f, K0 and K3p, 64 for K3/mxu, K3/mxu3
+# and K3/mxu3p) and its rows (K3p: whole tiles of 64 rows)
+RESIDUE_ROWS = {"fullmxu": 200, "v1": 200, "mxu": 257, "mxu3": 257,
+                "mxu3p": 257, "hybp": 257}
 
 
 def _window_tol(kernel, dtype):
-    """K3/mxu3p's bf16x3 product in float32: 1e-4; the others 1e-5."""
-    return _row_tol("mxu3p" if kernel == "mxu3p" else "mxu", dtype)
+    """The bf16x3 products of K3/mxu3 and K3/mxu3p in float32: 1e-4; the
+    others (K3p's 3xTF32 among them) 1e-5."""
+    return _row_tol("mxu3p" if kernel in ("mxu3", "mxu3p") else "mxu",
+                    dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n1", [1024, 1025, 1026, 1027])
 @pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
 def test_window_kernels_row_residues(cuda_device, kernel, n1, dtype):
-    """K3f, K0, K3/mxu and K3/mxu3p at every residue of N1 mod 4 (a row's
-    first element sits N1 i mod 4 elements past a 16-byte boundary), with
-    a ragged last row unit and more units than SMs (a persistent walk)."""
+    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p at every residue of N1
+    mod 4 (a row's first element sits N1 i mod 4 elements past a 16-byte
+    boundary), with a ragged last row unit and more units than SMs (a
+    persistent walk)."""
     grid = Grid(3, (RESIDUE_ROWS[kernel] - 1, n1 - 1), (0.0, 0.0),
                 (1.0, 2.0))
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
@@ -763,15 +772,23 @@ def test_window_kernels_row_residues(cuda_device, kernel, n1, dtype):
 @pytest.mark.parametrize("tile_r", [16, 37, 64, 100])
 @pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
 def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
-    """K3f, K0, K3/mxu and K3/mxu3p with tiles of 16, 37, 64 and 100 rows
-    (cut into row units of at most 32; window rows past a unit are zero),
-    four band factors, p = 7 (K0's largest)."""
+    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p with tiles of 16, 37,
+    64 and 100 rows (cut into row units of at most 32, window rows past a
+    unit zero; K3p's units are the tiles), four band factors, p = 7 (K0's
+    largest).  K3p's float64 tile of 100 rows does not fit a block and
+    is refused."""
     grid = Grid(7, (150, 90), (0.0, 0.0), (1.0, 1.0))
     rng = np.random.default_rng(tile_r)
     n0, n1 = grid.nodes
     bands = [rng.standard_normal((n, 15)) for n in (n0, n1, n0, n1)]
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype, bands)
     u = _rand(grid.nodes, 21, dtype, cuda_device)
+    if stencil2.tc_smem_bytes(kernel, 7, tile_r,
+                              bt.a0.element_size()) > stencil2.SMEM_MAX:
+        assert (kernel, tile_r, dtype) == ("hybp", 100, torch.float64)
+        with pytest.raises(ValueError, match="shared memory"):
+            WINDOW_KERNELS[kernel](u, bt, tile_r=tile_r)
+        return
     yk = WINDOW_KERNELS[kernel](u, bt, tile_r=tile_r)
     assert _rel(yk, stencil2.laplace2_apply_plain(u, bt)) <= _window_tol(
         kernel, dtype)
@@ -779,10 +796,11 @@ def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("cells", [(128, 128), (512, 512)])
-@pytest.mark.parametrize("kernel", ["mxu", "mxu3p"])
+@pytest.mark.parametrize("kernel", ["mxu", "mxu3", "mxu3p", "hybp"])
 def test_row_kernels_flagship_sizes(cuda_device, kernel, cells, dtype):
-    """K3/mxu and K3/mxu3p at the split apply's flagship sizes: fewer
-    units than SMs at 129^2 nodes (a block a unit), more at 513^2."""
+    """K3/mxu, K3/mxu3, K3/mxu3p and K3p at the split apply's flagship
+    sizes: fewer units than SMs at 129^2 nodes (a block a unit), more at
+    513^2."""
     grid = Grid(3, cells, (-1.21, -1.21), (1.21, 1.21))
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
     u = _rand(grid.nodes, 23, dtype, cuda_device)
@@ -797,7 +815,7 @@ def test_row_kernels_flagship_sizes(cuda_device, kernel, cells, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kernel", ["mxu", "mxu3p"])
+@pytest.mark.parametrize("kernel", ["mxu", "mxu3", "mxu3p"])
 def test_row_kernels_refuse_a_plan_off_their_layout(cuda_device, kernel,
                                                     dtype):
     """The C entries hold the plan to their layout: a column width other
@@ -812,6 +830,29 @@ def test_row_kernels_refuse_a_plan_off_their_layout(cuda_device, kernel,
     for b in bad:
         with pytest.raises(RuntimeError, match=kernel):
             stencil2._launch_tc_plan(u, bt, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hybp_refuses_a_plan_off_its_layout(cuda_device, dtype):
+    """K3p's C entry holds the plan to its layout: runs of tiles a strip
+    (segs) of 0 or above the tiles, blocks other than strips x segs, a
+    tile count other than the tile's, a negative vpu_rows raise."""
+    grid = Grid(3, (200, 100), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 26, dtype, cuda_device)
+    plan = stencil2.tc_plan("hybp", bt.shape, 3, dtype, 48)
+    assert plan.segs == len(plan.row_units) == 5
+    y = stencil2._launch_tc_plan(u, bt, plan, 40)
+    assert _rel(y, stencil2.laplace2_apply_plain(u, bt)) <= _tol(dtype)
+    bad = [(dataclasses.replace(plan, segs=0, blocks=0), 40),
+           (dataclasses.replace(plan, segs=6, blocks=6 * plan.n_cb), 40),
+           (dataclasses.replace(plan, blocks=plan.blocks - 1), 40),
+           (dataclasses.replace(plan, row_units=plan.row_units[:-1],
+                                segs=4, blocks=4 * plan.n_cb), 40),
+           (plan, -1)]
+    for b, vr in bad:
+        with pytest.raises(RuntimeError, match="K3p"):
+            stencil2._launch_tc_plan(u, bt, b, vr)
 
 
 def test_window_tables_built_once(cuda_device):
@@ -994,10 +1035,15 @@ def test_row_modes_reject(cuda_device):
     with pytest.raises(ValueError, match="p <= 7"):
         stencil.laplace_v1_apply(torch.zeros(g9.nodes, device=cuda_device),
                                  stencil2.laplace2_bands(g9, cuda_device))
+    # K3/mxu3's float64 kernel is K3/mxu's, whose shared memory does not
+    # grow with the tile: a tile of 64 fits at p = 15
     g15 = Grid(15, (300, 140), (0.0, 0.0), (1.0, 1.0))
+    assert stencil2.make_padded_laplace2(
+        g15, cuda_device, torch.float64, tile_r=64,
+        rows="mxu3")[0].options == {"tile_r": 64}
     with pytest.raises(ValueError, match="shared memory"):
-        stencil2.make_padded_laplace2(g15, cuda_device, torch.float64,
-                                      tile_r=64, rows="mxu3")
+        stencil2.make_padded_laplace2_hybp(g15, cuda_device, torch.float64,
+                                           tile_r=64)
 
 
 @pytest.fixture(scope="module")

@@ -158,19 +158,21 @@ def test_rows_rejects():
 
 def test_row_mode_tiles():
     """The card's tile: the largest of 64, 48, 32, 16 that fits an H100
-    block, clamped to N0 rounded up to 8 (K3/mxu's and K3/mxu3p's shared
-    memory does not grow with the tile: row units of 32 rows); a tile
-    that does not fit raises."""
+    block, clamped to N0 rounded up to 8 (the shared memory of K3/mxu,
+    K3/mxu3 and K3/mxu3p does not grow with the tile: row units of 32
+    rows, so a tile of 64 fits at p = 15 in float64 too, where K3/mxu3's
+    float64 kernel is K3/mxu's); a tile that does not fit raises."""
     big = Grid(15, (300, 140), (0.0, 0.0), (1.0, 1.0))
     want = {("mxu", torch.float32): 64, ("mxu", F64): 64,
-            ("mxu3", torch.float32): 64, ("mxu3", F64): 48,
+            ("mxu3", torch.float32): 64, ("mxu3", F64): 64,
             ("mxu3p", torch.float32): 64, ("mxu3p", F64): 64}
     for (rows, dtype), tile in want.items():
         apply = stencil2.make_padded_laplace2(big, "cpu", dtype, rows=rows)[0]
         assert apply.options == {"tile_r": tile}
+    assert stencil2.make_padded_laplace2(
+        big, "cpu", F64, rows="mxu3", tile_r=64)[0].options == {"tile_r": 64}
     with pytest.raises(ValueError, match="shared memory"):
-        stencil2.make_padded_laplace2(big, "cpu", F64, rows="mxu3",
-                                      tile_r=64)
+        stencil2.make_padded_laplace2_hybp(big, "cpu", F64, tile_r=64)
     for kernel in ("mxu", "mxu3", "mxu3p", "v1"):
         for p in range(1, 16 if kernel != "v1" else 8, 2):
             for itemsize in (4, 8):

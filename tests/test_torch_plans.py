@@ -1,6 +1,8 @@
 """The launch plans of K5 (``stencil3.k5_plan``), K3
 (``stencil2.k3_plan``), K1 (``cutband.k1_plan``), K3s
-(``stencil2.k3s_plan``), K4 (``stencil3.k4_plan``), M2
+(``stencil2.k3s_plan``), K4 (``stencil3.k4_plan``), the window-table
+kernels K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p (``tc_tables.plan``,
+which ``stencil2.tc_plan`` fills with the card's occupancy), M2
 (``mxu_micro.relayout_plan``) and M3 (``stream_overlap_micro.m3_plan``),
 on the CPU: no card is needed.
 
@@ -23,7 +25,7 @@ import torch
 
 import test_torch_cuda as card
 from gdm_torch.benchmarks import mxu_micro, stream_overlap_micro as som
-from gdm_torch.ops import cutband, stencil2, stencil3
+from gdm_torch.ops import cutband, stencil2, stencil3, tc_tables
 
 DTYPES = [torch.float32, torch.float64]
 SM = 132
@@ -200,6 +202,123 @@ def test_k3_card_cases_reach_every_branch():
     assert {pl.rs for pl, _ in plans} == set(stencil2.K3_ROWS)
     assert any(p > stencil2.K3_MAX_RS_P for _, p in plans)
     assert any(p <= stencil2.K3_MAX_RS_P for _, p in plans)
+
+
+# ---- K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p (tc_tables.plan) ------------
+
+TC_KERNELS = list(tc_tables.KERNELS)
+
+
+def _tc_cases():
+    """(nodes, p, dtype) of the level shapes, the bench's matvec sizes and
+    every 2D tensor-core and row-mode case of the card tests."""
+    cases = [(n, 3, dt) for n in LEVELS2 + BENCH2 for dt in DTYPES]
+    cases += [((1025, 1025), 5, torch.float32)]
+    for p, cells in card.TC_CASES + card.ROW_CASES:
+        cases += [(_nodes(cells), p, dt) for dt in DTYPES]
+    cases += [((257, n1), 3, dt) for n1 in (1024, 1025, 1026, 1027)
+              for dt in DTYPES]
+    return sorted(set(cases), key=str)
+
+
+TC_CASES = _tc_cases()
+
+
+def _tc_default_plan(kernel, nodes, p, dtype):
+    """The plan the wrapper launches at the default tile (tc_options on
+    band tables of the shape), blocks an SM from the shared-memory
+    model."""
+    k = 2 * p + 1
+    zeros = [torch.zeros((n, k), dtype=dtype) for n in (nodes[0], nodes[1])]
+    bt = stencil2.Bands2(zeros[0], zeros[1], zeros[0], zeros[1], p)
+    tile = stencil2.tc_options(kernel, bt)["tile_r"]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    smem = stencil2.tc_smem_bytes(kernel, p, tile, itemsize)
+    occ = tc_tables.occupancy_model(smem)
+    return tile, occ, tc_tables.plan(kernel, nodes, p, itemsize, tile, occ,
+                                     SM)
+
+
+def _tc_walk(plan, block):
+    """The units ``block`` takes, in order, as the kernels compute them
+    (common.cuh's part): unit = k n_cb + cb for row unit k, column block
+    cb; K3p's block a run of one strip's tiles."""
+    if plan.segs:
+        cb, seg = divmod(block, plan.segs)
+        lo, size = _boxes(len(plan.row_units), plan.segs)[seg]
+        return [k * plan.n_cb + cb for k in range(lo, lo + size)]
+    lo, size = _boxes(plan.units, plan.blocks)[block]
+    return list(range(lo, lo + size))
+
+
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+@pytest.mark.parametrize("nodes,p,dtype", TC_CASES, ids=_ids(TC_CASES))
+def test_tc_plan_covers_every_node_once(nodes, p, dtype, kernel):
+    """The row units cut the rows into consecutive pieces (at most 32
+    rows inside one tile; K3p's whole tiles), the column blocks cover the
+    columns, every unit is walked once by a block that holds at least
+    one: K3f's, K0's and the row modes' blocks an even share of
+    consecutive units, min(units, one wave) of them; K3p's blocks an even
+    run of one strip's tiles, walked down the strip, strips x runs of
+    them, never more than one wave unless the strips alone are more."""
+    if p > 7 and kernel == "v1":
+        return   # K0 takes p <= 7 (tests/test_torch_laplace2_rows.py)
+    tile, occ, plan = _tc_default_plan(kernel, nodes, p, dtype)
+    n0, n1 = nodes
+    at = 0
+    for s0, rows in plan.row_units:
+        assert s0 == at and rows >= 1
+        assert s0 // tile == (s0 + rows - 1) // tile
+        if kernel == "hybp":
+            assert s0 % tile == 0 and rows == min(tile, n0 - s0)
+        else:
+            assert rows <= tc_tables.TRB
+        at += rows
+    assert at == n0
+    assert (plan.n_cb - 1) * plan.cols < n1 <= plan.n_cb * plan.cols
+    walks = [_tc_walk(plan, b) for b in range(plan.blocks)]
+    assert all(walks)
+    assert sorted(u for w in walks for u in w) == list(range(plan.units))
+    if kernel == "hybp":
+        assert plan.blocks == plan.n_cb * plan.segs
+        assert plan.blocks <= max(plan.n_cb, SM * occ)
+        for w in walks:
+            assert len({u % plan.n_cb for u in w}) == 1   # one strip
+            ks = [u // plan.n_cb for u in w]
+            assert ks == list(range(ks[0], ks[0] + len(ks)))
+    else:
+        assert plan.blocks == min(plan.units, SM * occ)
+        for w in walks:
+            assert w == list(range(w[0], w[0] + len(w)))
+    assert plan.smem <= stencil2.SMEM_MAX
+
+
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+@pytest.mark.parametrize("nodes", [(129, 129)] + LEVELS2[-4:])
+def test_tc_plan_fewer_units_than_sms(kernel, nodes):
+    """Where the units are fewer than the SMs (the flagship's 129^2 and
+    the coarse levels), every unit has a block of its own."""
+    tile, occ, plan = _tc_default_plan(kernel, nodes, 3, torch.float32)
+    assert plan.units < SM
+    assert plan.blocks == plan.units
+    assert all(len(_tc_walk(plan, b)) == 1 for b in range(plan.blocks))
+
+
+def test_tc_card_cases_reach_every_branch():
+    """Over the card cases at the default tiles: K3p with one tile a block
+    and with runs of several, several runs a strip and one; the row-unit
+    kernels (K3/mxu3's plan) with one unit a block and with several."""
+    seen = set()
+    for nodes, p, dtype in TC_CASES:
+        for kernel in ("hybp", "mxu3"):
+            _, _, plan = _tc_default_plan(kernel, nodes, p, dtype)
+            most = max(len(_tc_walk(plan, b)) for b in range(plan.blocks))
+            seen.add((kernel, "runs" if most > 1 else "single"))
+            if kernel == "hybp":
+                seen.add(("hybp", "segs" if plan.segs > 1 else "one run"))
+    assert seen == {(k, b) for k in ("hybp", "mxu3")
+                    for b in ("runs", "single")} | {("hybp", "segs"),
+                                                     ("hybp", "one run")}
 
 
 # ---- K1 ---------------------------------------------------------------------

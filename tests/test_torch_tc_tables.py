@@ -1,21 +1,23 @@
-"""The window tables and launch plans of K3f, K0, K3/mxu and K3/mxu3p
-(gdm_torch.ops.tc_tables) on the CPU: no card is needed.
+"""The tables and launch plans of K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and
+K3p (gdm_torch.ops.tc_tables) on the CPU: no card is needed.
 
 The kernels (csrc/laplace2_fullmxu.cu, csrc/laplace2_v1.cu,
-csrc/laplace2_mxu.cu, csrc/laplace2_mxu3p.cu) read their row windows
-[A0w; B0w] and K3f's column slices C^T from tables built once per Bands2
-and row units; these tests hold the tables to what the kernels compute: a
-float64 "table twin" (``tc_tables.table_twin``) applies the cached
-windows a row unit and a column block at a time with torch products, in
-the kernels' order, and must equal K3's plain twin within 1e-12 of
-max|y| in float64 (the float32 tables, read back as hi + lo, within 1e-6
-for the tf32 splits and 2^-16 for K3/mxu3p's bf16 split); the float32
-splits must be the card's cvt.rna.tf32 and cvt.rn.bf16; the plans must
-cover every output node once, their blocks walk every unit once.  gdm's
-interpret-mode K3f, K0, rows="mxu" and rows="mxu3p" (float64) are the
-reference on two cases (rtol 2e-12, gdm's own for these products; atol
-2e-10 for the row modes, as tests/test_torch_laplace2_rows.py holds
-them).
+csrc/laplace2_mxu.cu, csrc/laplace2_mxu3p.cu, csrc/laplace2_hybp.cu) read
+their row windows [A0w; B0w], K3f's column slices C^T and K3p's padded
+band rows from tables built once per Bands2 and row units; these tests
+hold the tables to what the kernels compute: a float64 "table twin"
+(``tc_tables.table_twin``) applies the cached tables a row unit and a
+column block at a time with torch products, in the kernels' order (K3p:
+its FMA rows and tensor rows split as ``vpu_rows`` says), and must equal
+K3's plain twin within 1e-12 of max|y| in float64 (the float32 tables,
+read back as hi + lo, within 1e-6 for the tf32 splits and 2^-16 for the
+bf16 split of K3/mxu3 and K3/mxu3p); the float32 splits must be the
+card's cvt.rna.tf32 and cvt.rn.bf16; the plans must cover every output
+node once, their blocks walk every unit once (K3p's down one strip).
+gdm's interpret-mode K3f, K0, rows="mxu", "mxu3" and "mxu3p" and K3p
+(float64) are the reference on a few cases (rtol 2e-12, gdm's own for
+these products; atol 2e-10 for the row modes, as
+tests/test_torch_laplace2_rows.py holds them).
 """
 
 import dataclasses
@@ -32,7 +34,10 @@ from gdm_torch.grid import Grid
 from gdm_torch.ops import stencil2, tc_tables
 
 F64 = torch.float64
-KERNELS = {"fullmxu": 15, "v1": 7, "mxu": 15, "mxu3p": 15}   # largest p
+KERNELS = {"fullmxu": 15, "v1": 7, "mxu": 15, "mxu3": 15, "mxu3p": 15,
+           "hybp": 15}   # largest p
+# the kernels whose shared memory does not grow with the tile
+WINDOW = {k: v for k, v in KERNELS.items() if k != "hybp"}
 BENCH = [(1025, 1025), (2049, 2049), (4097, 4097)]
 # the split cut apply's flagship node arrays, fewer units than SMs
 FLAGSHIP = [(129, 129), (513, 513)]
@@ -40,7 +45,7 @@ CASES = sorted({tuple(c + 1 for c in cells)
                 for _, cells in card.TC_CASES + card.K0_CASES}
                | {(200, n1) for n1 in (1024, 1025, 1026, 1027)})
 # the float32 table twin's limit: hi + lo of tf32 keeps ~21 bits, of bf16 16
-TOL32 = {"mxu3p": 2.0**-16}
+TOL32 = {"mxu3": 2.0**-16, "mxu3p": 2.0**-16}
 TILES = [None, 16, 32, 37, 64, 100]
 
 
@@ -62,15 +67,16 @@ def _rel(a, b):
 @pytest.mark.parametrize("nodes", BENCH + CASES + FLAGSHIP)
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_plan_covers_every_node_once(kernel, nodes, tile):
-    """Row units (each at most 32 rows, inside one tile) times blocks of
-    the kernel's columns (64 for K3/mxu and K3/mxu3p, 32 for K3f and K0)
-    cover the nodes once; the persistent blocks' even shares (common.cuh's
-    part) walk every unit once, in row-unit-major order, and there are
-    never more blocks than units (the flagship's 129^2 has fewer units
-    than SMs)."""
+    """Row units (each at most 32 rows, inside one tile; K3p's the whole
+    tiles) times blocks of the kernel's columns (64 for K3/mxu, K3/mxu3
+    and K3/mxu3p, 32 for K3f, K0 and K3p) cover the nodes once; the
+    persistent blocks' even shares (common.cuh's part) walk every unit
+    once, in row-unit-major order, and there are never more blocks than
+    units (the flagship's 129^2 has fewer units than SMs); K3p's blocks
+    each walk an even run of one strip's tiles down the strip."""
     tile = 64 if tile is None else tile
     for itemsize in (4, 8):
-        smem = tc_tables.smem_bytes(kernel, 3, itemsize)
+        smem = tc_tables.smem_bytes(kernel, 3, itemsize, tile)
         plan = tc_tables.plan(kernel, nodes, 3, itemsize, tile,
                               tc_tables.occupancy_model(smem), 132)
         n0, n1 = nodes
@@ -78,14 +84,34 @@ def test_plan_covers_every_node_once(kernel, nodes, tile):
         assert cols == tc_tables.COLS.get(kernel, 32)
         hits = np.zeros(nodes, np.int32)
         for s, rows in plan.row_units:
-            assert 1 <= rows <= tc_tables.TRB
+            if kernel == "hybp":
+                assert s % tile == 0 and rows == min(tile, n0 - s)
+            else:
+                assert 1 <= rows <= tc_tables.TRB
             assert s // tile == (s + rows - 1) // tile   # inside one tile
             for cb in range(plan.n_cb):
                 hits[s:s + rows, cb * cols:(cb + 1) * cols] += 1
         assert (hits == 1).all()
+        walked = []
+        if kernel == "hybp":
+            n_tiles = len(plan.row_units)
+            most = max(plan.n_cb, 132 * tc_tables.occupancy_model(smem))
+            assert 1 <= plan.segs <= n_tiles
+            assert plan.blocks == plan.n_cb * plan.segs <= most
+            assert plan.segs == n_tiles or plan.blocks + plan.n_cb > most
+            for b in range(plan.blocks):
+                cb, seg = divmod(b, plan.segs)
+                base, rem = divmod(n_tiles, plan.segs)
+                lo = seg * base + min(seg, rem)
+                ks = list(range(lo, lo + base + (seg < rem)))
+                assert ks, "a block with no tile"
+                walked += [k * plan.n_cb + cb for k in ks]   # down strip cb
+            assert sorted(walked) == list(range(plan.units))
+            assert plan.smem == smem
+            assert smem <= tc_tables.SMEM_MAX or (itemsize, tile) == (8, 100)
+            continue
         assert plan.blocks == min(plan.units, 132 * tc_tables.occupancy_model(
             smem))
-        walked = []
         for b in range(plan.blocks):
             base, rem = divmod(plan.units, plan.blocks)
             lo = b * base + min(b, rem)
@@ -99,13 +125,21 @@ TWIN_CASES = [(1, (20, 20), None), (3, (40, 72), None), (3, (40, 72), 64),
               (15, (40, 33), None), (15, (70, 50), 20)]
 
 
+def _fits(kernel, p, tile, itemsize):
+    """The tile fits a block (K3p's layout grows with the tile; the other
+    kernels' do not; the default tile fits by its choice)."""
+    return tile is None or tc_tables.smem_bytes(kernel, p, itemsize,
+                                                tile) <= tc_tables.SMEM_MAX
+
+
 @pytest.mark.parametrize("four", [False, True])
 @pytest.mark.parametrize("kernel,p,cells,tile", [
     (k, *case) for k in sorted(KERNELS) for case in TWIN_CASES
-    if case[0] <= KERNELS[k]])
+    if case[0] <= KERNELS[k] and _fits(k, case[0], case[2], 8)])
 def test_table_twin_float64(kernel, p, cells, tile, four):
     """The float64 tables applied block by block equal K3's plain twin
-    within 1e-12 of max|y| (ragged shapes, four distinct factors)."""
+    within 1e-12 of max|y| (ragged shapes, four distinct factors; K3p at
+    its default vpu_rows)."""
     grid, bt = _bands(p, cells, F64, 10 * p + len(cells), four)
     tile = stencil2.tc_options(kernel, bt, tile)["tile_r"]
     u = torch.as_tensor(np.random.default_rng(p).standard_normal(grid.nodes))
@@ -121,7 +155,7 @@ def test_table_twin_float64(kernel, p, cells, tile, four):
 def test_table_twin_float32(kernel, p, cells, tile):
     """The float32 tables, read back from their images as hi + lo, give
     K3's operator on the float32 band values within 1e-6 of max|y|
-    (K3/mxu3p's bf16 hi + lo within 2^-16)."""
+    (the bf16 hi + lo of K3/mxu3 and K3/mxu3p within 2^-16)."""
     grid, bt = _bands(p, cells, torch.float32, 3)
     tile = stencil2.tc_options(kernel, bt, tile)["tile_r"]
     u = torch.as_tensor(np.random.default_rng(4).standard_normal(grid.nodes))
@@ -259,6 +293,90 @@ def test_row_mode_tables_built_once(dtype):
         assert t3["win"] is t1["win"]
         assert tc_tables.tables.builds == before + 1
     assert t3["ru"].tolist() == [0, 32, 32, 9]
+    # K3/mxu3 reads K3/mxu3p's bf16 windows (float32), K3/mxu's (float64)
+    builds = tc_tables.tables.builds
+    t5 = tc_tables.tables(bt, "mxu3", 64)
+    assert t5["win"] is t3["win"] and tc_tables.tables.builds == builds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_hybp_tables_built_once(dtype):
+    """K3p reads K3f's C^T (one build for both) and its padded band rows
+    (built once, the same for every tile); it builds no window; a second
+    request builds nothing."""
+    grid, bt = _bands(3, (40, 72), dtype, 11)
+    before = tc_tables.tables.builds
+    t1 = tc_tables.tables(bt, "hybp", 64)
+    assert tc_tables.tables.builds == before + 2   # C^T and band rows
+    assert set(t1) == {"ct", "rb"}
+    t2 = tc_tables.tables(bt, "hybp", 16)
+    t3 = tc_tables.tables(bt, "fullmxu", 32)
+    assert tc_tables.tables.builds == before + 3   # K3f's windows
+    assert t2["ct"] is t1["ct"] is t3["ct"] and t2["rb"] is t1["rb"]
+    kp = tc_tables.hybp_kp(3, bt.a0.element_size())
+    assert kp == (8 if dtype == torch.float32 else 8)
+    rb = t1["rb"].reshape(41, 2, kp)
+    assert rb[:, 0, :7].equal(bt.a0) and rb[:, 1, :7].equal(bt.b0)
+    assert (rb[:, :, 7:] == 0).all()
+    # the wrapper on the CPU runs the plain twin: no table is built
+    stencil2.laplace2_hybp_apply(torch.zeros(grid.nodes, dtype=dtype), bt)
+    assert tc_tables.tables.builds == before + 3
+
+
+HYBP_TWIN_CASES = [(3, (300, 140), 64), (3, (149, 1024), 48),
+                   (5, (37, 45), 16), (7, (65, 140), 37), (1, (20, 20), 24)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("vr", [0, 5, 13, None, 10**6])
+@pytest.mark.parametrize("p,cells,tile", HYBP_TWIN_CASES)
+def test_hybp_table_twin_splits_rows(p, cells, tile, vr, dtype):
+    """K3p's table twin, its extended rows split between the column sums
+    (FMA rows) and the product with the cached C^T (tensor rows) as
+    vpu_rows says, all tensor (0), split inside a chunk (5, 13), the
+    default and all FMA: K3's plain twin within 1e-12 of max|y| in
+    float64, 1e-6 from the float32 tables (four distinct factors, a
+    ragged last tile)."""
+    grid, bt = _bands(p, cells, dtype, 30 + p)
+    opts = stencil2.tc_options("hybp", bt, tile, vr)
+    u = torch.as_tensor(np.random.default_rng(31).standard_normal(
+        grid.nodes))
+    b64 = stencil2.Bands2(bt.a0.double(), bt.a1.double(), bt.b0.double(),
+                          bt.b1.double(), p)
+    y = tc_tables.table_twin(u, bt, "hybp", opts["tile_r"],
+                             opts["vpu_rows"])
+    want = stencil2.laplace2_apply_plain(u, b64)
+    assert _rel(y, want) <= (1e-12 if dtype == F64 else 1e-6)
+
+
+@pytest.mark.parametrize("p", [1, 3, 7, 15])
+def test_hybp_vpu_rows_map(p):
+    """vpu_rows keeps gdm's meaning on K3p's units (whole tiles of tile_r
+    rows, tile_r + 2p extended rows): 0 puts every extended row on the
+    tensor cores, the default two thirds of the extended tile rounded up
+    to 8 on the FMA units, tile_r + 2p or more every row on the FMA
+    units; a ragged last tile keeps the first vpu_rows rows on the FMA
+    units; the tensor rows go in chunks of 32."""
+    tile, t_ext = 64, 64 + 2 * p
+    bt = _bands(p, (300, 140), torch.float32, 0, four=False)[1]
+    default = stencil2.tc_options("hybp", bt, tile)["vpu_rows"]
+    assert default == -(-(2 * t_ext // 3) // 8) * 8
+    assert default == tc_tables.default_vpu_rows(tile, p) < t_ext
+    assert tc_tables.hybp_rows(0, tile, p) == (0, t_ext, -(-t_ext // 32))
+    assert tc_tables.hybp_rows(default, tile, p) == (
+        default, t_ext - default, -(-(t_ext - default) // 32))
+    for vr in (t_ext, 10**6):
+        opts = stencil2.tc_options("hybp", bt, tile, vr)
+        assert opts["vpu_rows"] == t_ext
+        assert tc_tables.hybp_rows(opts["vpu_rows"], tile, p) == (t_ext, 0,
+                                                                  0)
+    # the last tile of 301 rows holds 301 - 4 * 64 = 45 rows
+    assert tc_tables.tile_units(301, tile)[-1] == (256, 45)
+    assert tc_tables.hybp_rows(default, 45, p) == (
+        min(default, 45 + 2 * p), max(0, 45 + 2 * p - default),
+        -(-max(0, 45 + 2 * p - default) // 32))
+    assert tc_tables.hybp_rows(5, 45, p) == (5, 40 + 2 * p,
+                                             -(-(40 + 2 * p) // 32))
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
@@ -280,10 +398,11 @@ def test_replaced_bands_start_with_no_tables(kernel):
 
 
 def test_smem_and_default_tiles():
-    """tc_smem_bytes takes K3f's and K0's layouts from tc_tables, the same
-    for every tile (row units of 32 rows); it fits an H100 block at every
-    degree and dtype, so the default tile is 64."""
-    for kernel, pmax in KERNELS.items():
+    """tc_smem_bytes takes the layouts of K3f, K0, K3/mxu, K3/mxu3 and
+    K3/mxu3p from tc_tables, the same for every tile (row units of 32
+    rows); it fits an H100 block at every degree and dtype, so the
+    default tile is 64."""
+    for kernel, pmax in WINDOW.items():
         for p in range(1, pmax + 1, 2):
             for dtype in (torch.float32, F64):
                 bt = _bands(p, (80, 80), dtype, 0, four=False)[1]
@@ -293,6 +412,37 @@ def test_smem_and_default_tiles():
                 assert all(stencil2.tc_smem_bytes(kernel, p, t, size) == smem
                            for t in (16, 37, 64, 100))
                 assert stencil2.tc_options(kernel, bt)["tile_r"] == 64
+
+
+def test_hybp_smem_and_default_tiles():
+    """K3p's layout grows with its tile (laplace2_hybp.cu's HGeom, worked
+    by hand at p = 3, float32, tiles of 64: 120 rows a slot; U^T's chunk
+    2 x 4 x 32 x 40, two [V | W] slots of 80 x 68, three landing slots of
+    80 x 44 and three band slots of 64 x 16 floats, the offsets and the
+    barriers); the default tile is the largest of 64, 48, 32, 16 that
+    fits: 64 in float32 at every degree, smaller in float64 from p = 9;
+    every default fits."""
+    lay = tc_tables.hybp_layout(3, 4, 64)
+    assert lay["cap"] == 80
+    assert lay["vw"] == 10240 and lay["land"] == 10240 + 2 * 21760
+    assert lay["bands"] == lay["land"] + 3 * 14080
+    assert lay["roff"] == lay["bands"] + 3 * 4096
+    assert lay["total"] == lay["roff"] + 1280 + 128 + 1024 == 110720
+    assert tc_tables.hybp_layout(3, 8, 64)["bands"] == tc_tables.hybp_layout(
+        3, 8, 64)["roff"]   # float64 reads the band rows from the table
+    for p in range(1, 16, 2):
+        sizes = [tc_tables.hybp_smem(p, 4, t) for t in (16, 32, 48, 64)]
+        assert sizes == sorted(sizes) and sizes[0] < sizes[-1]
+        for dtype in (torch.float32, F64):
+            bt = _bands(p, (80, 80), dtype, 0, four=False)[1]
+            tile = stencil2.tc_options("hybp", bt)["tile_r"]
+            size = bt.a0.element_size()
+            assert stencil2.tc_smem_bytes("hybp", p, tile, size) <= (
+                tc_tables.SMEM_MAX)
+            bigger = [t for t in stencil2.TILE_CANDIDATES if t > tile]
+            assert all(stencil2.tc_smem_bytes("hybp", p, t, size)
+                       > tc_tables.SMEM_MAX for t in bigger)
+            assert tile == 64 or (dtype == F64 and p >= 9)
 
 
 def _gdm(name, mod, p, cells, seed, **kw):
@@ -318,12 +468,12 @@ def test_table_twin_matches_gdm(kernel, name, mod, kw):
 
 
 @pytest.mark.parametrize("rows,p,cells,tile,four", [
-    (r, *case) for r in ("mxu", "mxu3p")
+    (r, *case) for r in ("mxu", "mxu3", "mxu3p")
     for case in ((3, (40, 72), 64, False), (3, (37, 45), 16, True))])
 def test_row_table_twins_match_gdm(rows, p, cells, tile, four):
-    """The float64 table twins of K3/mxu and K3/mxu3p against gdm's
-    interpret-mode rows="mxu" and rows="mxu3p" (gdm's tile, the card's
-    default tile; four factors through bands=)."""
+    """The float64 table twins of K3/mxu, K3/mxu3 and K3/mxu3p against
+    gdm's interpret-mode rows="mxu", "mxu3" and "mxu3p" (gdm's tile, the
+    card's default tile; four factors through bands=)."""
     grid, bt = _bands(p, cells, F64, 17, four)
     bands = None
     if four:
@@ -333,3 +483,19 @@ def test_row_table_twins_match_gdm(rows, p, cells, tile, four):
     y = tc_tables.table_twin(torch.as_tensor(u), bt, rows,
                              stencil2.tc_options(rows, bt)["tile_r"])
     np.testing.assert_allclose(y.numpy(), want, rtol=2e-12, atol=2e-10)
+
+
+@pytest.mark.parametrize("p,cells,tile,vr", [(3, (40, 72), 64, 24),
+                                              (3, (300, 140), 64, 0),
+                                              (5, (48, 40), 48, 80)])
+def test_hybp_table_twin_matches_gdm(p, cells, tile, vr):
+    """K3p's float64 table twin, at gdm's tile and vpu_rows, against gdm's
+    interpret-mode make_padded_laplace2_hybp."""
+    u, want = _gdm("make_padded_laplace2_hybp", gps2, p, cells, 19,
+                   tile_r=tile, vpu_rows=vr)
+    bt = stencil2.laplace2_bands(Grid(p, cells, (0.0, 0.0), (1.0, 2.0)),
+                                 "cpu", F64)
+    opts = stencil2.tc_options("hybp", bt, tile, vr)
+    y = tc_tables.table_twin(torch.as_tensor(u), bt, "hybp",
+                             opts["tile_r"], opts["vpu_rows"])
+    np.testing.assert_allclose(y.numpy(), want, rtol=2e-12, atol=2e-12)
