@@ -52,7 +52,7 @@ Run from the repository root:  python3 chip_smoke.py
    and 4096^2 p=3 in float32 (max error <= 1e-5 of max|y|) and at
    1024^2 p=3 in float64 (<= 1e-12), each timed in turns against K3
    (K3, K3x, K3x, K3): device and per-call times, GB/s at 8 B per node
-   (16 in float64); K3f and K3p also at 257 x 1024 .. 1027 nodes (every
+   (16 in float64); all four also at 257 x 1024 .. 1027 nodes (every
    residue of N1 mod 4) in float32 and float64, the same limits;
    torch.matmul of the dense column coupling
    U [A1^T | B1^T] at 1024^2 alone (the yardstick for the column stage
@@ -140,7 +140,7 @@ Run from the repository root:  python3 chip_smoke.py
    every level shape of the solve's multigrid hierarchy (1025^2 down to
    9^2 nodes), and at each its launches per CG phase (from the counters,
    each level's apply wrapped), its device time by events in turns
-   against K3h (K3h, K3, K3, K3h) and its bound, printed as one JSON
+   against K3s (K3s, K3, K3, K3s) and its bound, printed as one JSON
    line {"levels": ..., "rows": [...]}; the CG phase of the bench's own
    problem (right-hand side 1) timed the same way; at 128^2 the float32
    card solution against the float64 CPU solution (rel_tol 1e-4:
@@ -368,9 +368,10 @@ def levels_vs_plain(sysf, dev, dtype, tag):
     level, also its launches over one CG phase (from the counters), its
     device time by events and its bound, timed in turns against an
     anchor of the same operator that no recent redesign changed (anchor,
-    kernel, kernel, anchor; the anchor is K3h in 2D, since K3s was
-    redesigned, and K4 in 3D, the other schedule of the operator, whose
-    band-sum design changed after K5's).  Prints the per-level table as a
+    kernel, kernel, anchor; the anchor is K3s in 2D, the streamed
+    schedule of the operator, which the later redesigns of the
+    tensor-core schedules left alone, and K4 in 3D, the other schedule of
+    the operator, whose band-sum design changed after K5's).  Prints the per-level table as a
     JSON line
     and returns the largest max abs error, the names of the kernels held
     and the rows."""
@@ -400,7 +401,7 @@ def levels_vs_plain(sysf, dev, dtype, tag):
         names.add(name)
         if dim == 2:
             bt = stencil2.laplace2_bands(g, dev, dtype)
-            aname, anchor = "K3h", stencil2.laplace2_hybrid_apply
+            aname, anchor = "K3s", stencil2.laplace2_stream_apply
         else:
             bt = stencil3.laplace3_bands(g, dev, dtype)
             aname, anchor = "K4", stencil3.laplace3_apply
@@ -429,7 +430,8 @@ def levels_vs_plain(sysf, dev, dtype, tag):
 
 
 def residues(rng, dev, kname, fn, tol32=1e-5):
-    """K3f, K3p, K0, K3/mxu, K3/mxu3 or K3/mxu3p (``fn``, its wrapper)
+    """K3c, K3f, K3h, K3p, K0, K3/mxu, K3/mxu3 or K3/mxu3p (``fn``, its
+    wrapper)
     against K3's plain twin at N1 = 1024 .. 1027 columns (every residue of
     a row's start mod 16 bytes), 257 rows (a ragged last row unit),
     float32 (<= ``tol32`` of max|y|) and float64 (<= 1e-12); returns the
@@ -1772,9 +1774,8 @@ def main():
             if name == "1024^2 p=3":
                 tc_ms[kname] = ms
         del u, yp, bt
-    for kname in ("K3f", "K3p"):
-        tc_err[kname] = max(tc_err[kname],
-                            residues(rng, dev, kname, tc[kname]))
+    for kname, fn in tc.items():
+        tc_err[kname] = max(tc_err[kname], residues(rng, dev, kname, fn))
     # the yardstick for the column stage alone: one dense product by the
     # whole column coupling [A1^T | B1^T]
     bt = stencil2.laplace2_bands(g2[3], dev, f32)

@@ -19,7 +19,9 @@
 // of 32 rows a tile (22 of them real), 3 x 2 x 64 x 32 x 40 flops, 0.28
 // GFLOP of tensor work (0.56 us at 495 TFLOP/s of tf32).
 //
-// Design (float32; tc_stage.cuh and tc_rows.cuh hold the shared stage).
+// Design (float32; tc_stage.cuh, tc_rows.cuh and tc_strip.cuh hold the
+// shared stage: the row stage, the FMA rows and the plan's checks are
+// tc_strip.cuh's, shared with K3c and K3h).
 // A unit is one tile of tile_r output rows (the last one ragged) of a
 // 32-column strip, its extended rows ME = rows + 2p; the plan
 // (ops/tc_tables.py) numbers the units strip-major and gives each
@@ -61,15 +63,13 @@
 // through a u tile of those rows; the row stage reads its band rows from
 // the cached table in device memory (no band slots, so a block fits the
 // tiles gdm's cases take).
-#include "tc_rows.cuh"
-#include "tc_window.cuh"
+#include "tc_strip.cuh"
 
 namespace {
 
 using namespace gdm::tcs;
 namespace wg = gdm::wg;
 
-constexpr int SW = TX;   // columns of a strip
 using gdm::tc::rnd128;
 
 // The geometry of degree P and type T with tiles of tile_r rows; the
@@ -125,84 +125,6 @@ struct HGeom {
     GDM_STAMP_ADD(threadIdx.x == (who), slot, GDM_CLOCK() - (t));     \
     (t) = GDM_CLOCK();                                                \
   } while (0)
-
-// The row stage of a unit: y[i0 + r][j0 + lane] = sum_t A0(i0 + r, t)
-// V[r + t] + sum_t B0(i0 + r, t) W[r + t] for the unit's `rows` rows,
-// blocks of RB rows shared out over the warpgroup's four warps, V and W of
-// a block's RB + 2p rows in registers, each row's coefficients (the band
-// slot's padded rows: A0's KP, then B0's) by 16-byte loads.
-template <typename T, int P>
-__device__ __forceinline__ void row_stage(const T* vw, const T* bands,
-                                          T* __restrict__ y, int i0,
-                                          int rows, int j0, int n1, int warp,
-                                          int lane) {
-  using G = HGeom<T, P>;
-  constexpr int K = G::K;
-  constexpr int KP = G::KP;
-  constexpr int RB = G::RB;
-  constexpr int NV = RB + 2 * P;
-  const int j = j0 + lane;
-  for (int r0 = warp * RB; r0 < rows; r0 += 4 * RB) {
-    T v[NV], w[NV];
-#pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      v[q] = vw[(r0 + q) * G::LDV + lane];
-      w[q] = vw[(r0 + q) * G::LDV + SW + lane];
-    }
-#pragma unroll
-    for (int k = 0; k < RB; ++k) {
-      // a row past the unit reads the first row's coefficients
-      const T* c = bands + (r0 + k < rows ? r0 + k : 0) * 2 * KP;
-      T ca[KP], cb[KP];
-#pragma unroll
-      for (int e = 0; e < KP; e += G::VEC) {
-        if constexpr (sizeof(T) == 4) {
-          const float4 a = *reinterpret_cast<const float4*>(c + e);
-          const float4 b = *reinterpret_cast<const float4*>(c + KP + e);
-          ca[e] = a.x, ca[e + 1] = a.y, ca[e + 2] = a.z, ca[e + 3] = a.w;
-          cb[e] = b.x, cb[e + 1] = b.y, cb[e + 2] = b.z, cb[e + 3] = b.w;
-        } else {
-          const double2 a = *reinterpret_cast<const double2*>(c + e);
-          const double2 b = *reinterpret_cast<const double2*>(c + KP + e);
-          ca[e] = a.x, ca[e + 1] = a.y;
-          cb[e] = b.x, cb[e + 1] = b.y;
-        }
-      }
-      T sa = T(0), sb = T(0);
-#pragma unroll
-      for (int t = 0; t < K; ++t) {
-        sa = gdm::fma_(ca[t], v[k + t], sa);
-        sb = gdm::fma_(cb[t], w[k + t], sb);
-      }
-      if (r0 + k < rows && j < n1)
-        y[static_cast<size_t>(i0 + r0 + k) * n1 + j] = sa + sb;
-    }
-  }
-}
-
-// The FMA column stage of a unit's extended rows [0, vf) into the [V | W]
-// slot: output column x, blocks of four rows shared out over the four
-// warps.
-template <typename T, int P, bool EDGE>
-__device__ __forceinline__ void fma_rows(const T* ld, const int* roff,
-                                         T* vw, int vf, int me, int x,
-                                         unsigned mask,
-                                         const T (&ca)[2 * P + 1],
-                                         const T (&cb)[2 * P + 1],
-                                         int warp) {
-  using G = HGeom<T, P>;
-  for (int s0 = 4 * warp; s0 < vf; s0 += 16) {
-    T v[4], w[4];
-    column_sums<T, P, SW, 4, EDGE>(ld, roff, s0, me, x, mask, ca, cb, v, w);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (s0 + q < vf) {
-        vw[(s0 + q) * G::LDV + x] = v[q];
-        vw[(s0 + q) * G::LDV + SW + x] = w[q];
-      }
-    }
-  }
-}
 
 template <typename T, int P>
 __global__ void __launch_bounds__(2 * NT, P <= 7 ? 2 : 1)
@@ -405,9 +327,11 @@ k3p_kernel(const T* __restrict__ u, const T* __restrict__ a1,
         const T* ld = lands + (n % 3) * land_n;
         T* vw = vws + (n & 1) * vw_n;
         if (inner_cols && i0 >= P && i0 - P + me <= n0)
-          fma_rows<T, P, false>(ld, ro, vw, vf, me, x, mask, ca, cbv, warp);
+          fma_rows<T, P, LDV, 4, false>(ld, ro, vw, vf, me, x, mask, ca, cbv,
+                                       warp);
         else
-          fma_rows<T, P, true>(ld, ro, vw, vf, me, x, mask, ca, cbv, warp);
+          fma_rows<T, P, LDV, 4, true>(ld, ro, vw, vf, me, x, mask, ca, cbv,
+                                      warp);
         GDM_K3P_PHASE(0, 4, tc);
       } else {
         group_sync(2);   // the last unit's FMA rows are written
@@ -421,8 +345,8 @@ k3p_kernel(const T* __restrict__ u, const T* __restrict__ a1,
         const T* bands = sizeof(T) == 4
                              ? bandss + (m % 3) * band_n
                              : rb_img + static_cast<size_t>(i0) * 2 * KP;
-        row_stage<T, P>(vws + (m & 1) * vw_n, bands, y, i0,
-                        min(tile_r, n0 - i0), j0, n1, warp, x);
+        row_stage<T, P, LDV, 4>(vws + (m & 1) * vw_n, bands, y, i0,
+                                min(tile_r, n0 - i0), j0, n1, warp, x);
         gdm::bar_arrive(empty + (m & 1));
         GDM_K3P_PHASE(0, 6, tc);
       }
@@ -433,27 +357,15 @@ k3p_kernel(const T* __restrict__ u, const T* __restrict__ a1,
   (void)tc;
 }
 
-// A plan's launch checks: tiles of tile_r >= 1 rows, n_tiles of them,
-// segs runs of tiles a strip (1 .. n_tiles), a block a (strip, run),
-// vpu_rows >= 0, shared memory within a block.
-template <typename T, int P>
-bool hybp_plan_ok(int n0, int n1, int tile_r, int vpu_rows, int n_tiles,
-                  int segs, int grid) {
-  if (tile_r < 1 || vpu_rows < 0 || n0 < 1 || n1 < 1) return false;
-  const int strips = (n1 + SW - 1) / SW;
-  return n_tiles == (n0 + tile_r - 1) / tile_r && segs >= 1 &&
-         segs <= n_tiles && grid == strips * segs &&
-         HGeom<T, P>(tile_r).total <= static_cast<size_t>(SMEM_MAX);
-}
-
 template <typename T, int P>
 int launch_p(const void* u, const void* a1, const void* b1, const void* ct,
              const void* rb, void* y, int n0, int n1, int tile_r,
              int vpu_rows, int n_tiles, int segs, int grid,
              cudaStream_t stream) {
-  if (!hybp_plan_ok<T, P>(n0, n1, tile_r, vpu_rows, n_tiles, segs, grid))
-    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = HGeom<T, P>(tile_r).total;
+  if (vpu_rows < 0 ||
+      !strip_plan_ok(n0, n1, tile_r, n_tiles, segs, grid, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int e = allow_smem(k3p_kernel<T, P>, smem);
   if (e != 0) return e;
   k3p_kernel<T, P><<<grid, 2 * NT, smem, stream>>>(

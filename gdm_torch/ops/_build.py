@@ -75,10 +75,9 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_laplace2_stream_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P] + [I] * 6 + [P]
         fn.restype = I
-        for k, n_extra in (("laplace2_mxucol", 1), ("laplace2_hybrid", 2)):
-            fn = getattr(lib, f"gdm_{k}_apply_{dt}")
-            fn.argtypes = [P, P, P, P, P, P, I, I, I] + [I] * n_extra + [P]
-            fn.restype = I
+        fn = getattr(lib, f"gdm_laplace2_mxucol_apply_{dt}")
+        fn.argtypes = [P] * 4 + [I] * 7 + [P]
+        fn.restype = I
         for k, n_tabs in (("laplace2_fullmxu", 3), ("laplace2_v1", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P] * (n_tabs + 2) + [I] * 6 + [P]
@@ -88,9 +87,10 @@ def _declare(lib):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P] * 6 + [I] * 7 + [P]
             fn.restype = I
-        fn = getattr(lib, f"gdm_laplace2_hybp_apply_{dt}")
-        fn.argtypes = [P] * 6 + [I] * 8 + [P]
-        fn.restype = I
+        for k in ("laplace2_hybp", "laplace2_hybrid"):
+            fn = getattr(lib, f"gdm_{k}_apply_{dt}")
+            fn.argtypes = [P] * 6 + [I] * 8 + [P]
+            fn.restype = I
         for k, n_extra in (("laplace3", 5), ("laplace3_mxu", 4)):
             fn = getattr(lib, f"gdm_{k}_apply_{dt}")
             fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I] + (
@@ -105,8 +105,9 @@ def _declare(lib):
         fn = getattr(lib, f"gdm_{k}_occupancy")
         fn.argtypes = [I, I, IP]
         fn.restype = I
+    # + columns a unit (the strip kernels K3p, K3c, K3h: a tile's rows)
     for k in ("laplace2_mxu", "laplace2_mxu3", "laplace2_mxu3p",
-              "laplace2_hybp"):   # + columns a unit (K3p: its tile's rows)
+              "laplace2_hybp", "laplace2_mxucol", "laplace2_hybrid"):
         fn = getattr(lib, f"gdm_{k}_occupancy")
         fn.argtypes = [I, I, I, IP]
         fn.restype = I

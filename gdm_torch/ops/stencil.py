@@ -46,7 +46,7 @@ def laplace_v1_apply(u: torch.Tensor, bt: Bands2,
     if bt.p > MAX_DEGREE:
         raise ValueError(f"K0 takes odd degrees p <= {MAX_DEGREE}, not "
                          f"{bt.p}")
-    return tc_apply(u, bt, "v1", "K0", laplace_v1_apply,
+    return tc_apply(u, bt, "v1", laplace_v1_apply,
                     laplace_v1_apply_plain, tile_r)
 
 

@@ -17,7 +17,7 @@ tensor cores), ``make_padded_laplace2_hybrid`` (K3h, the column stage
 split by rows between the FMA units and the tensor cores) and
 ``make_padded_laplace2_hybp`` (K3p, K3h pipelined across tiles).  The
 CUDA kernels are gdm_torch/csrc/laplace2*.cu (the tensor-core ones share
-csrc/tc_window.cuh or the stage of csrc/tc_stage.cuh); their source
+the stages of csrc/tc_stage.cuh and csrc/tc_strip.cuh); their source
 notes say what bounds them on the card.  Each wrapper (``laplace2_apply``, ``laplace2_stream_apply``,
 ``laplace2_mxucol_apply``, ...) launches its kernel for a CUDA tensor
 and runs its plain torch twin for a CPU tensor; there is no other
@@ -25,8 +25,8 @@ switch.  Every twin is K3's plain column-then-row computation.
 ``k3_plan`` picks K3's launch from the shape (its tiles and the output
 rows a thread keeps in registers), ``k3s_plan`` K3s's (its strip width
 and its strips and segments); tests/test_torch_plans.py holds both on
-the CPU.  ``tc_plan`` picks K3f's, K0's, K3/mxu's, K3/mxu3's, K3/mxu3p's
-and K3p's (row units times column blocks over persistent blocks), whose
+the CPU.  ``tc_plan`` picks every tensor-core schedule's (row units, or
+whole tiles of a strip, times column blocks over persistent blocks), whose
 tables ``ops.tc_tables`` builds once per band tables and row units;
 tests/test_torch_tc_tables.py holds both.
 
@@ -69,7 +69,7 @@ class Bands2:
     b0: torch.Tensor
     b1: torch.Tensor
     p: int
-    # the tables of K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p, built at
+    # the tables of the tensor-core schedules (tc_tables.KERNELS), built at
     # first use (tc_tables.tables);
     # not an argument, so every new Bands2 (replace() too) starts empty
     tables: dict = dataclasses.field(default_factory=dict, init=False,
@@ -391,6 +391,9 @@ def make_padded_laplace2_stream(grid: Grid, device="cuda",
 
 SMEM_MAX = 232448               # bytes of shared memory an H100 block may use
 TILE_CANDIDATES = (64, 48, 32, 16)
+# K3c's default tile has tile_r + 2p = 64 extended rows: one wgmma M, so
+# one product chain a tile and no padded chain
+MXUCOL_ROWS = 64
 
 
 def _rnd(n: int, m: int) -> int:
@@ -400,32 +403,16 @@ def _rnd(n: int, m: int) -> int:
 def tc_smem_bytes(kernel: str, p: int, tile_r: int, itemsize: int) -> int:
     """Shared memory of one block of the tensor-core kernel ``kernel``
     ("mxucol", "fullmxu", "hybrid", "hybp", "mxu", "mxu3", "mxu3p" or
-    "v1") at degree p with tile_r output rows, as the kernels lay it out.
-    K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu"), K3/mxu3 ("mxu3"),
-    K3/mxu3p ("mxu3p") and K3p ("hybp"): tc_tables.smem_bytes (row units
-    of 32 rows whatever the tile, the split window and operands, landing
-    slots of u rows in float32; K3p's units are whole tiles: two [V | W]
-    slots and three slots of u rows and band rows of a tile).  K3c and
-    K3h as csrc/tc_window.cuh's ``Tile`` and the kernels lay it out: the
-    u tile, the C slice, [V | W], the A0/B0 band rows and K3h's MMA warps'
-    scratch tile."""
-    if kernel in tc_tables.KERNELS:
-        return tc_tables.smem_bytes(kernel, p, itemsize, tile_r)
-    tx = 32
-    uw = tx + 2 * p
-    kd = _rnd(uw, 8)
-    m = _rnd(tile_r + 2 * p, 16)
-    ldv = 2 * tx + 4
-    u = _rnd(m * (kd + 4), 32)
-    c = _rnd(kd * ldv, 32)
-    vw = _rnd(m * ldv, 32)
-    r = _rnd(2 * tile_r * (2 * p + 1), 32)
-    scr = 4 * 256
-    elems = {"mxucol": u + c + vw + r,
-             "hybrid": u + c + vw + r + scr}
-    if kernel not in elems:
+    "v1") at degree p with tile_r output rows, as the kernels lay it out
+    (tc_tables.smem_bytes): K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu"),
+    K3/mxu3 ("mxu3") and K3/mxu3p ("mxu3p") walk row units of 32 rows
+    whatever the tile (the split window and operands, landing slots of u
+    rows in float32); the units of K3p ("hybp"), K3c ("mxucol") and K3h
+    ("hybrid") are whole tiles: their [V | W] slots and slots of u rows
+    and band rows grow with the tile (tc_tables.strip_layout)."""
+    if kernel not in tc_tables.KERNELS:
         raise ValueError(f"no tensor-core kernel {kernel!r}")
-    return elems[kernel] * itemsize
+    return tc_tables.smem_bytes(kernel, p, itemsize, tile_r)
 
 
 def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
@@ -434,11 +421,13 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
 
     tile_r, the block's output rows: by default the largest of 64, 48,
     32, 16 whose tile fits one H100 block at this degree and dtype (see
-    ``tc_smem_bytes``; 64 for K3c and K3h at every p <= 15 in float32 and
-    for K3f, K0, K3/mxu, K3/mxu3 and K3/mxu3p always, whose shared memory
-    does not grow with the tile; for K3p 64 in float32 at every p <= 15
-    and smaller in float64 from p = 9).  As in gdm, every kernel but K3f
-    clamps it to N0 rounded up to 8.  A tile that does not fit raises.
+    ``tc_smem_bytes``; 64 for K3h at every p <= 15 in both dtypes and for
+    K3f, K0, K3/mxu, K3/mxu3 and K3/mxu3p always, whose shared memory does
+    not grow with the tile; for K3p 64 in float32 at every p <= 15 and
+    smaller in float64 from p = 9), and for K3c 64 - 2p, so that a tile's
+    extended rows fill one product chain (wgmma's M of 64 rows).  As in
+    gdm, every kernel but K3f clamps it to N0 rounded up to 8.  A tile
+    that does not fit raises.
 
     vpu_rows, the rows of the extended tile (tile_r + 2p rows) whose
     column stage runs on the FMA units, the rest on the tensor cores:
@@ -446,14 +435,16 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
     K3p default; per row the FMA units cost about 2.3x less than the
     3xTF32 window product at the card's peak rates), clamped to the
     extended tile as gdm clamps it; 0 means all tensor cores and any
-    value >= tile_r + 2p all FMAs.  K3p's unit is one tile of a
-    32-column strip, so its extended rows [0, vpu_rows) run on the FMA
-    units and the rest on the tensor cores as the value says; the ragged
-    last tile (rows + 2p extended rows) keeps the same first vpu_rows
-    rows on the FMA units (``tc_tables.hybp_rows``).
+    value >= tile_r + 2p all FMAs.  The unit of K3p and K3h is one tile
+    of a 32-column strip, so its extended rows [0, vpu_rows) run on the
+    FMA units and the rest on the tensor cores as the value says; the
+    ragged last tile (rows + 2p extended rows) keeps the same first
+    vpu_rows rows on the FMA units (``tc_tables.hybp_rows``).
     """
     p, n0 = bt.p, bt.shape[0]
     itemsize = bt.a0.element_size()
+    if tile_r is None and kernel == "mxucol":
+        tile_r = MXUCOL_ROWS - 2 * p
     if tile_r is None:
         tile_r = next((t for t in TILE_CANDIDATES
                        if tc_smem_bytes(kernel, p, t, itemsize) <= SMEM_MAX),
@@ -485,16 +476,17 @@ def tc_options(kernel: str, bt: Bands2, tile_r=None, vpu_rows=None) -> dict:
 @functools.lru_cache(maxsize=None)
 def tc_occupancy(kernel: str, p: int, dtype, tile_r=None) -> int:
     """Blocks of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu"), K3/mxu3
-    ("mxu3"), K3/mxu3p ("mxu3p") or K3p ("hybp", with tiles of tile_r
-    rows) one SM of the card holds at degree p, as the CUDA runtime's
-    occupancy calculator reports them for the built kernel."""
+    ("mxu3"), K3/mxu3p ("mxu3p"), K3p ("hybp"), K3c ("mxucol") or K3h
+    ("hybrid"; the strip kernels with tiles of tile_r rows) one SM of the
+    card holds at degree p, as the CUDA runtime's occupancy calculator
+    reports them for the built kernel."""
     kl = _build.kernels()
     out = ctypes.c_int(0)
     fn = getattr(kl.lib, f"gdm_laplace2_{kernel}_occupancy")
     f64 = int(dtype == torch.float64)
     if kernel in tc_tables.COLS:
         err = fn(p, f64, tc_tables.cols_of(kernel), ctypes.byref(out))
-    elif kernel == "hybp":
+    elif kernel in tc_tables.TILE_KERNELS:
         err = fn(p, f64, int(tile_r), ctypes.byref(out))
     else:
         err = fn(p, f64, ctypes.byref(out))
@@ -506,29 +498,37 @@ def tc_occupancy(kernel: str, p: int, dtype, tile_r=None) -> int:
 def tc_plan(kernel: str, nodes, p: int, dtype,
             tile_r: int) -> tc_tables.TcPlan:
     """The launch plan of K3f ("fullmxu"), K0 ("v1"), K3/mxu ("mxu"),
-    K3/mxu3 ("mxu3"), K3/mxu3p ("mxu3p") or K3p ("hybp") for the (n0, n1)
-    nodes with tiles of tile_r rows: row units of at most 32 rows (K3p:
-    whole tiles) times blocks of the kernel's columns (tc_tables.COLS),
+    K3/mxu3 ("mxu3"), K3/mxu3p ("mxu3p"), K3p ("hybp"), K3c ("mxucol") or
+    K3h ("hybrid") for the (n0, n1) nodes with tiles of tile_r rows: row
+    units of at most 32 rows (the strip kernels: whole tiles) times
+    blocks of the kernel's columns (tc_tables.COLS),
     walked by one wave of persistent blocks, as many an SM as the
     runtime's occupancy of the built kernel (which needs the card).
     Cached: the wrappers ask on every launch."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    occ = tc_occupancy(kernel, p, dtype,
-                       int(tile_r) if kernel == "hybp" else None)
+    occ = tc_occupancy(kernel, p, dtype, int(tile_r)
+                       if kernel in tc_tables.TILE_KERNELS else None)
     return tc_tables.plan(kernel, tuple(nodes), p, itemsize, int(tile_r),
                           occ, SM_COUNT)
 
 
+# the strip kernels' names in errors
+STRIP_NAMES = {"hybp": "K3p", "mxucol": "K3c", "hybrid": "K3h"}
+
+
 def _launch_tc_plan(u: torch.Tensor, bt: Bands2, plan: tc_tables.TcPlan,
                     vpu_rows=None) -> torch.Tensor:
-    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p or K3p (with ``vpu_rows``) on
-    the CUDA tensor ``u`` with the plan ``plan``, from the tables of
-    ``bt`` (built at first use); counts nothing."""
+    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3c or K3p and K3h (with
+    ``vpu_rows``) on the CUDA tensor ``u`` with the plan ``plan``, from
+    the tables of ``bt`` (built at first use); counts nothing."""
     tab = tc_tables.tables(bt, plan.kernel, plan.tile_r)
-    if plan.kernel == "hybp":
-        return launch(u, "laplace2_hybp_apply", "K3p",
-                      (bt.a1, bt.b1, tab["ct"], tab["rb"]), bt.p, bt.shape,
-                      (plan.tile_r, vpu_rows, len(plan.row_units), plan.segs,
+    if plan.kernel in tc_tables.TILE_KERNELS:
+        tabs, split = (tab["ct"], tab["rb"]), ()
+        if plan.kernel != "mxucol":   # K3p and K3h split rows at vpu_rows
+            tabs, split = (bt.a1, bt.b1) + tabs, (vpu_rows,)
+        return launch(u, f"laplace2_{plan.kernel}_apply",
+                      STRIP_NAMES[plan.kernel], tabs, bt.p, bt.shape,
+                      (plan.tile_r, *split, len(plan.row_units), plan.segs,
                        plan.blocks))
     if plan.kernel == "fullmxu":
         tabs = (tab["win"], tab["ct"], tab["ru"])
@@ -541,22 +541,16 @@ def _launch_tc_plan(u: torch.Tensor, bt: Bands2, plan: tc_tables.TcPlan,
                   bt.p, bt.shape, extra)
 
 
-def tc_apply(u, bt, kernel, what, wrapper, plain, tile_r, vpu_rows=None):
-    """The wrapper of tensor-core kernel ``kernel`` (named ``what``):
-    its plain twin for a CPU tensor, else the kernel, counted on
-    ``wrapper.launches`` (K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p
-    launched as ``tc_plan`` says)."""
+def tc_apply(u, bt, kernel, wrapper, plain, tile_r, vpu_rows=None):
+    """The wrapper of tensor-core kernel ``kernel``: its plain twin for a
+    CPU tensor, else the kernel, launched as ``tc_plan`` says and counted
+    on ``wrapper.launches``."""
     _check(u, bt)
     opts = tc_options(kernel, bt, tile_r, vpu_rows)
     if u.device.type == "cpu":
         return plain(u, bt)
-    if kernel in tc_tables.KERNELS:
-        y = _launch_tc_plan(u, bt, tc_plan(kernel, bt.shape, bt.p, u.dtype,
-                                           opts["tile_r"]),
-                            opts.get("vpu_rows"))
-    else:
-        y = _launch(u, bt, f"laplace2_{kernel}_apply", what,
-                    tuple(opts.values()))
+    y = _launch_tc_plan(u, bt, tc_plan(kernel, bt.shape, bt.p, u.dtype,
+                                       opts["tile_r"]), opts.get("vpu_rows"))
     wrapper.launches += 1
     return y
 
@@ -568,10 +562,13 @@ def laplace2_mxucol_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 
 def laplace2_mxucol_apply(u: torch.Tensor, bt: Bands2,
                           tile_r=None) -> torch.Tensor:
-    """K3's operator through K3c (the column stage as a window product
-    on the tensor cores, K3's row stage) for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    return tc_apply(u, bt, "mxucol", "K3c", laplace2_mxucol_apply,
+    """K3's operator through K3c (the column stage pipelined across the
+    tiles of a column strip: persistent blocks of a tensor warpgroup, the
+    copies and the whole tile's column stage as 3xTF32 window products
+    with u in registers against the cached C^T, and an FMA warpgroup, the
+    row stage of the tile before, joined by mbarriers; DMMA in float64)
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    return tc_apply(u, bt, "mxucol", laplace2_mxucol_apply,
                     laplace2_mxucol_apply_plain, tile_r)
 
 
@@ -588,7 +585,7 @@ def laplace2_fullmxu_apply(u: torch.Tensor, bt: Bands2,
     """K3's operator through K3f (both stages as window products on the
     tensor cores) for a CUDA tensor, the plain version for a CPU
     tensor."""
-    return tc_apply(u, bt, "fullmxu", "K3f", laplace2_fullmxu_apply,
+    return tc_apply(u, bt, "fullmxu", laplace2_fullmxu_apply,
                     laplace2_fullmxu_apply_plain, tile_r)
 
 
@@ -602,10 +599,13 @@ def laplace2_hybrid_apply_plain(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 
 def laplace2_hybrid_apply(u: torch.Tensor, bt: Bands2, tile_r=None,
                           vpu_rows=None) -> torch.Tensor:
-    """K3's operator through K3h (the column stage split by rows between
-    FMA warps and tensor-core warps) for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    return tc_apply(u, bt, "hybrid", "K3h", laplace2_hybrid_apply,
+    """K3's operator through K3h (the column stage split by rows: persistent
+    blocks over the tiles of a column strip, an FMA warpgroup on rows
+    [0, vpu_rows) and a tensor warpgroup on the rest, as 3xTF32 window
+    products with u in registers against the cached C^T, both on one tile
+    at a time, then the row stage on all eight warps; DMMA in float64)
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    return tc_apply(u, bt, "hybrid", laplace2_hybrid_apply,
                     laplace2_hybrid_apply_plain, tile_r, vpu_rows)
 
 
@@ -625,7 +625,7 @@ def laplace2_hybp_apply(u: torch.Tensor, bt: Bands2, tile_r=None,
     C^T, and an FMA warpgroup, the FMA column rows and the row stage,
     joined by mbarriers; DMMA in float64) for a CUDA tensor, the plain
     version for a CPU tensor."""
-    return tc_apply(u, bt, "hybp", "K3p", laplace2_hybp_apply,
+    return tc_apply(u, bt, "hybp", laplace2_hybp_apply,
                     laplace2_hybp_apply_plain, tile_r, vpu_rows)
 
 
@@ -640,7 +640,7 @@ def laplace2_mxu_apply(u: torch.Tensor, bt: Bands2,
     as a 3xTF32 window product on the tensor cores from the cached window
     tables; DMMA in float64) for a CUDA tensor, the plain version for a
     CPU tensor."""
-    return tc_apply(u, bt, "mxu", "K3/mxu", laplace2_mxu_apply,
+    return tc_apply(u, bt, "mxu", laplace2_mxu_apply,
                     laplace2_apply_plain, tile_r)
 
 
@@ -653,7 +653,7 @@ def laplace2_mxu3_apply(u: torch.Tensor, bt: Bands2,
     product as bf16x3 in float32 from the cached bf16 window tables,
     within about 1e-5 of max|y|; DMMA in float64) for a CUDA tensor, the
     plain version for a CPU tensor."""
-    return tc_apply(u, bt, "mxu3", "K3/mxu3", laplace2_mxu3_apply,
+    return tc_apply(u, bt, "mxu3", laplace2_mxu3_apply,
                     laplace2_apply_plain, tile_r)
 
 
@@ -667,7 +667,7 @@ def laplace2_mxu3p_apply(u: torch.Tensor, bt: Bands2,
     its own that runs one unit's products under the next unit's column
     stage; DMMA in float64) for a CUDA tensor, the plain version for a
     CPU tensor."""
-    return tc_apply(u, bt, "mxu3p", "K3/mxu3p", laplace2_mxu3p_apply,
+    return tc_apply(u, bt, "mxu3p", laplace2_mxu3p_apply,
                     laplace2_apply_plain, tile_r)
 
 

@@ -1,43 +1,47 @@
 """The window tables, launch plans and shared-memory layouts of K3f, K0,
-K3/mxu, K3/mxu3, K3/mxu3p and K3p.
+K3/mxu, K3/mxu3, K3/mxu3p, K3p, K3c and K3h.
 
 K3f (csrc/laplace2_fullmxu.cu), K0 (csrc/laplace2_v1.cu), K3/mxu and
-K3/mxu3 (csrc/laplace2_mxu.cu), K3/mxu3p (csrc/laplace2_mxu3p.cu) and K3p
-(csrc/laplace2_hybp.cu) share the stage of csrc/tc_stage.cuh: a
-persistent block walks units of one row unit (at most ``TRB`` = 32
-output rows: the rows of a tile of ``tile_r``, cut into pieces of 32
-where the tile is taller; K3p's row unit is the whole tile) by a block of
+K3/mxu3 (csrc/laplace2_mxu.cu) and K3/mxu3p (csrc/laplace2_mxu3p.cu)
+share the stage of csrc/tc_stage.cuh: a persistent block walks units of
+one row unit (at most ``TRB`` = 32 output rows: the rows of a tile of
+``tile_r``, cut into pieces of 32 where the tile is taller) by a block of
 output columns (``COLS``: 64, wgmma's M, for K3/mxu, K3/mxu3 and
-K3/mxu3p, whose row product is transposed; 32 for K3f, K0 and K3p), row
-unit major (K3p: strip major, each block an even run of one strip's
-tiles), and reads its tables, built here once per ``Bands2`` and row
-units (tiles that give the same row units share them), on the device
-with vectorised indexing, and cached on the ``Bands2``:
+K3/mxu3p, whose row product is transposed; 32 for K3f and K0), row unit
+major.  K3p (csrc/laplace2_hybp.cu), K3c (csrc/laplace2_mxucol.cu) and
+K3h (csrc/laplace2_hybrid.cu) share the strip stage of
+csrc/tc_strip.cuh (``TILE_KERNELS``): a unit is a whole tile of a
+32-column strip, numbered strip major, each block an even run of one
+strip's tiles.  All of them read their tables, built here once per
+``Bands2`` and row units (tiles that give the same row units share them),
+on the device with vectorised indexing, and cached on the ``Bands2``:
 
 - the row window of each row unit, [A0w; B0w] (64 rows by the depth M
   of its extended rows): A0w[r][s] = A0(i0 + r, s - r) for 0 <= s - r
-  <= 2p and r below the unit's rows, zero elsewhere (every kernel but
-  K3p);
+  <= 2p and r below the unit's rows, zero elsewhere (the row-unit
+  kernels);
 - K3f's column slice of each 32-column block, C^T (64 rows by KD): row x
   holds A1(j0 + x, w - x) at w, row 32 + x B1's, zero past the grid
-  (K3f's, and K3p's tensor column rows);
-- K3p's band rows: A0's and B0's rows, each padded to KP = 2p + 1
-  rounded up to 16 bytes, side by side (the FMA row stage's 16-byte
-  coefficient loads).
+  (K3f's, K3p's tensor column rows; in float32 K3c and K3h read it as
+  wgmma's B operand, its own image);
+- the band rows of the strip kernels: A0's and B0's rows, each padded to
+  KP = 2p + 1 rounded up to 16 bytes, side by side (the FMA row stage's
+  16-byte coefficient loads).
 
 In float32 a table is stored split, hi = tf32(x) rounded to nearest with
 ties away from zero (the card's cvt.rna.tf32) and lo = tf32(x - hi), so
-no kernel splits a table entry: a window as hi's image then lo's in the
-32-byte swizzled K-major layout that wgmma reads from shared memory
-(``sw32_offset``, csrc/wgmma.cuh), C^T in the order of the wgmma A
-fragments a thread holds in registers (``frag_index``), one 16-byte load
-a thread a k-step and part.  The bf16x3 products of K3/mxu3 and
-K3/mxu3p read their own float32 windows, split into bf16 hi = bf16(x)
-rounded to nearest even (the card's cvt.rn.bf16, as gdm's B_hi) and lo =
-bf16(x - hi), over a depth padded to k-steps of 16 (``bf16_split``,
-``sw16_index``).  K3p's band rows are unsplit (FMA operands).  In float64
-every kernel reads the windows unsplit and row-major, padded as the DMMA
-fragments read them (a row pitch of M + 4, C's of 68).
+no kernel splits a table entry: a window, and C^T as K3c's and K3h's B
+operand, as hi's image then lo's in the 32-byte swizzled K-major layout
+that wgmma reads from shared memory (``sw32_offset``, csrc/wgmma.cuh),
+C^T for K3f and K3p in the order of the wgmma A fragments a thread
+holds in registers (``frag_index``), one 16-byte load a thread a k-step
+and part.  The bf16x3 products of K3/mxu3 and K3/mxu3p read their own
+float32 windows, split into bf16 hi = bf16(x) rounded to nearest even
+(the card's cvt.rn.bf16, as gdm's B_hi) and lo = bf16(x - hi), over a
+depth padded to k-steps of 16 (``bf16_split``, ``sw16_index``).  The
+band rows are unsplit (FMA operands).  In float64 every kernel reads the
+windows and C unsplit and row-major, padded as the DMMA fragments read
+them (a row pitch of M + 4, C's of 68).
 """
 
 from __future__ import annotations
@@ -52,7 +56,9 @@ SMEM_MAX = 232448       # shared memory one H100 block may use
 SMEM_SM = 233472        # shared memory of one H100 SM
 ALIGN = 1024            # every buffer of a block starts on such a line
 LDV = 2 * TX + 4        # pitch of the float64 C (tc_window.cuh)
-KERNELS = ("fullmxu", "v1", "mxu", "mxu3", "mxu3p", "hybp")
+KERNELS = ("fullmxu", "v1", "mxu", "mxu3", "mxu3p", "hybp", "mxucol",
+           "hybrid")
+TILE_KERNELS = ("hybp", "mxucol", "hybrid")   # units of whole strip tiles
 COLS = {"mxu": 64, "mxu3": 64, "mxu3p": 64}   # columns a unit, where not TX
 BF16 = ("mxu3", "mxu3p")   # float32 row products as bf16x3
 
@@ -117,12 +123,13 @@ def _line(n: int) -> int:
 
 def smem_bytes(kernel: str, p: int, itemsize: int, tile_r=None) -> int:
     """Dynamic shared memory of one block of K3f ("fullmxu"), K0 ("v1"),
-    K3/mxu ("mxu"), K3/mxu3 ("mxu3"), K3/mxu3p ("mxu3p") or K3p ("hybp")
-    at degree p, as the kernels' Smem structs lay it out (1024 bytes of
-    it for aligning the base); the same for every tile but K3p's, whose
-    units are whole tiles of ``tile_r`` rows."""
-    if kernel == "hybp":
-        return hybp_smem(p, itemsize, tile_r)
+    K3/mxu ("mxu"), K3/mxu3 ("mxu3"), K3/mxu3p ("mxu3p"), K3p ("hybp"),
+    K3c ("mxucol") or K3h ("hybrid") at degree p, as the kernels' Smem
+    structs lay it out (1024 bytes of it for aligning the base); the same
+    for every tile but the strip kernels', whose units are whole tiles of
+    ``tile_r`` rows (``strip_smem``)."""
+    if kernel in TILE_KERNELS:
+        return strip_smem(kernel, p, itemsize, tile_r)
     if kernel in COLS:
         return _rows_smem(kernel, p, itemsize)
     g = Geom(p, itemsize)
@@ -172,10 +179,11 @@ def _rows_smem(kernel: str, p: int, itemsize: int) -> int:
             + 2 * _line(4 * mc * g.lw) + _line(8 * mc) + _line(40) + ALIGN)
 
 
-# ---- K3p: units of whole tiles (csrc/laplace2_hybp.cu's HGeom) ----------
+# ---- K3p, K3c, K3h: units of whole strip tiles (csrc/tc_strip.cuh) --------
 
 HYBP_CHUNK = 32   # tensor rows a chunk of K3p's float32 column product
 DMMA_SCR = 256    # elements of a DMMA warp's scratch tile (tc_window.cuh)
+UCH = 32          # rows of K3c's and K3h's float64 u piece
 
 
 def _rnd128(n: int) -> int:
@@ -183,46 +191,71 @@ def _rnd128(n: int) -> int:
 
 
 def hybp_rb(p: int) -> int:
-    """Output rows a block of K3p's row stage (V and W of rb + 2p rows in
-    registers)."""
+    """Output rows a block of the strip kernels' row stage (V and W of
+    rb + 2p rows in registers)."""
     return 8 if p <= 5 else 4
 
 
 def hybp_kp(p: int, itemsize: int) -> int:
-    """The pitch of a K3p band row (A0's or B0's): 2p + 1 rounded up to
-    16 bytes."""
+    """The pitch of a strip kernel's band row (A0's or B0's): 2p + 1
+    rounded up to 16 bytes."""
     return _rnd(2 * p + 1, 16 // itemsize)
 
 
-def hybp_layout(p: int, itemsize: int, tile_r: int) -> dict:
-    """laplace2_hybp.cu's HGeom: the rows of a slot (``cap``) and the byte
-    offsets of its regions: the float32 chunk operand U^T (hi, lo) or the
-    float64 u tile and scratch, two [V | W] slots, three landing slots,
-    three band-row slots (float32 only), the landing offsets, the
-    mbarriers."""
+def strip_ldv(kernel: str, itemsize: int) -> int:
+    """The pitch of a strip kernel's [V | W] slot: 72 for the float32
+    accumulators of K3c and K3h (8 mod 32 words: their float2 stores meet
+    no bank conflict), tc_window.cuh's 68 otherwise."""
+    return 2 * TX + 8 if kernel != "hybp" and itemsize == 4 else LDV
+
+
+def strip_layout(kernel: str, p: int, itemsize: int, tile_r: int) -> dict:
+    """The block layout of K3p ("hybp", laplace2_hybp.cu's HGeom), K3c
+    ("mxucol") or K3h ("hybrid", tc_strip.cuh's CGeom): the rows of a
+    slot (``cap``) and the byte offsets of its regions: the operand (K3p:
+    the float32 chunk U^T, hi and lo; K3c, K3h: C^T's float32 B image, hi
+    and lo; in float64 the u tile (K3p) or a u piece of UCH rows, and the
+    DMMA warps' scratch tiles for K3p and K3h), the [V | W] slots (two,
+    K3h one), the landing slots (K3p three, else two), the float32
+    band-row slots (three, K3h two), the landing offsets (K3p four rows
+    of ``cap``, else two), the mbarriers."""
     g = Geom(p, itemsize)
     rb = hybp_rb(p)
-    cap = _rnd(_rnd(tile_r, rb) + 2 * p, 16)
-    op = (2 * 4 * HYBP_CHUNK * g.kd if itemsize == 4
-          else 8 * cap * (g.kd + 4) + 4 * DMMA_SCR * 8)
-    out = {"cap": cap, "uop": 0, "vw": _rnd128(op)}
-    out["land"] = out["vw"] + 2 * _rnd128(itemsize * cap * LDV)
-    out["bands"] = out["land"] + 3 * _rnd128(itemsize * cap * g.lw)
-    out["roff"] = out["bands"] + (3 * _rnd128(
+    # rows of a slot: the float64 products (and all of K3p's) write whole
+    # 16-row blocks
+    cap = _rnd(_rnd(tile_r, rb) + 2 * p,
+               8 if kernel != "hybp" and itemsize == 4 else 16)
+    scr = 4 * DMMA_SCR * 8
+    if kernel == "hybp":
+        op = (2 * 4 * HYBP_CHUNK * g.kd if itemsize == 4
+              else 8 * cap * (g.kd + 4) + scr)
+        n_vw, n_land, n_band, n_roff = 2, 3, 3, 4
+    elif kernel in ("mxucol", "hybrid"):
+        pipe = kernel == "mxucol"
+        op = (2 * 64 * g.kd * 4 if itemsize == 4
+              else 8 * UCH * (g.kd + 4) + (0 if pipe else scr))
+        n_vw, n_land, n_band, n_roff = (2, 2, 3, 2) if pipe else (1, 2, 2, 2)
+    else:
+        raise ValueError(f"no strip kernel {kernel!r}")
+    ldv = strip_ldv(kernel, itemsize)
+    out = {"cap": cap, "op": 0, "vw": _rnd128(op)}
+    out["land"] = out["vw"] + n_vw * _rnd128(itemsize * cap * ldv)
+    out["bands"] = out["land"] + n_land * _rnd128(itemsize * cap * g.lw)
+    out["roff"] = out["bands"] + (n_band * _rnd128(
         itemsize * _rnd(tile_r, rb) * 2 * hybp_kp(p, itemsize))
         if itemsize == 4 else 0)   # float64 reads the table itself
-    out["bars"] = out["roff"] + _rnd128(4 * 2 * 2 * cap)
+    out["bars"] = out["roff"] + _rnd128(4 * n_roff * cap)
     out["total"] = out["bars"] + 128 + ALIGN
     return out
 
 
-def hybp_smem(p: int, itemsize: int, tile_r: int) -> int:
-    """Dynamic shared memory of one K3p block with tiles of tile_r
-    rows."""
+def strip_smem(kernel: str, p: int, itemsize: int, tile_r: int) -> int:
+    """Dynamic shared memory of one block of a strip kernel with tiles of
+    tile_r rows."""
     if tile_r is None or tile_r < 1:
-        raise ValueError(f"K3p's layout needs a tile of >= 1 rows, not "
-                         f"{tile_r}")
-    return hybp_layout(p, itemsize, tile_r)["total"]
+        raise ValueError(f"the layout of {kernel} needs a tile of >= 1 "
+                         f"rows, not {tile_r}")
+    return strip_layout(kernel, p, itemsize, tile_r)["total"]
 
 
 def default_vpu_rows(tile_r: int, p: int) -> int:
@@ -260,14 +293,15 @@ def row_units(n0: int, tile_r: int) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class TcPlan:
-    """How K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p or K3p walks the (n0, n1)
-    nodes: row units (``row_units``, each (first row, rows): at most TRB
-    rows, K3p's whole tiles) times ``n_cb`` blocks of ``cols`` columns,
-    ``smem`` bytes of shared memory a block.  Row unit major, shared out
-    evenly over ``blocks`` persistent blocks (of 128 threads; K3/mxu3p's
-    float32 blocks of 256), or, for K3p (``segs`` > 0), strip major with
-    each strip's tiles cut evenly into ``segs`` runs, a block (of 256
-    threads) a run: blocks = n_cb segs."""
+    """How K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p, K3c or K3h walks the
+    (n0, n1) nodes: row units (``row_units``, each (first row, rows): at
+    most TRB rows, the strip kernels' whole tiles) times ``n_cb`` blocks
+    of ``cols`` columns, ``smem`` bytes of shared memory a block.  Row
+    unit major, shared out evenly over ``blocks`` persistent blocks (of
+    128 threads; K3/mxu3p's float32 blocks of 256), or, for the strip
+    kernels (``TILE_KERNELS``, ``segs`` > 0), strip major with each
+    strip's tiles cut evenly into ``segs`` runs (``strip_run``), a block
+    (of 256 threads) a run: blocks = n_cb segs."""
     kernel: str
     tile_r: int
     row_units: tuple
@@ -283,25 +317,36 @@ class TcPlan:
 
 
 def tile_units(n0: int, tile_r: int) -> tuple:
-    """((first row, rows), ...) of K3p's units along the rows: whole
-    tiles of tile_r rows, the last one ragged."""
+    """((first row, rows), ...) of the strip kernels' units along the
+    rows: whole tiles of tile_r rows, the last one ragged."""
     return tuple((t0, min(tile_r, n0 - t0)) for t0 in range(0, n0, tile_r))
+
+
+def strip_run(kernel: str, n_tiles: int, segs: int, k: int) -> tuple:
+    """(first tile, tiles) of run k of a strip's n_tiles tiles cut into
+    segs even runs, as the strip kernels walk them: K3p's longer runs
+    first (common.cuh's part), K3c's and K3h's last (tc_strip.cuh's
+    strip_run), where a strip's ragged last tile is."""
+    base, rem = divmod(n_tiles, segs)
+    j = k if kernel == "hybp" else segs - 1 - k
+    lo, size = j * base + min(j, rem), base + (j < rem)
+    return (lo, size) if kernel == "hybp" else (n_tiles - lo - size, size)
 
 
 def plan(kernel: str, nodes, p: int, itemsize: int, tile_r: int,
          per_sm: int, sms: int) -> TcPlan:
     """The plan for ``nodes`` with ``per_sm`` blocks on each of ``sms``
     SMs and units of the kernel's columns: one wave of persistent blocks,
-    never more blocks than units (K3p: as many runs a strip as the wave
-    holds, at least one, at most one a tile)."""
+    never more blocks than units (the strip kernels: as many runs a strip
+    as the wave holds, at least one, at most one a tile)."""
     n0, n1 = nodes
     cols = cols_of(kernel)
     n_cb = -(-n1 // cols)
-    if kernel == "hybp":
+    if kernel in TILE_KERNELS:
         ru = tile_units(n0, tile_r)
         segs = max(1, min(len(ru), sms * per_sm // n_cb))
         return TcPlan(kernel, tile_r, ru, n_cb, n_cb * segs,
-                      hybp_smem(p, itemsize, tile_r), cols, segs)
+                      strip_smem(kernel, p, itemsize, tile_r), cols, segs)
     ru = row_units(n0, tile_r)
     return TcPlan(kernel, tile_r, ru, n_cb, min(len(ru) * n_cb, sms * per_sm),
                   smem_bytes(kernel, p, itemsize), cols)
@@ -469,9 +514,9 @@ def _bf16_windows(bt, kernel: str) -> bool:
 
 
 def band_rows(bt) -> torch.Tensor:
-    """(n0, 2 kp) K3p's band rows in bt's dtype: row i holds A0(i, .)
-    then B0(i, .), each padded with zeros to kp = 2p + 1 rounded up to 16
-    bytes."""
+    """(n0, 2 kp) the strip kernels' band rows in bt's dtype: row i
+    holds A0(i, .) then B0(i, .), each padded with zeros to kp = 2p + 1
+    rounded up to 16 bytes."""
     kp = hybp_kp(bt.p, bt.a0.element_size())
     pad = (0, kp - (2 * bt.p + 1))
     return torch.cat([torch.nn.functional.pad(bt.a0, pad),
@@ -496,6 +541,21 @@ def _ct(bt) -> torch.Tensor:
     return cache["ct"]
 
 
+def _ctb(bt) -> torch.Tensor:
+    """C^T as the wgmma B operand of K3c and K3h (built once per Bands2):
+    float32 as split images, hi then lo, 64 rows by KD in the 32-byte
+    swizzled K-major layout (``_image32``), (n_cb, 2 64 KD); float64 as
+    K3f's C (``_ct``)."""
+    if bt.a0.element_size() == 8:
+        return _ct(bt)
+    cache = bt.tables
+    if "ctb" not in cache:
+        g = Geom(bt.p, 4)
+        cache["ctb"] = _image32(ct_dense(bt, g.kd)).contiguous()
+        tables.builds += 1
+    return cache["ctb"]
+
+
 def tables(bt, kernel: str, tile_r: int) -> dict:
     """The tables of ``kernel`` for ``bt`` and ``tile_r``, built on first
     use and cached on ``bt`` (a second call, or a tile with the same row
@@ -503,16 +563,18 @@ def tables(bt, kernel: str, tile_r: int) -> dict:
     the row units, and ``win``, the windows (n_units, image): those of
     K3/mxu3 and K3/mxu3p in float32 their own bf16 images of depth
     ``Geom.mb``, every other kernel's (and theirs in float64) the same;
-    for "fullmxu" and "hybp" ``ct``, the column slices (n_cb, image),
-    the same for every tile; for "hybp" (no windows, no row units) also
-    ``rb``, the padded band rows (``band_rows``).  ``tables.builds``
-    counts the tables built."""
+    for "fullmxu" and the strip kernels ``ct``, the column slices (n_cb,
+    image), the same for every tile (K3f's fragment images for K3f and
+    K3p, the B images of ``_ctb`` for K3c and K3h); for the strip kernels
+    (no windows, no row units) also ``rb``, the padded band rows
+    (``band_rows``).  ``tables.builds`` counts the tables built."""
     cache = bt.tables
-    if kernel == "hybp":
+    if kernel in TILE_KERNELS:
         if "rb" not in cache:
             cache["rb"] = band_rows(bt).contiguous()
             tables.builds += 1
-        return {"ct": _ct(bt), "rb": cache["rb"]}
+        return {"ct": _ct(bt) if kernel == "hybp" else _ctb(bt),
+                "rb": cache["rb"]}
     g = Geom(bt.p, bt.a0.element_size())
     units = row_units(bt.shape[0], tile_r)
     bf16 = _bf16_windows(bt, kernel)
@@ -538,9 +600,11 @@ def tables(bt, kernel: str, tile_r: int) -> dict:
 tables.builds = 0
 
 
-def _dense_ct(bt, ct: torch.Tensor) -> torch.Tensor:
-    """(n_cb, 64, kd) C^T in float64 from its cached image."""
+def _dense_ct(bt, ct: torch.Tensor, kernel: str) -> torch.Tensor:
+    """(n_cb, 64, kd) C^T in float64 from ``kernel``'s cached image."""
     g = Geom(bt.p, bt.a0.element_size())
+    if g.itemsize == 4 and kernel in ("mxucol", "hybrid"):
+        return _unimage32(ct, 64, g.kd)
     if g.itemsize == 4:
         return _unfrag32(ct, g.kd)
     return ct.reshape(-1, g.kd, LDV)[:, :, :64].transpose(1, 2).double()
@@ -549,11 +613,11 @@ def _dense_ct(bt, ct: torch.Tensor) -> torch.Tensor:
 def dense_tables(bt, kernel: str, tile_r: int):
     """(row units, windows (n_units, 2 TRB, depth), C^T (n_cb, 64, kd) or
     None) in float64, read back from the cached images: float32 ones as
-    hi + lo (no windows for K3p)."""
+    hi + lo (no windows for the strip kernels)."""
     g = Geom(bt.p, bt.a0.element_size())
     tab = tables(bt, kernel, tile_r)
-    ct = None if "ct" not in tab else _dense_ct(bt, tab["ct"])
-    if kernel == "hybp":
+    ct = None if "ct" not in tab else _dense_ct(bt, tab["ct"], kernel)
+    if kernel in TILE_KERNELS:
         return tile_units(bt.shape[0], tile_r), None, ct
     units = row_units(bt.shape[0], tile_r)
     if _bf16_windows(bt, kernel):
@@ -573,10 +637,10 @@ def table_twin(u: torch.Tensor, bt, kernel: str, tile_r: int,
     W, K0 the row product [ts; tm] = [A0w; B0w] U_tile then the column
     sums with A1, B1, K3/mxu, K3/mxu3 and K3/mxu3p the column sums V, W
     with A1, B1 then the transposed row product y^T = V^T A0w^T + W^T
-    B0w^T over the window's depth, K3p a tile's extended rows [0,
+    B0w^T over the window's depth, K3p and K3h a tile's extended rows [0,
     vpu_rows) by the column sums and the rest by the product with C^T
-    (``hybp_rows``), then the row sums from the padded band rows (no card
-    needed)."""
+    (``hybp_rows``; K3c: every row by the product), then the row sums from
+    the padded band rows (no card needed)."""
     p = bt.p
     n0, n1 = bt.shape
     tx = cols_of(kernel)
@@ -593,16 +657,18 @@ def table_twin(u: torch.Tensor, bt, kernel: str, tile_r: int,
     x = torch.arange(tx, device=u.device)
     k = 2 * p + 1
     taps = x.view(-1, 1) + torch.arange(k, device=u.device)
-    if kernel == "hybp":
+    if kernel in TILE_KERNELS:
         kp = hybp_kp(p, g.itemsize)
         rb = tables(bt, kernel, tile_r)["rb"].double().reshape(n0, 2, kp)
+        if kernel == "mxucol":
+            vpu_rows = 0
+        elif vpu_rows is None:
+            vpu_rows = default_vpu_rows(tile_r, p)
     for ku, (i0, rows) in enumerate(units):
         for cb in range(n_cb):
             j0 = cb * tx
-            if kernel == "hybp":
-                vf, _, _ = hybp_rows(default_vpu_rows(tile_r, p)
-                                     if vpu_rows is None else vpu_rows,
-                                     rows, p)
+            if kernel in TILE_KERNELS:
+                vf, _, _ = hybp_rows(vpu_rows, rows, p)
                 me = rows + 2 * p
                 tile = ue[i0:i0 + me, j0:j0 + g.kd]   # u rows i0 - p ..
                 cs = tile[:vf, :tx + 2 * p]

@@ -14,8 +14,9 @@ against K3 (csrc/laplace2.cu: X, K3, K3, X); K3p also with vpu_rows = 0
 anchors, each in turns against K3 at 1024^2 and 4096^2 p = 3: K3/mxu and
 K3/mxu3p (which share the stage headers tc_stage.cuh, tc_rows.cuh and
 wgmma.cuh, and K3/mxu K3/mxu3's kernel), K3f and K0 (tc_stage.cuh and
-wgmma.cuh), K3c and K3h (tc_window.cuh).  Device times by CUDA events
-(``device_ms``); a JSON line ``{"times": {...}}`` holds them (µs).
+wgmma.cuh), K3c and K3h (tc_strip.cuh, which K3p shares).  Device times
+by CUDA events (``device_ms``); a JSON line ``{"times": {...}}`` holds
+them (µs).
 
 Unless ``--times-only``, it compiles copies of laplace2_mxu.cu and
 laplace2_hybp.cu with clock stamps into the gitignored gdm_torch/_build/

@@ -5,9 +5,10 @@
 
 Times, with CUDA events (``device_ms``), the kernel gdm's dispatch picks
 at every multigrid level shape of the 1024^2 (2D, K3) and 64^3 (3D, K5)
-MG-CG solves, p = 3, float32, each in turns against the other schedule
-of its operator (K3h in 2D; K4 in 3D, whose band-sum design changed
-after K5's, so its times there moved while K5's did not), with its
+MG-CG solves, p = 3, float32, each in turns against another schedule
+of its operator (chip_smoke.py's anchors: K3s in 2D; K4 in 3D, whose
+band-sum design changed after K5's, so its times there moved while K5's
+did not), with its
 launches per CG phase and the
 kernel's device time and share per CG phase (profiler); then the matvec
 sizes: K3 at 1024^2 (p = 3, 5), 2048^2, 4096^2 in turns against K3s and

@@ -728,12 +728,17 @@ WINDOW_KERNELS = {"fullmxu": stencil2.laplace2_fullmxu_apply,
                   "mxu": stencil2.laplace2_mxu_apply,
                   "mxu3": stencil2.laplace2_mxu3_apply,
                   "mxu3p": stencil2.laplace2_mxu3p_apply,
-                  "hybp": stencil2.laplace2_hybp_apply}
+                  "hybp": stencil2.laplace2_hybp_apply,
+                  "mxucol": stencil2.laplace2_mxucol_apply,
+                  "hybrid": stencil2.laplace2_hybrid_apply}
 # the rows of the residue test's grid: more units than SMs with each
-# kernel's columns a unit (32 for K3f, K0 and K3p, 64 for K3/mxu, K3/mxu3
-# and K3/mxu3p) and its rows (K3p: whole tiles of 64 rows)
+# kernel's columns a unit (32 for K3f, K0 and the strip kernels, 64 for
+# K3/mxu, K3/mxu3 and K3/mxu3p) and its rows (K3p, K3c, K3h: whole tiles
+# of 64 rows)
 RESIDUE_ROWS = {"fullmxu": 200, "v1": 200, "mxu": 257, "mxu3": 257,
-                "mxu3p": 257, "hybp": 257}
+                "mxu3p": 257, "hybp": 257, "mxucol": 257, "hybrid": 257}
+# the strip kernels' float64 tiles that do not fit a block at p = 7
+UNFIT_F64 = {("hybp", 100), ("mxucol", 100)}
 
 
 def _window_tol(kernel, dtype):
@@ -747,10 +752,10 @@ def _window_tol(kernel, dtype):
 @pytest.mark.parametrize("n1", [1024, 1025, 1026, 1027])
 @pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
 def test_window_kernels_row_residues(cuda_device, kernel, n1, dtype):
-    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p at every residue of N1
-    mod 4 (a row's first element sits N1 i mod 4 elements past a 16-byte
-    boundary), with a ragged last row unit and more units than SMs (a
-    persistent walk)."""
+    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p, K3c and K3h at every
+    residue of N1 mod 4 (a row's first element sits N1 i mod 4 elements
+    past a 16-byte boundary), with a ragged last row unit and more units
+    than SMs (a persistent walk)."""
     grid = Grid(3, (RESIDUE_ROWS[kernel] - 1, n1 - 1), (0.0, 0.0),
                 (1.0, 2.0))
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
@@ -772,11 +777,11 @@ def test_window_kernels_row_residues(cuda_device, kernel, n1, dtype):
 @pytest.mark.parametrize("tile_r", [16, 37, 64, 100])
 @pytest.mark.parametrize("kernel", sorted(WINDOW_KERNELS))
 def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
-    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p with tiles of 16, 37,
-    64 and 100 rows (cut into row units of at most 32, window rows past a
-    unit zero; K3p's units are the tiles), four band factors, p = 7 (K0's
-    largest).  K3p's float64 tile of 100 rows does not fit a block and
-    is refused."""
+    """K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p, K3c and K3h with tiles of
+    16, 37, 64 and 100 rows (cut into row units of at most 32, window rows
+    past a unit zero; the strip kernels' units are the tiles), four band
+    factors, p = 7 (K0's largest).  The float64 tiles of 100 rows of K3p
+    and K3c do not fit a block and are refused."""
     grid = Grid(7, (150, 90), (0.0, 0.0), (1.0, 1.0))
     rng = np.random.default_rng(tile_r)
     n0, n1 = grid.nodes
@@ -785,7 +790,7 @@ def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
     u = _rand(grid.nodes, 21, dtype, cuda_device)
     if stencil2.tc_smem_bytes(kernel, 7, tile_r,
                               bt.a0.element_size()) > stencil2.SMEM_MAX:
-        assert (kernel, tile_r, dtype) == ("hybp", 100, torch.float64)
+        assert (kernel, tile_r) in UNFIT_F64 and dtype == torch.float64
         with pytest.raises(ValueError, match="shared memory"):
             WINDOW_KERNELS[kernel](u, bt, tile_r=tile_r)
         return
@@ -796,11 +801,12 @@ def test_window_kernels_tiles(cuda_device, kernel, tile_r, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("cells", [(128, 128), (512, 512)])
-@pytest.mark.parametrize("kernel", ["mxu", "mxu3", "mxu3p", "hybp"])
+@pytest.mark.parametrize("kernel", ["mxu", "mxu3", "mxu3p", "hybp", "mxucol",
+                                    "hybrid"])
 def test_row_kernels_flagship_sizes(cuda_device, kernel, cells, dtype):
-    """K3/mxu, K3/mxu3, K3/mxu3p and K3p at the split apply's flagship
-    sizes: fewer units than SMs at 129^2 nodes (a block a unit), more at
-    513^2."""
+    """K3/mxu, K3/mxu3, K3/mxu3p, K3p, K3c and K3h at the split apply's
+    flagship sizes: fewer units than SMs at 129^2 nodes (a block a unit),
+    more at 513^2."""
     grid = Grid(3, cells, (-1.21, -1.21), (1.21, 1.21))
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
     u = _rand(grid.nodes, 23, dtype, cuda_device)
@@ -852,6 +858,33 @@ def test_hybp_refuses_a_plan_off_its_layout(cuda_device, dtype):
            (plan, -1)]
     for b, vr in bad:
         with pytest.raises(RuntimeError, match="K3p"):
+            stencil2._launch_tc_plan(u, bt, b, vr)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel,what", [("mxucol", "K3c"), ("hybrid", "K3h")])
+def test_strip_kernels_refuse_a_plan_off_their_layout(cuda_device, kernel,
+                                                      what, dtype):
+    """The C entries of K3c and K3h hold the plan to their layout, as
+    K3p's: runs of tiles a strip (segs) of 0 or above the tiles, blocks
+    other than strips x segs, a tile count other than the tile's (and for
+    K3h a negative vpu_rows) raise; the plan itself runs."""
+    grid = Grid(3, (200, 100), (0.0, 0.0), (1.0, 1.0))
+    bt = stencil2.laplace2_bands(grid, cuda_device, dtype)
+    u = _rand(grid.nodes, 27, dtype, cuda_device)
+    plan = stencil2.tc_plan(kernel, bt.shape, 3, dtype, 48)
+    assert plan.segs == len(plan.row_units) == 5
+    y = stencil2._launch_tc_plan(u, bt, plan, 40)
+    assert _rel(y, stencil2.laplace2_apply_plain(u, bt)) <= _tol(dtype)
+    bad = [(dataclasses.replace(plan, segs=0, blocks=0), 40),
+           (dataclasses.replace(plan, segs=6, blocks=6 * plan.n_cb), 40),
+           (dataclasses.replace(plan, blocks=plan.blocks - 1), 40),
+           (dataclasses.replace(plan, row_units=plan.row_units[:-1],
+                                segs=4, blocks=4 * plan.n_cb), 40)]
+    if kernel == "hybrid":
+        bad.append((plan, -1))
+    for b, vr in bad:
+        with pytest.raises(RuntimeError, match=what):
             stencil2._launch_tc_plan(u, bt, b, vr)
 
 

@@ -124,12 +124,13 @@ def test_vpu_rows_clamp(name):
 
 def test_card_tile_defaults_and_limits():
     """The default tile is the largest of 64, 48, 32, 16 that fits an
-    H100 block; K3c/K3h/K3p clamp it to N0 rounded up to 8 (gdm's
-    clamp), K3f does not; a tile that does not fit raises."""
+    H100 block, K3c's 64 - 2p (one product chain of 64 extended rows a
+    tile: 34 at p = 15); K3c/K3h/K3p clamp it to N0 rounded up to 8
+    (gdm's clamp), K3f does not; a tile that does not fit raises."""
     big = Grid(15, (300, 140), (0.0, 0.0), (1.0, 1.0))
     small = Grid(3, (20, 140), (0.0, 0.0), (1.0, 1.0))
-    want = {("make_padded_laplace2_mxucol", torch.float32): 64,
-            ("make_padded_laplace2_mxucol", F64): 64,
+    want = {("make_padded_laplace2_mxucol", torch.float32): 34,
+            ("make_padded_laplace2_mxucol", F64): 34,
             ("make_padded_laplace2_fullmxu", torch.float32): 64,
             ("make_padded_laplace2_fullmxu", F64): 64,
             ("make_padded_laplace2_hybrid", F64): 64,

@@ -1,8 +1,9 @@
 """The launch plans of K5 (``stencil3.k5_plan``), K3
 (``stencil2.k3_plan``), K1 (``cutband.k1_plan``), K3s
 (``stencil2.k3s_plan``), K4 (``stencil3.k4_plan``), the window-table
-kernels K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and K3p (``tc_tables.plan``,
-which ``stencil2.tc_plan`` fills with the card's occupancy), M2
+kernels K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p, K3c and K3h
+(``tc_tables.plan``, which ``stencil2.tc_plan`` fills with the card's
+occupancy), M2
 (``mxu_micro.relayout_plan``) and M3 (``stream_overlap_micro.m3_plan``),
 on the CPU: no card is needed.
 
@@ -204,7 +205,7 @@ def test_k3_card_cases_reach_every_branch():
     assert any(p <= stencil2.K3_MAX_RS_P for _, p in plans)
 
 
-# ---- K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p (tc_tables.plan) ------------
+# ---- K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p, K3c, K3h (tc_tables.plan) --
 
 TC_KERNELS = list(tc_tables.KERNELS)
 
@@ -242,10 +243,13 @@ def _tc_default_plan(kernel, nodes, p, dtype):
 def _tc_walk(plan, block):
     """The units ``block`` takes, in order, as the kernels compute them
     (common.cuh's part): unit = k n_cb + cb for row unit k, column block
-    cb; K3p's block a run of one strip's tiles."""
+    cb; a strip kernel's block (K3p, K3c, K3h) a run of one strip's
+    tiles (``tc_tables.strip_run``: K3p's longer runs first, K3c's and
+    K3h's last)."""
     if plan.segs:
         cb, seg = divmod(block, plan.segs)
-        lo, size = _boxes(len(plan.row_units), plan.segs)[seg]
+        lo, size = tc_tables.strip_run(plan.kernel, len(plan.row_units),
+                                       plan.segs, seg)
         return [k * plan.n_cb + cb for k in range(lo, lo + size)]
     lo, size = _boxes(plan.units, plan.blocks)[block]
     return list(range(lo, lo + size))
@@ -255,12 +259,13 @@ def _tc_walk(plan, block):
 @pytest.mark.parametrize("nodes,p,dtype", TC_CASES, ids=_ids(TC_CASES))
 def test_tc_plan_covers_every_node_once(nodes, p, dtype, kernel):
     """The row units cut the rows into consecutive pieces (at most 32
-    rows inside one tile; K3p's whole tiles), the column blocks cover the
-    columns, every unit is walked once by a block that holds at least
-    one: K3f's, K0's and the row modes' blocks an even share of
-    consecutive units, min(units, one wave) of them; K3p's blocks an even
-    run of one strip's tiles, walked down the strip, strips x runs of
-    them, never more than one wave unless the strips alone are more."""
+    rows inside one tile; the strip kernels' whole tiles), the column
+    blocks cover the columns, every unit is walked once by a block that
+    holds at least one: K3f's, K0's and the row modes' blocks an even
+    share of consecutive units, min(units, one wave) of them; the strip
+    kernels' (K3p's, K3c's, K3h's) blocks an even run of one strip's
+    tiles, walked down the strip, strips x runs of them, never more than
+    one wave unless the strips alone are more."""
     if p > 7 and kernel == "v1":
         return   # K0 takes p <= 7 (tests/test_torch_laplace2_rows.py)
     tile, occ, plan = _tc_default_plan(kernel, nodes, p, dtype)
@@ -269,7 +274,7 @@ def test_tc_plan_covers_every_node_once(nodes, p, dtype, kernel):
     for s0, rows in plan.row_units:
         assert s0 == at and rows >= 1
         assert s0 // tile == (s0 + rows - 1) // tile
-        if kernel == "hybp":
+        if kernel in tc_tables.TILE_KERNELS:
             assert s0 % tile == 0 and rows == min(tile, n0 - s0)
         else:
             assert rows <= tc_tables.TRB
@@ -279,7 +284,7 @@ def test_tc_plan_covers_every_node_once(nodes, p, dtype, kernel):
     walks = [_tc_walk(plan, b) for b in range(plan.blocks)]
     assert all(walks)
     assert sorted(u for w in walks for u in w) == list(range(plan.units))
-    if kernel == "hybp":
+    if kernel in tc_tables.TILE_KERNELS:
         assert plan.blocks == plan.n_cb * plan.segs
         assert plan.blocks <= max(plan.n_cb, SM * occ)
         for w in walks:
@@ -302,6 +307,32 @@ def test_tc_plan_fewer_units_than_sms(kernel, nodes):
     assert plan.units < SM
     assert plan.blocks == plan.units
     assert all(len(_tc_walk(plan, b)) == 1 for b in range(plan.blocks))
+
+
+@pytest.mark.parametrize("kernel", tc_tables.TILE_KERNELS)
+@pytest.mark.parametrize("n_tiles,segs", [(17, 8), (18, 8), (65, 2), (71, 2),
+                                          (5, 5), (3, 1), (22, 8)])
+def test_strip_runs(kernel, n_tiles, segs):
+    """A strip's runs are consecutive, cover its tiles once and differ by
+    at most one tile; K3p's longer runs come first, K3c's and K3h's last,
+    so at 1025^2 with tiles of 64 (17 tiles, the last a single row, in 8
+    runs) their 3-tile run holds the single-row tile and K3p's does
+    not."""
+    runs = [tc_tables.strip_run(kernel, n_tiles, segs, k)
+            for k in range(segs)]
+    at = 0
+    for lo, size in runs:
+        assert lo == at and size >= 1
+        at += size
+    assert at == n_tiles
+    sizes = [size for _, size in runs]
+    assert max(sizes) - min(sizes) <= 1
+    want = sorted(sizes, reverse=kernel == "hybp")
+    assert sizes == want
+    if (n_tiles, segs) == (17, 8):
+        big = runs[sizes.index(3)]
+        assert (n_tiles - 1 in range(big[0], big[0] + 3)) == (
+            kernel != "hybp")
 
 
 def test_tc_card_cases_reach_every_branch():

@@ -1,21 +1,25 @@
-"""The tables and launch plans of K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p and
-K3p (gdm_torch.ops.tc_tables) on the CPU: no card is needed.
+"""The tables and launch plans of K3f, K0, K3/mxu, K3/mxu3, K3/mxu3p, K3p,
+K3c and K3h (gdm_torch.ops.tc_tables) on the CPU: no card is needed.
 
 The kernels (csrc/laplace2_fullmxu.cu, csrc/laplace2_v1.cu,
-csrc/laplace2_mxu.cu, csrc/laplace2_mxu3p.cu, csrc/laplace2_hybp.cu) read
-their row windows [A0w; B0w], K3f's column slices C^T and K3p's padded
-band rows from tables built once per Bands2 and row units; these tests
-hold the tables to what the kernels compute: a float64 "table twin"
-(``tc_tables.table_twin``) applies the cached tables a row unit and a
-column block at a time with torch products, in the kernels' order (K3p:
-its FMA rows and tensor rows split as ``vpu_rows`` says), and must equal
+csrc/laplace2_mxu.cu, csrc/laplace2_mxu3p.cu, csrc/laplace2_hybp.cu,
+csrc/laplace2_mxucol.cu, csrc/laplace2_hybrid.cu) read their row windows
+[A0w; B0w], K3f's column slices C^T (K3c and K3h as the wgmma B operand's
+image) and the strip kernels' padded band rows from tables built once
+per Bands2 and row units; these tests hold the tables to what the
+kernels compute: a float64 "table twin" (``tc_tables.table_twin``)
+applies the cached tables a row unit and a column block at a time with
+torch products, in the kernels' order (K3p and K3h: their FMA rows and
+tensor rows split as ``vpu_rows`` says; K3c: every row a product), and
+must equal
 K3's plain twin within 1e-12 of max|y| in float64 (the float32 tables,
 read back as hi + lo, within 1e-6 for the tf32 splits and 2^-16 for the
 bf16 split of K3/mxu3 and K3/mxu3p); the float32 splits must be the
 card's cvt.rna.tf32 and cvt.rn.bf16; the plans must cover every output
-node once, their blocks walk every unit once (K3p's down one strip).
-gdm's interpret-mode K3f, K0, rows="mxu", "mxu3" and "mxu3p" and K3p
-(float64) are the reference on a few cases (rtol 2e-12, gdm's own for
+node once, their blocks walk every unit once (the strip kernels' down one
+strip).  gdm's interpret-mode K3f, K0, rows="mxu", "mxu3" and "mxu3p",
+K3p, K3c and K3h (float64) are the reference on a few cases (rtol 2e-12,
+gdm's own for
 these products; atol 2e-10 for the row modes, as
 tests/test_torch_laplace2_rows.py holds them).
 """
@@ -35,9 +39,10 @@ from gdm_torch.ops import stencil2, tc_tables
 
 F64 = torch.float64
 KERNELS = {"fullmxu": 15, "v1": 7, "mxu": 15, "mxu3": 15, "mxu3p": 15,
-           "hybp": 15}   # largest p
+           "hybp": 15, "mxucol": 15, "hybrid": 15}   # largest p
 # the kernels whose shared memory does not grow with the tile
-WINDOW = {k: v for k, v in KERNELS.items() if k != "hybp"}
+WINDOW = {k: v for k, v in KERNELS.items()
+          if k not in tc_tables.TILE_KERNELS}
 BENCH = [(1025, 1025), (2049, 2049), (4097, 4097)]
 # the split cut apply's flagship node arrays, fewer units than SMs
 FLAGSHIP = [(129, 129), (513, 513)]
@@ -84,7 +89,7 @@ def test_plan_covers_every_node_once(kernel, nodes, tile):
         assert cols == tc_tables.COLS.get(kernel, 32)
         hits = np.zeros(nodes, np.int32)
         for s, rows in plan.row_units:
-            if kernel == "hybp":
+            if kernel in tc_tables.TILE_KERNELS:
                 assert s % tile == 0 and rows == min(tile, n0 - s)
             else:
                 assert 1 <= rows <= tc_tables.TRB
@@ -93,7 +98,7 @@ def test_plan_covers_every_node_once(kernel, nodes, tile):
                 hits[s:s + rows, cb * cols:(cb + 1) * cols] += 1
         assert (hits == 1).all()
         walked = []
-        if kernel == "hybp":
+        if kernel in tc_tables.TILE_KERNELS:
             n_tiles = len(plan.row_units)
             most = max(plan.n_cb, 132 * tc_tables.occupancy_model(smem))
             assert 1 <= plan.segs <= n_tiles
@@ -101,9 +106,9 @@ def test_plan_covers_every_node_once(kernel, nodes, tile):
             assert plan.segs == n_tiles or plan.blocks + plan.n_cb > most
             for b in range(plan.blocks):
                 cb, seg = divmod(b, plan.segs)
-                base, rem = divmod(n_tiles, plan.segs)
-                lo = seg * base + min(seg, rem)
-                ks = list(range(lo, lo + base + (seg < rem)))
+                lo, size = tc_tables.strip_run(kernel, n_tiles, plan.segs,
+                                               seg)
+                ks = list(range(lo, lo + size))
                 assert ks, "a block with no tile"
                 walked += [k * plan.n_cb + cb for k in ks]   # down strip cb
             assert sorted(walked) == list(range(plan.units))
@@ -126,8 +131,9 @@ TWIN_CASES = [(1, (20, 20), None), (3, (40, 72), None), (3, (40, 72), 64),
 
 
 def _fits(kernel, p, tile, itemsize):
-    """The tile fits a block (K3p's layout grows with the tile; the other
-    kernels' do not; the default tile fits by its choice)."""
+    """The tile fits a block (the strip kernels' layouts grow with the
+    tile; the other kernels' do not; the default tile fits by its
+    choice)."""
     return tile is None or tc_tables.smem_bytes(kernel, p, itemsize,
                                                 tile) <= tc_tables.SMEM_MAX
 
@@ -349,6 +355,88 @@ def test_hybp_table_twin_splits_rows(p, cells, tile, vr, dtype):
     assert _rel(y, want) <= (1e-12 if dtype == F64 else 1e-6)
 
 
+@pytest.mark.parametrize("p", [1, 3, 15])
+def test_strip_c_image_is_the_b_operand(p):
+    """K3c's and K3h's float32 C^T is wgmma's K-major B operand: 64 rows
+    ([V | W] columns) by KD, hi's image then lo's in the 32-byte swizzled
+    layout (every entry at one place, a row's 16-byte half whole), hi and
+    lo with their low 13 bits zero, hi + lo within 2^-21 of C^T's entries;
+    built once per Bands2 for both kernels and every tile, apart from
+    K3f's and K3p's fragment image; in float64 it is K3f's C itself."""
+    grid, bt = _bands(p, (40, 72), torch.float32, 40 + p)
+    g = tc_tables.Geom(p, 4)
+    before = tc_tables.tables.builds
+    img = tc_tables.tables(bt, "mxucol", 64)["ct"]
+    n_cb = -(-grid.nodes[1] // 32)
+    assert img.shape == (n_cb, 2 * 64 * g.kd) and img.dtype == torch.float32
+    bits = img.view(torch.int32)
+    assert ((bits & 0x1FFF) == 0).all()
+    want = tc_tables.ct_dense(bt, g.kd).double()
+    back = tc_tables._unimage32(img, 64, g.kd)
+    assert ((back - want).abs() <= 2.0**-21 * want.abs()).all()
+    assert (back != 0).sum() == (want != 0).sum()
+    hi = img.reshape(n_cb, 2, -1)[:, 0]
+    idx = tc_tables.sw32_index(64, g.kd, "cpu").reshape(-1)
+    assert sorted(idx.tolist()) == list(range(64 * g.kd))
+    assert (idx.reshape(64, g.kd // 4, 4).diff(dim=2) == 1).all()
+    assert hi[:, idx].reshape(n_cb, 64, g.kd).equal(
+        tc_tables.tf32_rna(tc_tables.ct_dense(bt, g.kd)))
+    built = tc_tables.tables.builds
+    assert built == before + 2   # the B image and the band rows
+    for kernel, tile in (("mxucol", 16), ("hybrid", 64), ("hybrid", 37)):
+        assert tc_tables.tables(bt, kernel, tile)["ct"] is img
+    assert tc_tables.tables.builds == built
+    assert tc_tables.tables(bt, "hybp", 64)["ct"] is not img
+    assert tc_tables.tables.builds == built + 1   # K3f's fragment image
+    b64 = _bands(p, (40, 72), F64, 40 + p)[1]
+    assert tc_tables.tables(b64, "hybrid", 64)["ct"] is tc_tables.tables(
+        b64, "fullmxu", 32)["ct"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("p,cells,tile", HYBP_TWIN_CASES)
+def test_k3c_table_twin_walks_the_plan(p, cells, tile, dtype):
+    """K3c's table twin walks the plan's units (whole tiles of a strip)
+    and takes every extended row of a tile by the product with its cached
+    C^T: K3's plain twin within 1e-12 of max|y| in float64, 1e-6 from the
+    float32 B image (four distinct factors, a ragged last tile)."""
+    grid, bt = _bands(p, cells, dtype, 50 + p)
+    tile = stencil2.tc_options("mxucol", bt, tile)["tile_r"]
+    size = bt.a0.element_size()
+    plan = tc_tables.plan("mxucol", grid.nodes, p, size, tile, 2, 132)
+    assert plan.row_units == tc_tables.tile_units(grid.nodes[0], tile)
+    assert tc_tables.dense_tables(bt, "mxucol", tile)[0] == plan.row_units
+    u = torch.as_tensor(np.random.default_rng(51).standard_normal(
+        grid.nodes))
+    b64 = stencil2.Bands2(bt.a0.double(), bt.a1.double(), bt.b0.double(),
+                          bt.b1.double(), p)
+    y = tc_tables.table_twin(u, bt, "mxucol", tile, 10**6)   # vpu_rows unused
+    want = stencil2.laplace2_apply_plain(u, b64)
+    assert _rel(y, want) <= (1e-12 if dtype == F64 else 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("vr", [0, 5, 13, None, 10**6])
+@pytest.mark.parametrize("p,cells,tile", HYBP_TWIN_CASES)
+def test_k3h_table_twin_splits_rows(p, cells, tile, vr, dtype):
+    """K3h's table twin, its extended rows split between the column sums
+    (FMA rows) and the product with the cached C^T B image (tensor rows)
+    as vpu_rows says, all tensor (0), split inside a 16-row block (5, 13),
+    the default and all FMA: K3's plain twin within 1e-12 of max|y| in
+    float64, 1e-6 from the float32 tables (four distinct factors, a
+    ragged last tile)."""
+    grid, bt = _bands(p, cells, dtype, 60 + p)
+    opts = stencil2.tc_options("hybrid", bt, tile, vr)
+    u = torch.as_tensor(np.random.default_rng(61).standard_normal(
+        grid.nodes))
+    b64 = stencil2.Bands2(bt.a0.double(), bt.a1.double(), bt.b0.double(),
+                          bt.b1.double(), p)
+    y = tc_tables.table_twin(u, bt, "hybrid", opts["tile_r"],
+                             opts["vpu_rows"])
+    want = stencil2.laplace2_apply_plain(u, b64)
+    assert _rel(y, want) <= (1e-12 if dtype == F64 else 1e-6)
+
+
 @pytest.mark.parametrize("p", [1, 3, 7, 15])
 def test_hybp_vpu_rows_map(p):
     """vpu_rows keeps gdm's meaning on K3p's units (whole tiles of tile_r
@@ -411,7 +499,8 @@ def test_smem_and_default_tiles():
                 assert smem <= tc_tables.SMEM_MAX
                 assert all(stencil2.tc_smem_bytes(kernel, p, t, size) == smem
                            for t in (16, 37, 64, 100))
-                assert stencil2.tc_options(kernel, bt)["tile_r"] == 64
+                assert stencil2.tc_options(kernel, bt)["tile_r"] == (
+                    64 - 2 * p if kernel == "mxucol" else 64)
 
 
 def test_hybp_smem_and_default_tiles():
@@ -422,16 +511,17 @@ def test_hybp_smem_and_default_tiles():
     barriers); the default tile is the largest of 64, 48, 32, 16 that
     fits: 64 in float32 at every degree, smaller in float64 from p = 9;
     every default fits."""
-    lay = tc_tables.hybp_layout(3, 4, 64)
+    lay = tc_tables.strip_layout("hybp", 3, 4, 64)
     assert lay["cap"] == 80
     assert lay["vw"] == 10240 and lay["land"] == 10240 + 2 * 21760
     assert lay["bands"] == lay["land"] + 3 * 14080
     assert lay["roff"] == lay["bands"] + 3 * 4096
     assert lay["total"] == lay["roff"] + 1280 + 128 + 1024 == 110720
-    assert tc_tables.hybp_layout(3, 8, 64)["bands"] == tc_tables.hybp_layout(
-        3, 8, 64)["roff"]   # float64 reads the band rows from the table
+    lay64 = tc_tables.strip_layout("hybp", 3, 8, 64)
+    assert lay64["bands"] == lay64["roff"]   # float64 reads the table
     for p in range(1, 16, 2):
-        sizes = [tc_tables.hybp_smem(p, 4, t) for t in (16, 32, 48, 64)]
+        sizes = [tc_tables.strip_smem("hybp", p, 4, t)
+                 for t in (16, 32, 48, 64)]
         assert sizes == sorted(sizes) and sizes[0] < sizes[-1]
         for dtype in (torch.float32, F64):
             bt = _bands(p, (80, 80), dtype, 0, four=False)[1]
@@ -443,6 +533,46 @@ def test_hybp_smem_and_default_tiles():
             assert all(stencil2.tc_smem_bytes("hybp", p, t, size)
                        > tc_tables.SMEM_MAX for t in bigger)
             assert tile == 64 or (dtype == F64 and p >= 9)
+
+
+def test_strip_smem_and_default_tiles():
+    """The layouts of K3c and K3h grow with the tile (tc_strip.cuh's
+    CGeom, worked by hand at p = 3, float32, tiles of 64: rnd(64, 8) + 6
+    = 70 rows a slot, rounded to 72 (float64: to whole 16-row blocks,
+    80); C^T's B image 2 x 64 x 40 floats, [V | W] slots of 72 x 72 (K3c
+    two, K3h one), two landing slots of 72 x 44, band slots of 64 x 16
+    floats (K3c three, K3h two), the landing offsets of 2 x 72, the
+    barriers); the default tile is K3h's 64 and K3c's 64 - 2p (one
+    product chain of 64 extended rows a tile) at every degree in both
+    dtypes; K3c's float64 tile of 100 rows at p = 7 does not fit a
+    block."""
+    for kernel, n_vw, n_band in (("mxucol", 2, 3), ("hybrid", 1, 2)):
+        lay = tc_tables.strip_layout(kernel, 3, 4, 64)
+        assert lay["cap"] == 72 and lay["vw"] == 2 * 64 * 40 * 4
+        assert lay["land"] == lay["vw"] + n_vw * 72 * 72 * 4
+        assert lay["bands"] == lay["land"] + 2 * 72 * 44 * 4
+        assert lay["roff"] == lay["bands"] + n_band * 64 * 16 * 4
+        assert lay["total"] == lay["roff"] + 640 + 128 + 1024
+        assert tc_tables.smem_bytes(kernel, 3, 4, 64) == lay["total"]
+        lay64 = tc_tables.strip_layout(kernel, 3, 8, 64)
+        assert lay64["cap"] == 80
+        assert lay64["bands"] == lay64["roff"]   # float64 reads the table
+        for p in range(1, 16, 2):
+            for dtype in (torch.float32, F64):
+                bt = _bands(p, (80, 80), dtype, 0, four=False)[1]
+                size = bt.a0.element_size()
+                assert stencil2.tc_options(kernel, bt)["tile_r"] == (
+                    64 - 2 * p if kernel == "mxucol" else 64)
+                sizes = [tc_tables.strip_smem(kernel, p, size, t)
+                         for t in (16, 32, 48, 64)]
+                assert sizes == sorted(sizes) and sizes[-1] <= (
+                    tc_tables.SMEM_MAX)
+    assert tc_tables.strip_layout("mxucol", 3, 4, 64)["total"] == 101376
+    assert tc_tables.strip_layout("hybrid", 3, 4, 64)["total"] == 76544
+    # K3c's default tile at p = 3, 58 rows, takes the same slots
+    assert tc_tables.strip_smem("mxucol", 3, 4, 58) == 101376
+    assert tc_tables.strip_smem("mxucol", 7, 8, 100) > tc_tables.SMEM_MAX
+    assert tc_tables.strip_smem("hybrid", 7, 8, 100) <= tc_tables.SMEM_MAX
 
 
 def _gdm(name, mod, p, cells, seed, **kw):
@@ -497,5 +627,41 @@ def test_hybp_table_twin_matches_gdm(p, cells, tile, vr):
                                  "cpu", F64)
     opts = stencil2.tc_options("hybp", bt, tile, vr)
     y = tc_tables.table_twin(torch.as_tensor(u), bt, "hybp",
+                             opts["tile_r"], opts["vpu_rows"])
+    np.testing.assert_allclose(y.numpy(), want, rtol=2e-12, atol=2e-12)
+
+
+@pytest.mark.parametrize("p,cells,tile", [(3, (40, 72), 64),
+                                          (3, (300, 140), 64),
+                                          (5, (48, 40), 64),
+                                          (3, (130, 250), 48)])
+def test_k3c_table_twin_matches_gdm(p, cells, tile):
+    """K3c's float64 table twin, at gdm's tiles, against gdm's
+    interpret-mode make_padded_laplace2_mxucol."""
+    u, want = _gdm("make_padded_laplace2_mxucol", gps2, p, cells, 20,
+                   tile_r=tile)
+    bt = stencil2.laplace2_bands(Grid(p, cells, (0.0, 0.0), (1.0, 2.0)),
+                                 "cpu", F64)
+    opts = stencil2.tc_options("mxucol", bt, tile)
+    y = tc_tables.table_twin(torch.as_tensor(u), bt, "mxucol",
+                             opts["tile_r"])
+    np.testing.assert_allclose(y.numpy(), want, rtol=2e-12, atol=2e-12)
+
+
+@pytest.mark.parametrize("p,cells,tile,vr", [(3, (40, 72), 32, 16),
+                                              (5, (48, 40), 24, 8),
+                                              (3, (300, 140), 48, 24),
+                                              (7, (300, 140), 48, 0),
+                                              (3, (300, 140), 48, 64)])
+def test_k3h_table_twin_matches_gdm(p, cells, tile, vr):
+    """K3h's float64 table twin, at gdm's tiles and vpu_rows (all tensor
+    cores, a split, all FMAs), against gdm's interpret-mode
+    make_padded_laplace2_hybrid."""
+    u, want = _gdm("make_padded_laplace2_hybrid", gps2, p, cells, 21,
+                   tile_r=tile, vpu_rows=vr)
+    bt = stencil2.laplace2_bands(Grid(p, cells, (0.0, 0.0), (1.0, 2.0)),
+                                 "cpu", F64)
+    opts = stencil2.tc_options("hybrid", bt, tile, vr)
+    y = tc_tables.table_twin(torch.as_tensor(u), bt, "hybrid",
                              opts["tile_r"], opts["vpu_rows"])
     np.testing.assert_allclose(y.numpy(), want, rtol=2e-12, atol=2e-12)
