@@ -34,7 +34,23 @@ Run from the repository root:  python3 chip_smoke.py
    the routing "resident-verified" with 0 fallbacks, and the step's
    device busy time with K2's share (profiler).  Also the cost of the
    streamed (host-synced) CG against the resident solve;
-6. K3 (2D separable Laplace) against its plain torch twin, float32, at
+6. the wave application through its public entry point,
+   gdm_torch.problems.wave.WaveProblem(make_preset("wave", d),
+   device="cuda", dtype=torch.float32).run() for d = 2 and 1 (40 cells a
+   side, p = 3, 111 steps to t = 2), the launch counts reset just before
+   each: the mass solve's routing (path, probe, fallback count), K1's
+   and K2's launches (both > 0 in 2D; none in 1D, which runs gdm's CPU
+   branch as gdm does off its 2D kernels), the run's wall time and time
+   a step, and its 112 rows against the TPU's float32 rows of
+   tests/data/tpu_wave_goldens.json in that file's scaled measure, max
+   |m - g| / max g over L2, L1, Linf: wave_1 within 3.0e-3 and wave_0
+   within 1.35e-2, twice the TPU's own deviation from the reference
+   output; then K1 on the 2D run's stiffness band (<= 1e-5 of max|y|)
+   and K2's bodies on its mass (as in phase 4) against their plain
+   versions, one app step against entry(40)'s step on the same grid by
+   wall time in turns (app, entry, entry, app), and the app step's
+   device busy time (profiler);
+7. K3 (2D separable Laplace) against its plain torch twin, float32, at
    1024^2 for p = 3 and p = 5, with four distinct band factors, and at
    2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
    per-call times, GB/s at 8 bytes per node (read u, write y), and at
@@ -45,7 +61,7 @@ Run from the repository root:  python3 chip_smoke.py
    p = 3 in float64 (<= 1e-12); then K3s once through its public
    make_padded_laplace2_stream at 4096^2, the launch counts reset just
    before: K3s's own path;
-7. the tensor-core schedules of K3's operator, K3c (column stage as a
+8. the tensor-core schedules of K3's operator, K3c (column stage as a
    window product on the tensor cores), K3f (both stages), K3h (column
    stage split by rows between FMA and tensor-core warps) and K3p (K3h
    pipelined across tiles), against K3's plain twin at 1024^2 p=3, p=5
@@ -59,7 +75,7 @@ Run from the repository root:  python3 chip_smoke.py
    only); then each once through its public make_padded_laplace2_*
    builder at 1024^2, the launch counts reset just before: its own
    kernel launched once and nothing else;
-8. K4 (3D Laplace) against its plain twin at 160^3, p = 3, the same way;
+9. K4 (3D Laplace) against its plain twin at 160^3, p = 3, the same way;
    K5 (the 3D Laplace with the plane coupling on the tensor cores)
    against its plain twin at 160^3 and 256^3, p = 3, and torch.matmul
    alone on stage 3's dense coupling at 161^3 (the yardstick for stage
@@ -74,7 +90,7 @@ Run from the repository root:  python3 chip_smoke.py
    counts reset just before each: Grid(3, (160,)*3) launches K5 and not
    K4, Grid(3, (510, 64, 64)) (N0 + 2p = 517 > 512) K4 and not K5, held
    against the plain twin;
-9. K3's tensor-core row modes K3/mxu (the row stage as a 3xTF32 window
+10. K3's tensor-core row modes K3/mxu (the row stage as a 3xTF32 window
    product), K3/mxu3 (as bf16x3) and K3/mxu3p (bf16x3 products on a
    warpgroup of their own, under the next unit's column stage), and K0
    (gdm's v1 Laplace, rows first), against K3's plain twin at 1024^2
@@ -89,7 +105,7 @@ Run from the repository root:  python3 chip_smoke.py
    counts reset before each, make_padded_laplace2(rows=r) for every r,
    best_padded_laplace with rows=None (K3) and rows="mxu3p", and K0's
    make_padded_laplace: each its own kernel once and nothing else;
-10. the split cut apply make_fast_cut_apply (the separable part on
+11. the split cut apply make_fast_cut_apply (the separable part on
    K3/mxu3p, its default, plus the correction rows) on the flagship disc
    at 128^2 and 512^2, for the mass and the stiffness: the launch counts
    reset just before one apply, K3/mxu3p launched once and nothing
@@ -99,7 +115,7 @@ Run from the repository root:  python3 chip_smoke.py
    against K1's apply of the same assembled band (the same limits); the
    number of correction rows; device and per-call times of the split
    apply (both row modes) in turns against K1;
-11. gdm's micro-benchmarks through their public builders
+12. gdm's micro-benchmarks through their public builders
    (gdm_torch.benchmarks): M1 (make_stage1_micro, all six modes at
    1024^2 p=3, p=5 and 2048^2 p=3: the column modes within 1e-6 of the
    sum of |terms| of an output, the bf16x3 row modes within 1e-5 of
@@ -129,7 +145,7 @@ Run from the repository root:  python3 chip_smoke.py
    each row of the kernels line (M1's column and row modes apart), its
    builder, mode and shape once with the counts reset: its own kernel
    once and nothing else;
-12. the 2D Poisson solve through the public entry point,
+13. the 2D Poisson solve through the public entry point,
    gdm_torch.problems.poisson.solve on Grid(3, (1024, 1024)) with
    precondition="mg", rel_tol=1e-3, float32 on the card: iterations and
    relative residual (converged, not stopped at max_iter), the same
@@ -145,19 +161,21 @@ Run from the repository root:  python3 chip_smoke.py
    problem (right-hand side 1) timed the same way; at 128^2 the float32
    card solution against the float64 CPU solution (rel_tol 1e-4:
    iterations within 1, relative difference <= 1e-3);
-13. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
+14. the 3D Poisson solve at 64^3 with precondition="mg": iterations,
    relative residual, L2 error, K5 launches (> 0; K4 none: every level
    has N0 + 2p <= 512), K5's device time and share per CG phase, the
    kernel the dispatch picks (K5) against its plain twin at every level
    shape (65^3 down to 9^3 nodes) with its launches, device time in
-   turns against K4 (K4, K5, K5, K4) and bound, as in phase 12; at 16^3 the
+   turns against K4 (K4, K5, K5, K4) and bound, as in phase 13; at 16^3 the
    float32 card solution against the float64 CPU solution as in
-   phase 12.
+   phase 13.
 
 Prints a JSON line of per-kernel results (K1, K2's shared body at
 128^2 and device body at 256^2, K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
 K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes), M2, M3, M4, M5:
-launches on the kernel's main path, max error against the plain twin,
+launches on the kernel's main path (K1 and K2 also ``wave_app_launches``,
+their launches in phase 6's 2D run), max error against the plain twin
+(K1's and K2's also over phase 6's shapes),
 device ms of the kernel and of the twin, the bound from the bytes and
 operations of the measured inputs (M1's row modes over the bf16
 tensor-core peak, M2's over the shared-memory rate), ``library_ms``:
@@ -388,7 +406,7 @@ def levels_vs_plain(sysf, dev, dtype, tag):
     worst, names, rows = 0.0, set(), []
     for lvl in mg.levels:
         g = lvl.grid
-        apply = fast.best_padded_laplace(g, dev, dtype)[0]
+        apply = fast.best_padded_laplace(g, dtype, device=dev)[0]
         u = torch.as_tensor(rng.standard_normal(g.nodes), dtype=dtype,
                             device=dev)
         yk, yp = apply(u), apply.plain(u)
@@ -543,7 +561,7 @@ def read_counts():
 
 
 def row_phase(rng, dev, g2, g4096, four):
-    """Phase 9: K3/mxu, K3/mxu3, K3/mxu3p and K0 against K3's plain
+    """Phase 10: K3/mxu, K3/mxu3, K3/mxu3p and K0 against K3's plain
     twin, timed in turns against K3, then each through its public path.
     Returns (max abs errors, device ms and K3's plain ms at 1024^2 p=3,
     launches of K3/mxu, K3/mxu3 and K0 on their paths)."""
@@ -615,16 +633,16 @@ def row_phase(rng, dev, g2, g4096, four):
     u = torch.as_tensor(rng.standard_normal(g2[3].nodes), dtype=f32,
                         device=dev)
     paths = [(f"make_padded_laplace2(rows={r!r})",
-              stencil2.make_padded_laplace2(g2[3], dev, f32, rows=r), k)
+              stencil2.make_padded_laplace2(g2[3], f32, rows=r, device=dev), k)
              for r, k in (("vpu", "laplace2"), ("mxu", "K3/mxu"),
                           ("mxu3", "K3/mxu3"), ("mxu3p", "K3/mxu3p"))]
     paths += [("best_padded_laplace(rows=None)",
-               fast.best_padded_laplace(g2[3], dev, f32), "laplace2"),
+               fast.best_padded_laplace(g2[3], f32, device=dev), "laplace2"),
               ("best_padded_laplace(rows='mxu3p')",
-               fast.best_padded_laplace(g2[3], dev, f32, rows="mxu3p"),
+               fast.best_padded_laplace(g2[3], f32, rows="mxu3p", device=dev),
                "K3/mxu3p"),
               ("make_padded_laplace (K0)",
-               stencil.make_padded_laplace(g2[3], dev, f32), "K0")]
+               stencil.make_padded_laplace(g2[3], f32, device=dev), "K0")]
     launches = {}
     for name, (apply, pad, unpad, _), want in paths:
         reset_counts()
@@ -831,8 +849,168 @@ def k2_phase(rng, dev, grid, mass, G, GT, layout):
     return out
 
 
+WAVE_GOLDENS = os.path.join(ROOT, "tests", "data", "tpu_wave_goldens.json")
+# the TPU float32 rows of the wave preset and the limit on the port's
+# float32 rows against them: twice the TPU's own deviation from the
+# reference output (max_scaled_dev_vs_golden 1.50e-3 for wave_1, 6.74e-3
+# for wave_0)
+WAVE_CASES = {2: ("wave_1", 3.0e-3), 1: ("wave_0", 1.35e-2)}
+
+
+def golden_dev(rows, case):
+    """max |m - g| / max g over L2, L1 and Linf (the measure of
+    tests/test_tpu_goldens_artifact.py) of the rows against the TPU's
+    rows of ``case``; the counters equal and the times within 5e-6."""
+    with open(WAVE_GOLDENS) as f:
+        golden = json.load(f)["cases"][case]["rows"]
+    check(len(rows) == len(golden),
+          f"{case}: {len(rows)} rows against {len(golden)}")
+    for r, g in zip(rows, golden):
+        check(r[0] == g[0] and abs(r[1] - g[1]) <= 5e-6,
+              f"{case}: row {r[:2]} against {g[:2]}")
+    m = np.array([r[2:5] for r in rows])
+    g = np.array([r[2:5] for r in golden])
+    check(bool(np.isfinite(m).all()), f"{case}: rows not finite")
+    return float((np.abs(m - g) / g.max(axis=0)).max())
+
+
+def wave_phase(rng, dev):
+    """Phase 6: the wave application through its public entry point,
+    WaveProblem(make_preset("wave", d), device="cuda", dtype=float32)
+    .run(), 2D then 1D, each with the launch counts reset just before:
+    the routing of the mass solve, K1's and K2's launches (both > 0 in
+    2D, none in 1D, where gdm's CPU branch runs as gdm's 1D does), the
+    run's wall time and time a step, the rows against the TPU's rows.
+    Then K1 and K2 at the 2D run's own shapes against their plain
+    versions, the app step's device work (profiler), and one app step
+    against entry(40)'s step on the same grid, in turns.  Returns
+    (K1 launches, K2 launches, K1 max abs error, K2 max abs error)."""
+    import torch
+
+    import gdm_torch
+    from gdm_torch.cut.fsai import fsai_factors
+    from gdm_torch.cut.stencil import assemble_stencil
+    from gdm_torch.ops import cutband, resident
+    from gdm_torch.problems import wave
+
+    f32 = torch.float32
+    out = {}
+    for dim in (2, 1):
+        case, limit = WAVE_CASES[dim]
+        t0 = time.perf_counter()
+        prob = wave.WaveProblem(wave.make_preset("wave", dim), verbose=False,
+                                device="cuda", dtype=f32)
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = prob.run()[0]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        steps = len(rows) - 1
+        ms_ = prob.mass_solver
+        routing = ({"path": ms_.path, "probe": ms_.probe,
+                    "fallback_count": ms_.fallback_count}
+                   if dim == 2 else "Jacobi CG (gdm's CPU branch)")
+        used = {k: n for k, n in counts.items() if n}
+        print(f"wave {dim}D (40 cells a side, p = 3, {steps} steps, "
+              f"float32): geometry and tables {setup_s:.2f} s; mass solve "
+              f"routing {routing}")
+        print(f"wave {dim}D: run {run_s:.3f} s, {run_s / steps * 1e3:.2f} ms "
+              f"a step (4 RHS + 4 mass solves + 1 error row); launches "
+              f"{used}")
+        dg = golden_dev(rows, case)
+        print(f"wave {dim}D: {len(rows)} rows against {case}'s TPU rows: "
+              f"max scaled deviation {dg:.3e} (limit {limit:.2e}); last "
+              f"row {rows[-1]}")
+        check(dg <= limit, f"wave {dim}D rows deviate {dg:.3e} from {case}")
+        final = prob.final_solution
+        check(final.shape == (prob.grid.n_nodes,)
+              and bool(torch.isfinite(final).all()),
+              f"wave {dim}D: final state")
+        if dim == 1:
+            check(not used, f"wave 1D launched kernels: {used}")
+            continue
+        check(counts["cutband"] > 0, "K1 never launched on the wave app")
+        check(counts["resident"] > 0, "K2 never launched on the wave app")
+        out["launches"] = (counts["cutband"], counts["resident"])
+        out["prob"] = prob
+
+    # K1 and K2 at the 2D run's shapes against their plain versions
+    prob = out["prob"]
+    pp, op = prob.params, prob.op_in
+    S = assemble_stencil(op, "stiff", pp.ghost_parameter_A,
+                         pp.nitsche_parameter, with_nitsche=True, gp_power=1,
+                         inactive_identity=False)
+    lay = cutband.layout_for(prob.grid, S.radius)
+    bp = cutband.band_planes(S, lay, dev, f32)
+    u = lay.pad(torch.as_tensor(rng.standard_normal(prob.grid.n_nodes),
+                                dtype=f32, device=dev))
+    yk, yp = cutband.band_apply(u, bp), cutband.band_apply_plain(u, bp)
+    k1_err = (yk - yp).abs().max().item()
+    rel = k1_err / yp.abs().max().item()
+    cells = lay.rows * lay.pitch
+    bnd = bound(4 * (bp.planes.numel() + 2 * cells), 2 * len(bp.taps) * cells)
+    ms = device_ms(lambda: cutband.band_apply(u, bp))
+    pms = device_ms(lambda: cutband.band_apply_plain(u, bp))
+    print(f"K1 on the wave app's 41^2 stiffness band ({len(bp.taps)} taps, "
+          f"layout {lay.shape}): max abs err {k1_err:.3e} (rel {rel:.3e} of "
+          f"max|y|, limit 1e-5); device time {ms * 1e3:.2f} us, plain "
+          f"{pms * 1e3:.2f} us, bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+    check(rel <= 1e-5, f"K1 at 41^2: max error {rel:.3e} of max|y|")
+    mass = assemble_stencil(op, "mass", pp.ghost_parameter_M)
+    G, GT = fsai_factors(mass)
+    mlay = prob.mass_solver.layout
+    A, Gp, GTp = (cutband.band_planes(s, mlay, dev, f32)
+                  for s in (mass, G, GT))
+    b = mlay.pad(torch.as_tensor(rng.standard_normal(prob.grid.n_nodes),
+                                 dtype=f32, device=dev))
+    args = (A, Gp, GTp, pp.solver_max_iterations, 1e-6, 1e-12)
+    x0 = torch.zeros_like(b)
+    k2_err = k2_solves(b, x0, args, resident.BODIES,
+                       "41^2 wave-app mass float32")
+    its = resident.read_stats(resident.resident_cg(b, x0, *args)[1])[
+        "iterations"]
+    n_taps = len(A.taps) + len(Gp.taps) + len(GTp.taps)
+    cells = mlay.rows * mlay.pitch
+    bnd = bound(4 * (n_taps + 3) * cells, its * (2 * n_taps + 10) * cells)
+    ms = device_ms(lambda: resident.resident_cg(b, x0, *args))
+    pms = profiled_ms(lambda: resident.resident_cg_plain(b, x0, *args), n=3)
+    print(f"K2 on the wave app's 41^2 mass (rel 1e-6, {its} iterations): "
+          f"device time {ms * 1e3:.2f} us, plain {pms * 1e3:.1f} us, bound "
+          f"{bnd[0] * 1e3:.2f} us ({bnd[1]})")
+
+    # one app step against entry(40)'s step, in turns, and its device work
+    step, (u0, v0), dt = prob.explicit_step(heat=False)
+    estep, (te, dte, ue, ve) = gdm_torch.entry(40, device="cuda", dtype=f32)
+    check(abs(dte - dt) <= 1e-12 and ue.shape == u0.shape,
+          "entry(40) is not the wave preset's grid and step")
+    def app():
+        return step(0.0, dt, (u0, v0))
+
+    def flagship():
+        return estep(0.0, dte, ue, ve)
+
+    # wall time with a synchronise (both steps wait on the device), median
+    # of 10 steps each, in turns: app, entry, entry, app
+    a1, e1, e2, a2 = (wall_ms(f, n=10, warmup=2)[0]
+                      for f in (app, flagship, flagship, app))
+    app_ms, entry_ms = (a1 + a2) / 2, (e1 + e2) / 2
+    busy, n_dev, top = device_breakdown(app, top=5)
+    print(f"wave app step against entry(40)'s step, wall ms in turns: app "
+          f"{a1:.3f}, entry {e1:.3f}, entry {e2:.3f}, app {a2:.3f} (ratio "
+          f"{app_ms / entry_ms:.2f}); app step device busy {busy:.4f} ms "
+          f"over {n_dev:.0f} device items, idle share "
+          f"{1 - busy / app_ms:.3f}; entry(40) routing "
+          f"{estep.mass_solver.path!r}")
+    for name, ms, cnt in top:
+        print(f"    {ms * 1e3:9.1f} us  x{cnt:5.1f}  {name[:90]}")
+    return (*out["launches"], k1_err, k2_err)
+
+
 def split_phase(rng, dev, sizes):
-    """Phase 10: the split cut apply on the flagship disc.  Its separable
+    """Phase 11: the split cut apply on the flagship disc.  Its separable
     part (K3/mxu3p, its default, and K3 with rows="vpu") against that
     apply's plain twin on the same node array; the whole split apply
     against K1's apply of the same assembled band.  Returns (K3/mxu3p's
@@ -855,11 +1033,12 @@ def split_phase(rng, dev, sizes):
             pairs = fastapply.kron_pairs(grid, kind)
             ident = kind == "mass"   # the flagship stiffness has zero rows
             t0 = time.perf_counter()
-            split = fastapply.make_fast_cut_apply(st, op, pairs, dev, f32,
+            split = fastapply.make_fast_cut_apply(st, op, pairs, dtype=f32,
                                                   inactive_identity=ident)
             split_s = time.perf_counter() - t0
             split_vpu = fastapply.make_fast_cut_apply(
-                st, op, pairs, dev, f32, rows="vpu", inactive_identity=ident)
+                st, op, pairs, dtype=f32, rows="vpu",
+                inactive_identity=ident, device=dev)
             k1 = fastapply.fast_stencil_apply(st, device=dev, dtype=f32)
             check(split.separable.kernel is stencil2.laplace2_mxu3p_apply,
                   "make_fast_cut_apply's default is not K3/mxu3p")
@@ -1024,7 +1203,7 @@ def mxu_micro_plain_rows(u, tables, g, mode="rowsonly"):
 
 
 def micro_phase(rng, dev):
-    """Phase 11: gdm's micro-benchmarks M1-M5 through their public
+    """Phase 12: gdm's micro-benchmarks M1-M5 through their public
     builders, each mode held against its plain twin and timed, gdm's
     derived rows printed; then each kernels row's builder, mode and
     shape once with the counts reset.
@@ -1060,7 +1239,7 @@ def micro_phase(rng, dev):
     # ---- M1: the column stage alone, the bf16x3 row product alone -------
     for n, p in ((1024, 3), (1024, 5), (2048, 3)):
         grid = Grid(p, (n, n), (0.0, 0.0), (1.0, 1.0))
-        aps = {m: mxu_micro.make_stage1_micro(grid, m, dev)[0]
+        aps = {m: mxu_micro.make_stage1_micro(grid, m, device=dev)[0]
                for m in mxu_micro.MODES}
         g = aps["full"].geom
         u = rand(g.shape)
@@ -1300,8 +1479,10 @@ def micro_phase(rng, dev):
     # just before: M1's column and row kernels at 1024^2 p=3, M2 at
     # (512, 128) float32, M3, M4 and M5 at 4096^2, as their rows report
     grid = Grid(3, (1024, 1024), (0.0, 0.0), (1.0, 1.0))
-    runs = {"M1 columns": mxu_micro.make_stage1_micro(grid, "full", dev),
-            "M1 rows": mxu_micro.make_stage1_micro(grid, "rowsonly", dev),
+    runs = {"M1 columns": mxu_micro.make_stage1_micro(grid, "full",
+                                                      device=dev),
+            "M1 rows": mxu_micro.make_stage1_micro(grid, "rowsonly",
+                                                   device=dev),
             "M3": som.make_micro("both", 4096, 4096, device=dev)[:2],
             "M4": som.make_auto_micro("dma", 4096, 4096, device=dev)[:2],
             "M5": som.make_sepbuf_micro("dma", 4096, 4096, device=dev)[:2]}
@@ -1647,7 +1828,7 @@ def main():
                                     device=dev))
     _, info_s = ms_.streamed(bs)
     s_ms = call_ms(lambda: ms_.streamed(bs), n=10, warmup=2)
-    r_ms = call_ms(lambda: ms_.solve_with_info(bs), n=10, warmup=2)
+    r_ms = call_ms(lambda: ms_.solve_padded_with_info(bs), n=10, warmup=2)
     print(f"streamed CG: {info_s['iterations']} iterations, {s_ms:.3f} ms "
           f"({s_ms * 1e3 / max(info_s['iterations'], 1):.1f} us/iteration); "
           f"verified solve on the taken path: {r_ms:.3f} ms")
@@ -1663,6 +1844,9 @@ def main():
     print(f"state after 3 steps vs cpu float64: u {du:.3e}, v {dv:.3e} "
           f"(cpu routing {stepc.mass_solver.path!r})")
     check(du <= 1e-4 and dv <= 1e-4, "state disagrees with the reference")
+
+    # ---- the wave application through its public entry point -------------
+    wave_k1, wave_k2, wave_k1_err, wave_k2_err = wave_phase(rng, dev)
 
     # ---- K3 and K3s against K3's plain twin -------------------------------
     if torch.backends.cuda.matmul.allow_tf32:
@@ -1722,8 +1906,8 @@ def main():
     del u, bt
     # K3s through its public entry point: no solve routes to it, so this
     # is its path
-    apply, pad, unpad, _ = stencil2.make_padded_laplace2_stream(g4096, dev,
-                                                                f32)
+    apply, pad, unpad, _ = stencil2.make_padded_laplace2_stream(g4096, f32,
+                                                                device=dev)
     u = torch.as_tensor(rng.standard_normal(g4096.nodes), dtype=f32,
                         device=dev)
     reset_counts()
@@ -1794,7 +1978,7 @@ def main():
     tc_launches = {}
     for kname, (builder, _) in TC_BUILDERS.items():
         make = getattr(stencil2, f"make_padded_laplace2_{builder}")
-        apply, pad, unpad, _ = make(g2[3], dev, f32)
+        apply, pad, unpad, _ = make(g2[3], f32, device=dev)
         reset_counts()
         y = unpad(apply(pad(u)))
         torch.cuda.synchronize()
@@ -1893,7 +2077,7 @@ def main():
     for cells, want, other in (((160, 160, 160), "laplace3_mxu", "laplace3"),
                                ((510, 64, 64), "laplace3", "laplace3_mxu")):
         gd = Grid(3, cells, (0.0,) * 3, (1.0,) * 3)
-        apply = fast.laplace_apply_fn(gd, dev, f32)
+        apply = fast.laplace_apply_fn(gd, f32, device=dev)
         u = torch.as_tensor(rng.standard_normal(gd.nodes), dtype=f32,
                             device=dev)
         reset_counts()
@@ -1938,13 +2122,15 @@ def main():
 
     k1_at = k1_ms.index(max(k1_ms))
     print(json.dumps({"kernels": [
-        row("cutband_apply (K1)", "gdm_torch/csrc/cutband.cu",
-            "gdm/ops/pallas_cutband.py:137", launches["cutband"], k1_err,
-            k1_ms[k1_at], k1_plain_ms[k1_at], k1_bound[k1_at],
-            k1_lib[k1_at]),
-        row("resident_cg (K2, shared body)", "gdm_torch/csrc/resident.cu",
-            "gdm/ops/pallas_resident.py:197", launches["resident shared"],
-            *k2["shared"]),
+        {**row("cutband_apply (K1)", "gdm_torch/csrc/cutband.cu",
+               "gdm/ops/pallas_cutband.py:137", launches["cutband"],
+               max(k1_err, wave_k1_err), k1_ms[k1_at], k1_plain_ms[k1_at],
+               k1_bound[k1_at], k1_lib[k1_at]),
+         "wave_app_launches": wave_k1},
+        {**row("resident_cg (K2, shared body)", "gdm_torch/csrc/resident.cu",
+               "gdm/ops/pallas_resident.py:197", launches["resident shared"],
+               max(k2["shared"][0], wave_k2_err), *k2["shared"][1:]),
+         "wave_app_launches": wave_k2},
         row("resident_cg (K2, device body, 256^2)",
             "gdm_torch/csrc/resident.cu", "gdm/ops/pallas_resident.py:197",
             k2["device"][4], *k2["device"][:4]),

@@ -12,11 +12,15 @@ RK4 step of the 2D cut wave equation (see gdm_torch/entry.py).
 ``gdm_torch.problems.poisson.solve(grid, rhs_fn, precondition=...,
 device=..., dtype=...)`` runs the uncut Poisson solve with Jacobi- or
 multigrid-preconditioned CG in 2D and 3D (see gdm_torch/problems/).
-Both run on the card unless the caller passes ``device="cpu"``.
+``gdm_torch.problems.wave.WaveProblem(make_preset(name, dim),
+device=..., dtype=...).run()`` runs the cut wave application's explicit
+RK4 loops (the ``wave`` and ``heat-rk`` presets, 1D and 2D) and returns
+the reference's error rows.  All run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from . import problems  # noqa: F401
 from .entry import entry  # noqa: F401
-from .problems import poisson  # noqa: F401
+from .problems import poisson, wave  # noqa: F401
 
 __version__ = "0.1.0"

@@ -254,14 +254,17 @@ def _launch_row_plan(u: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
     return y
 
 
-def make_stage1_micro(grid: Grid, mode: str, device="cuda",
-                      dtype=torch.float32, tile_r: int = 256):
+def make_stage1_micro(grid: Grid, mode: str, dtype=torch.float32,
+                      tile_r: int = 256, interpret=False, *, device="cuda"):
     """(apply, shape) of M1 in mode ``mode`` over gdm's padded layout of
-    ``grid`` (shape (R_ext, W2)), as gdm's make_stage1_micro; the card
-    unless ``device="cpu"`` is asked for.  float32 only, as gdm ran it.
-    ``apply.geom`` is the layout and ``apply.tables`` the two tables."""
+    ``grid`` (shape (R_ext, W2)), as gdm's make_stage1_micro, in gdm's
+    positional order; the card unless ``device="cpu"`` is asked for.
+    float32 only, as gdm ran it.  ``interpret`` (gdm's TPU interpreter)
+    is taken and has no effect.  ``apply.geom`` is the layout and
+    ``apply.tables`` the two tables."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    dtype = _device.resolve_dtype(dtype)
     if dtype != torch.float32:
         raise ValueError(f"M1 runs in float32, as gdm ran it, not {dtype}")
     device = _device.resolve(device)
@@ -291,7 +294,8 @@ def roll_ceiling(n: int = 1024, p: int = 3, tile_r: int = 256,
     k = 2 * p + 1
     out = {"n": n, "p": p, "K": k}
     for mode in MODES:
-        ap, shape = make_stage1_micro(grid, mode, device, tile_r=tile_r)
+        ap, shape = make_stage1_micro(grid, mode, tile_r=tile_r,
+                                      device=device)
         u = torch.ones(shape, dtype=torch.float32, device=device)
         out[f"stage1_{mode}_us_per_mdof"] = (
             device_ms(lambda: ap(u)) * 1e-3 / ndof * 1e12)
@@ -302,9 +306,10 @@ def roll_ceiling(n: int = 1024, p: int = 3, tile_r: int = 256,
         out["stage1_norolls_us_per_mdof"] / (2 * k))
     for name, factory in (
             ("mxu3p", lambda: make_padded_laplace2(
-                grid, device, torch.float32, tile_r=64, rows="mxu3p")),
+                grid, torch.float32, tile_r=64, rows="mxu3p",
+                device=device)),
             ("mxucol", lambda: make_padded_laplace2_mxucol(
-                grid, device, torch.float32))):
+                grid, torch.float32, device=device))):
         ap, pad, unpad, _ = factory()
         u = pad(torch.ones(grid.nodes, dtype=torch.float32, device=device))
         dt = device_ms(lambda: ap(u)) * 1e-3

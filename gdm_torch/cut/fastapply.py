@@ -27,8 +27,9 @@ found geometrically on the host (``_standard_mask``), as a torch gather,
 einsum and ``index_add_``.  The correction values are the assembled row
 minus the separable row, so the split is exact to roundoff.  The K3
 wrappers launch the kernel for a CUDA tensor and run the plain twin for
-a CPU tensor; there is no other switch (gdm's ``use_pallas``,
-``interpret`` and ``GDM_DISABLE_PALLAS`` have no counterpart).
+a CPU tensor; there is no other switch (gdm's ``use_pallas`` and
+``interpret`` are taken and change nothing, ``use_pallas="never"``
+raises, and ``GDM_DISABLE_PALLAS`` has no counterpart).
 """
 
 from __future__ import annotations
@@ -87,8 +88,9 @@ def _standard_mask(op: CutOperators) -> np.ndarray:
 
 
 def make_fast_cut_apply(st: StencilOperator, op: CutOperators, pairs,
-                        device="cuda", dtype=torch.float32, tile_r=None,
-                        rows: str = "mxu3p", inactive_identity: bool = True):
+                        use_pallas="auto", dtype=None, interpret=False,
+                        tile_r=None, rows: str = "mxu3p",
+                        inactive_identity: bool = True, *, device="cuda"):
     """Flat-vector apply equal to ``st.apply`` (to roundoff), built as the
     separable Kronecker part on K3 plus O(interface) correction rows, on
     ``device`` (the card unless ``device="cpu"`` is asked for).
@@ -100,8 +102,15 @@ def make_fast_cut_apply(st: StencilOperator, op: CutOperators, pairs,
     RHS stiffness assembled with inactive_identity=False).  The apply's
     ``separable`` attribute is K3's apply, ``n_corrections`` the number
     of correction rows.
+
+    The parameters stand in gdm's positional order, ``device`` by
+    keyword after them.  ``use_pallas`` as in ``device.take_use_pallas``;
+    ``interpret`` is taken and has no effect; ``dtype=None`` is float32
+    (gdm's float width without x64).
     """
+    _device.take_use_pallas(use_pallas)
     device = _device.resolve(device)
+    dtype = torch.float32 if dtype is None else _device.resolve_dtype(dtype)
     grid = st.grid
     if grid.dim != 2:
         raise ValueError(f"the split cut apply is 2D; the grid is "
@@ -142,8 +151,8 @@ def make_fast_cut_apply(st: StencilOperator, op: CutOperators, pairs,
     b0, b1 = pairs[1] if len(pairs) > 1 else (np.zeros_like(a0),
                                               np.zeros_like(a1))
     sep_apply, pad, unpad, _ = make_padded_laplace2(
-        grid, device, dtype, tile_r=tile_r, rows=rows,
-        bands=(a0, a1, b0, b1))
+        grid, dtype, tile_r=tile_r, rows=rows, bands=(a0, a1, b0, b1),
+        device=device)
 
     def apply(u_flat: torch.Tensor) -> torch.Tensor:
         y = unpad(sep_apply(pad(u_flat.reshape(N0, N1)))).reshape(-1)
@@ -176,7 +185,8 @@ def fast_stencil_apply(st: StencilOperator, op=None, kind: str = None,
     device = _device.resolve(device)
     if st.grid.dim != 2:
         return None
-    apply_padded, pad, unpad, _ = make_padded_stencil2(st, device, dtype)
+    apply_padded, pad, unpad, _ = make_padded_stencil2(st, dtype,
+                                                       device=device)
 
     def apply(u_flat: torch.Tensor) -> torch.Tensor:
         return unpad(apply_padded(pad(u_flat)))
@@ -190,6 +200,6 @@ def fast_stencil_bundle(st: StencilOperator, device="cuda",
     takes a flat node vector, unpad returns one.  Guard zeros contribute
     nothing to CG dot products and the layout is closed under the
     apply."""
-    apply_padded, pad, unpad, _ = make_padded_stencil2(st, device, dtype,
-                                                       layout)
+    apply_padded, pad, unpad, _ = make_padded_stencil2(
+        st, dtype, device=device, layout=layout)
     return apply_padded, pad, unpad

@@ -157,11 +157,14 @@ def fsai_preconditioner(st: StencilOperator, R: int = None):
 
 
 class VerifiedSolver:
-    """Self-verifying solve callable for an SPD band system, on the
-    padded layout ``layout``.
+    """Self-verifying solve callable for an SPD band system.
 
-    ``solve(b) -> x`` / ``solve_with_info(b) -> (x, info)`` where info
-    carries ``iterations`` (fast-path CG count), ``residual`` (TRUE
+    As in gdm, ``solve(b) -> x`` and ``solve_with_info(b) -> (x, info)``
+    take and return the flat node vector.  ``solve_padded(b_pad)`` and
+    ``solve_padded_with_info(b_pad)`` take and return arrays in the
+    kernels' padded ``layout``, so that a solver loop or an RK state
+    kept in that layout (``entry()``) pays no pad and unpad per solve.
+    info carries ``iterations`` (fast-path CG count), ``residual`` (TRUE
     residual norm of the fast path, not the recurrence), ``fallback``
     (the check rejected the fast solve and the answer came from the
     streamed path) and ``fallback_iterations``, as Python numbers: each
@@ -172,7 +175,7 @@ class VerifiedSolver:
     otherwise), ``probe`` the probe evidence, ``fallback_count`` how
     many solves the per-solve check sent to the streamed path and
     ``last_info`` the info of the latest solve.  ``streamed`` is the
-    streamed path's own solve_with_info.
+    streamed path's own solve_with_info on the padded layout.
     """
 
     def __init__(self, path: str, probe: dict, layout, streamed,
@@ -189,7 +192,7 @@ class VerifiedSolver:
         self._abs_tol = abs_tol
         self._slack = slack
 
-    def solve_with_info(self, b):
+    def solve_padded_with_info(self, b):
         if self._resident is None:
             x, info = self.streamed(b)
             self.last_info = {"iterations": info["iterations"],
@@ -213,6 +216,13 @@ class VerifiedSolver:
                           "residual": s["residual"], "fallback": bad,
                           "fallback_iterations": it_fb}
         return x, self.last_info
+
+    def solve_padded(self, b):
+        return self.solve_padded_with_info(b)[0]
+
+    def solve_with_info(self, b):
+        x, info = self.solve_padded_with_info(self.layout.pad(b))
+        return self.layout.unpad(x), info
 
     def __call__(self, b):
         return self.solve_with_info(b)[0]
@@ -275,8 +285,8 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
     vector, run on the layout through its pad and unpad (the resident
     path stays on the band).  ``interpret`` names gdm's TPU interpreter
     and has no effect.  ``resident_max_iter`` cripples the resident path
-    (detection tests).  Solves take and return arrays in the solver's
-    ``layout``.
+    (detection tests).  Solves take and return flat node vectors, as
+    gdm's do; ``solve_padded`` works in the solver's ``layout``.
     """
     device = _device.resolve(device)
     rel_f = max(rel_tol, 1e-6)

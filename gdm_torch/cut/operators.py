@@ -1,13 +1,14 @@
 """Cut-cell (CutFEM) operator tables and the matrix-free right-hand side.
 
 Port of gdm/cut/operators.py.  The constructor's host tables (numpy,
-verbatim) feed the band assembly in gdm_torch.cut.stencil; the one
-device-side operation the flagship path needs, ``compute_rhs``, is
-torch (gather -> einsum -> index_add_) on the device of its input.
-gdm's matrix-free ``mass_apply``/``stiffness_matrix_apply``/
-``error_norms`` are not ported yet (ROADMAP Queue 1, item 4), and the
-deformed-grid constructor argument ``mapping_fn`` raises until
-``deform.py`` is ported (ROADMAP Queue 1, item 10).
+verbatim) feed the band assembly in gdm_torch.cut.stencil.  The
+device-side operations of the wave application, ``compute_rhs``,
+``mass_apply`` (with ``cell_matvec``) and ``error_norms``, are torch
+(gather -> einsum -> index_add_) on the device of their input, with the
+host tables moved there once per (device, dtype) and cached.  gdm's
+matrix-free ``stiffness_matrix_apply`` waits for the implicit heat
+solve, and the deformed-grid constructor argument ``mapping_fn`` raises
+until gdm/deform.py is ported.
 
 Operators of the reference wave application:
 
@@ -33,6 +34,8 @@ Geometry tables are precomputed host-side by gdm_torch.cut.geometry.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -118,9 +121,15 @@ def _like(a, u):
     return torch.as_tensor(a, dtype=u.dtype, device=u.device)
 
 
-def _index(a, u):
-    """Host index array as an int64 tensor on u's device."""
-    return torch.as_tensor(np.asarray(a, np.int64), device=u.device)
+def _to_device(a: np.ndarray, device, dtype) -> torch.Tensor:
+    """A host table as a tensor on ``device`` (one host-to-device copy)."""
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
+# host tables that are indices (int64 on the device) or masks (bool)
+_INDEX_TABLES = ("w_full", "w_cut", "gp_win", "b_win", "cat_full")
+_MASK_TABLES = ("inactive",)
 
 
 class CutOperators:
@@ -128,7 +137,12 @@ class CutOperators:
 
     ``mapping_fn``/``geometry`` keep gdm's signature; a deformation
     (``mapping_fn`` not None) raises NotImplementedError until
-    gdm/deform.py is ported, so ``geometry`` is unused.
+    gdm/deform.py is ported, so ``geometry`` is unused and ``w_q_cell``
+    (gdm's per-cell full-cell JxW of a deformed run) is None.
+
+    The device-side methods read the host tables through ``table``,
+    which moves each to the device once per (device, dtype) and keeps
+    it, as ``StencilOperator.band_tensor`` does for the band.
     """
 
     def __init__(self, geo: CutGeometry, location: int = INSIDE, nq: int = None,
@@ -138,8 +152,10 @@ class CutOperators:
         if mapping_fn is not None:
             raise NotImplementedError(
                 "deformed cut operators (mapping_fn) are not ported yet: "
-                "ROADMAP Queue 1, item 10 (deformation)")
+                "they wait for gdm/deform.py")
         self.grid = grid
+        self.w_q_cell = None  # per-cell full-cell JxW (deformed runs only)
+        self._tables = {}
         self.geo = geo
         self.location = location
         p = grid.degree
@@ -417,20 +433,71 @@ class CutOperators:
             self.b_win = np.zeros((0, m), dtype=np.int32)
 
     # ------------------------------------------------------------------
-    # device-side right-hand side: u is the C-order flat node vector
-    # (N,); every table is moved to u's device and dtype per call (the
-    # flagship path calls this once, at setup)
+    # device-side applies: u is the C-order flat node vector (N,); the
+    # host tables come from ``table``, cached per (device, dtype)
     # ------------------------------------------------------------------
+    def _host_table(self, name: str) -> np.ndarray:
+        if name == "A_mass_full":
+            return self.A_mass[self.cat_full]
+        if name == "A_stiff_full":
+            return self.A_stiff[self.cat_full]
+        if name == "V_full":
+            return self.V_full_cat[self.cat_full]
+        return getattr(self, name)
+
+    def table(self, name: str, u: torch.Tensor) -> torch.Tensor:
+        """Host table ``name`` on u's device: int64 for an index table,
+        bool for the inactive mask, else in u's dtype.  Moved there on
+        the first request and cached, so the app's RHS (four calls a
+        step) moves no host table after its first stage.  Besides the
+        constructor's tables, ``"A_mass_full"``, ``"A_stiff_full"`` and
+        ``"V_full"`` are the full cells' gathered local matrices and
+        basis values."""
+        if name in _INDEX_TABLES:
+            dtype = torch.int64
+        elif name in _MASK_TABLES:
+            dtype = torch.bool
+        else:
+            dtype = u.dtype
+        key = (name, u.device, dtype)
+        t = self._tables.get(key)
+        if t is None:
+            t = _to_device(self._host_table(name), u.device, dtype)
+            self._tables[key] = t
+        return t
+
     @staticmethod
     def _scatter(y, win, vals):
-        # in place: y is the accumulator compute_rhs allocated
+        # in place: y is the accumulator its caller allocated
         return y.index_add_(0, win.reshape(-1), vals.reshape(-1))
+
+    def cell_matvec(self, u, windows, mats):
+        """Per-cell local products mats[n] @ u[windows[n]] (n, m)."""
+        return torch.einsum("nij,nj->ni", mats, u[windows])
+
+    def mass_apply(self, u, gamma_M: float, gp_power: int = 3):
+        """y = M_cut u (cell mass over the subdomain + ghost penalty +
+        inactive identity)."""
+        y = torch.zeros_like(u)
+        if len(self.full_ids):
+            win = self.table("w_full", u)
+            y = self._scatter(y, win, self.cell_matvec(
+                u, win, self.table("A_mass_full", u)))
+        if len(self.cut_ids):
+            V = self.table("V_cut", u)
+            win = self.table("w_cut", u)
+            uq = torch.einsum("nqi,ni->nq", V, u[win])
+            y = self._scatter(y, win, torch.einsum(
+                "nqi,nq,nq->ni", V, uq, self.table("vol_w", u)))
+        y = self._gp_apply(y, u, gamma_M * self.h_min**gp_power)
+        return y + torch.where(self.table("inactive", u), u, 0.0)
 
     def _gp_apply(self, y, u, scale):
         if len(self.gp_win) == 0 or scale == 0.0:
             return y
-        win = _index(self.gp_win, u)
-        vw = scale * torch.einsum("fab,fb->fa", _like(self.gp_mat, u), u[win])
+        win = self.table("gp_win", u)
+        vw = scale * torch.einsum("fab,fb->fa", self.table("gp_mat", u),
+                                  u[win])
         return self._scatter(y, win, vw)
 
     def compute_rhs(self, u, t, impl: bool, rhs_fn=None, interface_dbc=None,
@@ -446,40 +513,37 @@ class CutOperators:
         if impl:
             # -(grad v, grad u) on full + cut cells
             if len(self.full_ids):
-                win = _index(self.w_full, u)
-                mats = _like(self.A_stiff, u)[_index(self.cat_full, u)]
-                y = self._scatter(
-                    y, win, -torch.einsum("nij,nj->ni", mats, u[win]))
+                win = self.table("w_full", u)
+                y = self._scatter(y, win, -self.cell_matvec(
+                    u, win, self.table("A_stiff_full", u)))
             if len(self.cut_ids):
-                G = _like(self.G_cut, u)
-                w = _like(self.vol_w, u)
-                win = _index(self.w_cut, u)
+                G = self.table("G_cut", u)
+                w = self.table("vol_w", u)
+                win = self.table("w_cut", u)
                 gq = torch.einsum("nqdi,ni->nqd", G, u[win])
                 y = self._scatter(
                     y, win, -torch.einsum("nqdi,nqd,nq->ni", G, gq, w))
         if rhs_fn is not None:
             if len(self.full_ids):
                 f = _like(rhs_fn(self.full_phys_q, t), u)  # (nf, Q)
-                Vc = _like(self.V_full_cat, u)[_index(self.cat_full, u)]
-                vw = torch.einsum("nqi,nq,q->ni", Vc, f, _like(self.w_q, u))
-                y = self._scatter(y, _index(self.w_full, u), vw)
+                vw = torch.einsum("nqi,nq,q->ni", self.table("V_full", u), f,
+                                  self.table("w_q", u))
+                y = self._scatter(y, self.table("w_full", u), vw)
             if len(self.cut_ids):
                 f = _like(rhs_fn(self.cut_phys_q, t), u)
-                vw = torch.einsum("nqi,nq,nq->ni", _like(self.V_cut, u), f,
-                                  _like(self.vol_w, u))
-                y = self._scatter(y, _index(self.w_cut, u), vw)
+                vw = torch.einsum("nqi,nq,nq->ni", self.table("V_cut", u), f,
+                                  self.table("vol_w", u))
+                y = self._scatter(y, self.table("w_cut", u), vw)
         # (II) interface Nitsche
         if interface_dbc is not None and len(self.cut_ids):
             y = self._nitsche_rhs(
-                y, u, t, impl, interface_dbc, nitsche_gamma, self.V_surf,
-                self.G_surf, self.surf_n, self.surf_w, self.w_cut,
-                self.surf_phys_q)
+                y, u, t, impl, interface_dbc, nitsche_gamma, "V_surf",
+                "G_surf", "surf_n", "surf_w", "w_cut", self.surf_phys_q)
         # (IV) domain-boundary Nitsche
         if domain_dbc is not None and len(self.b_win):
             y = self._nitsche_rhs(
-                y, u, t, impl, domain_dbc, nitsche_gamma, self.b_V,
-                self.b_G, self.b_normal_q, self.b_w, self.b_win,
-                self.b_phys)
+                y, u, t, impl, domain_dbc, nitsche_gamma, "b_V", "b_G",
+                "b_normal_q", "b_w", "b_win", self.b_phys)
         # (V) ghost-penalty action: note h^1 scaling on the explicit path
         if impl:
             y = self._gp_apply(y, u, -gamma_A * self.h_min)
@@ -488,12 +552,13 @@ class CutOperators:
     def _nitsche_rhs(self, y, u, t, impl, dbc, nitsche_gamma, V, G, nrm, w,
                      win, phys):
         """Nitsche terms of one surface family (interface or domain
-        boundary): the symmetric lhs action when ``impl`` and the
-        g-weighted forcing ((gamma/h) v - d_n v, g)."""
-        V = _like(V, u)
-        w = _like(w, u)
-        win = _index(win, u)
-        Gn = torch.einsum("nqdi,nqd->nqi", _like(G, u), _like(nrm, u))
+        boundary), its tables named: the symmetric lhs action when
+        ``impl`` and the g-weighted forcing ((gamma/h) v - d_n v, g)."""
+        V = self.table(V, u)
+        w = self.table(w, u)
+        win = self.table(win, u)
+        Gn = torch.einsum("nqdi,nqd->nqi", self.table(G, u),
+                          self.table(nrm, u))
         if impl:
             uw = u[win]
             uq = torch.einsum("nqi,ni->nq", V, uw)
@@ -507,6 +572,38 @@ class CutOperators:
         rhsv = torch.einsum(
             "nqi,nq,nq->ni", (nitsche_gamma / self.h_min) * V - Gn, g, w)
         return self._scatter(y, win, rhsv)
+
+    # -- error norms over the subdomain ---------------------------------
+    def error_norms(self, u, exact_fn, t):
+        """(L2, L1, Linf) of u - exact over this location's region, as
+        Python floats (one read back to the host).
+
+        Reference: WaveProblem::postprocess (problem.h:552-607)."""
+        l2 = l1 = linf = u.new_zeros(())
+        if len(self.full_ids):
+            if self.w_q_cell is None:
+                Vc = self.table("V_full", u)
+                wq = self.table("w_q", u)[None, :]
+            else:
+                Vc = self.table("V_full_cat", u)
+                wq = self.table("w_q_cell", u)
+            uq = torch.einsum("nqi,ni->nq", Vc, u[self.table("w_full", u)])
+            d = uq - _like(exact_fn(self.full_phys_q, t), u)
+            l2 = l2 + torch.sum(d * d * wq)
+            l1 = l1 + torch.sum(d.abs() * wq)
+            linf = torch.maximum(linf, d.abs().max())
+        if len(self.cut_ids):
+            V = self.table("V_cut", u)
+            w = self.table("vol_w", u)
+            uq = torch.einsum("nqi,ni->nq", V, u[self.table("w_cut", u)])
+            d = uq - _like(exact_fn(self.cut_phys_q, t), u)
+            l2 = l2 + torch.sum(d * d * w)
+            l1 = l1 + torch.sum(d.abs() * w)
+            # only count real (non-padded) quadrature points for Linf
+            linf = torch.maximum(
+                linf, torch.where(w > 0, d.abs(), 0.0).max())
+        l2, l1, linf = torch.stack([l2, l1, linf]).tolist()
+        return math.sqrt(l2), l1, linf
 
     def stiffness_diagonal(self, gamma_A: float, nitsche_gamma: float,
                            with_nitsche: bool = True,

@@ -14,6 +14,8 @@ gdm_torch.ops.cutband (K1).
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -31,6 +33,7 @@ class StencilOperator:
         # not desync the host band from the cached device copies
         self.band_host = np.array(band)  # np f64, nodes + (2r+1,)*dim
         self._band = {}
+        self._taps = {}
 
     def band_tensor(self, device, dtype) -> torch.Tensor:
         """The band as a tensor, cached per (device, dtype)."""
@@ -40,26 +43,31 @@ class StencilOperator:
                                               device=device)
         return self._band[key]
 
+    def _tap_views(self, device, dtype) -> list:
+        """[(band[..., tap], slice of the padded input), ...] in gdm's
+        tap order (axis 0's offset fastest), cached per (device, dtype)."""
+        key = (torch.device(device), dtype)
+        if key not in self._taps:
+            band = self.band_tensor(device, dtype)
+            nodes = self.grid.nodes
+            K = 2 * self.radius + 1
+            taps = []
+            for idx in itertools.product(range(K), repeat=self.grid.dim):
+                idx = idx[::-1]
+                sl = tuple(slice(i, i + n) for i, n in zip(idx, nodes))
+                taps.append((band[(Ellipsis,) + idx], sl))
+            self._taps[key] = taps
+        return self._taps[key]
+
     def apply(self, u_flat: torch.Tensor) -> torch.Tensor:
-        grid = self.grid
+        nodes = self.grid.nodes
         r = self.radius
-        dim = grid.dim
-        u = u_flat.reshape(grid.nodes)
-        up = torch.nn.functional.pad(u, [r, r] * dim)
-        band = self.band_tensor(u.device, u.dtype)
-        y = torch.zeros(grid.nodes, dtype=u.dtype, device=u.device)
-        K = 2 * r + 1
-        for flat_off in range(K**dim):
-            idx = []
-            rem = flat_off
-            for d in range(dim):
-                idx.append(rem % K)
-                rem //= K
-            sl = tuple(
-                slice(idx[d], idx[d] + grid.nodes[d]) for d in range(dim)
-            )
+        u = u_flat.reshape(nodes)
+        up = torch.nn.functional.pad(u, [r, r] * len(nodes))
+        y = torch.zeros(nodes, dtype=u.dtype, device=u.device)
+        for b, sl in self._tap_views(u.device, u.dtype):
             # in place: y is this call's own accumulator
-            y += band[(Ellipsis,) + tuple(idx)] * up[sl]
+            y += b * up[sl]
         return y.reshape(-1)
 
 
@@ -255,3 +263,53 @@ def schwarz_band(st: StencilOperator, windows,
     bandB[:, center] += np.where(covered, 0.0, 1.0 / safe)
     return StencilOperator(grid, bandB.reshape(grid.nodes + (K,) * dim),
                            st.radius)
+
+
+def best_solver_apply(op: CutOperators, kind: str, gamma: float,
+                      nitsche_gamma: float = 0.0,
+                      with_nitsche: bool = False,
+                      max_band_entries: float = 3e7):
+    """The fastest apply of the cut operator ``kind`` ("mass" or
+    "stiff") for solver inner loops, on flat node vectors.
+
+    gdm picks its route once, from the platform: on a TPU in 2D its
+    fused kernel.  Here the route follows the tensor: a CUDA tensor of
+    a 2D grid goes through K1 (``fastapply.fast_stencil_apply``, built
+    per device and dtype at its first call); any other tensor takes the
+    stencil-band apply while the band holds at most ``max_band_entries``
+    entries, else the matrix-free apply, as gdm does off the TPU.  The
+    matrix-free stiffness is ``CutOperators.stiffness_matrix_apply``,
+    which waits for the implicit heat solve: ``kind="stiff"`` past the
+    band limit raises NotImplementedError on that route.
+    """
+    from .fastapply import fast_stencil_apply
+
+    grid = op.grid
+    K = 2 * (grid.degree + 1) + 1
+    banded = grid.n_nodes * K**grid.dim <= max_band_entries
+    st = (assemble_stencil(op, kind, gamma, nitsche_gamma, with_nitsche)
+          if banded or grid.dim == 2 else None)
+    if banded:
+        other = st.apply
+    elif kind == "mass":
+        def other(u):
+            return op.mass_apply(u, gamma)
+    else:
+        def other(u):
+            raise NotImplementedError(
+                f"the matrix-free {kind!r} apply past the band limit "
+                f"({grid.n_nodes * K**grid.dim} > {max_band_entries:g} "
+                f"entries) is CutOperators.stiffness_matrix_apply, which "
+                f"is not ported yet")
+    k1 = {}
+
+    def apply(u: torch.Tensor) -> torch.Tensor:
+        if u.is_cuda and grid.dim == 2:
+            key = (u.device, u.dtype)
+            if key not in k1:
+                k1[key] = fast_stencil_apply(st, op, kind, device=u.device,
+                                             dtype=u.dtype)
+            return k1[key](u)
+        return other(u)
+
+    return apply

@@ -97,7 +97,7 @@ def entry(n: int = 24, device="cuda", dtype=torch.float32):
         up, vp = y
         rhs = Fp * math.cos(wn * t)
         rhs -= apS(up)  # in place: rhs is this stage's own buffer
-        return (vp, msolve(rhs))
+        return (vp, msolve.solve_padded(rhs))
 
     mesh = grid.node_coords_mesh()
     r = np.sqrt(mesh[0] ** 2 + mesh[1] ** 2)

@@ -164,7 +164,8 @@ class PoissonMultigrid:
             cons = Constraints.zero_boundary(g, device=self.device)
             diag = np.where(cons.full_mask, 1.0,
                             operators.laplace(g, device="cpu").diagonal())
-            base_apply, _ = best_field_laplace(g, self.device, dtype)
+            base_apply, _ = best_field_laplace(g, device=self.device,
+                                                dtype=dtype)
             self.levels.append(Level(
                 g, cons.constrain_operator(base_apply), cons.full_t,
                 # omega * (1 / diag), the product gdm's smoother forms

@@ -75,7 +75,8 @@ def layout_for(grid, r: int) -> PaddedLayout:
     """The padded layout of a 2D grid for band radii up to ``r``."""
     if grid.dim != 2:
         raise NotImplementedError(
-            "the padded band kernels are 2D; 3D is ROADMAP Queue 1, item 11")
+            "the padded band kernels are 2D; the 3D cut problems are not "
+            "ported yet")
     n0, n1 = grid.nodes
     return PaddedLayout(n0, n1, r)
 
@@ -280,14 +281,18 @@ def band_apply(u: torch.Tensor, bp: BandPlanes) -> torch.Tensor:
 band_apply.launches = 0
 
 
-def make_padded_stencil2(st, device="cuda", dtype=torch.float32,
-                         layout: PaddedLayout = None, tile_r=None):
+def make_padded_stencil2(st, dtype=torch.float32, tile_r=None,
+                         interpret=False, *, device="cuda",
+                         layout: PaddedLayout = None):
     """(apply_padded, pad, unpad, shape) for a 2D StencilOperator, as in
-    gdm; ``layout`` defaults to the operator's own radius.  ``tile_r``,
-    gdm's row tile (sized to the TPU's VMEM), is taken and has no effect:
-    K1's tile comes from ``k1_plan`` (at most 32 cells across), and the
-    tile does not change the function.  A value that is not a
-    positive integer raises ValueError."""
+    gdm, with gdm's parameters in gdm's order; ``layout`` defaults to the
+    operator's own radius.  ``tile_r``, gdm's row tile (sized to the
+    TPU's VMEM), is taken and has no effect: K1's tile comes from
+    ``k1_plan`` (at most 32 cells across), and the tile does not change
+    the function.  A value that is not a positive integer raises
+    ValueError.  ``interpret`` (gdm's TPU interpreter) is taken and has
+    no effect."""
+    dtype = _device.resolve_dtype(dtype)
     positive_int("tile_r", tile_r)
     if layout is None:
         layout = layout_for(st.grid, st.radius)

@@ -244,15 +244,22 @@ resident_cg.body_launches = dict.fromkeys(BODIES, 0)
 
 def make_resident_cg(stA, stG=None, stGT=None, max_iter: int = 50,
                      rel_tol: float = 1e-5, abs_tol: float = 1e-12,
-                     device="cuda", dtype=torch.float32,
+                     dtype=torch.float32, interpret: bool = False,
+                     vmem_budget: int = None, *, device="cuda",
                      layout: PaddedLayout = None):
     """One-launch CG solve of ``stA x = b`` preconditioned by
     B = stGT o stG (or unpreconditioned when both are None).
 
     Returns (solve_padded, pad, unpad, shape) as gdm does, on ``layout``
     (default: the largest radius of the three operators).
-    solve_padded(b_pad, x0_pad=None) -> (x_pad, stats).
+    solve_padded(b_pad, x0_pad=None) -> (x_pad, stats).  The parameters
+    stand in gdm's positional order, ``device`` and ``layout`` by
+    keyword after them.  ``interpret`` (gdm's TPU interpreter) and
+    ``vmem_budget`` (gdm's gate on the TPU's VMEM) are taken and have no
+    effect: ``resident_plan`` keeps the planes in shared memory where
+    they fit and in device memory where they do not.
     """
+    dtype = _device.resolve_dtype(dtype)
     if (stG is None) != (stGT is None):
         raise ValueError("give both FSAI factors or neither")
     device = _device.resolve(device)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import device as _device
 from ..grid import Grid
 from ._padded import padded_apply
 from .stencil2 import Bands2, laplace2_bands, tc_apply, tc_options
@@ -53,15 +54,17 @@ def laplace_v1_apply(u: torch.Tensor, bt: Bands2,
 laplace_v1_apply.launches = 0
 
 
-def make_padded_laplace(grid: Grid, device="cuda", dtype=torch.float32,
-                        tile_r=None):
+def make_padded_laplace(grid: Grid, dtype=torch.float32, tile_r=None,
+                        interpret=False, *, device="cuda"):
     """(apply, pad, unpad, shape) of K0 for the GD Laplace, odd p <= 7.
 
     tile_r: the card's tile, as ``stencil2.tc_options`` resolves it
     (gdm's default 128 was the TPU's); the resolved tile is
     ``apply.options``.  The "padded" array is the (N0, N1) node array
-    itself.
+    itself.  ``interpret`` (gdm's TPU interpreter) is taken and has no
+    effect.
     """
+    dtype = _device.resolve_dtype(dtype)
     if grid.degree > MAX_DEGREE:
         raise ValueError(f"K0 takes odd degrees p <= {MAX_DEGREE}, not "
                          f"{grid.degree}: gdm's row halo is 8 rows")
@@ -70,9 +73,11 @@ def make_padded_laplace(grid: Grid, device="cuda", dtype=torch.float32,
                         **tc_options("v1", bt, tile_r))
 
 
-def laplace_2d_fn(grid: Grid, device="cuda", dtype=torch.float32):
-    """The (N0, N1) -> (N0, N1) Laplace apply through K0."""
-    apply_padded, pad, unpad, _ = make_padded_laplace(grid, device, dtype)
+def laplace_2d_fn(grid: Grid, dtype=torch.float32, *, device="cuda"):
+    """The (N0, N1) -> (N0, N1) Laplace apply through K0 (gdm's
+    ``laplace_2d_pallas_fn(grid, dtype)``)."""
+    apply_padded, pad, unpad, _ = make_padded_laplace(grid, dtype,
+                                                      device=device)
 
     def apply(u):
         return unpad(apply_padded(pad(u)))

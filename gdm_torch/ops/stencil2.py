@@ -371,16 +371,18 @@ def laplace2_stream_apply(u: torch.Tensor, bt: Bands2) -> torch.Tensor:
 laplace2_stream_apply.launches = 0
 
 
-def make_padded_laplace2_stream(grid: Grid, device="cuda",
-                                dtype=torch.float32, tile_r=None,
-                                bands=None):
+def make_padded_laplace2_stream(grid: Grid, dtype=torch.float32,
+                                tile_r=None, interpret=False, bands=None,
+                                *, device="cuda"):
     """(apply, pad, unpad, shape) of K3s, the streamed K3: the same
     operator, band tables and node array as ``make_padded_laplace2``.
 
     ``tile_r``, gdm's row tile (sized to the TPU's VMEM), is taken and has
     no effect: K3s's strips and segments come from ``k3s_plan``, and the
     tile does not change the function.  A value that is not a positive
-    integer raises ValueError."""
+    integer raises ValueError.  ``interpret`` (gdm's TPU interpreter) is
+    taken and has no effect."""
+    dtype = _device.resolve_dtype(dtype)
     positive_int("tile_r", tile_r)
     bt = laplace2_bands(grid, device, dtype, bands)
     return padded_apply(bt, laplace2_stream_apply,
@@ -699,10 +701,10 @@ def _check_gdm_schedule(mxu_precision, pipeline_interleave, static_parity):
                              f"{value!r}")
 
 
-def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
-                         tile_r=None, rows="vpu", bands=None,
-                         mxu_precision=None, pipeline_interleave=None,
-                         static_parity=True):
+def make_padded_laplace2(grid: Grid, dtype=torch.float32, tile_r=None,
+                         interpret=False, rows="vpu", mxu_precision=None,
+                         bands=None, pipeline_interleave=None,
+                         static_parity=True, *, device="cuda"):
     """(apply, pad, unpad, shape) of K3 as in gdm, for any odd p <= 15.
 
     rows: gdm's row stage, one of ``ROWS``: "vpu" (K3, the FMA row
@@ -732,7 +734,12 @@ def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
     each, the Banded1D.band layout) generalizing the operator to
     y = A0 U A1^T + B0 U B1^T.  Default: the Laplace (S0, M1, M0, S1).
     The "padded" array is the (N0, N1) node array itself.
+
+    The parameters stand in gdm's positional order, ``device`` by
+    keyword after them; ``interpret`` (gdm's TPU interpreter) is taken
+    and has no effect.
     """
+    dtype = _device.resolve_dtype(dtype)
     if rows not in ROWS:
         raise ValueError(f"rows must be one of {sorted(ROWS)}, not {rows!r}")
     _check_gdm_schedule(mxu_precision, pipeline_interleave, static_parity)
@@ -746,45 +753,51 @@ def make_padded_laplace2(grid: Grid, device="cuda", dtype=torch.float32,
     return padded_apply(bt, kernel, plain, **options)
 
 
-def make_padded_laplace2_mxucol(grid: Grid, device="cuda",
-                                dtype=torch.float32, tile_r=None):
+def make_padded_laplace2_mxucol(grid: Grid, dtype=torch.float32,
+                                tile_r=None, interpret=False, *,
+                                device="cuda"):
     """(apply, pad, unpad, shape) of K3c, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` as in ``tc_options``; the
-    resolved tile is ``apply.options``."""
-    bt = laplace2_bands(grid, device, dtype)
+    resolved tile is ``apply.options``.  ``interpret`` is taken and has
+    no effect."""
+    bt = laplace2_bands(grid, device, _device.resolve_dtype(dtype))
     return padded_apply(bt, laplace2_mxucol_apply,
                         laplace2_mxucol_apply_plain,
                         **tc_options("mxucol", bt, tile_r))
 
 
-def make_padded_laplace2_fullmxu(grid: Grid, device="cuda",
-                                 dtype=torch.float32, tile_r=None):
+def make_padded_laplace2_fullmxu(grid: Grid, dtype=torch.float32,
+                                 tile_r=None, interpret=False, *,
+                                 device="cuda"):
     """(apply, pad, unpad, shape) of K3f, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` as in ``tc_options`` (not
-    clamped to N0, as in gdm)."""
-    bt = laplace2_bands(grid, device, dtype)
+    clamped to N0, as in gdm).  ``interpret`` is taken and has no
+    effect."""
+    bt = laplace2_bands(grid, device, _device.resolve_dtype(dtype))
     return padded_apply(bt, laplace2_fullmxu_apply,
                         laplace2_fullmxu_apply_plain,
                         **tc_options("fullmxu", bt, tile_r))
 
 
-def make_padded_laplace2_hybrid(grid: Grid, device="cuda",
-                                dtype=torch.float32, tile_r=None,
-                                vpu_rows=None):
+def make_padded_laplace2_hybrid(grid: Grid, dtype=torch.float32,
+                                tile_r=None, vpu_rows=None, interpret=False,
+                                *, device="cuda"):
     """(apply, pad, unpad, shape) of K3h, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` and ``vpu_rows`` as in
-    ``tc_options`` (gdm's defaults, 376 and 136, were the TPU's)."""
-    bt = laplace2_bands(grid, device, dtype)
+    ``tc_options`` (gdm's defaults, 376 and 136, were the TPU's).
+    ``interpret`` is taken and has no effect."""
+    bt = laplace2_bands(grid, device, _device.resolve_dtype(dtype))
     return padded_apply(bt, laplace2_hybrid_apply,
                         laplace2_hybrid_apply_plain,
                         **tc_options("hybrid", bt, tile_r, vpu_rows))
 
 
-def make_padded_laplace2_hybp(grid: Grid, device="cuda", dtype=torch.float32,
-                              tile_r=None, vpu_rows=None):
+def make_padded_laplace2_hybp(grid: Grid, dtype=torch.float32, tile_r=None,
+                              vpu_rows=None, interpret=False, *,
+                              device="cuda"):
     """(apply, pad, unpad, shape) of K3p, odd p <= 15: K3's operator,
     band tables and node array.  ``tile_r`` and ``vpu_rows`` as in
-    ``tc_options``."""
-    bt = laplace2_bands(grid, device, dtype)
+    ``tc_options``.  ``interpret`` is taken and has no effect."""
+    bt = laplace2_bands(grid, device, _device.resolve_dtype(dtype))
     return padded_apply(bt, laplace2_hybp_apply, laplace2_hybp_apply_plain,
                         **tc_options("hybp", bt, tile_r, vpu_rows))

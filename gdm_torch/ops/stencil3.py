@@ -486,21 +486,24 @@ def k4_plans(nodes, p: int, dtype, occupancy=k4_occupancy) -> list:
     return plans
 
 
-def make_padded_laplace3(grid: Grid, device="cuda", dtype=torch.float32,
-                         tile_planes=None):
+def make_padded_laplace3(grid: Grid, dtype=torch.float32, tile_planes=None,
+                         interpret=False, *, device="cuda"):
     """(apply, pad, unpad, shape) of K4, odd p <= 7.  The "padded" array
     is the (N0, N1, N2) node array itself.  ``tile_planes`` (gdm's tile
     of axis-0 planes) is K4's chunk of planes per block, as in
     ``laplace3_apply``, kept in ``apply.options``; a value that is not a
-    positive integer raises ValueError."""
+    positive integer raises ValueError.  ``interpret`` (gdm's TPU
+    interpreter) is taken and has no effect."""
+    dtype = _device.resolve_dtype(dtype)
     tile_planes = positive_int("tile_planes", tile_planes)
     bt = laplace3_bands(grid, device, dtype)
     options = {} if tile_planes is None else {"tile_planes": tile_planes}
     return padded_apply(bt, laplace3_apply, laplace3_apply_plain, **options)
 
 
-def make_padded_laplace3_mxu(grid: Grid, device="cuda", dtype=torch.float32,
-                             tile_planes1=None, chunk=None, pipelined=True):
+def make_padded_laplace3_mxu(grid: Grid, dtype=torch.float32,
+                             tile_planes1=None, interpret=False, chunk=None,
+                             pipelined=True, *, device="cuda"):
     """(apply, pad, unpad, shape) of K5, odd p <= 7: K4's band tables and
     node array, the plane coupling as a tensor-core product.
 
@@ -513,7 +516,9 @@ def make_padded_laplace3_mxu(grid: Grid, device="cuda", dtype=torch.float32,
     cp.async while the other warps compute.  ``pipelined=False`` asks
     for a schedule the card kernel does not have and raises ValueError,
     as does a tile or chunk that is not a positive integer.
+    ``interpret`` (gdm's TPU interpreter) is taken and has no effect.
     """
+    dtype = _device.resolve_dtype(dtype)
     positive_int("tile_planes1", tile_planes1)
     positive_int("chunk", chunk)
     if pipelined is not True:

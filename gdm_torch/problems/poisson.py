@@ -44,7 +44,7 @@ def system(grid: Grid, rhs_fn, precondition="jacobi", device="cuda",
     """Set up -Laplace(u) = f, u = 0 on the boundary (see ``solve``)."""
     device = _device.resolve(device)
     cons = Constraints.zero_boundary(grid, device=device)
-    base_apply, _ = best_field_laplace(grid, device, dtype)
+    base_apply, _ = best_field_laplace(grid, device=device, dtype=dtype)
     b = cons.constrain_rhs(load_vector(grid, rhs_fn, device=device,
                                        dtype=dtype))
     if callable(precondition):
@@ -96,5 +96,5 @@ def solve_deformed(grid: Grid, mapping_fn, rhs_fn, **kwargs):
     """Poisson on a vertex-deformed grid (gdm.problems.poisson
     .solve_deformed) is not ported yet."""
     raise NotImplementedError(
-        "solve_deformed needs the deformation module, ROADMAP Queue 1 "
-        "item 10 (deform.py), which is not ported yet")
+        "solve_deformed needs the deformation module, gdm/deform.py, "
+        "which is not ported yet")

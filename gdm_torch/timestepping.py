@@ -6,13 +6,16 @@ and dealii::DiscreteTime used by the reference time loops: the step size
 is the requested delta_t except for the final step, which is shortened
 to land exactly on end_t.
 
-The state ``y`` is a tuple of tensors and ``f(t, y)`` returns a tuple
-of the same structure.
+The state ``y`` is a tensor or a tuple of tensors (gdm's pytree, in the
+two forms gdm's callers use), and ``f(t, y)`` returns the same
+structure.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +45,12 @@ TABLEAUX = {
 }
 
 
-def rk_step(f, t, dt, y: tuple,
-            tableau: ButcherTableau = RK_CLASSIC_FOURTH_ORDER) -> tuple:
+def rk_step(f, t, dt, y, tableau: ButcherTableau = RK_CLASSIC_FOURTH_ORDER):
     """One explicit RK step: returns y_{n+1} (new tensors; y is not
-    modified)."""
+    modified), a tensor for a tensor ``y`` and a tuple for a tuple."""
+    if isinstance(y, torch.Tensor):
+        return rk_step(lambda t, yy: (f(t, yy[0]),), t, dt, (y,),
+                       tableau)[0]
     ks = []
     for i, ci in enumerate(tableau.c):
         yi = y

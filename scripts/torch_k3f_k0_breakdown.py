@@ -172,9 +172,9 @@ def main():
     bt2 = stencil2.laplace2_bands(grid, dev, torch.float32)
     u2 = torch.as_tensor(rng.standard_normal(grid.nodes),
                          dtype=torch.float32, device=dev)
-    mxu3 = stencil2.make_padded_laplace2(grid, dev, torch.float32,
-                                         rows="mxu3")[0]
-    apply, shape = mxu_micro.make_stage1_micro(grid, "rowsonly", dev)
+    mxu3 = stencil2.make_padded_laplace2(grid, torch.float32,
+                                         rows="mxu3", device=dev)[0]
+    apply, shape = mxu_micro.make_stage1_micro(grid, "rowsonly", device=dev)
     u = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
                         device=dev)
     yp = mxu_micro.stage1_micro_plain(u, *apply.tables, "rowsonly",

@@ -210,8 +210,8 @@ def main():
         grid, op, mass, stiff = flagship_operators(n)
         for kind, st in (("mass", mass), ("stiff", stiff)):
             split = fastapply.make_fast_cut_apply(
-                st, op, fastapply.kron_pairs(grid, kind), dev,
-                inactive_identity=kind == "mass")
+                st, op, fastapply.kron_pairs(grid, kind),
+                inactive_identity=kind == "mass", device=dev)
             k1 = fastapply.fast_stencil_apply(st, device=dev)
             u = torch.as_tensor(rng.standard_normal(grid.n_nodes),
                                 dtype=torch.float32, device=dev)

@@ -352,10 +352,10 @@ def main():
     bt2 = stencil2.laplace2_bands(grid, dev, torch.float32)
     u2 = torch.as_tensor(rng.standard_normal(grid.nodes),
                          dtype=torch.float32, device=dev)
-    mxu3 = stencil2.make_padded_laplace2(grid, dev, torch.float32,
-                                         rows="mxu3")[0]
+    mxu3 = stencil2.make_padded_laplace2(grid, torch.float32,
+                                         rows="mxu3", device=dev)[0]
     for mode in ("rowsonly", "dotsonly"):
-        apply, shape = mxu_micro.make_stage1_micro(grid, mode, dev)
+        apply, shape = mxu_micro.make_stage1_micro(grid, mode, device=dev)
         g = apply.geom
         u = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device=dev)

@@ -118,7 +118,7 @@ def main():
           f"per call {call_ms(lambda: cutband.band_apply(b, bpS)) * 1e3:.2f}"
           f" us")
     print(f"verified mass solve ({vs.path}): per call "
-          f"{call_ms(lambda: vs.solve_with_info(b)) * 1e3:.1f} us, "
+          f"{call_ms(lambda: vs.solve_padded_with_info(b)) * 1e3:.1f} us, "
           f"{vs.last_info}")
     _, info = vs.streamed(b)
     its = info["iterations"]

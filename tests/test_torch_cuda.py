@@ -310,8 +310,8 @@ def test_verified_solver_routes_on_card(ops24, cuda_device):
     b = vs.layout.pad(torch.as_tensor(
         np.random.default_rng(2).standard_normal(grid.n_nodes),
         dtype=torch.float32, device=cuda_device))
-    x_ok, info_ok = vs.solve_with_info(b)
-    x_fb, info_fb = checked.solve_with_info(b)
+    x_ok, info_ok = vs.solve_padded_with_info(b)
+    x_fb, info_fb = checked.solve_padded_with_info(b)
     assert info_ok["fallback"] is False and info_fb["fallback"] is True
     assert checked.fallback_count == 1
     # both answers solve the system to float32-CG accuracy
@@ -375,7 +375,7 @@ def test_laplace2_four_factor_bands(cuda_device, dtype):
              for n in (grid.nodes[0], grid.nodes[1], grid.nodes[0],
                        grid.nodes[1])]
     apply, pad, unpad, shape = stencil2.make_padded_laplace2(
-        grid, cuda_device, dtype, bands=bands)
+        grid, dtype, bands=bands, device=cuda_device)
     u = _rand(grid.nodes, 1, dtype, cuda_device)
     yk = unpad(apply(pad(u)))
     bt = stencil2.laplace2_bands(grid, cuda_device, dtype, bands)
@@ -548,7 +548,7 @@ def test_dispatch_routes_by_plane_count(cuda_device, cells, kernel):
     other = ({"laplace3_mxu_apply", "laplace3_apply"} - {kernel}).pop()
     before = {k: getattr(stencil3, k).launches for k in (kernel, other)}
     u = _rand(grid.nodes, 4, torch.float32, cuda_device)
-    y = fast.laplace_apply_fn(grid, cuda_device, torch.float32)(u)
+    y = fast.laplace_apply_fn(grid, torch.float32, device=cuda_device)(u)
     assert getattr(stencil3, kernel).launches == before[kernel] + 1
     assert getattr(stencil3, other).launches == before[other]
     bt = stencil3.laplace3_bands(grid, cuda_device, torch.float32)
@@ -631,7 +631,7 @@ def test_laplace2_stream_four_factor_bands(cuda_device, dtype):
     n0, n1 = grid.nodes
     bands = [rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1)]
     apply, pad, unpad, _ = stencil2.make_padded_laplace2_stream(
-        grid, cuda_device, dtype, bands=bands)
+        grid, dtype, bands=bands, device=cuda_device)
     u = _rand(grid.nodes, 7, dtype, cuda_device)
     yk = unpad(apply(pad(u)))
     assert _rel(yk, apply.plain(u)) <= _tol(dtype)
@@ -916,7 +916,7 @@ def test_tc_builders_launch_their_own_kernel(cuda_device):
     wrappers["k3s"] = stencil2.laplace2_stream_apply
     for kernel in TC_KERNELS:
         make = getattr(stencil2, f"make_padded_laplace2_{kernel}")
-        apply, pad, unpad, _ = make(grid, cuda_device, torch.float32)
+        apply, pad, unpad, _ = make(grid, torch.float32, device=cuda_device)
         assert apply.kernel is wrappers[kernel]
         before = {k: w.launches for k, w in wrappers.items()}
         y = unpad(apply(pad(u)))
@@ -1011,7 +1011,7 @@ def test_laplace2_rows_four_factor_bands(cuda_device, rows, dtype):
         wrapper = stencil.laplace_v1_apply
     else:
         apply, pad, unpad, _ = stencil2.make_padded_laplace2(
-            grid, cuda_device, dtype, tile_r=37, rows=rows, bands=bands)
+            grid, dtype, tile_r=37, rows=rows, bands=bands, device=cuda_device)
         assert unpad(apply(pad(u))).equal(apply.kernel(u, bt, tile_r=37))
         wrapper = stencil2.ROWS[rows][0]
     yk = wrapper(u, bt, tile_r=37)
@@ -1030,13 +1030,14 @@ def test_row_builders_launch_their_own_kernel(cuda_device):
     wrappers = {rows: w for rows, (w, _, _) in stencil2.ROWS.items()}
     wrappers["k0"] = stencil.laplace_v1_apply
     wrappers["k3s"] = stencil2.laplace2_stream_apply
-    built = {rows: stencil2.make_padded_laplace2(grid, cuda_device,
-                                                 rows=rows)
+    built = {rows: stencil2.make_padded_laplace2(grid, rows=rows,
+                                                 device=cuda_device)
              for rows in stencil2.ROWS}
-    built["k0"] = stencil.make_padded_laplace(grid, cuda_device)
-    built["vpu (dispatch)"] = fast.best_padded_laplace(grid, cuda_device)
-    built["mxu3p (dispatch)"] = fast.best_padded_laplace(grid, cuda_device,
-                                                         rows="mxu3p")
+    built["k0"] = stencil.make_padded_laplace(grid, device=cuda_device)
+    built["vpu (dispatch)"] = fast.best_padded_laplace(grid,
+                                                       device=cuda_device)
+    built["mxu3p (dispatch)"] = fast.best_padded_laplace(grid, rows="mxu3p",
+                                                         device=cuda_device)
     for name, (apply, pad, unpad, _) in built.items():
         want = name.split()[0]
         assert apply.kernel is wrappers[want]
@@ -1052,9 +1053,9 @@ def test_row_modes_reject(cuda_device):
     g2 = Grid(3, (16, 16), (0.0, 0.0), (1.0, 1.0))
     for bad in ("foo", "MXU3P", ""):
         with pytest.raises(ValueError, match="rows"):
-            stencil2.make_padded_laplace2(g2, cuda_device, rows=bad)
+            stencil2.make_padded_laplace2(g2, rows=bad, device=cuda_device)
         with pytest.raises(ValueError, match="rows"):
-            fast.best_padded_laplace(g2, cuda_device, rows=bad)
+            fast.best_padded_laplace(g2, rows=bad, device=cuda_device)
     bt = stencil2.laplace2_bands(g2, cuda_device, torch.float32)
     u = torch.zeros(g2.nodes, device=cuda_device)
     for wrapper in [stencil2.ROWS[r][0] for r in ROW_MODES] + [
@@ -1064,7 +1065,7 @@ def test_row_modes_reject(cuda_device):
                 wrapper(bad, bt)
     g9 = Grid(9, (40, 40), (0.0, 0.0), (1.0, 1.0))
     with pytest.raises(ValueError, match="p <= 7"):
-        stencil.make_padded_laplace(g9, cuda_device)
+        stencil.make_padded_laplace(g9, device=cuda_device)
     with pytest.raises(ValueError, match="p <= 7"):
         stencil.laplace_v1_apply(torch.zeros(g9.nodes, device=cuda_device),
                                  stencil2.laplace2_bands(g9, cuda_device))
@@ -1072,11 +1073,11 @@ def test_row_modes_reject(cuda_device):
     # grow with the tile: a tile of 64 fits at p = 15
     g15 = Grid(15, (300, 140), (0.0, 0.0), (1.0, 1.0))
     assert stencil2.make_padded_laplace2(
-        g15, cuda_device, torch.float64, tile_r=64,
-        rows="mxu3")[0].options == {"tile_r": 64}
+        g15, torch.float64, tile_r=64,
+        rows="mxu3", device=cuda_device)[0].options == {"tile_r": 64}
     with pytest.raises(ValueError, match="shared memory"):
-        stencil2.make_padded_laplace2_hybp(g15, cuda_device, torch.float64,
-                                           tile_r=64)
+        stencil2.make_padded_laplace2_hybp(g15, torch.float64,
+                                           tile_r=64, device=cuda_device)
 
 
 @pytest.fixture(scope="module")
@@ -1093,8 +1094,8 @@ def test_fast_cut_apply_matches_k1(flagship64, cuda_device, kind, rows):
     grid, op, mass, stiff = flagship64
     st = mass if kind == "mass" else stiff
     fast_apply = fastapply.make_fast_cut_apply(
-        st, op, fastapply.kron_pairs(grid, kind), cuda_device,
-        inactive_identity=kind == "mass", rows=rows)
+        st, op, fastapply.kron_pairs(grid, kind),
+        inactive_identity=kind == "mass", rows=rows, device=cuda_device)
     assert fast_apply.n_corrections > 0
     k1 = fastapply.fast_stencil_apply(st, device=cuda_device)
     u = _rand(grid.n_nodes, 18, torch.float32, cuda_device)
@@ -1119,7 +1120,7 @@ def test_laplace3_tile_planes(cuda_device, planes):
     gives the same function."""
     grid = Grid(3, TILE_PLANES_CELLS, (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
     apply, pad, unpad, _ = stencil3.make_padded_laplace3(
-        grid, cuda_device, tile_planes=planes)
+        grid, tile_planes=planes, device=cuda_device)
     assert apply.options == {"tile_planes": planes}
     u = _rand(grid.nodes, 19, torch.float32, cuda_device)
     assert _rel(unpad(apply(pad(u))), apply.plain(u)) <= 1e-5
@@ -1166,8 +1167,8 @@ def test_stage1_micro_matches_plain(cuda_device, mode, p, cells, tile_r):
     tiles' ten chunks go round the row kernel's panel ring), gdm's
     1024^2 and 1025 x 1001 nodes in tiles of 64 rows (wider plans)."""
     grid = Grid(p, cells, (0.0, 0.0), (1.0, 1.0))
-    apply, shape = mxu_micro.make_stage1_micro(grid, mode, cuda_device,
-                                               tile_r=tile_r)
+    apply, shape = mxu_micro.make_stage1_micro(grid, mode, tile_r=tile_r,
+                                               device=cuda_device)
     u = _rand(shape, 20, torch.float32, cuda_device)
     y = _launched_only("M1", lambda: apply(u))
     g = apply.geom
@@ -1191,8 +1192,8 @@ def test_stage1_rows_every_plan(cuda_device, mode, p, cells, tile_r):
     warpgroups) gives the twin's function within 1e-5 of max|y|, zero
     guard rows included."""
     grid = Grid(p, cells, (0.0, 0.0), (1.0, 1.0))
-    apply, shape = mxu_micro.make_stage1_micro(grid, mode, cuda_device,
-                                               tile_r=tile_r)
+    apply, shape = mxu_micro.make_stage1_micro(grid, mode, tile_r=tile_r,
+                                               device=cuda_device)
     g = apply.geom
     u = _rand(shape, 22, torch.float32, cuda_device)
     yp = mxu_micro.stage1_micro_plain(u, *apply.tables, mode, g)
@@ -1213,8 +1214,8 @@ def test_stage1_row_plans_reach_every_branch(cuda_device):
     for p, cells, tile_r in M1_CASES:
         grid = Grid(p, cells, (0.0, 0.0), (1.0, 1.0))
         for mode in ("rowsonly", "dotsonly"):
-            g = mxu_micro.make_stage1_micro(grid, mode, cuda_device,
-                                            tile_r=tile_r)[0].geom
+            g = mxu_micro.make_stage1_micro(grid, mode, tile_r=tile_r,
+                                            device=cuda_device)[0].geom
             pl = mxu_micro.stage1_row_plan(g, mode)
             picked.add((pl.n == 32, pl.wgs))
     assert picked == {(True, 1), (True, 2), (False, 1), (False, 2)}
@@ -1392,8 +1393,8 @@ def test_sepbuf_micro_matches_plain(cuda_device, mode, n0, n1, tile_r):
 def test_micro_wrappers_reject(cuda_device):
     """A wrong dtype, shape or a non-contiguous input raises."""
     grid = Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0))
-    m1, shape1 = mxu_micro.make_stage1_micro(grid, "full", cuda_device,
-                                             tile_r=16)
+    m1, shape1 = mxu_micro.make_stage1_micro(grid, "full", tile_r=16,
+                                             device=cuda_device)
     m3, shape3, _ = som.make_micro("both", 40, 60, 16, device=cuda_device)
     m4, shape4, _ = som.make_auto_micro("dma", 40, 60, 16,
                                         device=cuda_device)

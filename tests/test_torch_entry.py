@@ -71,14 +71,14 @@ def step24():
                                             dtype=torch.float64)
     vs = step.mass_solver
     its = []
-    solve = vs.solve_with_info
+    solve = vs.solve_padded_with_info
 
     def recording(b):
         x, info = solve(b)
         its.append(info["iterations"])
         return x, info
 
-    vs.solve_with_info = recording  # VerifiedSolver.__call__ routes here
+    vs.solve_padded_with_info = recording  # solve_padded routes here
     u, v = step(t, dt, u0, v0)
     return {"step": step, "t": t, "dt": dt, "u0": u0.numpy(),
             "v0": v0.numpy(), "u": u.numpy(), "v": v.numpy(), "its": its}

@@ -59,7 +59,8 @@ def _check(st, gst, op, gop, pairs, gpairs, u, rows="mxu3p",
            inactive_identity=True):
     """The port's split on the CPU against gdm's XLA split and against
     the port's own band apply; returns the port's y."""
-    fast = fastapply.make_fast_cut_apply(st, op, pairs, "cpu", F64,
+    fast = fastapply.make_fast_cut_apply(st, op, pairs, dtype=F64,
+                                         device="cpu",
                                          rows=rows,
                                          inactive_identity=inactive_identity)
     kernel = fast.separable.kernel
@@ -159,7 +160,7 @@ def test_split_matches_gdm_mxu3p_kernel():
     u = _u(grid, 4)
     fast = fastapply.make_fast_cut_apply(st, op,
                                          fastapply.kron_pairs(grid, "stiff"),
-                                         "cpu", F64)
+                                         dtype=F64, device="cpu")
     assert fast.separable.kernel is stencil2.laplace2_mxu3p_apply
     gfast = gfa.make_fast_cut_apply(gst, gop, gfa.kron_pairs(ggrid, "stiff"),
                                     use_pallas="force", dtype=jnp.float64,
@@ -173,11 +174,13 @@ def test_split_rejects():
     st = assemble_stencil(op, "mass", 0.5)
     pairs = fastapply.kron_pairs(grid, "mass")
     with pytest.raises(ValueError, match="rows"):
-        fastapply.make_fast_cut_apply(st, op, pairs, "cpu", F64, rows="foo")
+        fastapply.make_fast_cut_apply(st, op, pairs, dtype=F64, rows="foo",
+                                      device="cpu")
     g3 = Grid(3, (4, 4, 4), (0.0,) * 3, (1.0,) * 3)
     st3 = StencilOperator(g3, np.zeros(g3.nodes + (9,) * 3), 4)
     with pytest.raises(ValueError, match="2D"):
-        fastapply.make_fast_cut_apply(st3, op, pairs, "cpu", F64)
+        fastapply.make_fast_cut_apply(st3, op, pairs, dtype=F64,
+                                      device="cpu")
 
 
 def test_fast_stencil_apply():

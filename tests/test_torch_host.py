@@ -203,7 +203,7 @@ def test_compute_rhs_implicit_branches(disc):
 
 
 def test_deformation_not_ported(disc):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="deform"):
         CutOperators(disc["tgeo"], INSIDE, mapping_fn=lambda x: x)
 
 

@@ -46,8 +46,8 @@ def test_k3_plain_matches_gdm(p, cells, tile_r):
     args = (p, cells, (0.0, 0.0), (1.0, 2.0))
     grid, ggrid = Grid(*args), GGrid(*args)
     u = np.random.default_rng(p).standard_normal(grid.nodes)
-    apply, pad, unpad, shape = stencil2.make_padded_laplace2(grid, "cpu",
-                                                             F64)
+    apply, pad, unpad, shape = stencil2.make_padded_laplace2(grid, F64,
+                                                             device="cpu")
     assert shape == grid.nodes
     before = stencil2.laplace2_apply.launches
     y = unpad(apply(pad(torch.as_tensor(u))))
@@ -57,7 +57,8 @@ def test_k3_plain_matches_gdm(p, cells, tile_r):
     want = np.asarray(g_laplace_apply_fn(ggrid, jnp.float64,
                                          use_pallas="never")(jnp.asarray(u)))
     assert _rel(y, want) <= 1e-12
-    assert _rel(fast.laplace_apply_fn(grid, "cpu", F64)(torch.as_tensor(u)),
+    assert _rel(fast.laplace_apply_fn(grid, F64,
+                                      device="cpu")(torch.as_tensor(u)),
                 want) <= 1e-12
 
 
@@ -70,8 +71,9 @@ def test_k3_four_factor_bands():
     rng = np.random.default_rng(21)
     bands = tuple(rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1))
     u = rng.standard_normal(grid.nodes)
-    apply, pad, unpad, _ = stencil2.make_padded_laplace2(grid, "cpu", F64,
-                                                         bands=bands)
+    apply, pad, unpad, _ = stencil2.make_padded_laplace2(grid, F64,
+                                                         bands=bands,
+                                                         device="cpu")
     y = unpad(apply(pad(torch.as_tensor(u))))
     want = _gdm_kernel(g_make2, ggrid, u, rows="vpu", tile_r=16,
                        bands=bands)
@@ -93,8 +95,8 @@ def test_k4_plain_matches_gdm(p, cells):
     args = (p, cells, (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
     grid, ggrid = Grid(*args), GGrid(*args)
     u = np.random.default_rng(p).standard_normal(grid.nodes)
-    apply, pad, unpad, shape = stencil3.make_padded_laplace3(grid, "cpu",
-                                                             F64)
+    apply, pad, unpad, shape = stencil3.make_padded_laplace3(grid, F64,
+                                                             device="cpu")
     assert shape == grid.nodes
     y = unpad(apply(pad(torch.as_tensor(u))))
     assert _rel(y, _gdm_kernel(g_make3, ggrid, u)) <= 1e-12
@@ -112,7 +114,7 @@ def test_best_field_laplace_on_cpu(cells):
     kernel = (stencil2.laplace2_apply if len(cells) == 2
               else stencil3.laplace3_mxu_apply)   # gdm's dispatch
     before = kernel.launches
-    apply, rode = fast.best_field_laplace(grid, "cpu", F64)
+    apply, rode = fast.best_field_laplace(grid, device="cpu", dtype=F64)
     assert rode is False
     u = torch.as_tensor(np.random.default_rng(2).standard_normal(
         grid.field_shape))

@@ -62,7 +62,7 @@ def test_row_mode_matches_gdm(rows, p, cells, tile_r):
     default tile, which its twin does not depend on."""
     grid, ggrid = _grids(p, cells)
     u = np.random.default_rng(0).standard_normal(grid.nodes)
-    built = stencil2.make_padded_laplace2(grid, "cpu", F64, rows=rows)
+    built = stencil2.make_padded_laplace2(grid, F64, rows=rows, device="cpu")
     assert built[3] == grid.nodes
     assert built[0].kernel is stencil2.ROWS[rows][0]
     assert built[0].options == stencil2.tc_options(
@@ -82,15 +82,15 @@ def test_row_mode_four_factor_bands(rows):
     bands = tuple(rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1))
     u = rng.standard_normal(grid.nodes)
     # gdm's tile of 16 rows is also one the card takes
-    y = _run(stencil2.make_padded_laplace2(grid, "cpu", F64, tile_r=16,
-                                           rows=rows, bands=bands), u)
+    y = _run(stencil2.make_padded_laplace2(grid, F64, tile_r=16, rows=rows,
+                                           bands=bands, device="cpu"), u)
     want = _gdm(gps2.make_padded_laplace2(ggrid, jnp.float64, tile_r=16,
                                           interpret=True, rows=rows,
                                           bands=bands), u)
     np.testing.assert_allclose(y, want, rtol=2e-12, atol=2e-10)
     crossed = (bands[0], bands[3], bands[2], bands[1])
-    yc = _run(stencil2.make_padded_laplace2(grid, "cpu", F64, rows=rows,
-                                            bands=crossed), u)
+    yc = _run(stencil2.make_padded_laplace2(grid, F64, rows=rows,
+                                            bands=crossed, device="cpu"), u)
     assert np.abs(yc - want).max() > 1e-3 * np.abs(want).max()
 
 
@@ -99,14 +99,14 @@ def test_row_mode_four_factor_bands(rows):
 def test_k0_matches_gdm(p, cells):
     grid, ggrid = _grids(p, cells)
     u = np.random.default_rng(p).standard_normal(grid.nodes)
-    built = stencil.make_padded_laplace(grid, "cpu", F64)
+    built = stencil.make_padded_laplace(grid, F64, device="cpu")
     assert built[3] == grid.nodes
     assert built[0].kernel is stencil.laplace_v1_apply
     want = _gdm(gps.make_padded_laplace(ggrid, jnp.float64, tile_r=16,
                                         interpret=True), u)
     np.testing.assert_allclose(_run(built, u), want, rtol=1e-13,
                                atol=1e-13 * np.abs(want).max())
-    y = stencil.laplace_2d_fn(grid, "cpu", F64)(torch.as_tensor(u))
+    y = stencil.laplace_2d_fn(grid, F64, device="cpu")(torch.as_tensor(u))
     np.testing.assert_allclose(y.numpy(), want, rtol=1e-13,
                                atol=1e-13 * np.abs(want).max())
 
@@ -114,15 +114,15 @@ def test_k0_matches_gdm(p, cells):
 def test_k0_takes_odd_p_up_to_7():
     grid = Grid(9, (40, 40), (0.0, 0.0), (1.0, 1.0))
     with pytest.raises(ValueError, match="p <= 7"):
-        stencil.make_padded_laplace(grid, "cpu", F64)
+        stencil.make_padded_laplace(grid, F64, device="cpu")
     g3 = Grid(3, (16, 16), (0.0, 0.0), (1.0, 1.0))
     bt9 = stencil2.laplace2_bands(grid, "cpu", F64)
     with pytest.raises(ValueError, match="p <= 7"):
         stencil.laplace_v1_apply(torch.zeros(grid.nodes, dtype=F64), bt9)
     with pytest.raises(ValueError, match="2D"):
         stencil.make_padded_laplace(Grid(3, (6, 6, 6), (0.0,) * 3,
-                                         (1.0,) * 3), "cpu", F64)
-    assert stencil.make_padded_laplace(g3, "cpu", F64)[0].options == {
+                                         (1.0,) * 3), F64, device="cpu")
+    assert stencil.make_padded_laplace(g3, F64, device="cpu")[0].options == {
         "tile_r": 24}
 
 
@@ -134,7 +134,7 @@ def test_dispatch_rows(rows, kernel):
     """rows=None keeps K3 (the f32-exact "vpu" body) on the card; every
     row mode gdm accepts runs its own wrapper, K3's twin on the CPU."""
     grid = Grid(3, (16, 20), (0.0, 0.0), (1.0, 1.0))
-    apply = fast.best_padded_laplace(grid, "cpu", F64, rows=rows)[0]
+    apply = fast.best_padded_laplace(grid, F64, rows=rows, device="cpu")[0]
     assert apply.kernel is getattr(stencil2, kernel)
     u = torch.as_tensor(np.random.default_rng(1).standard_normal(grid.nodes))
     bt = stencil2.laplace2_bands(grid, "cpu", F64)
@@ -146,14 +146,14 @@ def test_rows_rejects():
     grid = Grid(3, (16, 20), (0.0, 0.0), (1.0, 1.0))
     for bad in ("foo", "VPU", ""):
         with pytest.raises(ValueError, match="rows"):
-            stencil2.make_padded_laplace2(grid, "cpu", F64, rows=bad)
+            stencil2.make_padded_laplace2(grid, F64, rows=bad, device="cpu")
         with pytest.raises(ValueError, match="rows"):
-            fast.best_padded_laplace(grid, "cpu", F64, rows=bad)
+            fast.best_padded_laplace(grid, F64, rows=bad, device="cpu")
     with pytest.raises(ValueError, match="tile_r"):
-        stencil2.make_padded_laplace2(grid, "cpu", F64, tile_r=32)
+        stencil2.make_padded_laplace2(grid, F64, tile_r=32, device="cpu")
     with pytest.raises(ValueError, match="3D"):
         fast.best_padded_laplace(Grid(3, (6, 6, 6), (0.0,) * 3, (1.0,) * 3),
-                                 "cpu", F64, rows="mxu3p")
+                                 F64, rows="mxu3p", device="cpu")
 
 
 def test_row_mode_tiles():
@@ -167,12 +167,14 @@ def test_row_mode_tiles():
             ("mxu3", torch.float32): 64, ("mxu3", F64): 64,
             ("mxu3p", torch.float32): 64, ("mxu3p", F64): 64}
     for (rows, dtype), tile in want.items():
-        apply = stencil2.make_padded_laplace2(big, "cpu", dtype, rows=rows)[0]
+        apply = stencil2.make_padded_laplace2(big, dtype, rows=rows,
+                                              device="cpu")[0]
         assert apply.options == {"tile_r": tile}
     assert stencil2.make_padded_laplace2(
-        big, "cpu", F64, rows="mxu3", tile_r=64)[0].options == {"tile_r": 64}
+        big, F64, rows="mxu3", tile_r=64,
+        device="cpu")[0].options == {"tile_r": 64}
     with pytest.raises(ValueError, match="shared memory"):
-        stencil2.make_padded_laplace2_hybp(big, "cpu", F64, tile_r=64)
+        stencil2.make_padded_laplace2_hybp(big, F64, tile_r=64, device="cpu")
     for kernel in ("mxu", "mxu3", "mxu3p", "v1"):
         for p in range(1, 16 if kernel != "v1" else 8, 2):
             for itemsize in (4, 8):

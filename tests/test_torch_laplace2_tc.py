@@ -29,8 +29,8 @@ def _pair(name, p, cells, seed, **kw):
     args = (p, cells, (0.0, 0.0), (1.0, 2.0))
     grid, ggrid = Grid(*args), GGrid(*args)
     u = np.random.default_rng(seed).standard_normal(grid.nodes)
-    apply, pad, unpad, shape = getattr(stencil2, name)(grid, "cpu", F64,
-                                                       **kw)
+    apply, pad, unpad, shape = getattr(stencil2, name)(grid, F64,
+                                                       device="cpu", **kw)
     assert shape == grid.nodes
     kernel = apply.kernel
     before = kernel.launches
@@ -102,9 +102,9 @@ def test_builders_take_odd_p_up_to_15(name):
         Grid(4, (20, 20), (0.0, 0.0), (1.0, 1.0))
     with pytest.raises(ValueError, match="p <= 15"):
         getattr(stencil2, name)(Grid(17, (20, 20), (0.0, 0.0), (1.0, 1.0)),
-                                "cpu", F64)
+                                F64, device="cpu")
     apply = getattr(stencil2, name)(Grid(15, (20, 20), (0.0, 0.0),
-                                         (1.0, 1.0)), "cpu", F64)[0]
+                                         (1.0, 1.0)), F64, device="cpu")[0]
     assert apply.options["tile_r"] >= 16
 
 
@@ -116,10 +116,10 @@ def test_vpu_rows_clamp(name):
     t_ext = 64 + 6
     for vr, want in ((0, 0), (24, 24), (t_ext, t_ext), (10**6, t_ext),
                      (None, 48)):   # default: 2/3 of 70 rounded up to 8
-        opts = make(grid, "cpu", F64, tile_r=64, vpu_rows=vr)[0].options
+        opts = make(grid, F64, tile_r=64, vpu_rows=vr, device="cpu")[0].options
         assert opts == {"tile_r": 64, "vpu_rows": want}
     with pytest.raises(ValueError, match="vpu_rows"):
-        make(grid, "cpu", F64, tile_r=64, vpu_rows=-1)
+        make(grid, F64, tile_r=64, vpu_rows=-1, device="cpu")
 
 
 def test_card_tile_defaults_and_limits():
@@ -138,17 +138,19 @@ def test_card_tile_defaults_and_limits():
             ("make_padded_laplace2_hybp", F64): 32}
     for (name, dtype), tile in want.items():
         make = getattr(stencil2, name)
-        assert make(big, "cpu", dtype)[0].options["tile_r"] == tile
-        clamped = make(small, "cpu", dtype)[0].options["tile_r"]
+        assert make(big, dtype, device="cpu")[0].options["tile_r"] == tile
+        clamped = make(small, dtype, device="cpu")[0].options["tile_r"]
         assert clamped == (64 if name.endswith("fullmxu") else 24)
     # K3f walks every tile in row units of 32 rows: its shared memory does
     # not grow with the tile, so a tile of 64 fits at p = 15 in float64
     assert stencil2.make_padded_laplace2_fullmxu(
-        big, "cpu", F64, tile_r=64)[0].options == {"tile_r": 64}
+        big, F64, tile_r=64, device="cpu")[0].options == {
+            "tile_r": 64}
     with pytest.raises(ValueError, match="shared memory"):
-        stencil2.make_padded_laplace2_hybp(big, "cpu", F64, tile_r=64)
+        stencil2.make_padded_laplace2_hybp(big, F64, tile_r=64, device="cpu")
     with pytest.raises(ValueError, match="tile_r"):
-        stencil2.make_padded_laplace2_mxucol(small, "cpu", F64, tile_r=0)
+        stencil2.make_padded_laplace2_mxucol(small, F64, tile_r=0,
+                                             device="cpu")
 
 
 def test_smem_bytes_fit_every_default():

@@ -47,8 +47,8 @@ def test_stage1_micro_matches_gdm(p):
     args = (p, (40, 40), (0.0, 0.0), (1.0, 1.0))
     u = None
     for mode in mxu_micro.MODES:
-        apply, shape = mxu_micro.make_stage1_micro(Grid(*args), mode, "cpu",
-                                                   tile_r=16)
+        apply, shape = mxu_micro.make_stage1_micro(Grid(*args), mode,
+                                                   tile_r=16, device="cpu")
         if u is None:
             u = np.random.default_rng(40 + p).standard_normal(shape).astype(
                 np.float32)
@@ -236,7 +236,7 @@ def test_micro_geometry():
         assert shape == (4096 + 32 + 16, 4224) and n_dof == 4096**2
         assert ap.geom.sw == ap.plan.sw == 128
     grid = Grid(3, (1024, 1024), (0.0, 0.0), (1.0, 1.0))
-    _, shape = mxu_micro.make_stage1_micro(grid, "full", "cpu")
+    _, shape = mxu_micro.make_stage1_micro(grid, "full", device="cpu")
     assert shape == (1280 + 16, 1152)       # 1025 nodes in 256-row tiles
     assert som.make_micro("both", 1024, 1024, device="cpu")[0].geom.sw == 64
 
@@ -250,10 +250,11 @@ def test_micro_geometry():
     lambda: som.make_auto_micro("dma_in", device="cpu"),
     lambda: som.make_sepbuf_micro("both", device="cpu"),
     lambda: mxu_micro.make_stage1_micro(
-        Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0)), "full", "cpu", tile_r=12),
+        Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0)), "full", tile_r=12,
+        device="cpu"),
     lambda: mxu_micro.make_stage1_micro(
-        Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0)), "full", "cpu",
-        dtype=torch.float64),
+        Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0)), "full",
+        dtype=torch.float64, device="cpu"),
     lambda: mxu_micro.relayout_apply(torch.zeros(4, 4, dtype=torch.float64)),
     lambda: mxu_micro.relayout_apply(torch.zeros(4, 4), steps=0),
 ], ids=["K", "nb", "groups", "mode", "smem", "auto mode", "sep mode",

@@ -12,6 +12,7 @@ K4 above, as gdm's does; the 3D solve therefore runs K5's twin on the
 CPU, with gdm's iteration counts.  Entry points default to the card.
 """
 
+import functools
 import inspect
 
 import jax.numpy as jnp
@@ -26,7 +27,8 @@ from gdm.ops.pallas_stencil2 import (
     make_padded_laplace3_mxu as g_make3m)
 
 import gdm_torch
-from gdm_torch import functional, multigrid, operators
+from gdm_torch import device, functional, multigrid, operators
+from gdm_torch.benchmarks import mxu_micro
 from gdm_torch.constraints import Constraints
 from gdm_torch.cut import fastapply, fsai
 from gdm_torch.cut.geometry import INSIDE, CutGeometry
@@ -64,8 +66,8 @@ def test_k5_plain_matches_gdm(p, cells):
     args = (p, cells, (0.0, 0.0, 0.0), (1.0, 2.0, 1.5))
     grid, ggrid = Grid(*args), GGrid(*args)
     u = np.random.default_rng(p).standard_normal(grid.nodes)
-    apply, pad, unpad, shape = stencil3.make_padded_laplace3_mxu(grid, "cpu",
-                                                                 F64)
+    apply, pad, unpad, shape = stencil3.make_padded_laplace3_mxu(grid, F64,
+                                                                 device="cpu")
     assert shape == grid.nodes and apply.kernel is stencil3.laplace3_mxu_apply
     before = stencil3.laplace3_mxu_apply.launches
     y = unpad(apply(pad(torch.as_tensor(u))))
@@ -81,7 +83,7 @@ def test_k3s_plain_matches_gdm(p, cells):
     grid, ggrid = Grid(*args), GGrid(*args)
     u = np.random.default_rng(p).standard_normal(grid.nodes)
     apply, pad, unpad, shape = stencil2.make_padded_laplace2_stream(
-        grid, "cpu", F64)
+        grid, F64, device="cpu")
     assert shape == grid.nodes
     assert apply.kernel is stencil2.laplace2_stream_apply
     before = stencil2.laplace2_stream_apply.launches
@@ -101,7 +103,7 @@ def test_k3s_four_factor_bands():
     bands = tuple(rng.standard_normal((n, 7)) for n in (n0, n1, n0, n1))
     u = rng.standard_normal(grid.nodes)
     apply, pad, unpad, _ = stencil2.make_padded_laplace2_stream(
-        grid, "cpu", F64, bands=bands)
+        grid, F64, bands=bands, device="cpu")
     y = unpad(apply(pad(torch.as_tensor(u))))
     want = _gdm_kernel(g_make2s, ggrid, u, tile_r=16, bands=bands)
     assert _rel(y, want) <= TOL
@@ -121,7 +123,7 @@ def test_dispatch_boundary(monkeypatch, cells, kernel, plain):
     runs that kernel's twin and launches nothing."""
     grid = Grid(3, cells, (0.0,) * 3, (1.0,) * 3)
     assert grid.nodes[0] + 2 * grid.degree == cells[0] + 7
-    apply = fast.best_padded_laplace(grid, "cpu", F64)[0]
+    apply = fast.best_padded_laplace(grid, F64, device="cpu")[0]
     assert apply.kernel is getattr(stencil3, kernel)
     calls = {name: 0 for name in ("laplace3_mxu_apply_plain",
                                   "laplace3_apply_plain")}
@@ -136,7 +138,7 @@ def test_dispatch_boundary(monkeypatch, cells, kernel, plain):
     launches = (stencil3.laplace3_apply.launches,
                 stencil3.laplace3_mxu_apply.launches)
     u = np.random.default_rng(9).standard_normal(grid.nodes)
-    y = fast.laplace_apply_fn(grid, "cpu", F64)(torch.as_tensor(u))
+    y = fast.laplace_apply_fn(grid, F64, device="cpu")(torch.as_tensor(u))
     assert calls[plain] == 1 and sum(calls.values()) == 1
     assert (stencil3.laplace3_apply.launches,
             stencil3.laplace3_mxu_apply.launches) == launches
@@ -146,7 +148,7 @@ def test_dispatch_boundary(monkeypatch, cells, kernel, plain):
 
 def test_2d_dispatch_is_k3():
     grid = Grid(3, (16, 20), (0.0, 0.0), (1.0, 1.0))
-    assert fast.best_padded_laplace(grid, "cpu", F64)[0].kernel is (
+    assert fast.best_padded_laplace(grid, F64, device="cpu")[0].kernel is (
         stencil2.laplace2_apply)
 
 
@@ -258,6 +260,7 @@ def test_card_default_raises_without_a_card():
             call()
 
 
+@functools.lru_cache(maxsize=None)
 def _stencil_op():
     gc = Grid(3, (12, 12), (-1.21, -1.21), (1.21, 1.21))
     geo = CutGeometry.build(gc, lambda m: np.sqrt(sum(x**2 for x in m))
@@ -304,8 +307,8 @@ def test_gdm_builder_keywords_taken(builder, grid, kw):
     u = torch.as_tensor(np.random.default_rng(30).standard_normal(
         grid.nodes))
     plain_kw = {k: v for k, v in kw.items() if k == "rows"}
-    apply, pad, unpad, shape = builder(grid, "cpu", F64, **kw)
-    ref = builder(grid, "cpu", F64, **plain_kw)
+    apply, pad, unpad, shape = builder(grid, F64, device="cpu", **kw)
+    ref = builder(grid, F64, device="cpu", **plain_kw)
     assert shape == ref[3]
     assert unpad(apply(pad(u))).equal(ref[2](ref[0](ref[1](u))))
     if "tile_planes" in kw:
@@ -317,12 +320,12 @@ def test_gdm_precision_by_name():
     from jax.lax import Precision
 
     for prec in (Precision.HIGHEST, "float32", "highest"):
-        stencil2.make_padded_laplace2(G2, "cpu", F64, rows="mxu",
-                                      mxu_precision=prec)
+        stencil2.make_padded_laplace2(G2, F64, rows="mxu",
+                                      mxu_precision=prec, device="cpu")
     for prec in (Precision.DEFAULT, Precision.HIGH, "bfloat16"):
         with pytest.raises(ValueError, match="3xTF32"):
-            stencil2.make_padded_laplace2(G2, "cpu", F64, rows="mxu",
-                                          mxu_precision=prec)
+            stencil2.make_padded_laplace2(G2, F64, rows="mxu",
+                                          mxu_precision=prec, device="cpu")
 
 
 def test_stencil2_tile_r_taken():
@@ -332,35 +335,40 @@ def test_stencil2_tile_r_taken():
         grid.n_nodes))
     outs = []
     for kw in ({}, {"tile_r": 16}, {"tile_r": 64}):
-        apply, pad, unpad, _ = cutband.make_padded_stencil2(mass, "cpu", F64,
-                                                            **kw)
+        apply, pad, unpad, _ = cutband.make_padded_stencil2(mass, F64,
+                                                            **kw, device="cpu")
         outs.append(unpad(apply(pad(u))))
     assert outs[0].equal(outs[1]) and outs[0].equal(outs[2])
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: stencil2.make_padded_laplace2_stream(G2, "cpu", tile_r=0),
+    (lambda: stencil2.make_padded_laplace2_stream(G2, tile_r=0, device="cpu"),
      "tile_r"),
-    (lambda: stencil2.make_padded_laplace2_stream(G2, "cpu", tile_r=9.5),
+    (lambda: stencil2.make_padded_laplace2_stream(G2, tile_r=9.5,
+                                                  device="cpu"),
      "tile_r"),
-    (lambda: stencil3.make_padded_laplace3(G3, "cpu", tile_planes=-2),
+    (lambda: stencil3.make_padded_laplace3(G3, tile_planes=-2, device="cpu"),
      "tile_planes"),
-    (lambda: stencil3.make_padded_laplace3_mxu(G3, "cpu", tile_planes1=0),
+    (lambda: stencil3.make_padded_laplace3_mxu(G3, tile_planes1=0,
+                                               device="cpu"),
      "tile_planes1"),
-    (lambda: stencil3.make_padded_laplace3_mxu(G3, "cpu", chunk=True),
+    (lambda: stencil3.make_padded_laplace3_mxu(G3, chunk=True, device="cpu"),
      "chunk"),
-    (lambda: stencil3.make_padded_laplace3_mxu(G3, "cpu", pipelined=False),
+    (lambda: stencil3.make_padded_laplace3_mxu(G3, pipelined=False,
+                                               device="cpu"),
      "pipelined"),
-    (lambda: stencil2.make_padded_laplace2(G2, "cpu", rows="mxu",
-                                           mxu_precision="DEFAULT"),
+    (lambda: stencil2.make_padded_laplace2(G2, rows="mxu",
+                                           mxu_precision="DEFAULT",
+                                           device="cpu"),
      "mxu_precision"),
-    (lambda: stencil2.make_padded_laplace2(G2, "cpu",
-                                           pipeline_interleave=2),
+    (lambda: stencil2.make_padded_laplace2(G2, pipeline_interleave=2,
+                                           device="cpu"),
      "pipeline_interleave"),
-    (lambda: stencil2.make_padded_laplace2(G2, "cpu", static_parity="yes"),
+    (lambda: stencil2.make_padded_laplace2(G2, static_parity="yes",
+                                           device="cpu"),
      "static_parity"),
-    (lambda: cutband.make_padded_stencil2(_stencil_op()[1], "cpu",
-                                          tile_r=-64), "tile_r"),
+    (lambda: cutband.make_padded_stencil2(_stencil_op()[1], tile_r=-64,
+                                          device="cpu"), "tile_r"),
     (lambda: stencil3.laplace3_apply(
         torch.zeros(G3.nodes, dtype=F64),
         stencil3.laplace3_bands(G3, "cpu", F64), tile_planes=0),
@@ -450,7 +458,7 @@ def test_verified_fsai_solver_streamed_cg_runs_apply_fn(cut_mass24,
         st.grid.n_nodes))
     plain = fsai.verified_fsai_solver(st, op.w_cut, **kw)
     assert plain.path == "streamed"
-    x_plain = plain.layout.unpad(plain(plain.layout.pad(b)))
+    x_plain = plain.layout.unpad(plain.solve_padded(plain.layout.pad(b)))
     k1 = fastapply.fast_stencil_apply(st, device="cpu", dtype=F64)
     twice = _counted(lambda u: 2.0 * k1(u))
     if positional:
@@ -460,7 +468,7 @@ def test_verified_fsai_solver_streamed_cg_runs_apply_fn(cut_mass24,
     else:
         vs = fsai.verified_fsai_solver(st, op.w_cut, apply_fn=twice, **kw)
     assert vs.path == "streamed" and twice.calls == 0
-    x, info = vs.solve_with_info(vs.layout.pad(b))
+    x, info = vs.solve_padded_with_info(vs.layout.pad(b))
     assert info["fallback"] is False and twice.calls >= info["iterations"] > 0
     x = vs.layout.unpad(x)
     assert _rel(2.0 * x, x_plain) <= 1e-12
@@ -475,6 +483,244 @@ def test_verified_fsai_solver_resident_path_ignores_apply_fn(cut_mass24):
                                    interpret=False, device="cpu", dtype=F64)
     assert vs.path == "resident-verified"
     n = st.grid.n_nodes
-    vs(vs.layout.pad(torch.as_tensor(
+    vs.solve_padded(vs.layout.pad(torch.as_tensor(
         np.random.default_rng(63).standard_normal(n))))
     assert twice.calls == 0 and vs.fallback_count == 0
+
+
+# ---- gdm's positional dtype (each builder in gdm's positional form) -------
+
+@functools.lru_cache(maxsize=None)
+def _cut12():
+    """(grid, cut operators, cut mass) of the disc at 12^2."""
+    gc, mass = _stencil_op()
+    geo = CutGeometry.build(gc, lambda m: np.sqrt(sum(x**2 for x in m))
+                            - 1.0, 3)
+    return gc, CutOperators(geo, INSIDE), mass
+
+
+def _padded(built, u):
+    apply, pad, unpad, _ = built
+    return unpad(apply(pad(u)))
+
+
+def _fsai(mass):
+    return fsai.fsai_factors(mass)
+
+
+# (id, gdm's positional call of dtype d, the port's keyword call, a run of
+# the built object on u); every call on the CPU
+POSITIONAL = [
+    ("make_padded_laplace2",
+     lambda d: stencil2.make_padded_laplace2(G2, d, None, False, "vpu",
+                                             None, None, None, True,
+                                             device="cpu"),
+     lambda: stencil2.make_padded_laplace2(G2, dtype=F64, device="cpu"),
+     _padded, G2),
+    ("make_padded_laplace2_stream",
+     lambda d: stencil2.make_padded_laplace2_stream(G2, d, 96, False, None,
+                                                    device="cpu"),
+     lambda: stencil2.make_padded_laplace2_stream(G2, dtype=F64,
+                                                  device="cpu"),
+     _padded, G2),
+    ("make_padded_laplace3",
+     lambda d: stencil3.make_padded_laplace3(G3, d, None, False,
+                                             device="cpu"),
+     lambda: stencil3.make_padded_laplace3(G3, dtype=F64, device="cpu"),
+     _padded, G3),
+    ("make_padded_laplace2_fullmxu",
+     lambda d: stencil2.make_padded_laplace2_fullmxu(G2, d, None, False,
+                                                     device="cpu"),
+     lambda: stencil2.make_padded_laplace2_fullmxu(G2, dtype=F64,
+                                                   device="cpu"),
+     _padded, G2),
+    ("make_padded_laplace2_hybrid",
+     lambda d: stencil2.make_padded_laplace2_hybrid(G2, d, None, None, False,
+                                                    device="cpu"),
+     lambda: stencil2.make_padded_laplace2_hybrid(G2, dtype=F64,
+                                                  device="cpu"),
+     _padded, G2),
+    ("make_padded_laplace3_mxu",
+     lambda d: stencil3.make_padded_laplace3_mxu(G3, d, None, False, 1024,
+                                                 True, device="cpu"),
+     lambda: stencil3.make_padded_laplace3_mxu(G3, dtype=F64, device="cpu"),
+     _padded, G3),
+    ("make_padded_laplace2_mxucol",
+     lambda d: stencil2.make_padded_laplace2_mxucol(G2, d, None, False,
+                                                    device="cpu"),
+     lambda: stencil2.make_padded_laplace2_mxucol(G2, dtype=F64,
+                                                  device="cpu"),
+     _padded, G2),
+    ("make_padded_laplace2_hybp",
+     lambda d: stencil2.make_padded_laplace2_hybp(G2, d, None, None, False,
+                                                  device="cpu"),
+     lambda: stencil2.make_padded_laplace2_hybp(G2, dtype=F64, device="cpu"),
+     _padded, G2),
+    ("best_padded_laplace",
+     lambda d: fast.best_padded_laplace(G2, d, False, None, device="cpu"),
+     lambda: fast.best_padded_laplace(G2, dtype=F64, device="cpu"),
+     _padded, G2),
+    ("make_padded_laplace",
+     lambda d: stencil.make_padded_laplace(G2, d, None, False, device="cpu"),
+     lambda: stencil.make_padded_laplace(G2, dtype=F64, device="cpu"),
+     _padded, G2),
+    ("laplace_2d_fn",
+     lambda d: stencil.laplace_2d_fn(G2, d, device="cpu"),
+     lambda: stencil.laplace_2d_fn(G2, dtype=F64, device="cpu"),
+     lambda fn, u: fn(u), G2),
+    ("laplace_apply_fn",
+     lambda d: fast.laplace_apply_fn(G3, d, "auto", device="cpu"),
+     lambda: fast.laplace_apply_fn(G3, dtype=F64, device="cpu"),
+     lambda fn, u: fn(u), G3),
+    ("mass_apply_fn",
+     lambda d: fast.mass_apply_fn(G2, d, device="cpu"),
+     lambda: fast.mass_apply_fn(G2, dtype=F64, device="cpu"),
+     lambda fn, u: fn(u), G2),
+    ("make_padded_stencil2",
+     lambda d: cutband.make_padded_stencil2(_stencil_op()[1], d, 64, False,
+                                            device="cpu"),
+     lambda: cutband.make_padded_stencil2(_stencil_op()[1], dtype=F64,
+                                          device="cpu"),
+     lambda b, u: _padded(b, u.reshape(-1)), "cut"),
+    ("make_resident_cg",
+     lambda d: resident.make_resident_cg(
+         _stencil_op()[1], *_fsai(_stencil_op()[1]), 40, 1e-5, 1e-12, d,
+         False, 96 * 1024 * 1024, device="cpu"),
+     lambda: resident.make_resident_cg(
+         _stencil_op()[1], *_fsai(_stencil_op()[1]), max_iter=40,
+         dtype=F64, device="cpu"),
+     lambda b, u: b[2](b[0](b[1](u.reshape(-1)))[0]), "cut"),
+    ("make_fast_cut_apply",
+     lambda d: fastapply.make_fast_cut_apply(
+         _cut12()[2], _cut12()[1], fastapply.kron_pairs(_cut12()[0], "mass"),
+         "auto", d, False, None, "mxu3p", True, device="cpu"),
+     lambda: fastapply.make_fast_cut_apply(
+         _cut12()[2], _cut12()[1], fastapply.kron_pairs(_cut12()[0], "mass"),
+         dtype=F64, device="cpu"),
+     lambda fn, u: fn(u.reshape(-1)), "cut"),
+]
+
+
+@pytest.mark.parametrize("form", [F64, np.float64, "float64"],
+                         ids=["torch", "numpy", "name"])
+@pytest.mark.parametrize("gdm_call,keyword_call,run,grid",
+                         [c[1:] for c in POSITIONAL],
+                         ids=[c[0] for c in POSITIONAL])
+def test_builders_take_gdms_positional_dtype(gdm_call, keyword_call, run,
+                                             grid, form):
+    """gdm's positional form, dtype second and gdm's other parameters
+    after it (interpret, vmem_budget, use_pallas taken with no effect),
+    builds the same apply as the keyword form, in torch's float64."""
+    nodes = _stencil_op()[0].nodes if grid == "cut" else grid.nodes
+    u = torch.as_tensor(np.random.default_rng(40).standard_normal(nodes))
+    y = run(gdm_call(form), u)
+    assert y.dtype == F64
+    assert y.equal(run(keyword_call(), u))
+
+
+def test_stage1_micro_takes_gdms_positional_dtype():
+    grid = Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0))
+    for form in (torch.float32, np.float32, "float32"):
+        apply, shape = mxu_micro.make_stage1_micro(grid, "full", form, 16,
+                                                   False, device="cpu")
+        ref, _ = mxu_micro.make_stage1_micro(grid, "full", tile_r=16,
+                                             device="cpu")
+        u = torch.as_tensor(np.random.default_rng(41).standard_normal(
+            shape), dtype=torch.float32)
+        assert apply(u).equal(ref(u))
+
+
+def test_best_field_laplace_takes_gdms_positional_form():
+    """gdm's (grid, use_pallas, min_dofs): "auto", "force" and a min_dofs
+    run and change nothing."""
+    grid = Grid(3, (16, 20), (0.0, 0.0), (1.0, 1.0))
+    u = torch.as_tensor(np.random.default_rng(42).standard_normal(
+        grid.nodes + (1,)))
+    ref, rode = fast.best_field_laplace(grid, device="cpu", dtype=F64)
+    assert rode is False
+    for args in (("auto",), ("force", 10), (None, 200_000)):
+        apply, _ = fast.best_field_laplace(grid, *args, device="cpu",
+                                           dtype=F64)
+        assert apply(u).equal(ref(u))
+
+
+@pytest.mark.parametrize("call", [
+    lambda: stencil2.make_padded_laplace2(G2, "cpu", F64),
+    lambda: stencil2.make_padded_laplace2_hybp(G2, torch.device("cpu")),
+    lambda: stencil3.make_padded_laplace3(G3, None, device="cpu"),
+    lambda: fast.best_padded_laplace(G2, "cuda"),
+    lambda: fast.laplace_apply_fn(G2, "cpu", F64),
+    lambda: fast.mass_apply_fn(G2, "not a dtype", device="cpu"),
+    lambda: fast.best_field_laplace(G2, device="cpu", dtype="cpu"),
+    lambda: cutband.make_padded_stencil2(_stencil_op()[1], "cpu"),
+    lambda: resident.make_resident_cg(_stencil_op()[1], None, None, 40,
+                                      1e-5, 1e-12, "cpu"),
+    lambda: mxu_micro.make_stage1_micro(G2, "full", "cpu"),
+], ids=["laplace2 device", "hybp torch.device", "laplace3 None",
+        "dispatch cuda", "apply_fn device", "mass_apply_fn str",
+        "field_laplace", "stencil2", "resident", "stage1"])
+def test_bad_dtype_raises_value_error(call):
+    """Anything that is not a dtype in gdm's dtype position (a device
+    from the port's old order among them) raises ValueError, not
+    TypeError."""
+    with pytest.raises(ValueError, match="dtype"):
+        call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: fast.laplace_apply_fn(G2, F64, "never", device="cpu"),
+    lambda: fast.best_field_laplace(G2, "never", device="cpu"),
+    lambda: fastapply.make_fast_cut_apply(
+        _cut12()[2], _cut12()[1], fastapply.kron_pairs(_cut12()[0], "mass"),
+        "never", device="cpu"),
+], ids=["laplace_apply_fn", "best_field_laplace", "make_fast_cut_apply"])
+def test_use_pallas_never_raises(call):
+    with pytest.raises(ValueError, match="plain twin is for the CPU"):
+        call()
+
+
+def test_use_pallas_unknown_raises():
+    with pytest.raises(ValueError, match="use_pallas"):
+        fast.laplace_apply_fn(G2, F64, "sometimes", device="cpu")
+
+
+def test_resolve_dtype():
+    import jax.numpy as jnp
+
+    for form, want in ((F64, F64), (np.float64, F64), ("float32",
+                       torch.float32), (jnp.float32, torch.float32),
+                       (np.dtype("float64"), F64), (torch.int32,
+                                                    torch.int32)):
+        assert device.resolve_dtype(form) == want
+    for bad in ("cpu", "cuda", torch.device("cpu"), None, jnp.bfloat16,
+                object()):
+        with pytest.raises(ValueError, match="dtype"):
+            device.resolve_dtype(bad)
+
+
+# ---- VerifiedSolver in gdm's flat form ---------------------------------
+
+@pytest.mark.parametrize("crippled", [False, True],
+                         ids=["resident", "streamed"])
+def test_verified_solver_takes_and_returns_flat_vectors(cut_mass24,
+                                                        crippled):
+    """solve(b) and solve_with_info(b) take gdm's flat node vector and
+    return one, equal to the padded method's answer unpadded, with the
+    same info keys, on both routes."""
+    op, st = cut_mass24
+    kw = dict(resident_max_iter=1) if crippled else {}
+    vs = fsai.verified_fsai_solver(st, op.w_cut, 200, 1e-6, device="cpu",
+                                   dtype=F64, **kw)
+    assert vs.path == ("streamed" if crippled else "resident-verified")
+    n = st.grid.n_nodes
+    b = torch.as_tensor(np.random.default_rng(64).standard_normal(n))
+    x_pad, info_pad = vs.solve_padded_with_info(vs.layout.pad(b))
+    x, info = vs.solve_with_info(b)
+    assert x.shape == (n,) and x.equal(vs.layout.unpad(x_pad))
+    assert vs(b).equal(x)
+    assert vs.solve_padded(vs.layout.pad(b)).equal(x_pad)
+    assert set(info) == set(info_pad) == {"iterations", "residual",
+                                          "fallback", "fallback_iterations"}
+    assert info == info_pad
+    r = st.apply(x) - b
+    assert (r.norm() / b.norm()).item() <= 1e-5

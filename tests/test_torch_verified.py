@@ -39,7 +39,8 @@ def _rhs(seed, n):
 
 
 def _port_solve(vs, b, dtype=torch.float32):
-    x, info = vs.solve_with_info(vs.layout.pad(torch.as_tensor(b, dtype=dtype)))
+    x, info = vs.solve_padded_with_info(
+        vs.layout.pad(torch.as_tensor(b, dtype=dtype)))
     return vs.layout.unpad(x).double().numpy(), info
 
 
