@@ -12,9 +12,12 @@ by K1 (gdm_torch/ops/cutband.py) or inside the one-launch CG K2
 (gdm_torch/ops/resident.py).
 
 ``verified_fsai_solver`` is gdm's probe-routed, true-residual-checked
-solver: both of its branches, the resident FSAI-CG and the streamed
-Schwarz-preconditioned CG, run on the card's kernels, and both work on
-the padded layout directly.
+solver: the resident FSAI-CG (K2) and the streamed Schwarz-preconditioned
+CG.  The streamed CG follows gdm's two routes: on the card in 2D it runs
+on the padded layout over K1's band applies (gdm's TPU route; an
+``apply_fn`` is not used), everywhere else it is a host CG on flat node
+vectors over ``apply_fn`` (gdm's route off the TPU).
+``fsai_cg_solver`` is gdm's entry to both.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ from .. import device as _device
 from .. import solvers
 from ..ops.cutband import layout_for
 from ..ops.resident import make_resident_cg, read_stats
+from . import stencil
 from .fastapply import fast_stencil_bundle
-from .stencil import StencilOperator, schwarz_band
+from .stencil import (StencilOperator, routed_apply, schwarz_band,
+                      schwarz_jacobi_preconditioner)
 
 log = logging.getLogger(__name__)
 
@@ -175,7 +180,10 @@ class VerifiedSolver:
     otherwise), ``probe`` the probe evidence, ``fallback_count`` how
     many solves the per-solve check sent to the streamed path and
     ``last_info`` the info of the latest solve.  ``streamed`` is the
-    streamed path's own solve_with_info on the padded layout.
+    streamed path's own solve_with_info on the padded layout, or, where
+    ``layout`` is None (gdm's "resident-unavailable" solver of
+    ``fsai_cg_solver``), on flat node vectors; such a solver has no
+    padded methods.
     """
 
     def __init__(self, path: str, probe: dict, layout, streamed,
@@ -192,13 +200,21 @@ class VerifiedSolver:
         self._abs_tol = abs_tol
         self._slack = slack
 
+    def _streamed_solve(self, b):
+        """A solve on the streamed path alone (no resident path)."""
+        x, info = self.streamed(b)
+        self.last_info = {"iterations": info["iterations"],
+                          "residual": info["residual"],
+                          "fallback": False, "fallback_iterations": 0}
+        return x, self.last_info
+
     def solve_padded_with_info(self, b):
+        if self.layout is None:
+            raise ValueError(
+                "this solver runs gdm's host route on flat node vectors "
+                "and has no padded layout; call solve_with_info")
         if self._resident is None:
-            x, info = self.streamed(b)
-            self.last_info = {"iterations": info["iterations"],
-                              "residual": info["residual"],
-                              "fallback": False, "fallback_iterations": 0}
-            return x, self.last_info
+            return self._streamed_solve(b)
         x, stats = self._resident(b)
         s = read_stats(stats)
         tol = max(self._abs_tol, self._rel_tol * s["r0"])
@@ -221,6 +237,8 @@ class VerifiedSolver:
         return self.solve_padded_with_info(b)[0]
 
     def solve_with_info(self, b):
+        if self.layout is None:
+            return self._streamed_solve(b)
         x, info = self.solve_padded_with_info(self.layout.pad(b))
         return self.layout.unpad(x), info
 
@@ -228,18 +246,49 @@ class VerifiedSolver:
         return self.solve_with_info(b)[0]
 
 
+def _host_streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
+                          abs_tol, dtype, apply_fn=None):
+    """gdm's streamed CG off its kernels: solvers.cg on flat node vectors
+    over ``apply_fn`` (default: the band apply), preconditioned by the
+    gather-form Schwarz preconditioner over ``windows`` (by the FSAI
+    factors when there are none).  Returns solve_with_info(b) -> (x,
+    {"iterations", "residual"})."""
+    if apply_fn is None:
+        apply_fn = st.apply
+    if windows is not None and np.asarray(windows).size:
+        precond = schwarz_jacobi_preconditioner(st, windows, dtype=dtype)
+    else:
+        precond = fsai_preconditioner(st)
+
+    def solve_with_info(b):
+        return solvers.cg(apply_fn, b, precond=precond, max_iter=max_iter,
+                          abs_tol=abs_tol, rel_tol=rel_tol)
+
+    return solve_with_info
+
+
 def _streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
                      abs_tol, layout, device, dtype, apply_fn=None):
     """The exact-arithmetic (recurrence-honest at working precision)
-    band-CG path: solvers.cg on the padded layout over K1 applies (or,
-    when ``apply_fn`` is given, over ``apply_fn`` of the flat node
-    vector, padded back into the layout), preconditioned by the
-    band-form Schwarz preconditioner (by the FSAI factors when there are
-    no windows).  Returns solve_with_info(b_pad) -> (x_pad,
+    band-CG path on the padded layout, by gdm's two routes
+    (``stencil.kernel_route``): on the card in 2D, solvers.cg on the
+    layout over K1's applies of the band, preconditioned by the band-form
+    Schwarz preconditioner (by the FSAI factors when there are no
+    windows), with
+    ``apply_fn`` unused, as on gdm's TPU; elsewhere gdm's host CG
+    (``_host_streamed_solver``) over ``apply_fn`` on the flat vector,
+    unpadded and padded back.  Returns solve_with_info(b_pad) -> (x_pad,
     {"iterations", "residual"})."""
-    apS, pad_s, unpad_s = fast_stencil_bundle(st, device, dtype, layout)
-    if apply_fn is not None:
-        apS = lambda v: pad_s(apply_fn(unpad_s(v)))  # noqa: E731
+    if not stencil.kernel_route(st.grid, device):
+        flat = _host_streamed_solver(st, windows, max_iter, rel_tol,
+                                     abs_tol, dtype, apply_fn)
+
+        def solve_with_info(b):
+            x, info = flat(layout.unpad(b))
+            return layout.pad(x), info
+
+        return solve_with_info
+    apS = fast_stencil_bundle(st, device, dtype, layout)[0]
     if windows is not None and np.asarray(windows).size:
         pre_pad = fast_stencil_bundle(schwarz_band(st, windows, dtype),
                                       device, dtype, layout)[0]
@@ -281,14 +330,16 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
 
     The parameters stand in gdm's positional order, ``device`` and
     ``dtype`` after them.  ``apply_fn``, gdm's operator of the streamed
-    CG, is that CG's operator when given: a function of the flat node
-    vector, run on the layout through its pad and unpad (the resident
-    path stays on the band).  ``interpret`` names gdm's TPU interpreter
+    CG, follows gdm's routes (``_streamed_solver``): on the card the
+    streamed CG runs the band through K1 and does not use it; on the
+    CPU it is the operator of the host CG on flat vectors.  The resident
+    path stays on the band.  ``interpret`` names gdm's TPU interpreter
     and has no effect.  ``resident_max_iter`` cripples the resident path
     (detection tests).  Solves take and return flat node vectors, as
     gdm's do; ``solve_padded`` works in the solver's ``layout``.
     """
     device = _device.resolve(device)
+    dtype = _device.resolve_dtype(dtype)
     rel_f = max(rel_tol, 1e-6)
     abs_f = max(abs_tol, 1e-12)
     G, GT = fsai_factors(st, R)
@@ -319,3 +370,49 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
     return VerifiedSolver(path, probe_info, layout, streamed,
                           resident=solve_r if probe_info["ok"] else None,
                           rel_tol=rel_f, abs_tol=abs_f, slack=slack)
+
+
+def fsai_cg_solver(st: StencilOperator, max_iter: int, rel_tol: float,
+                   abs_tol: float, apply_fn=None, R: int = None,
+                   resident: bool = True, windows=None, device="cuda",
+                   dtype=torch.float32):
+    """The best serial solve callable for an SPD band system, in gdm's
+    positional order, ``device`` and ``dtype`` after it.
+
+    With ``resident``, gdm's platform rule read as the device asked for:
+    on the card in 2D, :func:`verified_fsai_solver` (K2 with its probe
+    and per-solve check, the streamed CG over K1 as fallback); anywhere
+    else gdm's "resident-unavailable" solver, a ``VerifiedSolver`` whose
+    ``path`` is "streamed" and ``probe`` {"ok": None, "reason":
+    "resident-unavailable"}, solving flat vectors by the host CG over
+    ``apply_fn`` (FSAI-preconditioned, or Schwarz over ``windows``).
+    Without it, gdm's plain FSAI-CG callable ``solve(b) -> x`` (every
+    band apply through K1 for a CUDA tensor of a 2D grid).  The same
+    ReductionControl stopping rule either way.
+    """
+    device = _device.resolve(device)
+    dtype = _device.resolve_dtype(dtype)
+    if resident and stencil.kernel_route(st.grid, device):
+        return verified_fsai_solver(
+            st, windows=windows, max_iter=max_iter, rel_tol=rel_tol,
+            abs_tol=abs_tol, apply_fn=apply_fn, R=R, device=device,
+            dtype=dtype)
+    if resident:
+        flat = _host_streamed_solver(st, windows, max_iter, rel_tol,
+                                     abs_tol, dtype, apply_fn)
+        return VerifiedSolver("streamed", {"ok": None,
+                                           "reason": "resident-unavailable"},
+                              None, flat)
+
+    G, GT = fsai_factors(st, R)
+    apG, apGT = routed_apply(G), routed_apply(GT)
+    if apply_fn is None:
+        apply_fn = routed_apply(st)
+
+    def solve(b):
+        x, _ = solvers.cg(apply_fn, b, precond=lambda rr: apGT(apG(rr)),
+                          max_iter=max_iter, abs_tol=abs_tol,
+                          rel_tol=rel_tol)
+        return x
+
+    return solve

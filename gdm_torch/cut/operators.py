@@ -500,6 +500,42 @@ class CutOperators:
                                   u[win])
         return self._scatter(y, win, vw)
 
+    def stiffness_matrix_apply(self, u, gamma_A, nitsche_gamma,
+                               with_nitsche=True, gp_power: int = 3):
+        """y = S_cut u: cell Laplace + Nitsche (interface) + GP h^3 +
+        inactive identity."""
+        y = torch.zeros_like(u)
+        if len(self.full_ids):
+            win = self.table("w_full", u)
+            y = self._scatter(y, win, self.cell_matvec(
+                u, win, self.table("A_stiff_full", u)))
+        if len(self.cut_ids):
+            G = self.table("G_cut", u)
+            win = self.table("w_cut", u)
+            gq = torch.einsum("nqdi,ni->nqd", G, u[win])
+            y = self._scatter(y, win, torch.einsum(
+                "nqdi,nqd,nq->ni", G, gq, self.table("vol_w", u)))
+            if with_nitsche:
+                y = self._nitsche_matrix_apply(y, u, nitsche_gamma)
+        y = self._gp_apply(y, u, gamma_A * self.h_min**gp_power)
+        return y + torch.where(self.table("inactive", u), u, 0.0)
+
+    def _nitsche_matrix_apply(self, y, u, gamma):
+        """The symmetric interface Nitsche terms of the stiffness:
+        -<d_n v, u> - <v, d_n u> + (gamma/h) <v, u>."""
+        V = self.table("V_surf", u)
+        w = self.table("surf_w", u)
+        win = self.table("w_cut", u)
+        Gn = torch.einsum("nqdi,nqd->nqi", self.table("G_surf", u),
+                          self.table("surf_n", u))
+        uw = u[win]
+        uq = torch.einsum("nqi,ni->nq", V, uw)
+        dnuq = torch.einsum("nqi,ni->nq", Gn, uw)
+        t1 = -torch.einsum("nqi,nq,nq->ni", Gn, uq, w)
+        t2 = -torch.einsum("nqi,nq,nq->ni", V, dnuq, w)
+        t3 = (gamma / self.h_min) * torch.einsum("nqi,nq,nq->ni", V, uq, w)
+        return self._scatter(y, win, t1 + t2 + t3)
+
     def compute_rhs(self, u, t, impl: bool, rhs_fn=None, interface_dbc=None,
                     domain_dbc=None, gamma_A=0.0, nitsche_gamma=0.0):
         """Reference compute_rhs_internal (wave stiffness.h:42-407).

@@ -222,34 +222,26 @@ def _local_blocks(band_flat, windows, grid, radius):
     return loc
 
 
-def schwarz_band(st: StencilOperator, windows,
-                 dtype: torch.dtype = torch.float32) -> StencilOperator:
-    """The additive Schwarz(+Jacobi) preconditioner ASSEMBLED into
-    stencil-band form.
-
-    B = sum_w R_w^T A[w, w]^{-1} R_w  (+ point Jacobi on uncovered rows)
-    has exactly the window-stencil sparsity, padded here to the
-    operator's radius so B shares its padded kernel layout.
-
-    ``dtype`` is the working precision B will be applied in.  For
-    float32 a relative ridge of ~f32 eps is added to every window block
-    before inversion: the exact inverse of a kappa~1e12 block rounds to
-    garbage (possibly indefinite) in f32, which destabilizes
-    preconditioned CG; the ridge caps the block condition at ~1e7 —
-    everything f32 can express — while still resolving the bad modes
-    far beyond point Jacobi.  (gdm decides this from its global float
-    width; here the caller states it.)
-    """
+def _schwarz_blocks(st: StencilOperator, windows, dtype):
+    """(jac, windows, inv) of the additive Schwarz(+Jacobi)
+    preconditioner: point Jacobi on the rows no window covers (0 on
+    covered rows, 1 where the diagonal is 0: inactive), the windows as
+    an int array and their dense block inverses A[w, w]^{-1} (None
+    without windows).  For float32 a relative ridge of ~f32 eps is added
+    to every block before inversion: the exact inverse of a kappa~1e12
+    block rounds to garbage (possibly indefinite) in f32, which
+    destabilizes preconditioned CG; the ridge caps the block condition
+    at ~1e7 — everything f32 can express — while still resolving the bad
+    modes far beyond point Jacobi.  (gdm decides this from its global
+    float width; here the caller states it.)"""
     grid = st.grid
-    dim = grid.dim
     K = 2 * st.radius + 1
     band_flat = np.asarray(st.band_host, np.float64).reshape(
-        grid.n_nodes, K**dim)
-    center = (K**dim - 1) // 2
-    diag = band_flat[:, center]
+        grid.n_nodes, K**grid.dim)
+    diag = band_flat[:, (K**grid.dim - 1) // 2]
     covered = np.zeros(grid.n_nodes, dtype=bool)
-    bandB = np.zeros_like(band_flat)
     windows = np.asarray(windows)
+    inv = None
     if windows.size:
         covered[windows.reshape(-1)] = True
         loc = _local_blocks(band_flat, windows, grid, st.radius)
@@ -258,11 +250,94 @@ def schwarz_band(st: StencilOperator, windows,
             d = np.einsum("nii->ni", loc)
             ridge = 1e-7 * d.max(axis=1)
             loc = loc + ridge[:, None, None] * np.eye(m)
-        _accumulate(bandB, windows, np.linalg.inv(loc), grid, st.radius)
+        inv = np.linalg.inv(loc)
     safe = np.where(diag == 0.0, 1.0, diag)
-    bandB[:, center] += np.where(covered, 0.0, 1.0 / safe)
-    return StencilOperator(grid, bandB.reshape(grid.nodes + (K,) * dim),
+    return np.where(covered, 0.0, 1.0 / safe), windows, inv
+
+
+def schwarz_band(st: StencilOperator, windows,
+                 dtype: torch.dtype = torch.float32) -> StencilOperator:
+    """The additive Schwarz(+Jacobi) preconditioner ASSEMBLED into
+    stencil-band form.
+
+    B = sum_w R_w^T A[w, w]^{-1} R_w  (+ point Jacobi on uncovered rows)
+    has exactly the window-stencil sparsity, padded here to the
+    operator's radius so B shares its padded kernel layout.  ``dtype``
+    is the working precision B will be applied in (``_schwarz_blocks``).
+    """
+    grid = st.grid
+    K = 2 * st.radius + 1
+    jac, windows, inv = _schwarz_blocks(st, windows, dtype)
+    bandB = np.zeros((grid.n_nodes, K**grid.dim))
+    if inv is not None:
+        _accumulate(bandB, windows, inv, grid, st.radius)
+    bandB[:, (K**grid.dim - 1) // 2] += jac
+    return StencilOperator(grid, bandB.reshape(grid.nodes + (K,) * grid.dim),
                            st.radius)
+
+
+def schwarz_jacobi_preconditioner(st: StencilOperator, windows,
+                                  dtype: torch.dtype = torch.float64):
+    """The same B as ``schwarz_band`` in gather form, gdm's host route of
+    the streamed CG: exact dense solves of the window submatrices
+    (batched (m, m) inverses, applied as gather -> einsum -> index_add_)
+    plus point Jacobi, on flat node vectors.  ``dtype`` is the working
+    precision (``_schwarz_blocks``); the tables move to the residual's
+    device and dtype at its first call.  (gdm's ``overlap_weighted``
+    scaling has no caller and is not ported.)"""
+    host = dict(zip(("jac", "win", "inv"), _schwarz_blocks(st, windows,
+                                                           dtype)))
+    cache = {}
+
+    def precondition(r):
+        key = (r.device, r.dtype)
+        if key not in cache:
+            cache[key] = {k: torch.as_tensor(
+                v, device=r.device,
+                dtype=torch.int64 if k == "win" else r.dtype)
+                for k, v in host.items() if v is not None}
+        t = cache[key]
+        z = t["jac"] * r
+        if "inv" not in t:
+            return z
+        win = t["win"]
+        zl = torch.einsum("nij,nj->ni", t["inv"], r[win])
+        return z.index_add_(0, win.reshape(-1), zl.reshape(-1))
+
+    return precondition
+
+
+def kernel_route(grid, device) -> bool:
+    """gdm's platform rule for its fused kernels, read as the device
+    asked for: a CUDA run of a 2D grid takes gdm's TPU branches (K1,
+    K2); every other run takes gdm's branches off the TPU.  The one
+    copy of the rule: ``routed_apply``, ``fsai``'s solvers and
+    ``WaveProblem`` all ask it through this module."""
+    return torch.device(device).type == "cuda" and grid.dim == 2
+
+
+def routed_apply(st: StencilOperator, other=None):
+    """The apply of ``st`` on flat node vectors, routed on the tensor as
+    ``best_solver_apply`` routes: where ``kernel_route`` holds for the
+    tensor's device, through K1 (``fastapply.fast_stencil_apply``, built
+    per device and dtype at its first call); elsewhere ``other``
+    (default: the plain band apply ``st.apply``)."""
+    from .fastapply import fast_stencil_apply
+
+    if other is None:
+        other = st.apply
+    k1 = {}
+
+    def apply(u: torch.Tensor) -> torch.Tensor:
+        if kernel_route(st.grid, u.device):
+            key = (u.device, u.dtype)
+            if key not in k1:
+                k1[key] = fast_stencil_apply(st, device=u.device,
+                                             dtype=u.dtype)
+            return k1[key](u)
+        return other(u)
+
+    return apply
 
 
 def best_solver_apply(op: CutOperators, kind: str, gamma: float,
@@ -273,43 +348,24 @@ def best_solver_apply(op: CutOperators, kind: str, gamma: float,
     "stiff") for solver inner loops, on flat node vectors.
 
     gdm picks its route once, from the platform: on a TPU in 2D its
-    fused kernel.  Here the route follows the tensor: a CUDA tensor of
-    a 2D grid goes through K1 (``fastapply.fast_stencil_apply``, built
-    per device and dtype at its first call); any other tensor takes the
-    stencil-band apply while the band holds at most ``max_band_entries``
-    entries, else the matrix-free apply, as gdm does off the TPU.  The
-    matrix-free stiffness is ``CutOperators.stiffness_matrix_apply``,
-    which waits for the implicit heat solve: ``kind="stiff"`` past the
-    band limit raises NotImplementedError on that route.
+    fused kernel.  Here the route follows the tensor (``routed_apply``):
+    a CUDA tensor of a 2D grid goes through K1; any other tensor takes
+    the stencil-band apply while the band holds at most
+    ``max_band_entries`` entries, else the matrix-free apply
+    (``CutOperators.mass_apply`` or ``stiffness_matrix_apply``), as gdm
+    does off the TPU.
     """
-    from .fastapply import fast_stencil_apply
-
     grid = op.grid
     K = 2 * (grid.degree + 1) + 1
     banded = grid.n_nodes * K**grid.dim <= max_band_entries
-    st = (assemble_stencil(op, kind, gamma, nitsche_gamma, with_nitsche)
-          if banded or grid.dim == 2 else None)
-    if banded:
-        other = st.apply
-    elif kind == "mass":
-        def other(u):
-            return op.mass_apply(u, gamma)
+    if kind == "mass":
+        def free(v):
+            return op.mass_apply(v, gamma)
     else:
-        def other(u):
-            raise NotImplementedError(
-                f"the matrix-free {kind!r} apply past the band limit "
-                f"({grid.n_nodes * K**grid.dim} > {max_band_entries:g} "
-                f"entries) is CutOperators.stiffness_matrix_apply, which "
-                f"is not ported yet")
-    k1 = {}
-
-    def apply(u: torch.Tensor) -> torch.Tensor:
-        if u.is_cuda and grid.dim == 2:
-            key = (u.device, u.dtype)
-            if key not in k1:
-                k1[key] = fast_stencil_apply(st, op, kind, device=u.device,
-                                             dtype=u.dtype)
-            return k1[key](u)
-        return other(u)
-
-    return apply
+        def free(v):
+            return op.stiffness_matrix_apply(v, gamma, nitsche_gamma,
+                                             with_nitsche)
+    if not banded and grid.dim != 2:
+        return free
+    st = assemble_stencil(op, kind, gamma, nitsche_gamma, with_nitsche)
+    return routed_apply(st, None if banded else free)

@@ -1,21 +1,27 @@
-"""Cut-cell wave/heat application: the explicit time loops.
+"""Cut-cell wave/heat/Poisson application.
 
 Port of gdm/problems/wave.py (the reference wave application,
 applications/wave/): ``WaveParams`` and the named presets of
 wave-app.cc, the discretisation (level-set interpolation and cut
-classification, host numpy), and the explicit RK4 loops of the
-``wave-rk`` and ``heat-rk`` simulation types (problem.h:72-128,
-280-346) with the reference's error rows.
+classification, host numpy), the simulation-type dispatch of
+problem.h:39-440 (the step85 Poisson solve, the explicit RK4 loops of
+``wave-rk`` and ``heat-rk`` on one region or on both regions coupled
+across the interface, and the implicit-Euler ``heat-impl`` loop), the
+reference's error rows and its per-step VTU output.
 
 Each RK stage builds the right-hand side, ``compute_rhs`` minus the
 assembled stiffness band (K1 on the card in 2D), and solves with the
-ghost-penalised cut mass.  The mass solve follows gdm's own dispatch on
-whether its fused kernels are there: a CUDA run of a 2D grid takes gdm's
-TPU branch, the verified FSAI solver (K2, checked per solve, with the
-streamed Schwarz CG over K1 as fallback); any other run takes gdm's CPU
-branch, Jacobi CG over ``best_solver_apply``.  Both solve to the
-parameters' tolerances.  The other simulation types, composites and VTU
-output raise NotImplementedError naming what they wait for.
+ghost-penalised cut mass.  The solves follow gdm's own dispatch on
+whether its fused kernels are there, read as the device asked for: a
+CUDA run of a 2D grid takes gdm's TPU branch (the verified FSAI solver:
+K2, checked per solve, with the streamed CG over K1 as fallback); any
+other run takes gdm's CPU branch (Jacobi CG over ``best_solver_apply``
+for the mass, the host FSAI-CG over the matrix-free operator for
+heat-impl).  The Poisson solve is CG with Jacobi or, with
+``solver_name="MG"``, the cut multigrid (its level bands through K1 on
+the card in 2D).  All solve to the parameters' tolerances.  gdm's
+whole-trajectory device loop (``run_scan``) and the domain-decomposed
+and deformed runs are not ported yet.
 
 Function convention: scalar field functions take (pts, t), pts a numpy
 array of physical points shaped (..., dim) and t a float, and return
@@ -69,8 +75,8 @@ class WaveParams:
     level_set_fe_degree: int = 3
     level_set_function: Optional[Callable] = None
     output_fe_degree: int = 3
-    # gdm writes solution_{i,o}_<counter>.vtu per step when set; the
-    # port raises until gdm/io/vtu.py is ported
+    # when set, every postprocess step writes solution_{i,o}_<counter>.vtu
+    # into this directory (reference problem.h:617-657 writes one per step)
     output_vtu_dir: Optional[str] = None
     # vertex deformation (gdm threads it through every cut table); the
     # port raises until gdm/deform.py is ported
@@ -184,9 +190,13 @@ class WaveProblem:
     for gdm/dist/cut.py and raises NotImplementedError when given.
     ``rows`` holds the postprocess rows (counter, t, L2, L1, Linf) per
     location slot, ``solver_rows`` the solver samples when
-    ``params.print_solver_info``, and ``_solver_meta`` the routing of
-    each verified mass solver (``path``, ``probe``); the solver itself
-    is ``mass_solver`` after a run.
+    ``params.print_solver_info`` (heat-impl: every implicit solve), and
+    ``_solver_meta`` the routing of each verified mass solver (``path``,
+    ``probe``).  After a run the solvers are ``mass_solver`` (the
+    inside region's; ``mass_solvers`` holds both of a composite run),
+    ``heat_solvers`` (heat-impl, one per distinct step size) and, for
+    the Poisson solve, ``multigrid`` (with ``solver_name="MG"``) and
+    ``poisson_info`` (the CG's iterations and residual).
     """
 
     def __init__(self, params: WaveParams, verbose: bool = True,
@@ -239,16 +249,24 @@ class WaveProblem:
         return torch.as_tensor(np.asarray(vals).reshape(-1),
                                dtype=self.dtype, device=self.device)
 
+    def _kernel_route(self) -> bool:
+        """gdm's test for its fused kernels, read as the device asked
+        for (``cut.stencil.kernel_route``): a CUDA run of a 2D grid takes
+        gdm's TPU branches (K1, K2)."""
+        from ..cut import stencil
+
+        return stencil.kernel_route(self.grid, self.device)
+
     def _mass_solver(self, op: CutOperators):
         gm = self.params.ghost_parameter_M
         pp = self.params
         if pp.solver_name == "direct":
-            raise NotImplementedError(
-                "solver_name='direct' waits for solvers.make_direct_solver, "
-                "which is not ported yet")
+            return solvers.make_direct_solver(
+                lambda v: op.mass_apply(v, gm), self.grid.n_nodes,
+                device=self.device, dtype=self.dtype)
         from ..cut.stencil import assemble_stencil, best_solver_apply
 
-        if self.device.type == "cuda" and self.grid.dim == 2:
+        if self._kernel_route():
             # gdm's TPU branch: the whole FSAI-preconditioned CG as one
             # launch (K2), probe-routed and true-residual-checked per
             # solve, with the streamed Schwarz CG over K1 as fallback
@@ -318,34 +336,86 @@ class WaveProblem:
             self._record_solver_info(
                 slot, counter, self._solver_sample[slot](u))
         if self.params.output_vtu_dir is not None:
-            raise NotImplementedError(
-                "output_vtu_dir: the per-step VTU output waits for "
-                "gdm/io/vtu.py, which is not ported yet")
+            import os
+
+            tag = "i" if location == INSIDE else "o"
+            path = os.path.join(self.params.output_vtu_dir,
+                                f"solution_{tag}_{counter}.vtu")
+            _write_step_vtu(self, u, t, path, location)
 
     # -- main dispatch --------------------------------------------------
     def run(self):
         pp = self.params
         st = pp.simulation_type
-        waits = {
-            "poisson": "WaveProblem._run_poisson (with cut/multigrid.py)",
-            "heat-impl": "WaveProblem._run_heat_impl (with "
-                         "CutOperators.stiffness_matrix_apply and "
-                         "cut/fsai.py's fsai_cg_solver)",
-        }
-        if st in ("heat-rk", "wave-rk") and not pp.composite:
+        if st == "poisson":
+            self._run_poisson()
+        elif st in ("heat-rk", "wave-rk") and not pp.composite:
             self._run_explicit(heat=st == "heat-rk")
         elif st in ("heat-rk", "wave-rk"):
-            raise NotImplementedError(
-                f"the composite {st} run waits for "
-                f"WaveProblem._run_explicit_composite and "
-                f"_interface_coupling, which are not ported yet")
-        elif st in waits:
-            raise NotImplementedError(
-                f"simulation_type={st!r} waits for {waits[st]}, which is "
-                f"not ported yet")
+            self._run_explicit_composite(heat=st == "heat-rk")
+        elif st == "heat-impl":
+            self._run_heat_impl()
         else:
             raise ValueError(st)
         return self.rows
+
+    # -- poisson --------------------------------------------------------
+    def _run_poisson(self):
+        pp = self.params
+        op = self.op_in
+        ga, gn = pp.ghost_parameter_A, pp.nitsche_parameter
+        with_nitsche = pp.function_interface_dbc is not None
+
+        if pp.function_domain_dbc is not None:
+            # compute_rhs adds domain-boundary Nitsche RHS terms, so the
+            # LHS must carry the matching boundary-face Nitsche matrix
+            # (stiffness_matrix_apply has only the interface terms); the
+            # stencil-band assembly has both (K1 on the card in 2D)
+            from ..cut.stencil import assemble_stencil, routed_apply
+
+            S = assemble_stencil(op, "stiff", ga, gn,
+                                 with_nitsche=with_nitsche,
+                                 with_bdry_nitsche=True)
+            apply_fn = routed_apply(S)
+            K = 2 * (self.grid.degree + 1) + 1
+            center = (K ** self.grid.dim - 1) // 2
+            diag_np = np.asarray(
+                S.band_host.reshape(self.grid.n_nodes, -1)[:, center])
+        else:
+            def apply_fn(v):
+                return op.stiffness_matrix_apply(v, ga, gn,
+                                                 with_nitsche=with_nitsche)
+            diag_np = self._stiffness_diag()
+
+        if pp.solver_name == "MG":
+            # mesh-independent multilevel preconditioner for the cut
+            # stiffness system — the reference's AMG role
+            # (problem.h:461-469); see gdm_torch/cut/multigrid.py
+            from ..cut.multigrid import cut_poisson_multigrid
+
+            mg = cut_poisson_multigrid(
+                op, ga, gn, pp.level_set_function,
+                level_set_degree=pp.level_set_fe_degree,
+                with_nitsche=with_nitsche,
+                with_bdry_nitsche=pp.function_domain_dbc is not None,
+                device=self.device, dtype=self.dtype)
+            self.multigrid = mg
+            precond = mg.precondition
+        else:
+            precond = solvers.jacobi_preconditioner(torch.as_tensor(
+                diag_np, dtype=self.dtype, device=self.device))
+
+        b = op.compute_rhs(
+            self._zeros(), 0.0, False, rhs_fn=pp.function_rhs,
+            interface_dbc=pp.function_interface_dbc,
+            domain_dbc=pp.function_domain_dbc, nitsche_gamma=gn)
+        u, self.poisson_info = solvers.cg(
+            apply_fn, b, precond=precond,
+            max_iter=pp.solver_max_iterations,
+            abs_tol=pp.solver_abs_tolerance,
+            rel_tol=pp.solver_rel_tolerance)
+        self.final_solution = u
+        self.postprocess(0.0, u)
 
     def _stiffness_diag(self) -> np.ndarray:
         pp = self.params
@@ -371,7 +441,7 @@ class WaveProblem:
                 with_bdry_nitsche=pp.function_domain_dbc is not None,
                 inactive_identity=False,
             )
-            if self.device.type == "cuda" and self.grid.dim == 2:
+            if self._kernel_route():
                 S_apply = fast_stencil_apply(
                     S, op, "stiff", inactive_identity=False,
                     device=self.device, dtype=self.dtype)
@@ -433,6 +503,119 @@ class WaveProblem:
         y = self._time_loop(step, y0, delta_t, extract)
         self.final_solution = y if heat else y[0]
 
+    def _run_explicit_composite(self, heat: bool):
+        pp = self.params
+        delta_t = pp.cfl * self.dx**pp.cfl_pow
+        ops = (self.op_in, self.op_out)
+        solves = (self._mass_solver(ops[0]), self._mass_solver(ops[1]))
+        self.mass_solvers = solves
+        self.mass_solver = solves[0]
+        rhss = (self._rhs_fn(ops[0]), self._rhs_fn(ops[1]))
+        tau = 0.5 * pp.nitsche_parameter
+        couple = pp.function_interface_dbc is None
+
+        def coupled_rhs(u0, u1, t):
+            r0 = rhss[0](u0, t)
+            r1 = rhss[1](u1, t)
+            if couple:
+                r0, r1 = _interface_coupling(self.op_in, r0, r1, u0, u1, tau)
+            return r0, r1
+
+        if heat:
+            def f(t, y):
+                u0, u1 = y
+                r0, r1 = coupled_rhs(u0, u1, t)
+                return (solves[0](r0), solves[1](r1))
+            y0 = (self.interpolate_exact(pp.start_t),
+                  self.interpolate_exact(pp.start_t))
+        else:
+            def f(t, y):
+                u0, u1, v0, v1 = y
+                r0, r1 = coupled_rhs(u0, u1, t)
+                return (v0, v1, solves[0](r0), solves[1](r1))
+            y0 = (self.interpolate_exact(pp.start_t),
+                  self.interpolate_exact(pp.start_t), self._zeros(),
+                  self._zeros())
+
+        time = timestepping.DiscreteTime(pp.start_t, pp.end_t, delta_t)
+        y = y0
+        self.postprocess(pp.start_t, y[0], INSIDE)
+        self.postprocess(pp.start_t, y[1], OUTSIDE)
+        while not time.is_at_end():
+            t, dt = time.get_current_time(), time.get_next_step_size()
+            y = timestepping.rk_step(f, t, dt, y)
+            self.postprocess(t + dt, y[0], INSIDE)
+            self.postprocess(t + dt, y[1], OUTSIDE)
+            time.advance_time()
+        self.final_solution = y[:2]
+
+    # -- heat implicit --------------------------------------------------
+    def _run_heat_impl(self):
+        pp = self.params
+        op = self.op_in
+        delta_t = pp.cfl * self.dx**pp.cfl_pow
+        ga, gn = pp.ghost_parameter_A, pp.nitsche_parameter
+        gm = pp.ghost_parameter_M
+        with_nitsche = pp.function_interface_dbc is not None
+
+        def system_apply(v, dt):
+            return op.mass_apply(v, gm) + dt * (
+                op.stiffness_matrix_apply(v, ga, gn, with_nitsche)
+                - torch.where(op.table("inactive", v), v, 0.0))
+
+        # (M + dt S) in stencil-band form for the FSAI factorisation —
+        # the reference ILU-preconditions this system (problem.h:210-279)
+        from ..cut.fsai import fsai_cg_solver
+        from ..cut.stencil import StencilOperator, assemble_stencil
+
+        st_m = assemble_stencil(op, "mass", gm)
+        st_s = assemble_stencil(op, "stiff", ga, gn,
+                                with_nitsche=with_nitsche,
+                                inactive_identity=False)
+        self.heat_solvers = {}
+
+        def make_step(dt):
+            st_sys = StencilOperator(
+                self.grid, st_m.band_host + dt * st_s.band_host,
+                st_m.radius)
+            solve = fsai_cg_solver(
+                st_sys, pp.solver_max_iterations,
+                pp.solver_rel_tolerance, pp.solver_abs_tolerance,
+                apply_fn=lambda v: system_apply(v, dt),
+                device=self.device, dtype=self.dtype)
+            self.heat_solvers[dt] = solve
+
+            def step(t_next, u):
+                b = op.compute_rhs(
+                    u, t_next, False, rhs_fn=pp.function_rhs,
+                    interface_dbc=pp.function_interface_dbc,
+                    domain_dbc=pp.function_domain_dbc,
+                    nitsche_gamma=gn,
+                )
+                b = dt * b + op.mass_apply(u, gm)
+                # a cold start, as gdm's run() (its run_scan warm-starts)
+                return solve.solve_with_info(b)
+
+            return step
+
+        steps = {}
+        time = timestepping.DiscreteTime(pp.start_t, pp.end_t, delta_t)
+        u = self.interpolate_exact(pp.start_t)
+        self.postprocess(pp.start_t, u)
+        while not time.is_at_end():
+            t, dt = time.get_current_time(), time.get_next_step_size()
+            if dt not in steps:
+                steps[dt] = make_step(dt)
+            u, sinfo = steps[dt](t + dt, u)
+            self.postprocess(t + dt, u)
+            if pp.print_solver_info:
+                # heat-impl records its actual per-step implicit solve,
+                # the reference's per-solve " [L] solved in N"
+                # (problem.h:492, heat_0.output)
+                self._record_solver_info(0, len(self.rows[0]) - 1, sinfo)
+            time.advance_time()
+        self.final_solution = u
+
     def _time_loop(self, step, y0, delta_t, extract):
         pp = self.params
         time = timestepping.DiscreteTime(pp.start_t, pp.end_t, delta_t)
@@ -459,3 +642,59 @@ class WaveProblem:
             dts.append(time.get_next_step_size())
             time.advance_time()
         return np.asarray(ts), np.asarray(dts)
+
+
+def _write_step_vtu(problem: "WaveProblem", sol, t, path: str,
+                    location=INSIDE):
+    """One postprocess-step VTU: solution + level_set + analytical_solution
+    over the subdomain's cells (reference problem.h:617-657)."""
+    from ..io import DataOut
+
+    pp = problem.params
+    out = DataOut(problem.grid, pp.output_fe_degree)
+    out.add_data_vector(sol, "solution")
+    if pp.level_set_function is not None:
+        mesh = problem.grid.node_coords_mesh()
+        ls_vals = pp.level_set_function(mesh)
+        out.add_data_vector(np.asarray(ls_vals).reshape(-1), "level_set")
+    out.add_data_vector(problem.interpolate_exact(t), "analytical_solution")
+    out.add_cell_data(np.zeros(problem.grid.n_cells), "ranks")
+    inverse = OUTSIDE if location == INSIDE else INSIDE
+    out.set_cell_selection(problem.geo.locations_flat != inverse)
+    out.write_vtu(path)
+
+
+def write_solution_vtu(problem: "WaveProblem", path: str, location=INSIDE):
+    """VTU of the final solution + analytical field over the subdomain
+    (reference problem.h:617-657)."""
+    sol = problem.final_solution
+    if isinstance(sol, tuple):
+        sol = sol[0 if location == INSIDE else 1]
+    _write_step_vtu(problem, sol, problem.params.end_t, path, location)
+
+
+def _interface_coupling(op_in: CutOperators, r0, r1, u0, u1, tau):
+    """Composite interface flux coupling (wave stiffness.h:422-574)."""
+    V = op_in.table("V_surf", u0)
+    nrm = op_in.table("surf_n", u0)  # inside-outward orientation
+    w = op_in.table("surf_w", u0)
+    win = op_in.table("w_cut", u0)
+    h = op_in.h_min
+    u0w = u0[win]
+    u1w = u1[win]
+    u0q = torch.einsum("nqi,ni->nq", V, u0w)
+    u1q = torch.einsum("nqi,ni->nq", V, u1w)
+    Gn = torch.einsum("nqdi,nqd->nqi", op_in.table("G_surf", u0), nrm)
+    g0q = torch.einsum("nqi,ni->nq", Gn, u0w)
+    g1q = torch.einsum("nqi,ni->nq", Gn, u1w)
+    jump = u0q - u1q
+    avg = 0.5 * (g0q + g1q)
+    a = -0.5 * torch.einsum("nqi,nq,nq->ni", Gn, jump, w)
+    b = torch.einsum("nqi,nq,nq->ni", V, avg, w)
+    c = (tau / h) * torch.einsum("nqi,nq,nq->ni", V, jump, w)
+    c0 = -(a - b + c)
+    c1 = -(a + b - c)
+    flat = win.reshape(-1)
+    r0 = r0.index_add(0, flat, c0.reshape(-1))
+    r1 = r1.index_add(0, flat, c1.reshape(-1))
+    return r0, r1

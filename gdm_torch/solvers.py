@@ -68,6 +68,44 @@ def cg(
     return x, {"iterations": i, "residual": norm_r}
 
 
+# the largest operator make_direct_solver materialises: a dense
+# (n, n) matrix of 8192^2 float64 entries is 512 MiB, and its LU
+# factorisation as much again
+DIRECT_MAX_DOFS = 8192
+
+
+def make_direct_solver(apply_fn, n_dofs: int, shape=None, device="cuda",
+                       dtype=torch.float64):
+    """Dense direct solve (the reference's Trilinos SolverDirect option,
+    problem.h:465-496): materialise the operator by applying it to unit
+    vectors, LU-factorise once (``torch.linalg.lu_factor``), return a
+    solve callable.  gdm's arguments in gdm's order; the unit vectors
+    lie on ``device`` (the card unless ``device="cpu"`` is asked for) in
+    ``dtype``.  A size past ``DIRECT_MAX_DOFS`` raises ValueError rather
+    than allocating n_dofs^2 entries without bound."""
+    from . import device as _device
+
+    if n_dofs > DIRECT_MAX_DOFS:
+        raise ValueError(
+            f"make_direct_solver: {n_dofs} dofs is past the limit of "
+            f"{DIRECT_MAX_DOFS}: the dense operator alone would hold "
+            f"{n_dofs}^2 entries; use an iterative solver")
+    device = _device.resolve(device)
+    dtype = _device.resolve_dtype(dtype)
+    shape = tuple(shape) if shape is not None else (n_dofs,)
+    eye = torch.eye(n_dofs, dtype=dtype, device=device)
+    # column j of A is apply_fn(e_j)
+    A = torch.stack([apply_fn(eye[j].reshape(shape)).reshape(-1)
+                     for j in range(n_dofs)], dim=1)
+    lu, piv = torch.linalg.lu_factor(A)
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        x = torch.linalg.lu_solve(lu, piv, b.reshape(-1, 1))
+        return x.reshape(b.shape)
+
+    return solve
+
+
 def jacobi_preconditioner(diag: torch.Tensor):
     """diag: tensor; zeros are treated as 1."""
     inv = torch.where(diag == 0, torch.ones_like(diag), 1.0 / diag)

@@ -27,18 +27,21 @@ from gdm.ops.pallas_stencil2 import (
     make_padded_laplace3_mxu as g_make3m)
 
 import gdm_torch
-from gdm_torch import device, functional, multigrid, operators
+from gdm_torch import device, functional, multigrid, operators, solvers
+from gdm_torch.apps import wave_app
 from gdm_torch.benchmarks import mxu_micro
 from gdm_torch.constraints import Constraints
 from gdm_torch.cut import fastapply, fsai
 from gdm_torch.cut.geometry import INSIDE, CutGeometry
+from gdm_torch.cut.multigrid import CutMultigrid
 from gdm_torch.cut.operators import CutOperators
-from gdm_torch.cut.stencil import assemble_stencil
+from gdm_torch.cut.stencil import assemble_stencil, kernel_route
 from gdm_torch.grid import Grid
 from gdm_torch.multigrid import PoissonMultigrid
 from gdm_torch.ops import cutband, fast, resident, stencil, stencil2, stencil3
 from gdm_torch.ops.tensor import SeparableOperator
 from gdm_torch.problems import poisson
+from gdm_torch.problems.wave import WaveProblem
 
 F64 = torch.float64
 TOL = 2e-12
@@ -197,7 +200,8 @@ ENTRY_POINTS = [
     operators.elasticity, functional.load_vector, Constraints.none,
     Constraints.zero_boundary, Constraints.periodic, multigrid.make_transfer,
     SeparableOperator.from_banded, stencil2.laplace2_bands,
-    stencil3.laplace3_bands]
+    stencil3.laplace3_bands, solvers.make_direct_solver, fsai.fsai_cg_solver,
+    CutMultigrid, WaveProblem, wave_app.main]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -250,7 +254,9 @@ def test_card_default_raises_without_a_card():
              lambda: multigrid.make_transfer(*multigrid._gd_mid_table(g2, 0)),
              lambda: SeparableOperator.from_banded(g2, []),
              lambda: stencil2.laplace2_bands(g2),
-             lambda: stencil3.laplace3_bands(g3)]
+             lambda: stencil3.laplace3_bands(g3),
+             lambda: solvers.make_direct_solver(lambda v: v, 4),
+             lambda: fsai.fsai_cg_solver(mass, 100, 1e-8, 0.0)]
     calls += [lambda rows=rows: stencil2.make_padded_laplace2(g2, rows=rows)
               for rows in ("vpu", "mxu", "mxu3", "mxu3p")]
     calls += [lambda rows=rows: fast.best_padded_laplace(g2, rows=rows)
@@ -446,12 +452,19 @@ def _counted(fn):
 @pytest.mark.parametrize("positional", [False, True])
 def test_verified_fsai_solver_streamed_cg_runs_apply_fn(cut_mass24,
                                                         positional):
-    """apply_fn is the operator of the streamed fallback's CG: with the
-    resident path crippled (as tests/test_torch_verified.py does), every
-    solve goes to the streamed CG, which calls apply_fn; an apply_fn of
-    twice the mass halves the answer.  interpret=False is taken.  The
-    sixth positional argument lands in apply_fn."""
+    """apply_fn follows gdm's two routes of the streamed CG
+    (gdm/cut/fsai.py:182-235): on the card in 2D the CG runs the band
+    through K1 and apply_fn is unused (gdm's TPU route); everywhere else
+    it is the operator of a host CG on flat node vectors (gdm's route
+    off the TPU).  On the CPU, with the resident path crippled (as
+    tests/test_torch_verified.py does), every solve goes to the streamed
+    CG, which calls apply_fn on flat vectors; an apply_fn of twice the
+    mass halves the answer.  interpret=False is taken.  The sixth
+    positional argument lands in apply_fn."""
     op, st = cut_mass24
+    assert kernel_route(st.grid, "cuda")
+    assert not kernel_route(st.grid, torch.device("cpu"))
+    assert not kernel_route(Grid(3, (12,), (0.0,), (1.0,)), "cuda")
     kw = dict(max_iter=200, rel_tol=1e-6, interpret=False,
               resident_max_iter=1, device="cpu", dtype=F64)
     b = torch.as_tensor(np.random.default_rng(62).standard_normal(
@@ -460,7 +473,13 @@ def test_verified_fsai_solver_streamed_cg_runs_apply_fn(cut_mass24,
     assert plain.path == "streamed"
     x_plain = plain.layout.unpad(plain.solve_padded(plain.layout.pad(b)))
     k1 = fastapply.fast_stencil_apply(st, device="cpu", dtype=F64)
-    twice = _counted(lambda u: 2.0 * k1(u))
+    shapes = set()
+
+    def twice_fn(u):
+        shapes.add(tuple(u.shape))
+        return 2.0 * k1(u)
+
+    twice = _counted(twice_fn)
     if positional:
         vs = fsai.verified_fsai_solver(
             st, op.w_cut, kw.pop("max_iter"), kw.pop("rel_tol"), 1e-12,
@@ -470,6 +489,7 @@ def test_verified_fsai_solver_streamed_cg_runs_apply_fn(cut_mass24,
     assert vs.path == "streamed" and twice.calls == 0
     x, info = vs.solve_padded_with_info(vs.layout.pad(b))
     assert info["fallback"] is False and twice.calls >= info["iterations"] > 0
+    assert shapes == {(st.grid.n_nodes,)}
     x = vs.layout.unpad(x)
     assert _rel(2.0 * x, x_plain) <= 1e-12
 

@@ -15,8 +15,10 @@ max |port - gdm| / max |gdm| per column, over L2, L1 and Linf.
 
 Every preset's scalar parameters equal gdm's and its data functions
 (numpy here, jnp in gdm) agree with gdm's on sample points at several t.
-The simulation types, options and entry forms that are not ported raise
-NotImplementedError naming what they wait for.
+The options that are not ported (``mesh=``, a deformed mapping) raise
+NotImplementedError naming what they wait for.  The other simulation
+types and options are held in tests/test_torch_wave_family.py,
+tests/test_torch_cut_multigrid.py and tests/test_torch_wave_io.py.
 """
 
 import dataclasses
@@ -151,28 +153,16 @@ def _problem(name="wave", dim=1, **changes):
     return wave.WaveProblem(p, verbose=False, device="cpu", dtype=F64)
 
 
-@pytest.mark.parametrize("name,match", [
-    ("step85", "_run_poisson"), ("heat", "_run_heat_impl"),
-    ("heat-impl", "_run_heat_impl"),
-    ("heat-composite", "_run_explicit_composite"),
-    ("wave-composite", "_run_explicit_composite")])
-def test_unported_run_branches_raise(name, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _problem(name).run()
-
-
 def test_unknown_simulation_type_raises_value_error():
     with pytest.raises(ValueError, match="nope"):
         _problem(simulation_type="nope").run()
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: _problem(solver_name="direct").run(), "make_direct_solver"),
-    (lambda: _problem(output_vtu_dir="out").run(), "io/vtu.py"),
     (lambda: wave.WaveProblem(wave.make_preset("wave", 1), verbose=False,
                               mesh=object(), device="cpu"), "dist/cut.py"),
     (lambda: _problem(mapping_q_cache_function=lambda x: x), "deform"),
-], ids=["direct", "vtu", "mesh", "deformed"])
+], ids=["mesh", "deformed"])
 def test_unported_options_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()
