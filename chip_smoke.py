@@ -65,7 +65,25 @@ Run from the repository root:  python3 chip_smoke.py
    and its FSAI factors, both composite masses; K2 on b = A x_ref for a
    seeded O(1) x_ref, its gap to the plain solve held in the A-norm
    within 1e-5 of |x_ref|_A) and the wave CLI,
-   ``main(["2", "heat", "--vtu"])``, in a temporary directory;
+   ``main(["2", "heat", "--vtu"])``, in a temporary directory; then
+   (``scan_phase``) WaveProblem.run_scan, gdm's whole-trajectory loop:
+   the 2D wave preset at full size in float32, the counts reset just
+   before each run: the mass solve's routing, K1's launches and K2's by
+   mode (its one-band mode > 0), no host-loop solvers.cg call inside a
+   chunk, at most one host sync a chunk (counted under
+   torch.cuda.set_sync_debug_mode("warn") over chunks of 16 steps), the
+   112 rows against wave_1 (3.0e-3) and against run()'s rows on the
+   card, run() and run_scan() timed in turns (run, run_scan, run_scan,
+   run; the whole call and the steps alone); 2D heat-rk (its first 20
+   steps) and heat-impl in float32 and float64 against the port's
+   float64 CPU run (1e-3), 2D wave-composite float32 (its first rows
+   against the float64 CPU run, 5e-4), 1D wave against wave_0
+   (1.35e-2); K2's one-band mode against its plain twin on the app's
+   mass and Schwarz band, both bodies, float32 and float64 (iterations
+   within 2 and equal; the A-norm gap within 1e-5 of |x_ref|_A on b = A
+   x_ref), its gate (open: the ungated solve bit for bit; closed: x0
+   untouched) and the times of a solve at the app's tolerances and of a
+   closed launch;
 7. K3 (2D separable Laplace) against its plain torch twin, float32, at
    1024^2 for p = 3 and p = 5, with four distinct band factors, and at
    2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
@@ -187,7 +205,8 @@ Run from the repository root:  python3 chip_smoke.py
    phase 13.
 
 Prints a JSON line of per-kernel results (K1, K2's shared body at
-128^2 and device body at 256^2, K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
+128^2 and device body at 256^2, K2's one-band mode on the wave app's
+mass (launches from run_scan's 2D wave run), K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
 K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes), M2, M3, M4, M5:
 launches on the kernel's main path (K1 and K2 also ``wave_app_launches``,
 their launches in phase 6's 2D run, and ``wave_family_launches``, in the
@@ -560,6 +579,8 @@ def reset_counts():
                *micro_wrappers().values()):
         fn.launches = 0
     resident.resident_cg.body_launches = dict.fromkeys(resident.BODIES, 0)
+    resident.resident_cg.mode_launches = dict.fromkeys(resident.MODES, 0)
+    resident.resident_cg.gated_launches = 0
 
 
 def read_counts():
@@ -570,6 +591,9 @@ def read_counts():
             "resident": resident.resident_cg.launches,
             **{f"resident {body}": n for body, n in
                resident.resident_cg.body_launches.items()},
+            **{f"resident mode {mode}": n for mode, n in
+               resident.resident_cg.mode_launches.items()},
+            "resident gated": resident.resident_cg.gated_launches,
             "laplace2": stencil2.laplace2_apply.launches,
             "laplace2_stream": stencil2.laplace2_stream_apply.launches,
             **{k: w.launches for k, w in tc_wrappers().items()},
@@ -1113,7 +1137,8 @@ def wave_family_phase(rng, dev):
     versions at the slice's new shapes.  The CLI, main(["2", "heat",
     "--vtu"]), in a temporary directory.  Returns the kernels line's
     values: K1's and K2's launches on the family's 2D runs, K1's largest
-    max abs error and K2's largest relative A-norm gap (k2_vs_plain)."""
+    max abs error and K2's largest relative A-norm gap (k2_vs_plain),
+    and the float64 CPU rows it ran, for the run_scan phase."""
     import tempfile
     import xml.etree.ElementTree as ET
 
@@ -1129,6 +1154,7 @@ def wave_family_phase(rng, dev):
 
     # ---- heat (implicit Euler) 2D, float32 --------------------------------
     ref, _, _ = family_run("heat", 2, f64, device="cpu")
+    refs = {"heat": ref.rows[0]}
     prob, run_s, counts = family_run("heat", 2, f32, print_solver_info=True)
     steps = len(prob.rows[0]) - 1
     routes = {f"dt={dt:.6g}": {"path": v.path, "probe": v.probe,
@@ -1198,6 +1224,7 @@ def wave_family_phase(rng, dev):
 
     # ---- wave-composite 2D, float32 ------------------------------------------
     ref, _, _ = family_run("wave-composite", 2, f64, device="cpu", end_t=0.2)
+    refs["wave-composite"] = ref.rows
     stamps = []
     prob, run_s, counts = family_run("wave-composite", 2, f32, stamps=stamps)
     steps = len(prob.rows[0]) - 1
@@ -1295,7 +1322,7 @@ def wave_family_phase(rng, dev):
           f"{cli_s:.2f} s, solution_i_final.vtu with {n_pts} points")
     check(rc == 0 and n_pts > 0, "the wave CLI failed")
     print(f"wave-family phase {time.perf_counter() - t_start:.1f} s")
-    return k1_launches, k2_launches, k1_err, k2_err
+    return k1_launches, k2_launches, k1_err, k2_err, refs
 
 
 def wave_phase(rng, dev):
@@ -1431,6 +1458,350 @@ def wave_phase(rng, dev):
     for name, ms, cnt in top:
         print(f"    {ms * 1e3:9.1f} us  x{cnt:5.1f}  {name[:90]}")
     return (*out["launches"], k1_err, k2_err)
+
+
+# the run_scan phase's float32 limit against the port's float64 CPU rows,
+# as the wave family's heat 2D limit (FAMILY_LIMITS); heat-rk 2D is cut
+# to its first HEAT_RK_2D_STEPS steps (the CPU reference runs ~1 s a step)
+SCAN_LIMIT = 1e-3
+HEAT_RK_2D_STEPS = 20
+SCAN_SYNC_CHUNK = 16   # the chunk of the run whose syncs are counted
+
+
+def scan_run(name, dim, dtype, device="cuda", chunk=128, counted=False,
+             **changes):
+    """(problem, run_scan s, launch counts, chunk log) of one preset
+    through WaveProblem.run_scan, the counts reset just before.  The
+    chunk log holds, for each chunk, (host syncs torch reported inside
+    it, solvers.cg calls inside it, K1 launches, K2 launches, s); with
+    ``counted`` the run goes under torch.cuda.set_sync_debug_mode("warn")
+    (else its sync count is 0)."""
+    import warnings
+
+    import torch
+
+    from gdm_torch import solvers
+    from gdm_torch.problems import wave
+
+    p = wave.make_preset(name, dim)
+    for k, v in changes.items():
+        setattr(p, k, v)
+    prob = wave.WaveProblem(p, verbose=False, device=device, dtype=dtype)
+    log, cg_calls, caught = [], [0], []
+    host_cg = solvers.cg
+
+    def syncs():
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def cg(*a, **kw):
+        cg_calls[0] += 1
+        return host_cg(*a, **kw)
+
+    chunk_fn = prob._scan_chunk
+
+    def scan_chunk(*a, **kw):
+        c0, n0, t0 = read_counts(), (syncs(), cg_calls[0]), time.perf_counter()
+        out = chunk_fn(*a, **kw)
+        c1 = read_counts()
+        log.append((syncs() - n0[0], cg_calls[0] - n0[1],
+                    c1["cutband"] - c0["cutband"],
+                    c1["resident"] - c0["resident"],
+                    round(time.perf_counter() - t0, 4)))
+        return out
+
+    prob._scan_chunk = scan_chunk
+    solvers.cg = cg
+    reset_counts()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as record:
+            warnings.simplefilter("always")
+            caught = record
+            if counted:
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            prob.run_scan(chunk=chunk)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        solvers.cg = host_cg
+        if counted:
+            torch.cuda.set_sync_debug_mode(0)
+    return prob, run_s, read_counts(), log
+
+
+def k2_band_vs_plain(rng, st, pre, dev, what, tols):
+    """K2's one-band mode on the system ``st`` with the band ``pre``
+    against the plain twin, both bodies, float32 and float64, rel 1e-6
+    on b = A x_ref for a seeded O(1) x_ref: iterations within 2 in
+    float32 and equal in float64, the A-norm of x - x_plain within 1e-5
+    of |x_ref|_A (as k2_vs_plain); a gate that the stats of a failed
+    solve open solves bit for bit as the ungated launch and one that a
+    passed solve closes leaves x0.  Then, float32 at the app's
+    tolerances ``tols`` (max_iter, rel, abs): the solve's device time,
+    the plain twin's, the bound and a closed launch's time.  Returns
+    (largest max abs x difference, ms, plain ms, bound, closed ms,
+    largest relative A-norm gap)."""
+    import torch
+
+    from gdm_torch.ops import cutband, resident
+
+    lay = cutband.layout_for(st.grid, st.radius)
+    A64 = cutband.band_planes(st, lay, dev, torch.float64)
+    x_ref = lay.pad(torch.as_tensor(rng.standard_normal(st.grid.n_nodes),
+                                    dtype=torch.float64, device=dev))
+
+    def a_norm(v):
+        v = v.double()
+        return math.sqrt((v * cutband.band_apply_plain(v, A64)).sum().item())
+
+    ref_norm = a_norm(x_ref)
+    err = err_abs = 0.0
+    for dtype in (torch.float32, torch.float64):
+        A, P = (cutband.band_planes(s, lay, dev, dtype) for s in (st, pre))
+        b = cutband.band_apply_plain(x_ref, A64).to(dtype)
+        x0 = torch.zeros_like(b)
+        args = (A, None, None, 1000, 1e-6, 1e-12)
+        xp, sp = resident.resident_cg_plain(b, x0, *args, P=P)
+        sp = resident.read_stats(sp)
+        for body in resident.BODIES:
+            xk, sk = resident.resident_cg(b, x0, *args, P=P, body=body)
+            sk_d = resident.read_stats(sk)
+            rel = a_norm(xk - xp) / ref_norm
+            print(f"K2 one-band {what} {dtype} {body} body: {sk_d}; plain "
+                  f"{sp}; |x - x_plain|_A {rel:.3e} of |x_ref|_A (limit "
+                  f"1e-5)")
+            f64 = dtype == torch.float64
+            check(abs(sk_d["iterations"] - sp["iterations"])
+                  <= (0 if f64 else 2),
+                  f"K2 one-band {what} {dtype} {body}: iterations "
+                  f"{sk_d['iterations']} against {sp['iterations']}")
+            check(rel <= 1e-5, f"K2 one-band {what} {dtype} {body}: "
+                               f"|x - x_plain|_A {rel:.3e}")
+            err = max(err, rel)
+            err_abs = max(err_abs, (xk - xp).abs().max().item())
+            failed = torch.tensor([1.0, 1.0, 1e-3, 1.0], device=dev)
+            xo, so = resident.resident_cg(
+                b, x0, *args, P=P, body=body,
+                gate=resident.Gate(failed, 10.0, 1e-6, 1e-12))
+            check(torch.equal(xo, xk) and torch.equal(so, sk),
+                  f"K2 one-band {what} {dtype} {body}: the open gate's "
+                  f"solve differs from the ungated one")
+            xc, sc = resident.resident_cg(
+                b, x0, *args, P=P, body=body,
+                gate=resident.Gate(sk, 1e6, 1e-6, 1e-12))
+            check(torch.equal(xc, x0) and not bool(sc.any()),
+                  f"K2 one-band {what} {dtype} {body}: the closed gate "
+                  f"wrote")
+    A, P = (cutband.band_planes(s, lay, dev, torch.float32)
+            for s in (st, pre))
+    b = cutband.band_apply_plain(x_ref, A64).float()
+    x0 = torch.zeros_like(b)
+    args = (A, None, None) + tuple(tols)
+    x, stats = resident.resident_cg(b, x0, *args, P=P)
+    its = resident.read_stats(stats)["iterations"]
+    closed = resident.Gate(torch.zeros(4, device=dev), 10.0, 1e-6, 1e-12)
+    ms = device_ms(lambda: resident.resident_cg(b, x0, *args, P=P))
+    closed_ms = device_ms(lambda: resident.resident_cg(b, x0, *args, P=P,
+                                                       gate=closed))
+    pms = profiled_ms(lambda: resident.resident_cg_plain(b, x0, *args, P=P),
+                      n=3)
+    n_taps = len(A.taps) + len(P.taps)
+    cells = lay.rows * lay.pitch
+    bnd = bound(4 * (n_taps + 3) * cells, its * (2 * n_taps + 10) * cells)
+    print(f"K2 one-band on {what} at the app's tolerances (max_iter "
+          f"{tols[0]}, rel {tols[1]:g}, {its} iterations, {len(A.taps)} + "
+          f"{len(P.taps)} taps): device time {ms * 1e3:.2f} us "
+          f"({ms * 1e3 / max(its, 1):.2f} us an iteration), plain "
+          f"{pms * 1e3:.1f} us, bound {bnd[0] * 1e3:.2f} us ({bnd[1]}); a "
+          f"closed gate's launch {closed_ms * 1e3:.2f} us")
+    return err_abs, ms, pms, bnd, closed_ms, err
+
+
+def scan_phase(rng, dev, refs=None):
+    """Phase 6c: WaveProblem.run_scan through its public entry point.
+    The 2D wave preset at full size (40^2, p = 3, 111 steps to t = 2) in
+    float32: routing, K1's and K2's launches by mode, no host-loop
+    solvers.cg call inside a chunk, host syncs counted per chunk under
+    set_sync_debug_mode("warn") (a run in chunks of SCAN_SYNC_CHUNK
+    steps: one each, the chunk's read, beyond set-up and the probe), the
+    rows against wave_1 (3.0e-3) and against run()'s rows on the card,
+    wall time in turns (run, run_scan, run_scan, run).  Then 2D heat-rk
+    (its first HEAT_RK_2D_STEPS steps) and heat-impl in float32 and
+    float64 against the port's float64 CPU run_scan (SCAN_LIMIT), 2D
+    wave-composite float32 over its finite rows (its first rows against
+    the float64 CPU run, FAMILY_LIMITS), 1D wave against wave_0, and K2's
+    one-band mode and gate against the plain twin on the app's mass and
+    Schwarz band.  ``refs``: float64 CPU rows already run, by name.
+    Returns the kernels line's values for K2's one-band mode."""
+    import torch
+
+    from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
+    from gdm_torch.ops import resident
+    from gdm_torch.problems import wave
+
+    f32, f64 = torch.float32, torch.float64
+    refs = dict(refs or {})
+    t_start = time.perf_counter()
+
+    # ---- 2D wave at full size, float32 ---------------------------------------
+    case, limit = WAVE_CASES[2]
+    prob, scan_s, counts, log = scan_run("wave", 2, f32)
+    rows = prob.rows[0]
+    steps = len(rows) - 1
+    vs = prob.mass_solver
+    modes = dict(resident.resident_cg.mode_launches)
+    print(f"run_scan wave 2D (40 cells a side, p = 3, {steps} steps, "
+          f"float32): mass solve routing {vs.path!r}, probe {vs.probe}, "
+          f"fallbacks {vs.fallback_count}; run {scan_s:.3f} s, "
+          f"{scan_s / steps * 1e3:.2f} ms a step; launches K1 "
+          f"{counts['cutband']}, K2 {counts['resident']} (by mode {modes}, "
+          f"gated {resident.resident_cg.gated_launches}); chunks (syncs, "
+          f"solvers.cg calls, K1, K2) {log}")
+    check(counts["cutband"] > 0, "run_scan: K1 never launched")
+    check(modes["band"] > 0, "run_scan: K2's one-band mode never launched")
+    check(all(c[1] == 0 for c in log),
+          f"run_scan: a host-loop solvers.cg call inside a chunk: {log}")
+    dg = golden_dev(rows, case)
+    print(f"run_scan wave 2D: {len(rows)} rows against {case}: max scaled "
+          f"deviation {dg:.3e} (limit {limit:.2e}); last row {rows[-1]}")
+    check(dg <= limit, f"run_scan wave 2D rows deviate {dg:.3e} from {case}")
+    scan_rows = rows
+    launches = modes["band"]
+    _, _, _, log16 = scan_run("wave", 2, f32, chunk=SCAN_SYNC_CHUNK,
+                              counted=True)
+    print(f"run_scan wave 2D in chunks of {SCAN_SYNC_CHUNK} under "
+          f"set_sync_debug_mode('warn'): chunks (syncs, solvers.cg calls, "
+          f"K1, K2) {log16}")
+    check(len(log16) == -(-steps // SCAN_SYNC_CHUNK)
+          and all(c[0] <= 1 and c[1] == 0 for c in log16),
+          f"run_scan: more than one host sync a chunk: {log16}")
+    # run() and run_scan() in turns: the whole call (the solvers' set-up
+    # included, the geometry not) and the steps alone (run(): from its
+    # first row to its last; run_scan: its chunks)
+    times = {"run": [], "run_scan": []}
+    for kind in ("run", "run_scan", "run_scan", "run"):
+        if kind == "run":
+            p = wave.WaveProblem(wave.make_preset("wave", 2), verbose=False,
+                                 device="cuda", dtype=f32)
+            stamps, post = [], p.postprocess
+
+            def postprocess(*a, post=post, stamps=stamps, **kw):
+                post(*a, **kw)     # reads its row: the device is done
+                stamps.append(time.perf_counter())
+
+            p.postprocess = postprocess
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.run()
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+            run_rows = p.rows[0]
+            step_s = stamps[-1] - stamps[0]
+        else:
+            _, call_s, _, log_t = scan_run("wave", 2, f32)
+            step_s = sum(c[4] for c in log_t)
+        times[kind].append((call_s, step_s))
+    d_run = scaled_rows_dev(scan_rows, run_rows)
+    ms_a_step = {k: statistics.mean(v[1] for v in ts) / steps * 1e3
+                 for k, ts in times.items()}
+    print(f"run_scan against run() on the card in turns, (whole call s, "
+          f"steps s): run {times['run'][0]}, run_scan "
+          f"{times['run_scan'][0]}, run_scan {times['run_scan'][1]}, run "
+          f"{times['run'][1]}; a step {ms_a_step['run']:.3f} ms against "
+          f"{ms_a_step['run_scan']:.3f} ms (ratio "
+          f"{ms_a_step['run'] / ms_a_step['run_scan']:.1f}); rows against "
+          f"run()'s: max scaled deviation {d_run:.3e}; card {card_line()}")
+    check(d_run <= limit, f"run_scan rows {d_run:.3e} from run()'s")
+    # where a run_scan step's device time goes (profiler over one call;
+    # the set-up's few device items included)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan_run("wave", 2, f32)
+    items = [(e.key, e.self_device_time_total / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    busy = sum(it[1] for it in items)
+    k2_ms = sum(it[1] for it in items if "resident_cg" in it[0])
+    k1_ms = sum(it[1] for it in items if "cutband" in it[0])
+    n_items = sum(it[2] for it in items)
+    print(f"run_scan wave 2D device work (profiler, one call): busy "
+          f"{busy / steps:.4f} ms a step over {n_items / steps:.1f} device "
+          f"items, K2 {k2_ms / steps:.4f} ms ({k2_ms / busy:.1%}), K1 "
+          f"{k1_ms / steps:.4f} ms ({k1_ms / busy:.1%}); idle share of the "
+          f"step (unprofiled, turns' mean) "
+          f"{1 - busy / steps / ms_a_step['run_scan']:.3f}")
+    for name, ms, cnt in sorted(items, key=lambda it: -it[1])[:6]:
+        print(f"    {ms / steps * 1e3:9.1f} us  x{cnt / steps:5.1f}  "
+              f"{name[:90]}")
+
+    # ---- 2D heat-rk and heat-impl, float32 and float64 -----------------------
+    p = wave.make_preset("heat-rk", 2)
+    cut = dict(end_t=p.start_t + HEAT_RK_2D_STEPS * p.cfl
+               * (2.42 / p.n_subdivisions_1D) ** p.cfl_pow)
+    for name, kw in (("heat-rk", cut), ("heat", {})):
+        if name not in refs:
+            refs[name] = scan_run(name, 2, f64, device="cpu", **kw)[0].rows[0]
+        for dtype in (f32, f64):
+            prob, run_s, counts, log = scan_run(name, 2, dtype, **kw)
+            n = len(prob.rows[0]) - 1
+            d = scaled_rows_dev(prob.rows[0], refs[name])
+            print(f"run_scan {name} 2D {dtype}: {n} steps, {run_s:.3f} s, "
+                  f"{run_s / n * 1e3:.2f} ms a step; K1 {counts['cutband']}, "
+                  f"K2 {counts['resident']} (by mode "
+                  f"{resident.resident_cg.mode_launches}); rows against the "
+                  f"float64 CPU run: {d:.3e} (limit {SCAN_LIMIT:g})")
+            check(d <= SCAN_LIMIT, f"run_scan {name} 2D {dtype} rows {d:.3e}")
+            check(resident.resident_cg.mode_launches["band"] > 0
+                  and all(c[1] == 0 for c in log),
+                  f"run_scan {name} 2D {dtype}: solves off K2's one band")
+
+    # ---- 2D wave-composite over its finite rows, float32 --------------------
+    if "wave-composite" not in refs:
+        refs["wave-composite"] = scan_run("wave-composite", 2, f64,
+                                          device="cpu", end_t=0.2)[0].rows
+    prob, run_s, counts, log = scan_run("wave-composite", 2, f32)
+    ref = refs["wave-composite"]
+    n_ref = len(ref[0]) - 1
+    d = max(scaled_rows_dev(prob.rows[k][:n_ref], ref[k][:n_ref])
+            for k in (0, 1))
+    finite = [bool(np.isfinite(np.array([r[2:5] for r in (a, b)])).all())
+              for a, b in zip(prob.rows[0], prob.rows[1])]
+    n_fin = finite.index(False) if False in finite else len(finite)
+    print(f"run_scan wave-composite 2D float32: {len(prob.rows[0]) - 1} "
+          f"steps, {run_s:.3f} s; {n_fin} finite rows; K1 "
+          f"{counts['cutband']}, K2 {counts['resident']}; first {n_ref} rows "
+          f"of both regions against the float64 CPU run: {d:.3e} (limit "
+          f"{FAMILY_LIMITS['wave-composite 2D']:g}); fallbacks "
+          f"{[v.fallback_count for v in prob.mass_solvers]}")
+    check(d <= FAMILY_LIMITS["wave-composite 2D"],
+          f"run_scan wave-composite 2D rows {d:.3e}")
+
+    # ---- 1D wave, float32 ------------------------------------------------------
+    case, limit = WAVE_CASES[1]
+    prob, run_s, counts, log = scan_run("wave", 1, f32)
+    d = golden_dev(prob.rows[0], case)
+    print(f"run_scan wave 1D float32 (the host loop: no 2D layout): "
+          f"{run_s:.3f} s; rows against {case}: {d:.3e} (limit "
+          f"{limit:.2e}); launches {[k for k, v in counts.items() if v]}")
+    check(d <= limit, f"run_scan wave 1D rows deviate {d:.3e}")
+
+    # ---- K2's one-band mode and gate on the app's mass ------------------------
+    p = wave.make_preset("wave", 2)
+    op = wave.WaveProblem(p, verbose=False, device="cuda", dtype=f32).op_in
+    mass = assemble_stencil(op, "mass", p.ghost_parameter_M)
+    out = k2_band_vs_plain(
+        rng, mass, schwarz_band(mass, op.w_cut, f32), dev,
+        "the wave app's 41^2 mass and Schwarz band",
+        (p.solver_max_iterations, p.solver_rel_tolerance,
+         p.solver_abs_tolerance))
+    print(f"run_scan phase {time.perf_counter() - t_start:.1f} s")
+    return (launches, *out)
 
 
 def split_phase(rng, dev, sizes):
@@ -2271,7 +2642,9 @@ def main():
 
     # ---- the wave application through its public entry point -------------
     wave_k1, wave_k2, wave_k1_err, wave_k2_err = wave_phase(rng, dev)
-    fam_k1, fam_k2, fam_k1_err, fam_k2_err = wave_family_phase(rng, dev)
+    fam_k1, fam_k2, fam_k1_err, fam_k2_err, refs = wave_family_phase(rng,
+                                                                     dev)
+    scan = scan_phase(rng, dev, refs)
 
     # ---- K3 and K3s against K3's plain twin -------------------------------
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2560,6 +2933,10 @@ def main():
         row("resident_cg (K2, device body, 256^2)",
             "gdm_torch/csrc/resident.cu", "gdm/ops/pallas_resident.py:197",
             k2["device"][4], *k2["device"][:4]),
+        {**row("resident_cg (K2, one-band mode, the wave app's 41^2 mass)",
+               "gdm_torch/csrc/resident.cu", "gdm/ops/pallas_resident.py:197",
+               *scan[:5]), "launches_on": "run_scan of the 2D wave preset",
+         "rel_err_a_norm": scan[6], "gate_closed_ms": scan[5]},
         row("laplace2_apply (K3)", "gdm_torch/csrc/laplace2.cu",
             "gdm/ops/pallas_stencil2.py:566", counts2["laplace2"], k3_err,
             k3_ms, k3_plain_ms, separable_bound(g2[3].n_nodes, 7, 4),

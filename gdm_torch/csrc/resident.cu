@@ -1,4 +1,4 @@
-// K2: the whole FSAI-preconditioned CG of a 2D band system in one launch.
+// K2: the whole preconditioned CG of a 2D band system in one launch.
 //
 // Replaces gdm/ops/pallas_resident.py::make_resident_cg, which loads the
 // band A and the FSAI factors G, G^T (gdm/cut/fsai.py) into the TPU's
@@ -10,7 +10,23 @@
 //   * after the loop, one fresh apply gives the TRUE residual ||b - A x||
 //     (the recurrence residual can drift from it on ill-conditioned
 //     systems; gdm_torch.cut.fsai.verified_fsai_solver checks it);
-//   * stats = [true ||b - A x||, iterations, ||r0||] (f32).
+//   * stats = [true ||b - A x||, iterations, ||r0||, ran] (f32), ran = 1
+//     for a solve, 0 for a launch its gate closed.
+//
+// The preconditioner's mode, a template parameter (each mode its own
+// kernel, so the FSAI mode's code is the one-mode kernel's):
+//   * MODE_NONE: plain CG;
+//   * MODE_FSAI: z = G^T (G r), two bands (gdm's resident kernel);
+//   * MODE_BAND: z = P r, one band P: the streamed route's assembled
+//     Schwarz band (gdm/cut/fsai.py's _streamed_solver, gdm's
+//     lax.while_loop CG on its TPU route) or a Jacobi preconditioner as
+//     a one-tap band.  Stage B writes z and r^T z as it writes r, so an
+//     iteration has two grid syncs, not three.
+// The gate: with a pointer to the stats of an earlier solve, the launch
+// solves only when those stats fail gdm's check, true residual > slack *
+// max(abs, rel * ||r0||) (gdm/cut/fsai.py:336-356, whose lax.cond
+// reruns a rejected solve); otherwise every block returns at once, x
+// keeps x0 and stats reads [0, 0, 0, 0].
 //
 // Bound on the card: latency.  At the flagship 128^2 size (137 x 140
 // cells; A 77 taps, G and G^T 41 each) the bytes of a whole solve take
@@ -37,14 +53,15 @@
 //     to ~10% (PERF.md section 6), and splitting a cell's taps over
 //     threads buys nothing while the shared-memory loads (two a tap)
 //     bound the sum.
-//   * three grid syncs an iteration (two without a preconditioner)
-//     instead of five: the buffers of r and p are ping-ponged, and the
-//     halo values of p = z + beta p and of r = r - alpha Ap that a phase
-//     needs are computed again by every block that reads them:
+//   * three grid syncs an iteration in MODE_FSAI (two in MODE_NONE and
+//     MODE_BAND) instead of five: the buffers of r and p are
+//     ping-ponged, and the halo values of p = z + beta p and of
+//     r = r - alpha Ap that a phase needs are computed again by every
+//     block that reads them:
 //       A: p = z + beta p (window), Ap = A p, p^T A p;        sync
 //       B: alpha; r -= alpha Ap (window), x += alpha p,
-//          t = G r, r^T r;                                     sync
-//       C: z = G^T t, r^T z;                                   sync
+//          t = G r, r^T r (MODE_BAND: z = P r, r^T z);        sync
+//       C: z = G^T t, r^T z (MODE_FSAI only);                 sync
 //     beta and the stop decision come from the slots at the top of the
 //     next iteration.  A value two blocks compute must agree bit for
 //     bit, so the updates are pinned to __fma_rn/__fmaf_rn.
@@ -66,6 +83,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int MODE_NONE = 0, MODE_FSAI = 1, MODE_BAND = 2;
 constexpr int NT = 512;                  // threads per block, one block per SM
 constexpr int NWARP = NT / 32;
 constexpr int SCRATCH = NWARP + 8;       // doubles at the head of shared memory
@@ -76,11 +94,13 @@ struct Args {
   T* x;  // in: x0, out: the solution
   const T* pl[3];    // planes of A, G, G^T: (n[k], rows, pitch)
   const int* off[3];  // their (dy, dx) offsets
-  int n[3];          // taps; n[1] = n[2] = 0 without a preconditioner
-  int precond;
+  int n[3];          // taps: n[1] = n[2] = 0 in MODE_NONE, n[2] = 0 in
+                     // MODE_BAND (P in slot 1)
   T* work;           // 7 * cells: r (two), p (two), Ap, t, z
   double* partials;  // 3 * gridDim.x: p^T A p, r^T r, r^T z
-  float* stats;      // 3
+  float* stats;      // 4
+  const float* gate;  // stats of an earlier solve, or null
+  double gate_slack, gate_rel, gate_abs;
   long long cells;
   int pitch, n0, n1, r;
   int chunk;         // cells a block stages at once (its range if SHARED)
@@ -97,8 +117,17 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
 
-template <typename T, bool SHARED>
+template <typename T, bool SHARED, int MODE>
 __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
+  if (a.gate) {
+    // every block reads the same stats and takes the same branch
+    const double g_tol =
+        fmax(a.gate_abs, a.gate_rel * static_cast<double>(a.gate[2]));
+    if (!(static_cast<double>(a.gate[0]) > a.gate_slack * g_tol)) {
+      if (blockIdx.x == 0 && threadIdx.x < 4) a.stats[threadIdx.x] = 0.0f;
+      return;
+    }
+  }
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* scr = reinterpret_cast<double*>(smem_raw);
@@ -253,7 +282,7 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
     return SHARED ? kr[c] : __ldcg(r + i);
   };
 
-  // r = b - A x0, and with a preconditioner t = G r, z = G^T t
+  // r = b - A x0, and z = G^T (G r) or z = P r
   double srr = 0.0, srz = 0.0;
   for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
     if (SHARED) gdm::wait_group<2>();  // A's planes
@@ -265,7 +294,7 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
       srr += static_cast<double>(ri) * ri;
     });
   }
-  if (a.precond) {
+  if (MODE == MODE_FSAI) {
     grid.sync();
     for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
       if (SHARED) gdm::wait_group<1>();  // G's planes
@@ -281,6 +310,19 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
         srz += static_cast<double>(own_r(rb[0], c, i)) * v;
       });
     }
+  } else if (MODE == MODE_BAND) {
+    grid.sync();
+    for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
+      if (SHARED) gdm::wait_group<0>();  // P's planes
+      fill(c0, vec(rb[0]));
+      band(1, c0, chunk_of(c0), [&](int c, long long i, T v) {
+        z[i] = v;
+        srz += static_cast<double>(own_r(rb[0], c, i)) * v;
+      });
+    }
+  }
+  constexpr bool precond = MODE != MODE_NONE;
+  if (precond) {
     srz = block_sum(srz);
     if (lead) slot_rz[blockIdx.x] = srz;
   }
@@ -288,8 +330,8 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
   if (lead) slot_rr[blockIdx.x] = srr;
   grid.sync();
   double rr0, rz;
-  totals(slot_rr, a.precond ? slot_rz : nullptr, &rr0, &rz);
-  if (!a.precond) rz = rr0;
+  totals(slot_rr, precond ? slot_rz : nullptr, &rr0, &rz);
+  if (!precond) rz = rr0;
   const double nr0 = sqrt(rr0);
   const double tol = fmax(a.abs_tol, a.rel_tol * nr0);
   double nr = nr0;
@@ -301,7 +343,7 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
     T* pnew = pb[it & 1];
     T* rold = rb[it & 1];
     T* rnew = rb[(it + 1) & 1];
-    const T* zz = a.precond ? z : rold;  // the preconditioned residual
+    const T* zz = precond ? z : rold;  // the preconditioned residual
     // A: p = z + beta p, Ap = A p, p^T A p
     double s = 0.0;
     for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
@@ -325,8 +367,10 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
     double pAp;
     totals(slot_pAp, nullptr, &pAp, nullptr);
     const T alpha = static_cast<T>(pAp <= 0.0 ? 0.0 : rz / pAp);
-    // B: r -= alpha Ap, x += alpha p, t = G r, r^T r
+    // B: r -= alpha Ap, x += alpha p, r^T r, and t = G r (FSAI) or
+    // z = P r, r^T z (one band)
     s = 0.0;
+    double s2 = 0.0;
     for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
       fill(c0, [&](long long g) {
         return fma_rn(-alpha, __ldcg(Ap + g), __ldcg(rold + g));
@@ -345,12 +389,23 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
         }
         s += static_cast<double>(ri) * ri;
       }
-      if (a.precond) band(1, c0, C, [&](int, long long i, T v) { t[i] = v; });
+      if (MODE == MODE_FSAI) {
+        band(1, c0, C, [&](int, long long i, T v) { t[i] = v; });
+      } else if (MODE == MODE_BAND) {
+        band(1, c0, C, [&](int c, long long i, T v) {
+          z[i] = v;
+          s2 += static_cast<double>(win[own + c]) * v;
+        });
+      }
     }
     s = block_sum(s);
     if (lead) slot_rr[blockIdx.x] = s;
+    if (MODE == MODE_BAND) {
+      s2 = block_sum(s2);
+      if (lead) slot_rz[blockIdx.x] = s2;
+    }
     grid.sync();
-    if (a.precond) {
+    if (MODE == MODE_FSAI) {
       // C: z = G^T t, r^T z
       s = 0.0;
       for (long long c0 = lo; c0 < hi; c0 += a.chunk) {
@@ -365,8 +420,8 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
       grid.sync();
     }
     double rr, rz_new;
-    totals(slot_rr, a.precond ? slot_rz : nullptr, &rr, &rz_new);
-    if (!a.precond) rz_new = rr;
+    totals(slot_rr, precond ? slot_rz : nullptr, &rr, &rz_new);
+    if (!precond) rz_new = rr;
     nr = sqrt(rr);
     beta = static_cast<T>(rz <= 0.0 ? 0.0 : rz_new / rz);
     rz = rz_new;
@@ -392,13 +447,14 @@ __global__ void __launch_bounds__(NT, 1) resident_cg_kernel(Args<T> a) {
       a.stats[0] = static_cast<float>(sqrt(true_rr));
       a.stats[1] = static_cast<float>(it);
       a.stats[2] = static_cast<float>(nr0);
+      a.stats[3] = 1.0f;
     }
   }
 }
 
-template <typename T, bool SHARED>
+template <typename T, bool SHARED, int MODE>
 int launch(const Args<T>& a, int blocks, int smem, cudaStream_t stream) {
-  auto kernel = resident_cg_kernel<T, SHARED>;
+  auto kernel = resident_cg_kernel<T, SHARED, MODE>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -418,30 +474,37 @@ int launch(const Args<T>& a, int blocks, int smem, cudaStream_t stream) {
 
 template <typename T>
 int solve(const void* b, void* x, const void* plA, const void* offA, int nA,
-          const void* plG, const void* offG, int nG, const void* plGT,
-          const void* offGT, int nGT, int precond, void* work,
-          void* partials, void* stats, int rows, int pitch, int n0, int n1,
-          int r, int max_iter, double rel_tol, double abs_tol, int shared,
+          const void* pl1, const void* off1, int n1p, const void* pl2,
+          const void* off2, int n2p, int mode, void* work, void* partials,
+          void* stats, int rows, int pitch, int n0, int n1, int r,
+          int max_iter, double rel_tol, double abs_tol, const void* gate,
+          double gate_slack, double gate_rel, double gate_abs, int shared,
           int blocks, int chunk, int sw, int smem, void* stream) {
   if (blocks < 1 || chunk < 1 || sw < 1 || r < 0 || nA < 1 ||
-      (precond && (nG < 1 || nGT < 1)) ||
+      mode < MODE_NONE || mode > MODE_BAND ||
+      (mode == MODE_FSAI && (n1p < 1 || n2p < 1)) ||
+      (mode == MODE_BAND && n1p < 1) ||
       static_cast<long long>(rows) * pitch >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a;
   a.b = static_cast<const T*>(b);
   a.x = static_cast<T*>(x);
-  const void* pl[3] = {plA, plG, plGT};
-  const void* off[3] = {offA, offG, offGT};
-  const int n[3] = {nA, precond ? nG : 0, precond ? nGT : 0};
+  const void* pl[3] = {plA, pl1, pl2};
+  const void* off[3] = {offA, off1, off2};
+  const int n[3] = {nA, mode != MODE_NONE ? n1p : 0,
+                    mode == MODE_FSAI ? n2p : 0};
   for (int k = 0; k < 3; ++k) {
     a.pl[k] = static_cast<const T*>(pl[k]);
     a.off[k] = static_cast<const int*>(off[k]);
     a.n[k] = n[k];
   }
-  a.precond = precond;
   a.work = static_cast<T*>(work);
   a.partials = static_cast<double*>(partials);
   a.stats = static_cast<float*>(stats);
+  a.gate = static_cast<const float*>(gate);
+  a.gate_slack = gate_slack;
+  a.gate_rel = gate_rel;
+  a.gate_abs = gate_abs;
   a.cells = static_cast<long long>(rows) * pitch;
   a.pitch = pitch;
   a.n0 = n0;
@@ -453,8 +516,14 @@ int solve(const void* b, void* x, const void* plA, const void* offA, int nA,
   a.rel_tol = rel_tol;
   a.abs_tol = abs_tol;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return shared ? launch<T, true>(a, blocks, smem, s)
-                : launch<T, false>(a, blocks, smem, s);
+  if (mode == MODE_NONE)
+    return shared ? launch<T, true, MODE_NONE>(a, blocks, smem, s)
+                  : launch<T, false, MODE_NONE>(a, blocks, smem, s);
+  if (mode == MODE_FSAI)
+    return shared ? launch<T, true, MODE_FSAI>(a, blocks, smem, s)
+                  : launch<T, false, MODE_FSAI>(a, blocks, smem, s);
+  return shared ? launch<T, true, MODE_BAND>(a, blocks, smem, s)
+                : launch<T, false, MODE_BAND>(a, blocks, smem, s);
 }
 
 }  // namespace
@@ -477,35 +546,30 @@ int gdm_resident_cg_limits(int* sms, int* smem_optin) {
   return coop ? 0 : static_cast<int>(cudaErrorNotSupported);
 }
 
-// shared: 1 keeps the planes in shared memory, 0 in device memory;
-// blocks, chunk, sw and smem (dynamic shared bytes) as
-// gdm_torch/ops/resident.py::resident_plan lays them out.
-int gdm_resident_cg_f32(const void* b, void* x, const void* plA,
-                        const void* offA, int nA, const void* plG,
-                        const void* offG, int nG, const void* plGT,
-                        const void* offGT, int nGT, int precond, void* work,
-                        void* partials, void* stats, int rows, int pitch,
-                        int n0, int n1, int r, int max_iter, double rel_tol,
-                        double abs_tol, int shared, int blocks, int chunk,
-                        int sw, int smem, void* stream) {
-  return solve<float>(b, x, plA, offA, nA, plG, offG, nG, plGT, offGT, nGT,
-                      precond, work, partials, stats, rows, pitch, n0, n1, r,
-                      max_iter, rel_tol, abs_tol, shared, blocks, chunk, sw,
-                      smem, stream);
-}
+// mode: 0 plain CG, 1 FSAI (G in slot 1, G^T in slot 2), 2 one band P
+// (slot 1; slot 2 unused).  gate: null, or the float32 stats of an
+// earlier solve and gdm's check on them (slack, rel, abs).  shared: 1
+// keeps the planes in shared memory, 0 in device memory; blocks, chunk,
+// sw and smem (dynamic shared bytes) as
+// gdm_torch/ops/resident.py::resident_plan lays them out.  The argument
+// list is gdm_torch/ops/resident.py::ENTRY_ARGTYPES.
+#define GDM_RESIDENT_ENTRY(NAME, T)                                        \
+  int NAME(const void* b, void* x, const void* plA, const void* offA,      \
+           int nA, const void* pl1, const void* off1, int n1p,             \
+           const void* pl2, const void* off2, int n2p, int mode,           \
+           void* work, void* partials, void* stats, int rows, int pitch,   \
+           int n0, int n1, int r, int max_iter, double rel_tol,            \
+           double abs_tol, const void* gate, double gate_slack,            \
+           double gate_rel, double gate_abs, int shared, int blocks,       \
+           int chunk, int sw, int smem, void* stream) {                    \
+    return solve<T>(b, x, plA, offA, nA, pl1, off1, n1p, pl2, off2, n2p,   \
+                    mode, work, partials, stats, rows, pitch, n0, n1, r,   \
+                    max_iter, rel_tol, abs_tol, gate, gate_slack,          \
+                    gate_rel, gate_abs, shared, blocks, chunk, sw, smem,   \
+                    stream);                                               \
+  }
 
-int gdm_resident_cg_f64(const void* b, void* x, const void* plA,
-                        const void* offA, int nA, const void* plG,
-                        const void* offG, int nG, const void* plGT,
-                        const void* offGT, int nGT, int precond, void* work,
-                        void* partials, void* stats, int rows, int pitch,
-                        int n0, int n1, int r, int max_iter, double rel_tol,
-                        double abs_tol, int shared, int blocks, int chunk,
-                        int sw, int smem, void* stream) {
-  return solve<double>(b, x, plA, offA, nA, plG, offG, nG, plGT, offGT, nGT,
-                       precond, work, partials, stats, rows, pitch, n0, n1,
-                       r, max_iter, rel_tol, abs_tol, shared, blocks, chunk,
-                       sw, smem, stream);
-}
+GDM_RESIDENT_ENTRY(gdm_resident_cg_f32, float)
+GDM_RESIDENT_ENTRY(gdm_resident_cg_f64, double)
 
 }  // extern "C"

@@ -16,12 +16,17 @@ solver: the resident FSAI-CG (K2) and the streamed Schwarz-preconditioned
 CG.  The streamed CG follows gdm's two routes: on the card in 2D it runs
 on the padded layout over K1's band applies (gdm's TPU route; an
 ``apply_fn`` is not used), everywhere else it is a host CG on flat node
-vectors over ``apply_fn`` (gdm's route off the TPU).
+vectors over ``apply_fn`` (gdm's route off the TPU).  Its device form
+(``VerifiedSolver.solve_padded_device``) runs every solve as K2
+launches alone, with no host read: the streamed CG as K2's one-band
+mode over the assembled Schwarz band, and the per-solve check as K2's
+gate (gdm's ``lax.cond``).
 ``fsai_cg_solver`` is gdm's entry to both.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 
@@ -31,7 +36,7 @@ import torch
 from .. import device as _device
 from .. import solvers
 from ..ops.cutband import layout_for
-from ..ops.resident import make_resident_cg, read_stats
+from ..ops.resident import STATS, Gate, make_resident_cg, read_stats
 from . import stencil
 from .fastapply import fast_stencil_bundle
 from .stencil import (StencilOperator, routed_apply, schwarz_band,
@@ -184,21 +189,51 @@ class VerifiedSolver:
     ``layout`` is None (gdm's "resident-unavailable" solver of
     ``fsai_cg_solver``), on flat node vectors; such a solver has no
     padded methods.
+
+    ``solve_padded_device(b, x0)`` and its flat form ``solve_device``
+    are the device form: K2 launches and tensor ops alone, no host read
+    (``device_solve``: K2's one-band streamed CG, gated behind the
+    resident solve where the probe passed).  Their fallbacks gather in a
+    device counter that ``fallback_count`` folds in when it is read, or
+    that a caller reading once a chunk folds in with
+    ``fold_fallbacks``.
     """
 
     def __init__(self, path: str, probe: dict, layout, streamed,
                  resident=None, rel_tol: float = 1e-6,
-                 abs_tol: float = 1e-12, slack: float = 10.0):
+                 abs_tol: float = 1e-12, slack: float = 10.0,
+                 device_factory=None):
+        """``device_factory``: a function of no arguments that builds the
+        device form, (b_pad, x0_pad) -> (x_pad, (2, 4) stats), called
+        once, at the form's first use or by ``_device_form``."""
         self.path = path
         self.probe = probe
         self.layout = layout
-        self.fallback_count = 0
+        self._fallbacks = 0
+        self.fallbacks_device = None
         self.last_info = None
         self.streamed = streamed
         self._resident = resident
         self._rel_tol = rel_tol
         self._abs_tol = abs_tol
         self._slack = slack
+        self._device_solve = None
+        self._device_factory = device_factory
+
+    @property
+    def fallback_count(self) -> int:
+        """Solves the check sent to the streamed path, the device form's
+        counter folded in (one read when it has counted)."""
+        if self.fallbacks_device is not None:
+            self.fold_fallbacks(self.fallbacks_device.item())
+        return self._fallbacks
+
+    def fold_fallbacks(self, n):
+        """Add ``n``, a read of ``fallbacks_device``, to the host count
+        and zero the device counter (no read of its own)."""
+        self._fallbacks += int(n)
+        if self.fallbacks_device is not None:
+            self.fallbacks_device.zero_()
 
     def _streamed_solve(self, b):
         """A solve on the streamed path alone (no resident path)."""
@@ -222,7 +257,7 @@ class VerifiedSolver:
         it_fb = 0
         if bad:
             # rerun through the streamed path from x0 = 0 (junk-proof)
-            self.fallback_count += 1
+            self._fallbacks += 1
             log.info("resident solve rejected (true residual %.3e > "
                      "%g * %.3e); streamed fallback", s["residual"],
                      self._slack, tol)
@@ -235,6 +270,50 @@ class VerifiedSolver:
 
     def solve_padded(self, b):
         return self.solve_padded_with_info(b)[0]
+
+    def solve_padded_device(self, b, x0=None):
+        """(x, stats) of one solve in the padded layout with no host
+        read: on "resident-verified" K2's FSAI solve from x0 (zero by
+        default), then K2's one-band streamed CG from zero gated on its
+        stats and ``torch.where`` on the verdict; on "streamed" one K2
+        one-band launch from x0.  stats is a (2, 4) float32 tensor on
+        the device, rows the first solve's and the fallback's ``STATS``
+        (zeros where no fallback ran, or none exists); row 1's ``ran``
+        counts into ``fallbacks_device``."""
+        if x0 is None:
+            x0 = torch.zeros_like(b)
+        x, stats = self._device_form()(b, x0)
+        if self.fallbacks_device is None:
+            self.fallbacks_device = torch.zeros((), dtype=torch.float32,
+                                                device=b.device)
+        self.fallbacks_device += stats[1, STATS.index("ran")]
+        return x, stats
+
+    def _device_form(self):
+        """The device form, built at the first call."""
+        if self._device_solve is None:
+            if self._device_factory is None:
+                raise ValueError(
+                    "this solver has no device form (no padded layout); "
+                    "call solve_with_info")
+            self._device_solve = self._device_factory()
+        return self._device_solve
+
+    def solve_device(self, b, x0=None):
+        """``solve_padded_device`` on flat node vectors."""
+        pad = self.layout.pad
+        x, stats = self.solve_padded_device(
+            pad(b), None if x0 is None else pad(x0))
+        return self.layout.unpad(x), stats
+
+    @staticmethod
+    def device_info(stats) -> dict:
+        """The info dict of ``solve_with_info`` from a device-form
+        stats tensor (one read)."""
+        first, fb = (dict(zip(STATS, row)) for row in stats.tolist())
+        return {"iterations": int(first["iterations"]),
+                "residual": first["residual"], "fallback": bool(fb["ran"]),
+                "fallback_iterations": int(fb["iterations"])}
 
     def solve_with_info(self, b):
         if self.layout is None:
@@ -268,7 +347,8 @@ def _host_streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
 
 
 def _streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
-                     abs_tol, layout, device, dtype, apply_fn=None):
+                     abs_tol, layout, device, dtype, apply_fn=None,
+                     pre_band=None):
     """The exact-arithmetic (recurrence-honest at working precision)
     band-CG path on the padded layout, by gdm's two routes
     (``stencil.kernel_route``): on the card in 2D, solvers.cg on the
@@ -277,8 +357,9 @@ def _streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
     windows), with
     ``apply_fn`` unused, as on gdm's TPU; elsewhere gdm's host CG
     (``_host_streamed_solver``) over ``apply_fn`` on the flat vector,
-    unpadded and padded back.  Returns solve_with_info(b_pad) -> (x_pad,
-    {"iterations", "residual"})."""
+    unpadded and padded back.  ``pre_band``: the assembled Schwarz band
+    when the caller has built it.  Returns solve_with_info(b_pad) ->
+    (x_pad, {"iterations", "residual"})."""
     if not stencil.kernel_route(st.grid, device):
         flat = _host_streamed_solver(st, windows, max_iter, rel_tol,
                                      abs_tol, dtype, apply_fn)
@@ -290,8 +371,9 @@ def _streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
         return solve_with_info
     apS = fast_stencil_bundle(st, device, dtype, layout)[0]
     if windows is not None and np.asarray(windows).size:
-        pre_pad = fast_stencil_bundle(schwarz_band(st, windows, dtype),
-                                      device, dtype, layout)[0]
+        if pre_band is None:
+            pre_band = schwarz_band(st, windows, dtype)
+        pre_pad = fast_stencil_bundle(pre_band, device, dtype, layout)[0]
     else:
         G, GT = fsai_factors(st)
         apG = fast_stencil_bundle(G, device, dtype, layout)[0]
@@ -328,6 +410,12 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
       residual; on failure the solve is rerun through the streamed path
       from x0 = 0.
 
+    On the card in 2D the solver also gets its device form
+    (``VerifiedSolver.solve_padded_device``): the streamed CG as K2 in
+    one-band mode over the assembled Schwarz band (K2's FSAI mode where
+    there are no windows) at the given tolerances, and the check as that
+    launch's gate on the resident solve's stats.
+
     The parameters stand in gdm's positional order, ``device`` and
     ``dtype`` after them.  ``apply_fn``, gdm's operator of the streamed
     CG, follows gdm's routes (``_streamed_solver``): on the card the
@@ -344,8 +432,12 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
     abs_f = max(abs_tol, 1e-12)
     G, GT = fsai_factors(st, R)
     layout = layout_for(st.grid, max(st.radius, G.radius))
+    on_card = stencil.kernel_route(st.grid, device)
+    pre_band = (schwarz_band(st, windows, dtype)
+                if on_card and windows is not None
+                and np.asarray(windows).size else None)
     streamed = _streamed_solver(st, windows, max_iter, rel_tol, abs_tol,
-                                layout, device, dtype, apply_fn)
+                                layout, device, dtype, apply_fn, pre_band)
     solve_r, pad_r, _, _ = make_resident_cg(
         st, G, GT,
         max_iter=(resident_max_iter if resident_max_iter is not None
@@ -367,9 +459,48 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
                       "iterations": s["iterations"], "reason": "probe"}
     path = "resident-verified" if probe_info["ok"] else "streamed"
     log.info("verified_fsai_solver routing: %s (probe %s)", path, probe_info)
-    return VerifiedSolver(path, probe_info, layout, streamed,
-                          resident=solve_r if probe_info["ok"] else None,
-                          rel_tol=rel_f, abs_tol=abs_f, slack=slack)
+    vs = VerifiedSolver(path, probe_info, layout, streamed,
+                        resident=solve_r if probe_info["ok"] else None,
+                        rel_tol=rel_f, abs_tol=abs_f, slack=slack,
+                        device_factory=functools.partial(
+                            _device_solver, st, windows, G, GT, pre_band,
+                            max_iter, rel_tol, abs_tol, layout, device,
+                            dtype, solve_r if probe_info["ok"] else None,
+                            (slack, rel_f, abs_f)))
+    if on_card:     # set-up, not a solve, builds it (elsewhere: the twins)
+        vs._device_form()
+    return vs
+
+
+def _device_solver(st, windows, G, GT, pre_band, max_iter, rel_tol, abs_tol,
+                   layout, device, dtype, resident, check):
+    """The device form of the verified solve: (b_pad, x0_pad) -> (x_pad,
+    (2, 4) stats).  The streamed CG is one K2 launch in one-band mode
+    over the Schwarz band of ``windows`` (``pre_band`` when the caller
+    built it; FSAI mode over G, G^T when there are no windows) at the
+    streamed tolerances; behind ``resident`` it runs from zero, gated on
+    the resident solve's stats by ``check`` = (slack, rel, abs)."""
+    if pre_band is None and windows is not None and np.asarray(windows).size:
+        pre_band = schwarz_band(st, windows, dtype)
+    if pre_band is not None:
+        solve_s = make_resident_cg(st, max_iter=max_iter, rel_tol=rel_tol,
+                                   abs_tol=abs_tol, dtype=dtype,
+                                   device=device, layout=layout,
+                                   P=pre_band)[0]
+    else:
+        solve_s = make_resident_cg(st, G, GT, max_iter, rel_tol, abs_tol,
+                                   dtype, device=device, layout=layout)[0]
+
+    def solve(b, x0):
+        if resident is None:
+            x, stats = solve_s(b, x0)
+            return x, torch.stack([stats, torch.zeros_like(stats)])
+        x, s1 = resident(b, x0)
+        xf, s2 = solve_s(b, gate=Gate(s1, *check))
+        x = torch.where(s2[STATS.index("ran")] > 0, xf, x)
+        return x, torch.stack([s1, s2])
+
+    return solve
 
 
 def fsai_cg_solver(st: StencilOperator, max_iter: int, rel_tol: float,

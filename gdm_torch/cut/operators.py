@@ -35,8 +35,6 @@ Geometry tables are precomputed host-side by gdm_torch.cut.geometry.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
@@ -541,8 +539,10 @@ class CutOperators:
         """Reference compute_rhs_internal (wave stiffness.h:42-407).
 
         Returns the assembled RHS vector (a tensor like ``u``).
-        Functions are called as fn(phys_points_numpy, t) and may return
-        numpy arrays or tensors.
+        Functions are called as fn(pts, t) with ``pts`` the cached table
+        of physical points on u's device in u's dtype and t as given
+        (a Python float from the time loops), and may return numpy
+        arrays or tensors; a tensor on u's device costs no copy.
         """
         y = torch.zeros_like(u)
         # (I) cell integrals
@@ -561,12 +561,12 @@ class CutOperators:
                     y, win, -torch.einsum("nqdi,nqd,nq->ni", G, gq, w))
         if rhs_fn is not None:
             if len(self.full_ids):
-                f = _like(rhs_fn(self.full_phys_q, t), u)  # (nf, Q)
+                f = _like(rhs_fn(self.table("full_phys_q", u), t), u)
                 vw = torch.einsum("nqi,nq,q->ni", self.table("V_full", u), f,
                                   self.table("w_q", u))
                 y = self._scatter(y, self.table("w_full", u), vw)
             if len(self.cut_ids):
-                f = _like(rhs_fn(self.cut_phys_q, t), u)
+                f = _like(rhs_fn(self.table("cut_phys_q", u), t), u)
                 vw = torch.einsum("nqi,nq,nq->ni", self.table("V_cut", u), f,
                                   self.table("vol_w", u))
                 y = self._scatter(y, self.table("w_cut", u), vw)
@@ -574,12 +574,12 @@ class CutOperators:
         if interface_dbc is not None and len(self.cut_ids):
             y = self._nitsche_rhs(
                 y, u, t, impl, interface_dbc, nitsche_gamma, "V_surf",
-                "G_surf", "surf_n", "surf_w", "w_cut", self.surf_phys_q)
+                "G_surf", "surf_n", "surf_w", "w_cut", "surf_phys_q")
         # (IV) domain-boundary Nitsche
         if domain_dbc is not None and len(self.b_win):
             y = self._nitsche_rhs(
                 y, u, t, impl, domain_dbc, nitsche_gamma, "b_V", "b_G",
-                "b_normal_q", "b_w", "b_win", self.b_phys)
+                "b_normal_q", "b_w", "b_win", "b_phys")
         # (V) ghost-penalty action: note h^1 scaling on the explicit path
         if impl:
             y = self._gp_apply(y, u, -gamma_A * self.h_min)
@@ -588,8 +588,9 @@ class CutOperators:
     def _nitsche_rhs(self, y, u, t, impl, dbc, nitsche_gamma, V, G, nrm, w,
                      win, phys):
         """Nitsche terms of one surface family (interface or domain
-        boundary), its tables named: the symmetric lhs action when
-        ``impl`` and the g-weighted forcing ((gamma/h) v - d_n v, g)."""
+        boundary), its tables (points included) named: the symmetric lhs
+        action when ``impl`` and the g-weighted forcing
+        ((gamma/h) v - d_n v, g)."""
         V = self.table(V, u)
         w = self.table(w, u)
         win = self.table(win, u)
@@ -604,7 +605,7 @@ class CutOperators:
                    + (nitsche_gamma / self.h_min)
                    * torch.einsum("nqi,nq,nq->ni", V, uq, w))
             y = self._scatter(y, win, -lhs)
-        g = _like(dbc(phys, t), u)  # (n, Qs)
+        g = _like(dbc(self.table(phys, u), t), u)  # (n, Qs)
         rhsv = torch.einsum(
             "nqi,nq,nq->ni", (nitsche_gamma / self.h_min) * V - Gn, g, w)
         return self._scatter(y, win, rhsv)
@@ -612,9 +613,17 @@ class CutOperators:
     # -- error norms over the subdomain ---------------------------------
     def error_norms(self, u, exact_fn, t):
         """(L2, L1, Linf) of u - exact over this location's region, as
-        Python floats (one read back to the host).
+        Python floats: ``error_norms_tensor`` and one read back to the
+        host.
 
         Reference: WaveProblem::postprocess (problem.h:552-607)."""
+        return tuple(self.error_norms_tensor(u, exact_fn, t).tolist())
+
+    def error_norms_tensor(self, u, exact_fn, t):
+        """(L2, L1, Linf) of u - exact over this location's region as a
+        (3,) tensor on u's device (the square root taken there, no host
+        read); ``exact_fn`` is called on the cached point tables, as in
+        ``compute_rhs``."""
         l2 = l1 = linf = u.new_zeros(())
         if len(self.full_ids):
             if self.w_q_cell is None:
@@ -624,7 +633,7 @@ class CutOperators:
                 Vc = self.table("V_full_cat", u)
                 wq = self.table("w_q_cell", u)
             uq = torch.einsum("nqi,ni->nq", Vc, u[self.table("w_full", u)])
-            d = uq - _like(exact_fn(self.full_phys_q, t), u)
+            d = uq - _like(exact_fn(self.table("full_phys_q", u), t), u)
             l2 = l2 + torch.sum(d * d * wq)
             l1 = l1 + torch.sum(d.abs() * wq)
             linf = torch.maximum(linf, d.abs().max())
@@ -632,14 +641,13 @@ class CutOperators:
             V = self.table("V_cut", u)
             w = self.table("vol_w", u)
             uq = torch.einsum("nqi,ni->nq", V, u[self.table("w_cut", u)])
-            d = uq - _like(exact_fn(self.cut_phys_q, t), u)
+            d = uq - _like(exact_fn(self.table("cut_phys_q", u), t), u)
             l2 = l2 + torch.sum(d * d * w)
             l1 = l1 + torch.sum(d.abs() * w)
             # only count real (non-padded) quadrature points for Linf
             linf = torch.maximum(
                 linf, torch.where(w > 0, d.abs(), 0.0).max())
-        l2, l1, linf = torch.stack([l2, l1, linf]).tolist()
-        return math.sqrt(l2), l1, linf
+        return torch.stack([torch.sqrt(l2), l1, linf])
 
     def stiffness_diagonal(self, gamma_A: float, nitsche_gamma: float,
                            with_nitsche: bool = True,

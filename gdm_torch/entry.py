@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import device as _device
-from . import timestepping
+from . import special, timestepping
 from .cut.fastapply import fast_stencil_bundle
 from .cut.fsai import verified_fsai_solver
 from .cut.geometry import INSIDE, CutGeometry
@@ -67,8 +67,6 @@ def flagship_operators(n: int):
 def entry(n: int = 24, device="cuda", dtype=torch.float32):
     """(step, (t0, dt, u0, v0)) of the flagship solver on an n x n grid,
     on the card unless ``device="cpu"`` is asked for."""
-    import scipy.special
-
     device = _device.resolve(device)
     grid, op, mass_stencil, rhs_stencil = flagship_operators(n)
     wn = WN
@@ -77,8 +75,7 @@ def entry(n: int = 24, device="cuda", dtype=torch.float32):
     # Nitsche RHS is linear in g, so the forcing is ONE setup-time vector
     # times cos(wn t)
     def g_space(pts, t):
-        r = np.linalg.norm(np.asarray(pts), axis=-1)
-        return scipy.special.j0(wn * r)
+        return special.bessel_j0(wn * torch.linalg.vector_norm(pts, dim=-1))
 
     N = grid.n_nodes
     F_space = op.compute_rhs(

@@ -60,14 +60,15 @@ def _nvcc() -> str:
 
 
 def _declare(lib):
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    from . import resident  # imports this module: loaded by now
+
+    P, I = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"gdm_cutband_apply_{dt}")
         fn.argtypes = [P, P, P, P] + [I] * 10 + [P]
         fn.restype = I
         fn = getattr(lib, f"gdm_resident_cg_{dt}")
-        fn.argtypes = [P, P, P, P, I, P, P, I, P, P, I, I, P, P, P,
-                       I, I, I, I, I, I, D, D] + [I] * 5 + [P]
+        fn.argtypes = resident.ENTRY_ARGTYPES
         fn.restype = I
         fn = getattr(lib, f"gdm_laplace2_apply_{dt}")
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]

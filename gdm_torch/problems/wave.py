@@ -19,14 +19,26 @@ other run takes gdm's CPU branch (Jacobi CG over ``best_solver_apply``
 for the mass, the host FSAI-CG over the matrix-free operator for
 heat-impl).  The Poisson solve is CG with Jacobi or, with
 ``solver_name="MG"``, the cut multigrid (its level bands through K1 on
-the card in 2D).  All solve to the parameters' tolerances.  gdm's
-whole-trajectory device loop (``run_scan``) and the domain-decomposed
-and deformed runs are not ported yet.
+the card in 2D).  All solve to the parameters' tolerances.
 
-Function convention: scalar field functions take (pts, t), pts a numpy
-array of physical points shaped (..., dim) and t a float, and return
-numpy arrays (gdm's take a traced t and return jnp).  Entry points run
-on the card unless ``device="cpu"`` is asked for.
+``run_scan`` is gdm's whole-trajectory loop: the same rows, with the
+host out of the loop where the card can take it.  On a CUDA run of a 2D
+grid a chunk of steps enqueues kernel launches and tensor ops alone and
+reads its error rows once at its end: the mass solves through the
+verified solver's device form (K2's one-band Schwarz CG, gated behind
+the resident FSAI solve where its probe passed), heat-impl's warm-started
+Jacobi CG as K2's one-band mode on the band of M + dt S, the data
+functions on device point tables.  Elsewhere its solves are the host CG
+of ``run()``'s CPU branch.  The domain-decomposed and deformed runs are
+not ported yet.
+
+Function convention: scalar field functions take (pts, t), pts an array
+of physical points shaped (..., dim) and t a Python float.  The
+operators call them on their point tables, torch tensors on the run's
+device; ``interpolate_exact`` and the VTU output on numpy points.  The
+presets take both and return the same kind (gdm's take numpy points and
+a traced t and return jnp).  Entry points run on the card unless
+``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .. import solvers, timestepping
+from .. import solvers, special, timestepping
 from ..cut.geometry import INSIDE, OUTSIDE, CutGeometry
 from ..cut.operators import CutOperators
 from ..grid import Grid
@@ -93,8 +105,34 @@ def sphere_signed_distance(mesh_list):
     return np.sqrt(sum(np.asarray(m) ** 2 for m in mesh_list)) - 1.0
 
 
+def _full(pts, value):
+    """``value`` at every point of ``pts`` (numpy or a tensor)."""
+    if isinstance(pts, torch.Tensor):
+        return pts.new_full(pts.shape[:-1], value)
+    return np.full(pts.shape[:-1], value)
+
+
+def _exp(t):
+    return torch.exp(t) if isinstance(t, torch.Tensor) else math.exp(t)
+
+
+def _cos(t):
+    return torch.cos(t) if isinstance(t, torch.Tensor) else math.cos(t)
+
+
+def _radius(pts):
+    """|x| of each point (numpy or a tensor)."""
+    if isinstance(pts, torch.Tensor):
+        return torch.linalg.vector_norm(pts, dim=-1)
+    return np.linalg.norm(np.asarray(pts), axis=-1)
+
+
 def make_preset(name: str, dim: int) -> WaveParams:
-    """Named presets of wave-app.cc:9-354."""
+    """Named presets of wave-app.cc:9-354.  Their data functions take
+    numpy points (and give numpy) or tensor points (and give tensors on
+    the points' device: torch.exp, torch.cos and ``special.bessel_j0``,
+    scipy's j0 to 2e-15 where torch.special.bessel_j0 is not),
+    with t a Python float or a tensor."""
     import scipy.special
 
     p = WaveParams(dim=dim)
@@ -104,10 +142,14 @@ def make_preset(name: str, dim: int) -> WaveParams:
         p.ghost_parameter_M = -1.0
         p.ghost_parameter_A = 0.5
         p.nitsche_parameter = 5.0 * p.fe_degree
-        p.function_interface_dbc = lambda pts, t: np.full(pts.shape[:-1], 1.0)
-        p.function_rhs = lambda pts, t: np.full(pts.shape[:-1], 4.0)
-        p.exact_solution = lambda pts, t: np.asarray(
-            1.0 - 2.0 / dim * ((pts**2).sum(-1) - 1.0))
+        p.function_interface_dbc = lambda pts, t: _full(pts, 1.0)
+        p.function_rhs = lambda pts, t: _full(pts, 4.0)
+
+        def exact(pts, t):
+            u = 1.0 - 2.0 / dim * ((pts**2).sum(-1) - 1.0)
+            return u if isinstance(pts, torch.Tensor) else np.asarray(u)
+
+        p.exact_solution = exact
         p.end_t = 0.1
     elif name in ("heat", "heat-rk", "heat-impl"):
         p.simulation_type = "heat-impl" if name == "heat" else name
@@ -118,15 +160,15 @@ def make_preset(name: str, dim: int) -> WaveParams:
 
         def g(pts, t):
             if dim == 1:
-                return pts[..., 0] ** 9 * math.exp(-t)
-            return pts[..., 0] ** 9 * pts[..., 1] ** 8 * math.exp(-t)
+                return pts[..., 0] ** 9 * _exp(-t)
+            return pts[..., 0] ** 9 * pts[..., 1] ** 8 * _exp(-t)
 
         def f(pts, t):
             if dim == 1:
-                return -(pts[..., 0] ** 7) * math.exp(-t) * (pts[..., 0] ** 2
-                                                             + 72)
+                return -(pts[..., 0] ** 7) * _exp(-t) * (pts[..., 0] ** 2
+                                                         + 72)
             x, y = pts[..., 0], pts[..., 1]
-            return (-(x**7) * y**6 * math.exp(-t)
+            return (-(x**7) * y**6 * _exp(-t)
                     * (x**2 * y**2 + 72 * y**2 + 56 * x**2))
 
         p.function_interface_dbc = g
@@ -154,12 +196,15 @@ def make_preset(name: str, dim: int) -> WaveParams:
         p.nitsche_parameter = 5.0 * p.fe_degree
 
         def g(pts, t):
-            r = np.linalg.norm(np.asarray(pts), axis=-1)
-            if dim == 1:
-                wn = 1.5 * np.pi
-                return np.cos(wn * r) * math.cos(wn * t)
-            wn = 3.0 * np.pi
-            return scipy.special.j0(wn * r) * math.cos(wn * t)
+            r = _radius(pts)
+            wn = 1.5 * np.pi if dim == 1 else 3.0 * np.pi
+            if isinstance(pts, torch.Tensor):
+                radial = (torch.cos(wn * r) if dim == 1
+                          else special.bessel_j0(wn * r))
+            else:
+                radial = (np.cos(wn * r) if dim == 1
+                          else scipy.special.j0(wn * r))
+            return radial * _cos(wn * t)
 
         if p.composite:
             p.function_domain_dbc = g
@@ -550,51 +595,65 @@ class WaveProblem:
         self.final_solution = y[:2]
 
     # -- heat implicit --------------------------------------------------
+    def _heat_system_apply(self, v, dt):
+        """M v + dt (S v - inactive v): heat-impl's system, matrix-free."""
+        pp, op = self.params, self.op_in
+        return op.mass_apply(v, pp.ghost_parameter_M) + dt * (
+            op.stiffness_matrix_apply(
+                v, pp.ghost_parameter_A, pp.nitsche_parameter,
+                pp.function_interface_dbc is not None)
+            - torch.where(op.table("inactive", v), v, 0.0))
+
+    def _heat_system_band(self, dt):
+        """M + dt S in stencil-band form (the mass and the stiffness
+        bands assembled once per problem)."""
+        from ..cut.stencil import StencilOperator, assemble_stencil
+
+        pp, op = self.params, self.op_in
+        if not hasattr(self, "_heat_bands"):
+            self._heat_bands = (
+                assemble_stencil(op, "mass", pp.ghost_parameter_M),
+                assemble_stencil(op, "stiff", pp.ghost_parameter_A,
+                                 pp.nitsche_parameter,
+                                 with_nitsche=pp.function_interface_dbc
+                                 is not None,
+                                 inactive_identity=False))
+        st_m, st_s = self._heat_bands
+        return StencilOperator(self.grid, st_m.band_host + dt * st_s.band_host,
+                               st_m.radius)
+
+    def _heat_rhs(self, u, t_next, dt):
+        """dt * rhs(t_next) + M u: heat-impl's right-hand side."""
+        pp, op = self.params, self.op_in
+        b = op.compute_rhs(
+            u, t_next, False, rhs_fn=pp.function_rhs,
+            interface_dbc=pp.function_interface_dbc,
+            domain_dbc=pp.function_domain_dbc,
+            nitsche_gamma=pp.nitsche_parameter)
+        return dt * b + op.mass_apply(u, pp.ghost_parameter_M)
+
     def _run_heat_impl(self):
         pp = self.params
-        op = self.op_in
         delta_t = pp.cfl * self.dx**pp.cfl_pow
-        ga, gn = pp.ghost_parameter_A, pp.nitsche_parameter
-        gm = pp.ghost_parameter_M
-        with_nitsche = pp.function_interface_dbc is not None
-
-        def system_apply(v, dt):
-            return op.mass_apply(v, gm) + dt * (
-                op.stiffness_matrix_apply(v, ga, gn, with_nitsche)
-                - torch.where(op.table("inactive", v), v, 0.0))
 
         # (M + dt S) in stencil-band form for the FSAI factorisation —
         # the reference ILU-preconditions this system (problem.h:210-279)
         from ..cut.fsai import fsai_cg_solver
-        from ..cut.stencil import StencilOperator, assemble_stencil
 
-        st_m = assemble_stencil(op, "mass", gm)
-        st_s = assemble_stencil(op, "stiff", ga, gn,
-                                with_nitsche=with_nitsche,
-                                inactive_identity=False)
         self.heat_solvers = {}
 
         def make_step(dt):
-            st_sys = StencilOperator(
-                self.grid, st_m.band_host + dt * st_s.band_host,
-                st_m.radius)
+            st_sys = self._heat_system_band(dt)
             solve = fsai_cg_solver(
                 st_sys, pp.solver_max_iterations,
                 pp.solver_rel_tolerance, pp.solver_abs_tolerance,
-                apply_fn=lambda v: system_apply(v, dt),
+                apply_fn=lambda v: self._heat_system_apply(v, dt),
                 device=self.device, dtype=self.dtype)
             self.heat_solvers[dt] = solve
 
             def step(t_next, u):
-                b = op.compute_rhs(
-                    u, t_next, False, rhs_fn=pp.function_rhs,
-                    interface_dbc=pp.function_interface_dbc,
-                    domain_dbc=pp.function_domain_dbc,
-                    nitsche_gamma=gn,
-                )
-                b = dt * b + op.mass_apply(u, gm)
                 # a cold start, as gdm's run() (its run_scan warm-starts)
-                return solve.solve_with_info(b)
+                return solve.solve_with_info(self._heat_rhs(u, t_next, dt))
 
             return step
 
@@ -642,6 +701,221 @@ class WaveProblem:
             dts.append(time.get_next_step_size())
             time.advance_time()
         return np.asarray(ts), np.asarray(dts)
+
+    # -- the whole trajectory -------------------------------------------
+    def run_scan(self, chunk: int = 128):
+        """The whole time loop in chunks of ``chunk`` steps, gdm's
+        device-resident counterpart of :meth:`run` (its ``lax.scan``
+        chunks, gdm/problems/wave.py:659-821), for every time-dependent
+        simulation type.  Populates ``self.rows`` in :meth:`postprocess`'s
+        format (no solver rows) and ``self.final_solution``, and returns
+        ``self.rows``.  ``"poisson"`` delegates to :meth:`run` (one
+        solve); per-step VTU output needs the host in the loop and
+        raises ValueError.
+
+        On a CUDA run of a 2D grid no operation inside a chunk waits on
+        the card: the host walks the schedule, which it knows in advance
+        (``_schedule``), and passes t and dt as Python floats; the RK
+        stages' mass solves run through the verified solver's device
+        form and heat-impl's solves as K2 on the band of M + dt S; a
+        chunk's error rows and the solvers' fallback counters are read
+        once at its end.  A data function that gives anything but a
+        tensor on the run's device raises ValueError there.  Off the
+        card, and in 1D on the card, the solves are the host CG of
+        ``run()``'s CPU branch (heat-impl: gdm's warm-started Jacobi CG
+        over the matrix-free M + dt S).
+        """
+        pp = self.params
+        st = pp.simulation_type
+        if st == "poisson":
+            self.run()
+            return self.rows
+        if pp.output_vtu_dir is not None:
+            raise ValueError("per-step VTU output requires run()")
+        if self.device.type == "cuda":
+            self._check_data_functions()
+        ts, dts = self._schedule()
+        chunk = max(1, min(chunk, len(ts)))
+        if st == "heat-impl":
+            step, y, slots, keep = self._scan_heat_impl(dts)
+            verified = ()
+        elif st in ("heat-rk", "wave-rk"):
+            step, y, slots, keep, verified = self._scan_explicit(
+                st == "heat-rk")
+        else:
+            raise ValueError(st)
+        ops = (self.op_in, self.op_out)[:len(slots(y))]
+
+        def errs(y, t):
+            return torch.stack([o.error_norms_tensor(u, pp.exact_solution, t)
+                                for o, u in zip(ops, slots(y))])
+
+        parts = [errs(y, pp.start_t)[None].tolist()]
+        for s0 in range(0, len(ts), chunk):
+            y, rows = self._scan_chunk(step, errs, y, ts[s0:s0 + chunk],
+                                       dts[s0:s0 + chunk], verified)
+            parts.append(rows)
+        self.final_solution = keep(y)
+        rows = [r for part in parts for r in part]
+        for k, row_slots in enumerate(rows):
+            t = float(pp.start_t if k == 0 else ts[k - 1] + dts[k - 1])
+            for slot, e in enumerate(row_slots):
+                row = (k, t) + tuple(float(x) for x in e)
+                self.rows[slot].append(row)
+                if self.verbose:
+                    print("%5d %8.5f %14.8e %14.8e %14.8e" % row)
+        return self.rows
+
+    @staticmethod
+    def _scan_chunk(step, errs, y, ts, dts, verified):
+        """One chunk: its steps enqueued from the host's schedule (t and
+        dt Python floats), then its (steps, slots, 3) error rows read as
+        lists with the verified solvers' device fallback counters folded
+        in: one read.  Returns (y, rows)."""
+        es = []
+        for t, dt in zip(ts.tolist(), dts.tolist()):
+            y = step(y, t, dt)
+            es.append(errs(y, t + dt))
+        es = torch.stack(es)
+        counted = [v for v in verified if v.fallbacks_device is not None]
+        flat = torch.cat([es.reshape(-1).double()]
+                         + [v.fallbacks_device.reshape(1).double()
+                            for v in counted]).tolist()
+        n = es.numel()
+        for v, c in zip(counted, flat[n:]):
+            v.fold_fallbacks(c)
+        return y, np.reshape(flat[:n], es.shape).tolist()
+
+    def _check_data_functions(self):
+        """On a CUDA run: each data function, called on device points,
+        gives a tensor on the run's device (a host evaluation would put
+        a sync in every stage)."""
+        pp = self.params
+        pts = torch.zeros((1, self.grid.dim), dtype=self.dtype,
+                          device=self.device)
+        for name in ("function_rhs", "function_interface_dbc",
+                     "function_domain_dbc", "exact_solution"):
+            fn = getattr(pp, name)
+            if fn is None:
+                continue
+            v = fn(pts, pp.start_t)
+            if not isinstance(v, torch.Tensor) or v.device != pts.device:
+                where = (f"a tensor on {v.device}"
+                         if isinstance(v, torch.Tensor)
+                         else type(v).__name__)
+                raise ValueError(
+                    f"run_scan on {self.device}: params.{name} returned "
+                    f"{where} for tensor points on {self.device}; give a "
+                    f"function that computes on the points' device "
+                    f"(torch ops), or use run()")
+
+    @staticmethod
+    def _scan_solve(vs):
+        """The mass solve of a scan step: the verified solver's device
+        form (the card's 2D route), any other solver as it is."""
+        from ..cut.fsai import VerifiedSolver
+
+        if isinstance(vs, VerifiedSolver):
+            return lambda b: vs.solve_device(b)[0]
+        return vs
+
+    def _scan_explicit(self, heat: bool):
+        """(step, y0, slots, keep, verified) of the explicit RK4 loop on
+        one region or on both coupled: the state's error slots, its final
+        solution and the solves whose device fallback counters the
+        chunks read (those with a device form)."""
+        pp = self.params
+        one = not pp.composite
+        ops = (self.op_in,) if one else (self.op_in, self.op_out)
+        vss = tuple(self._mass_solver(o) for o in ops)
+        if not one:
+            self.mass_solvers = vss
+        self.mass_solver = vss[0]
+        solves = tuple(self._scan_solve(v) for v in vss)
+        rhss = tuple(self._rhs_fn(o) for o in ops)
+        n = len(ops)
+        u0 = self.interpolate_exact(pp.start_t)
+        tau = 0.5 * pp.nitsche_parameter
+        couple = not one and pp.function_interface_dbc is None
+
+        def rhs(us, t):
+            rs = tuple(r(u, t) for r, u in zip(rhss, us))
+            if couple:
+                rs = _interface_coupling(self.op_in, *rs, *us, tau)
+            return rs
+
+        if self._kernel_route():
+            rhs((u0,) * n, pp.start_t)   # moves the RHS's tables to the card
+
+        if heat:
+            def f(t, y):
+                return tuple(s(r) for s, r in zip(solves, rhs(y, t)))
+            y0 = (u0,) * n
+        else:
+            def f(t, y):
+                return y[n:] + tuple(s(r) for s, r in
+                                     zip(solves, rhs(y[:n], t)))
+            y0 = (u0,) * n + (self._zeros(),) * n
+
+        def step(y, t, dt):
+            return timestepping.rk_step(f, t, dt, y)
+
+        slots = lambda y: y[:n]  # noqa: E731
+        keep = (lambda y: y[0]) if one else slots
+        return step, y0, slots, keep, tuple(
+            v for v, s in zip(vss, solves) if s is not v)
+
+    def _scan_heat_impl(self, dts):
+        """(step, u0, slots, keep) of implicit Euler with gdm's run_scan
+        body: b = dt rhs + M u, solved from x0 = u by Jacobi CG on
+        M + dt S (on the card in 2D as K2 in one-band mode on its band,
+        one band and one Jacobi band per distinct dt)."""
+        pp = self.params
+        op = self.op_in
+        mdiag = op.mass_diagonal(pp.ghost_parameter_M)
+        sdiag = self._stiffness_diag() - 1.0 * op.inactive
+        tols = (pp.solver_max_iterations, pp.solver_rel_tolerance,
+                pp.solver_abs_tolerance)
+        u0 = self.interpolate_exact(pp.start_t)
+        step_sizes = sorted(set(float(d) for d in dts))
+        if self._kernel_route():
+            from ..ops import resident
+            from ..ops.cutband import band_planes, layout_for
+
+            systems = {dt: self._heat_system_band(dt) for dt in step_sizes}
+            lay = layout_for(self.grid, max(st.radius
+                                            for st in systems.values()))
+            self.heat_bands = {
+                dt: (band_planes(st, lay, self.device, self.dtype),
+                     resident.jacobi_band(mdiag + dt * sdiag, self.grid,
+                                          self.device, self.dtype, lay))
+                for dt, st in systems.items()}
+            self._heat_rhs(u0, pp.start_t, step_sizes[0])  # moves tables
+
+            def solve(b, u, dt):
+                A, P = self.heat_bands[dt]
+                x, _ = resident.resident_cg(lay.pad(b), lay.pad(u), A,
+                                            None, None, *tols, P=P)
+                return lay.unpad(x)
+        else:
+            pres = {dt: solvers.jacobi_preconditioner(torch.as_tensor(
+                mdiag + dt * sdiag, dtype=self.dtype, device=self.device))
+                for dt in step_sizes}
+
+            def solve(b, u, dt):
+                pre = pres[dt]
+                x, _ = solvers.cg(
+                    lambda v: self._heat_system_apply(v, dt), b, x0=u,
+                    precond=pre, max_iter=tols[0], rel_tol=tols[1],
+                    abs_tol=tols[2])
+                return x
+
+        def step(u, t, dt):
+            # x0 = u: gdm's run_scan warm start (the reference's SolverCG
+            # starts from the incoming solution vector, problem.h:269)
+            return solve(self._heat_rhs(u, t + dt, dt), u, dt)
+
+        return step, u0, lambda u: (u,), lambda u: u
 
 
 def _write_step_vtu(problem: "WaveProblem", sol, t, path: str,

@@ -182,11 +182,11 @@ def test_band_apply_rejects(ops24, cuda_device):
         cutband.band_apply(u.half(), bp16)
 
 
-def _check_cg(b, x0, args, dtype, body=None):
+def _check_cg(b, x0, args, dtype, body=None, **modes):
     before = resident.resident_cg.launches
-    xk, sk = resident.resident_cg(b, x0, *args, body=body)
+    xk, sk = resident.resident_cg(b, x0, *args, body=body, **modes)
     assert resident.resident_cg.launches == before + 1
-    xp, sp = resident.resident_cg_plain(b, x0, *args)
+    xp, sp = resident.resident_cg_plain(b, x0, *args, **modes)
     sk, sp = resident.read_stats(sk), resident.read_stats(sp)
     assert sk["r0"] == pytest.approx(sp["r0"], rel=1e-6)
     assert 0 < sk["iterations"] < args[3]
@@ -315,6 +315,94 @@ def test_verified_solver_routes_on_card(ops24, cuda_device):
     assert info_ok["fallback"] is False and info_fb["fallback"] is True
     assert checked.fallback_count == 1
     # both answers solve the system to float32-CG accuracy
+    bh = vs.layout.unpad(b).cpu().double()
+    for x in (x_ok, x_fb):
+        r = ops["mass"].apply(vs.layout.unpad(x).cpu().double()) - bh
+        assert (r.norm() / bh.norm()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("body", BODIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_resident_cg_one_band_matches_plain(ops24, cuda_device, dtype, body):
+    """K2's one-band mode, z = P r over the assembled Schwarz band, each
+    body against the plain twin, counted in ``mode_launches["band"]``."""
+    grid, _, ops, layout = ops24
+    A, P = (cutband.band_planes(ops[k], layout, cuda_device, dtype)
+            for k in ("mass", "schwarz"))
+    b = layout.pad(torch.as_tensor(
+        np.random.default_rng(7).standard_normal(grid.n_nodes), dtype=dtype,
+        device=cuda_device))
+    before = resident.resident_cg.mode_launches["band"]
+    # rel 1e-4: the float32 solve stops above its true residual's floor
+    # (~1.2e-3 here), below which the order of a sum moves it by ~20%
+    _check_cg(b, torch.zeros_like(b), (A, None, None, 200, 1e-4, 1e-12),
+              dtype, body, P=P)
+    assert resident.resident_cg.mode_launches["band"] == before + 1
+
+
+@pytest.mark.parametrize("mode", ["band", "fsai"])
+@pytest.mark.parametrize("body", BODIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_resident_cg_gate_on_card(ops24, cuda_device, dtype, body, mode):
+    """A gate the earlier stats passed: x stays x0 and the stats read
+    [0, 0, 0, 0]; one they failed: the launch solves as an ungated one
+    does (bit for bit: the kernel's sums have a fixed order), and as the
+    plain twin with the same gate."""
+    grid, _, ops, layout = ops24
+    names = ("mass", "schwarz") if mode == "band" else ("mass", "G", "GT")
+    bands = [cutband.band_planes(ops[k], layout, cuda_device, dtype)
+             for k in names]
+    args = ((bands[0], None, None) if mode == "band" else tuple(bands)) + (
+        200, 1e-4, 1e-12)
+    kw = {"P": bands[1]} if mode == "band" else {}
+    b = layout.pad(torch.as_tensor(
+        np.random.default_rng(8).standard_normal(grid.n_nodes), dtype=dtype,
+        device=cuda_device))
+    x0 = torch.full_like(b, 0.25)
+    x_ref, s_ref = resident.resident_cg(b, x0, *args, body=body, **kw)
+    for res, opened in ((5e-4, False), (2e-3, True)):
+        gate = resident.Gate(torch.tensor([res, 5.0, 1.0, 1.0],
+                                          device=cuda_device), 10.0, 1e-4,
+                             1e-12)
+        before = resident.resident_cg.gated_launches
+        x, s = resident.resident_cg(b, x0, *args, body=body, gate=gate, **kw)
+        assert resident.resident_cg.gated_launches == before + 1
+        xp, sp = resident.resident_cg_plain(b, x0, *args, gate=gate, **kw)
+        if opened:
+            assert torch.equal(x, x_ref) and torch.equal(s, s_ref)
+            assert resident.read_stats(s)["ran"] is True
+            _check_cg(b, x0, args, dtype, body, gate=gate, **kw)
+        else:
+            assert torch.equal(x, x0) and torch.equal(xp, x0)
+            assert s.tolist() == sp.tolist() == [0.0, 0.0, 0.0, 0.0]
+
+
+def test_verified_device_form_on_card(ops24, cuda_device):
+    """The verified solver's device form makes no host read (under
+    ``set_sync_debug_mode("error")``): on the resident route the gate
+    stays closed; with the resident path crippled it opens, the answer
+    solves the system, and the fallback folds into ``fallback_count``."""
+    grid, op, ops, _ = ops24
+    vs = verified_fsai_solver(ops["mass"], windows=op.w_cut, max_iter=200,
+                              rel_tol=1e-6, device=cuda_device)
+    checked = verified_fsai_solver(ops["mass"], windows=op.w_cut,
+                                   max_iter=200, rel_tol=1e-6, probe=False,
+                                   resident_max_iter=2, device=cuda_device)
+    b = vs.layout.pad(torch.as_tensor(
+        np.random.default_rng(9).standard_normal(grid.n_nodes),
+        dtype=torch.float32, device=cuda_device))
+    for solver in (vs, checked):
+        solver.solve_padded_device(b)      # first use: allocations
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x_ok, s_ok = vs.solve_padded_device(b)
+        x_fb, s_fb = checked.solve_padded_device(b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert vs.device_info(s_ok)["fallback"] is False
+    assert checked.device_info(s_fb)["fallback"] is True
+    assert vs.fallback_count == 0 and checked.fallback_count == 2
     bh = vs.layout.unpad(b).cpu().double()
     for x in (x_ok, x_fb):
         r = ops["mass"].apply(vs.layout.unpad(x).cpu().double()) - bh

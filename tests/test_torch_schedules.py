@@ -266,6 +266,26 @@ def test_card_default_raises_without_a_card():
             call()
 
 
+def test_run_scan_runs_on_its_problems_device():
+    """``WaveProblem.run_scan`` takes gdm's one parameter, ``chunk``, and
+    runs where its problem does: on the card by default, raising
+    without one; with ``device="cpu"`` on the CPU."""
+    from gdm_torch.problems.wave import make_preset
+
+    assert list(inspect.signature(WaveProblem.run_scan).parameters) == [
+        "self", "chunk"]
+    assert inspect.signature(WaveProblem).parameters[
+        "device"].default == "cuda"
+    p = make_preset("heat-impl", 1)
+    p.n_subdivisions_1D, p.end_t = 10, 0.1
+    rows = WaveProblem(p, verbose=False, device="cpu").run_scan()
+    assert len(rows[0]) == 3
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WaveProblem(p, verbose=False).run_scan()
+
+
 @functools.lru_cache(maxsize=None)
 def _stencil_op():
     gc = Grid(3, (12, 12), (-1.21, -1.21), (1.21, 1.21))
