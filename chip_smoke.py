@@ -83,7 +83,28 @@ Run from the repository root:  python3 chip_smoke.py
    within 2 and equal; the A-norm gap within 1e-5 of |x_ref|_A on b = A
    x_ref), its gate (open: the ungated solve bit for bit; closed: x0
    untouched) and the times of a solve at the app's tolerances and of a
-   closed launch;
+   closed launch; then (``advection_phase``) the cut advection family
+   through AdvectionProblem and its CLIs, the counts reset just before
+   each run: (a) convergence_case(3, 40, 0.4, 0, 1) in float64,
+   run_scan's final row against tests/data/cpu_oracle_rows.json with
+   gdm's tolerances and run()'s rows against run_scan's (1e-9); (b) the
+   strong-BC advection_02 case against gdm's pins (rtol 1e-3); (c) the
+   composite DoD case at full width (200^2 cells, p = 5, two domains,
+   radius-6 masses) in float32 with gdm's script's settings through
+   run_scan(chunk=32) to t = 0.2: rows against the TPU's trajectory
+   (tests/data/composite_dod_rows.txt, 1e-3 scaled) and the invariants of
+   tests/test_composite_dod_pin.py, routing, K2's launches by mode,
+   iterations a solve, host syncs a chunk (<= 1), ms a step and the idle
+   share (profiler); (d) the same in float64 at the params' rel 1e-14
+   to t = 0.15, domain 1's err2 at t = 0.10 and 0.15 within 1e-3 of the
+   TPU's (t = 0.20: scripts/torch_advection_dod.py --float64);
+   (e) run() against run_scan over 10 steps in turns (rows within 1e-4
+   on the problem's error scale; K1's launches are run()'s streamed
+   CG's); (f) a checkpoint after two chunks resumed, against the run
+   straight through (40 steps, deterministic algorithms, each slot on its
+   own scale within 1e-6); (g) K1 on both DoD masses and their Schwarz
+   bands and K2's one-band mode, against their plain versions in float32
+   and float64, timed in both; (h) both CLIs with --quick;
 7. K3 (2D separable Laplace) against its plain torch twin, float32, at
    1024^2 for p = 3 and p = 5, with four distinct band factors, and at
    2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
@@ -206,7 +227,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Prints a JSON line of per-kernel results (K1, K2's shared body at
 128^2 and device body at 256^2, K2's one-band mode on the wave app's
-mass (launches from run_scan's 2D wave run), K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
+mass (launches from run_scan's 2D wave run), K1 and K2's one-band mode
+on the DoD inside mass (launches from the DoD run() and run_scan), K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
 K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes), M2, M3, M4, M5:
 launches on the kernel's main path (K1 and K2 also ``wave_app_launches``,
 their launches in phase 6's 2D run, and ``wave_family_launches``, in the
@@ -262,24 +284,67 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_breakdown(fn, n=5, warmup=2, top=6):
-    """(device ms per call, kernel launches per call, the `top` device
-    items as (name, ms per call, count per call)) from the profiler."""
+def device_items(call):
+    """(call()'s result, the device items the profiler recorded while it
+    ran, as (name, ms, count)).  Device activity only: recording the
+    host's ops of a host loop of thousands of launches costs seconds a
+    profile and adds nothing to the device times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    return out, [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+
+
+def chunk_profiler(k_profiled=1):
+    """A ``scan_logged`` hook that runs chunk ``k_profiled`` under the
+    profiler (``device_items``) and keeps its items as ``hook.items``."""
+    def hook(k, call):
+        if k != k_profiled:
+            return call()
+        out, hook.items = device_items(call)
+        return out
+
+    hook.items = None
+    return hook
+
+
+def busy_report(items, steps, wall_ms, what):
+    """Print the device work a step of ``steps`` profiled steps (busy ms
+    over the device items, K2's and K1's shares, the top 8 items) against
+    ``wall_ms`` a step of unprofiled steps, and the idle share; returns
+    (busy ms a step, idle share)."""
+    check(bool(items), f"{what}: the profiler recorded no device item")
+    busy = sum(it[1] for it in items) / steps
+    check(busy > 0, f"{what}: the profiled steps ran nothing on the card")
+    k2 = sum(it[1] for it in items if "resident_cg" in it[0]) / steps
+    k1 = sum(it[1] for it in items if "cutband" in it[0]) / steps
+    idle = 1 - busy / wall_ms
+    print(f"{what}: device busy {busy:.3f} ms a step over "
+          f"{sum(it[2] for it in items) / steps:.1f} device items, K2 "
+          f"{k2:.3f} ms ({k2 / busy:.1%}), K1 {k1:.3f} ms ({k1 / busy:.1%}); "
+          f"unprofiled {wall_ms:.2f} ms a step: idle share {idle:.3f}")
+    for name, ms, cnt in sorted(items, key=lambda it: -it[1])[:8]:
+        print(f"    {ms / steps * 1e3:9.1f} us  x{cnt / steps:6.1f}  "
+              f"{name[:90]}")
+    return busy, idle
+
+
+def device_breakdown(fn, n=5, warmup=2, top=6):
+    """(device ms per call, kernel launches per call, the `top` device
+    items as (name, ms per call, count per call)) from the profiler."""
+    import torch
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    items = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+    _, items = device_items(lambda: [fn() for _ in range(n)])
+    items = [(k, ms / n, c / n) for k, ms, c in items]
     items.sort(key=lambda it: -it[1])
     return (sum(it[1] for it in items), sum(it[2] for it in items),
             items[:top])
@@ -920,10 +985,7 @@ def golden_dev(rows, case, slot=None):
     for r, g in zip(rows, golden):
         check(r[0] == g[0] and abs(r[1] - g[1]) <= 5e-6,
               f"{case}: row {r[:2]} against {g[:2]}")
-    m = np.array([r[2:5] for r in rows])
-    g = np.array([r[2:5] for r in golden])
-    check(bool(np.isfinite(m).all()), f"{case}: rows not finite")
-    return float((np.abs(m - g) / g.max(axis=0)).max())
+    return scaled_rows_dev(rows, golden)
 
 
 # the wave family's limits.  Float32 card rows against the port's own
@@ -939,13 +1001,17 @@ TPU_1D_CASES = {"heat-composite": ("heat_composite_0", 6.87e-3),
 STEP85_L2 = 8.5201e-9     # the reference output's L2 (step85_0.output)
 
 
-def scaled_rows_dev(rows, ref):
-    """max |m - g| / max g over L2, L1 and Linf of two runs' rows."""
+def scaled_rows_dev(rows, ref, cols=slice(2, 5), scale=None):
+    """max |m - g| / max |g| per column of two runs' rows, over the
+    columns ``cols`` (default L2, L1 and Linf); ``scale``: the columns'
+    scale in place of max |g|."""
     check(len(rows) == len(ref), f"{len(rows)} rows against {len(ref)}")
-    m = np.array([r[2:5] for r in rows])
-    g = np.array([r[2:5] for r in ref])
+    m = np.array([r[cols] for r in rows], np.float64)
+    g = np.array([r[cols] for r in ref], np.float64)
     check(bool(np.isfinite(m).all()), "rows not finite")
-    return float((np.abs(m - g) / g.max(axis=0)).max())
+    if scale is None:
+        scale = np.abs(g).max(axis=0)
+    return float((np.abs(m - g) / scale).max())
 
 
 def family_run(name, dim, dtype, device="cuda", stamps=None, **changes):
@@ -984,10 +1050,11 @@ def family_run(name, dim, dtype, device="cuda", stamps=None, **changes):
     return prob, time.perf_counter() - t0, read_counts()
 
 
-def k1_vs_plain(rng, st, dev, dtype, what):
+def k1_vs_plain(rng, st, dev, dtype, what, plain_timed=True):
     """K1 on the band of ``st`` against its plain version: max error
-    <= 1e-5 of max|y| (float32; 1e-12 in float64), device time and bound.
-    Returns (max abs error, ms, plain ms, bound)."""
+    <= 1e-5 of max|y| (float32; 1e-12 in float64), device time and bound
+    (the plain version's time too with ``plain_timed``, else None).
+    Returns (max abs error, ms, plain ms, bound, max error / max|y|)."""
     import torch
 
     from gdm_torch.ops import cutband
@@ -1005,13 +1072,15 @@ def k1_vs_plain(rng, st, dev, dtype, what):
     bnd = bound(item * (bp.planes.numel() + 2 * cells),
                 2 * len(bp.taps) * cells)
     ms = device_ms(lambda: cutband.band_apply(u, bp))
-    pms = device_ms(lambda: cutband.band_apply_plain(u, bp))
+    pms = (device_ms(lambda: cutband.band_apply_plain(u, bp))
+           if plain_timed else None)
+    plain = f"plain {pms * 1e3:.2f} us, " if plain_timed else ""
     print(f"K1 on {what} ({len(bp.taps)} taps, radius {st.radius}, layout "
           f"{lay.shape}, {dtype}): max abs err {err:.3e} (rel {rel:.3e} of "
-          f"max|y|, limit {tol:g}); device time {ms * 1e3:.2f} us, plain "
-          f"{pms * 1e3:.2f} us, bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+          f"max|y|, limit {tol:g}); device time {ms * 1e3:.2f} us, {plain}"
+          f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
     check(rel <= tol, f"K1 on {what}: max error {rel:.3e} of max|y|")
-    return err, ms, pms, bnd
+    return err, ms, pms, bnd, rel
 
 
 def k2_vs_plain(rng, st, dev, what, max_iter=1000):
@@ -1468,25 +1537,20 @@ HEAT_RK_2D_STEPS = 20
 SCAN_SYNC_CHUNK = 16   # the chunk of the run whose syncs are counted
 
 
-def scan_run(name, dim, dtype, device="cuda", chunk=128, counted=False,
-             **changes):
-    """(problem, run_scan s, launch counts, chunk log) of one preset
-    through WaveProblem.run_scan, the counts reset just before.  The
-    chunk log holds, for each chunk, (host syncs torch reported inside
-    it, solvers.cg calls inside it, K1 launches, K2 launches, s); with
-    ``counted`` the run goes under torch.cuda.set_sync_debug_mode("warn")
-    (else its sync count is 0)."""
+def scan_logged(prob, counted=False, hook=None, **run_kw):
+    """(run_scan s, launch counts, chunk log) of ``prob.run_scan(**run_kw)``,
+    the counts reset just before.  The chunk log holds, for each chunk,
+    (host syncs torch reported inside it, solvers.cg calls inside it, K1
+    launches, K2 launches, s); with ``counted`` the run goes under
+    torch.cuda.set_sync_debug_mode("warn") (else its sync count is 0).
+    ``hook(k, call)``: runs chunk k as hook's ``call()``."""
     import warnings
 
     import torch
 
     from gdm_torch import solvers
-    from gdm_torch.problems import wave
 
-    p = wave.make_preset(name, dim)
-    for k, v in changes.items():
-        setattr(p, k, v)
-    prob = wave.WaveProblem(p, verbose=False, device=device, dtype=dtype)
+    cuda = prob.device.type == "cuda"
     log, cg_calls, caught = [], [0], []
     host_cg = solvers.cg
 
@@ -1501,7 +1565,10 @@ def scan_run(name, dim, dtype, device="cuda", chunk=128, counted=False,
 
     def scan_chunk(*a, **kw):
         c0, n0, t0 = read_counts(), (syncs(), cg_calls[0]), time.perf_counter()
-        out = chunk_fn(*a, **kw)
+        if hook is not None:
+            out = hook(len(log), lambda: chunk_fn(*a, **kw))
+        else:
+            out = chunk_fn(*a, **kw)
         c1 = read_counts()
         log.append((syncs() - n0[0], cg_calls[0] - n0[1],
                     c1["cutband"] - c0["cutband"],
@@ -1512,7 +1579,7 @@ def scan_run(name, dim, dtype, device="cuda", chunk=128, counted=False,
     prob._scan_chunk = scan_chunk
     solvers.cg = cg
     reset_counts()
-    if device == "cuda":
+    if cuda:
         torch.cuda.synchronize()
     try:
         with warnings.catch_warnings(record=True) as record:
@@ -1521,29 +1588,47 @@ def scan_run(name, dim, dtype, device="cuda", chunk=128, counted=False,
             if counted:
                 torch.cuda.set_sync_debug_mode("warn")
             t0 = time.perf_counter()
-            prob.run_scan(chunk=chunk)
-            if device == "cuda":
+            prob.run_scan(**run_kw)
+            if cuda:
                 torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
     finally:
         solvers.cg = host_cg
+        del prob._scan_chunk
         if counted:
             torch.cuda.set_sync_debug_mode(0)
-    return prob, run_s, read_counts(), log
+    return run_s, read_counts(), log
 
 
-def k2_band_vs_plain(rng, st, pre, dev, what, tols):
+def scan_run(name, dim, dtype, device="cuda", chunk=128, counted=False,
+             **changes):
+    """(problem, run_scan s, launch counts, chunk log) of one preset
+    through WaveProblem.run_scan (``scan_logged``)."""
+    from gdm_torch.problems import wave
+
+    p = wave.make_preset(name, dim)
+    for k, v in changes.items():
+        setattr(p, k, v)
+    prob = wave.WaveProblem(p, verbose=False, device=device, dtype=dtype)
+    return (prob, *scan_logged(prob, counted, chunk=chunk))
+
+
+def k2_band_vs_plain(rng, st, pre, dev, what, tols, bodies=None,
+                     timed=("float32",), plain_timed=True):
     """K2's one-band mode on the system ``st`` with the band ``pre``
-    against the plain twin, both bodies, float32 and float64, rel 1e-6
+    against the plain twin, each body of ``bodies`` (default both; None
+    in it: the body ``resident_plan`` picks), float32 and float64, rel 1e-6
     on b = A x_ref for a seeded O(1) x_ref: iterations within 2 in
     float32 and equal in float64, the A-norm of x - x_plain within 1e-5
     of |x_ref|_A (as k2_vs_plain); a gate that the stats of a failed
     solve open solves bit for bit as the ungated launch and one that a
-    passed solve closes leaves x0.  Then, float32 at the app's
-    tolerances ``tols`` (max_iter, rel, abs): the solve's device time,
-    the plain twin's, the bound and a closed launch's time.  Returns
-    (largest max abs x difference, ms, plain ms, bound, closed ms,
-    largest relative A-norm gap)."""
+    passed solve closes leaves x0.  Then, in each dtype of ``timed``
+    (float32 first) at the app's tolerances ``tols`` (max_iter, rel,
+    abs): the solve's device time, the bound and a closed launch's time;
+    the plain twin's in the first dtype, with ``plain_timed``.  Returns
+    (largest max abs x difference, and the first dtype's ms, plain ms
+    (None without ``plain_timed``), bound, closed ms; largest relative
+    A-norm gap)."""
     import torch
 
     from gdm_torch.ops import cutband, resident
@@ -1566,7 +1651,7 @@ def k2_band_vs_plain(rng, st, pre, dev, what, tols):
         args = (A, None, None, 1000, 1e-6, 1e-12)
         xp, sp = resident.resident_cg_plain(b, x0, *args, P=P)
         sp = resident.read_stats(sp)
-        for body in resident.BODIES:
+        for body in bodies or resident.BODIES:
             xk, sk = resident.resident_cg(b, x0, *args, P=P, body=body)
             sk_d = resident.read_stats(sk)
             rel = a_norm(xk - xp) / ref_norm
@@ -1595,29 +1680,36 @@ def k2_band_vs_plain(rng, st, pre, dev, what, tols):
             check(torch.equal(xc, x0) and not bool(sc.any()),
                   f"K2 one-band {what} {dtype} {body}: the closed gate "
                   f"wrote")
-    A, P = (cutband.band_planes(s, lay, dev, torch.float32)
-            for s in (st, pre))
-    b = cutband.band_apply_plain(x_ref, A64).float()
-    x0 = torch.zeros_like(b)
-    args = (A, None, None) + tuple(tols)
-    x, stats = resident.resident_cg(b, x0, *args, P=P)
-    its = resident.read_stats(stats)["iterations"]
-    closed = resident.Gate(torch.zeros(4, device=dev), 10.0, 1e-6, 1e-12)
-    ms = device_ms(lambda: resident.resident_cg(b, x0, *args, P=P))
-    closed_ms = device_ms(lambda: resident.resident_cg(b, x0, *args, P=P,
-                                                       gate=closed))
-    pms = profiled_ms(lambda: resident.resident_cg_plain(b, x0, *args, P=P),
-                      n=3)
-    n_taps = len(A.taps) + len(P.taps)
-    cells = lay.rows * lay.pitch
-    bnd = bound(4 * (n_taps + 3) * cells, its * (2 * n_taps + 10) * cells)
-    print(f"K2 one-band on {what} at the app's tolerances (max_iter "
-          f"{tols[0]}, rel {tols[1]:g}, {its} iterations, {len(A.taps)} + "
-          f"{len(P.taps)} taps): device time {ms * 1e3:.2f} us "
-          f"({ms * 1e3 / max(its, 1):.2f} us an iteration), plain "
-          f"{pms * 1e3:.1f} us, bound {bnd[0] * 1e3:.2f} us ({bnd[1]}); a "
-          f"closed gate's launch {closed_ms * 1e3:.2f} us")
-    return err_abs, ms, pms, bnd, closed_ms, err
+    out = None
+    for name in timed:
+        dtype = getattr(torch, name)
+        A, P = (cutband.band_planes(s, lay, dev, dtype) for s in (st, pre))
+        b = cutband.band_apply_plain(x_ref, A64).to(dtype)
+        x0 = torch.zeros_like(b)
+        args = (A, None, None) + tuple(tols)
+        x, stats = resident.resident_cg(b, x0, *args, P=P)
+        its = resident.read_stats(stats)["iterations"]
+        closed = resident.Gate(torch.zeros(4, device=dev), 10.0, 1e-6, 1e-12)
+        ms = device_ms(lambda: resident.resident_cg(b, x0, *args, P=P))
+        closed_ms = device_ms(lambda: resident.resident_cg(
+            b, x0, *args, P=P, gate=closed))
+        pms = (profiled_ms(
+            lambda: resident.resident_cg_plain(b, x0, *args, P=P), n=3)
+            if plain_timed and out is None else None)
+        n_taps = len(A.taps) + len(P.taps)
+        cells = lay.rows * lay.pitch
+        item = b.element_size()
+        bnd = bound(item * (n_taps + 3) * cells,
+                    its * (2 * n_taps + 10) * cells)
+        print(f"K2 one-band on {what} at the app's tolerances (max_iter "
+              f"{tols[0]}, rel {tols[1]:g}, {its} iterations, {len(A.taps)} "
+              f"+ {len(P.taps)} taps, {dtype}): device time {ms * 1e3:.2f} us "
+              f"({ms * 1e3 / max(its, 1):.2f} us an iteration), "
+              + (f"plain {pms * 1e3:.1f} us, " if pms is not None else "")
+              + f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]}); a closed gate's "
+              f"launch {closed_ms * 1e3:.2f} us")
+        out = out or (ms, pms, bnd, closed_ms)
+    return (err_abs, *out, err)
 
 
 def scan_phase(rng, dev, refs=None):
@@ -1717,15 +1809,7 @@ def scan_phase(rng, dev, refs=None):
     check(d_run <= limit, f"run_scan rows {d_run:.3e} from run()'s")
     # where a run_scan step's device time goes (profiler over one call;
     # the set-up's few device items included)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        scan_run("wave", 2, f32)
-    items = [(e.key, e.self_device_time_total / 1e3, e.count)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+    _, items = device_items(lambda: scan_run("wave", 2, f32))
     busy = sum(it[1] for it in items)
     k2_ms = sum(it[1] for it in items if "resident_cg" in it[0])
     k1_ms = sum(it[1] for it in items if "cutband" in it[0])
@@ -1751,12 +1835,23 @@ def scan_phase(rng, dev, refs=None):
             prob, run_s, counts, log = scan_run(name, 2, dtype, **kw)
             n = len(prob.rows[0]) - 1
             d = scaled_rows_dev(prob.rows[0], refs[name])
+            modes = resident.resident_cg.mode_launches
+            vs = prob.mass_solver
+            route = ("no verified solver (K2's one-band Jacobi mode on M + "
+                     "dt S)" if vs is None else
+                     f"mass solve {vs.path!r}, probe {vs.probe}")
             print(f"run_scan {name} 2D {dtype}: {n} steps, {run_s:.3f} s, "
                   f"{run_s / n * 1e3:.2f} ms a step; K1 {counts['cutband']}, "
-                  f"K2 {counts['resident']} (by mode "
-                  f"{resident.resident_cg.mode_launches}); rows against the "
-                  f"float64 CPU run: {d:.3e} (limit {SCAN_LIMIT:g})")
+                  f"K2 {counts['resident']} (by mode {modes}); {route}; rows "
+                  f"against the float64 CPU run: {d:.3e} (limit "
+                  f"{SCAN_LIMIT:g})")
             check(d <= SCAN_LIMIT, f"run_scan {name} 2D {dtype} rows {d:.3e}")
+            # K2's FSAI mode runs the probe, and each solve only on the
+            # resident route
+            check(vs is None or (modes["fsai"] > 1)
+                  == (vs.path == "resident-verified"),
+                  f"run_scan {name} 2D {dtype}: routed {vs and vs.path!r} "
+                  f"with K2's launches by mode {modes}")
             check(resident.resident_cg.mode_launches["band"] > 0
                   and all(c[1] == 0 for c in log),
                   f"run_scan {name} 2D {dtype}: solves off K2's one band")
@@ -1802,6 +1897,502 @@ def scan_phase(rng, dev, refs=None):
          p.solver_abs_tolerance))
     print(f"run_scan phase {time.perf_counter() - t_start:.1f} s")
     return (launches, *out)
+
+
+# ---- the cut advection family (PR 19) ------------------------------------
+ADV_ORACLE = os.path.join(ROOT, "tests", "data", "cpu_oracle_rows.json")
+DOD_ROWS = os.path.join(ROOT, "tests", "data", "composite_dod_rows.txt")
+# float32 DoD rows against the TPU's float32 rows (scaled measure): the
+# TPU's own trajectory matched an x64 run to ~6 digits at t = 0.2
+DOD_LIMIT = 1e-3
+DOD_STEPS = 400          # to t = 0.2, a third of the 1200-step horizon
+DOD_F64_STEPS = 300      # to t = 0.15, for the script's time limit
+DOD_CHUNK = 32
+# domain 1's err2 of the TPU's trajectory at steps 200, 300, 400 (t =
+# 0.10, 0.15, 0.20); a float64 run is held within 1e-3 relative at those
+# it reaches
+DOD_F64_ERR2 = ((200, 1.56677686e-6), (300, 1.00259176e-2),
+                (400, 3.36271971e-2))
+# tests/test_advection02.py's pins of the strong-BC case (p = 3, n = 10):
+# rows[0][2] and rows[-1][2], rtol 1e-3
+ADV02_STRONG = (9.3086325796e-4, 2.9849417041987e-3)
+
+
+def adv_check_row(got, golden):
+    """gdm's _check (tests/test_advection_app.py:53-65) on the six error
+    columns: rtol 2e-4 on L2/L1, 2e-3 on the surface L2/L1, 1e-2 on both
+    Linf.  Returns the largest relative gap of each class."""
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, golden)]
+    for cols, rtol in (((0, 1), 2e-4), ((3, 4), 2e-3), ((2, 5), 1e-2)):
+        check(all(gaps[i] <= rtol for i in cols),
+              f"advection row {got} against {golden}: gaps {gaps}")
+    return gaps
+
+
+def adv02_params(n=10):
+    """tests/test_advection02.py's strong-BC configuration (uncut: the
+    level set -1 everywhere), its data functions on tensors or numpy."""
+    import torch
+
+    from gdm_torch.problems.advection import AdvectionParams
+
+    phi, xs = np.pi / 36 * 5, 0.2001
+    a = (2 * np.cos(phi), 2 * np.sin(phi))
+    k = float(np.sqrt(2) * np.pi / (1 - xs))
+
+    def x_hat(pts, t):
+        return float(np.cos(phi)) * (pts[..., 0] - t * a[0] - xs) + float(
+            np.sin(phi)) * (pts[..., 1] - t * a[1])
+
+    def exact(pts, t):
+        v = k * x_hat(pts, t)
+        return torch.sin(v) if isinstance(v, torch.Tensor) else np.sin(v)
+
+    def exact_der(pts, t):
+        v = k * x_hat(pts, t)
+        c = torch.cos(v) if isinstance(v, torch.Tensor) else np.cos(v)
+        return c * k * float(np.cos(phi) * (-a[0]) + np.sin(phi) * (-a[1]))
+
+    return AdvectionParams(
+        fe_degree=3, n_subdivisions_1D=n, geometry_left=0.0,
+        geometry_right=1.0, ghost_parameter_M=0.0, ghost_parameter_A=0.0,
+        start_t=0.0, end_t=0.1, cfl=0.1, max_val=2.0, advection=a,
+        exact_solution=exact, exact_solution_der=exact_der,
+        level_set_fe_degree=1,
+        level_set_function=lambda m: np.full_like(np.asarray(m[0]), -1.0),
+        dim=2, strong_bc=True)
+
+
+def dod_params(dtype, steps):
+    """composite_app_case() at full width (200^2 cells, p = 5, two
+    domains), its horizon cut to ``steps`` steps; in float32 with the
+    settings of gdm's scripts/run_composite_dod.py:36-45 (rel 1e-6,
+    max_iter 400: the params' rel 1e-14 is out of float32's reach)."""
+    import torch
+
+    from gdm_torch.problems.advection import composite_app_case
+
+    p = composite_app_case()
+    dt = ((p.geometry_right - p.geometry_left) / p.n_subdivisions_1D
+          * p.cfl / p.max_val)
+    p.end_t = p.start_t + steps * dt
+    if dtype == torch.float32:
+        p.solver_rel_tolerance, p.solver_max_iterations = 1e-6, 400
+    return p
+
+
+def dod_golden():
+    """The TPU's float32 trajectory of the DoD case by slot: rows
+    (counter, t, six error columns)."""
+    with open(DOD_ROWS) as f:
+        a = np.array([[float(x) for x in line.split()] for line in f
+                      if not line.startswith("#")])
+    return {s: a[a[:, 0] == s][:, 1:] for s in (0, 1)}
+
+
+def dod_dev(rows, golden):
+    """max over both slots and the six error columns of max |m - g| /
+    max |g| over the rows run (PERF.md §2's scaled measure); the
+    counters equal and the times within 1e-6."""
+    worst = 0.0
+    for s in (0, 1):
+        m = np.asarray(rows[s], np.float64)
+        check(len(m) <= len(golden[s]), f"DoD slot {s}: {len(m)} rows")
+        g = golden[s][:len(m)]
+        check(np.array_equal(m[:, 0], g[:, 0])
+              and np.abs(m[:, 1] - g[:, 1]).max() <= 1e-6,
+              f"DoD slot {s}: counters or times off the TPU's rows")
+        worst = max(worst, scaled_rows_dev(m, g, slice(2, None)))
+    return worst
+
+
+def pair_dev(rows, ref):
+    """Two runs' rows of both slots (``scaled_rows_dev``): each slot on
+    the problem's error scale, max |g| over the window and both slots
+    (the measure of (e): domain 1 holds only solver noise, err2 < 1e-8,
+    until the cone reaches it near t = 0.15, and in torch's default mode
+    that noise differs run to run by its whole size); and each slot on
+    its own scale (the measure of (f), run under deterministic
+    algorithms).  Returns (the larger joint gap, [each slot's own])."""
+    scale = np.maximum(*(np.abs(np.array([r[2:5] for r in ref[s]],
+                                         np.float64)).max(axis=0)
+                         for s in (0, 1)))
+    joint = max(scaled_rows_dev(rows[s], ref[s], scale=scale)
+                for s in (0, 1))
+    return joint, [scaled_rows_dev(rows[s], ref[s]) for s in (0, 1)]
+
+
+def dod_invariants(rows):
+    """tests/test_composite_dod_pin.py's invariants (copied) on the
+    window the run covers: domain 0 bounded (err2 < 0.12), domain 1 at
+    solver-noise scale before the transit (err2 < 1e-8 over its first
+    100 rows), bounded (< 0.06); over the full horizon also the settled
+    tails.  Returns the number of invariants checked."""
+    e0 = np.array([r[2] for r in rows[0]])
+    e1 = np.array([r[2] for r in rows[1]])
+    check(bool(np.isfinite(e0).all() and np.isfinite(e1).all()),
+          "DoD rows not finite")
+    check(e0.max() < 0.12, f"DoD domain 0 err2 {e0.max():.3e} >= 0.12")
+    check(e1.max() < 0.06, f"DoD domain 1 err2 {e1.max():.3e} >= 0.06")
+    n = 2
+    if len(e1) >= 100:
+        check(e1[:100].max() < 1e-8,
+              f"DoD domain 1 pre-transit err2 {e1[:100].max():.3e}")
+        n += 1
+    if len(e0) == 1201:
+        check(0.05 < e0[-1] < 0.08 and np.ptp(e0[900:]) / e0[-1] < 0.01,
+              "DoD domain 0 did not settle")
+        check(0.05 < e1[-1] < 0.06 and np.ptp(e1[900:]) / e1[-1] < 0.01,
+              "DoD domain 1 did not settle")
+        n += 2
+    return n
+
+
+def solve_counter(prob):
+    """Wrap each verified mass solver's device form so that its stats
+    (the first solve's and the fallback's) sum on the device; returns a
+    function giving, per solver, (solves, iterations a solve, fallback
+    iterations a solve) with one read."""
+    import torch
+
+    from gdm_torch.ops.resident import STATS
+
+    acc = []
+    for vs in prob.mass_solvers:
+        total = torch.zeros((2, len(STATS)), dtype=torch.float32,
+                            device=prob.device)
+        n = [0]
+        solve = vs.solve_padded_device
+
+        def counted(b, x0=None, solve=solve, total=total, n=n):
+            x, stats = solve(b, x0)
+            total += stats
+            n[0] += 1
+            return x, stats
+
+        vs.solve_padded_device = counted
+        acc.append((total, n))
+
+    def read():
+        it = STATS.index("iterations")
+        out = []
+        for total, n in acc:
+            t = total.tolist()
+            out.append((n[0], t[0][it] / max(n[0], 1),
+                        t[1][it] / max(n[0], 1)))
+            total.zero_()
+            n[0] = 0
+        return out
+
+    return read
+
+
+def dod_setup(dtype, steps):
+    """(problem, geometry s, solver set-up s) of the DoD case on the
+    card: the problem built, then both mass solvers (FSAI factors,
+    Schwarz bands, probes, device forms), each timed."""
+    import torch
+
+    from gdm_torch.problems.advection import AdvectionProblem
+
+    t0 = time.perf_counter()
+    prob = AdvectionProblem(dod_params(dtype, steps), device="cuda",
+                            dtype=dtype)
+    t1 = time.perf_counter()
+    prob.mass_solvers = tuple(prob._mass_solver(o)
+                              for o in (prob.op_in, prob.op_out))
+    torch.cuda.synchronize()
+    return prob, t1 - t0, time.perf_counter() - t1
+
+
+def dod_report(prob, what, run_s, counts, log, solves):
+    """Print a DoD run's routing, launches, solves, syncs and times;
+    returns ms a step (the chunks' wall time over the steps)."""
+    from gdm_torch.ops import resident
+
+    steps = len(prob.rows[0]) - 1
+    routing = [(m["loc"], m["path"], m["probe"]) for m in prob._solver_meta]
+    chunk_s = sum(c[4] for c in log)
+    print(f"DoD {what}: {steps} steps in {len(log)} chunks, {run_s:.2f} s "
+          f"({chunk_s / steps * 1e3:.2f} ms a step over the chunks); "
+          f"routing {routing}; fallbacks "
+          f"{[v.fallback_count for v in prob.mass_solvers]}; launches K1 "
+          f"{counts['cutband']} ({counts['cutband'] / steps:.1f} a step), "
+          f"K2 {counts['resident']} ({counts['resident'] / steps:.2f} a "
+          f"step; by mode {resident.resident_cg.mode_launches}, bodies "
+          f"{resident.resident_cg.body_launches}, gated "
+          f"{resident.resident_cg.gated_launches}); solves (count, "
+          f"iterations a solve, fallback iterations a solve) by region "
+          f"{solves}; host syncs a chunk {[c[0] for c in log]}, solvers.cg "
+          f"calls {sum(c[1] for c in log)}; card "
+          f"{card_line()}")
+    return chunk_s / steps * 1e3
+
+
+def advection_phase(rng, dev):
+    """The cut advection family on the card through its public entry
+    points (AdvectionProblem, the two CLIs): (a) the convergence case
+    in float64, run_scan's final row against the x64 oracle with gdm's
+    tolerances and run()'s rows against run_scan's; (b) the strong-BC
+    advection_02 case against gdm's pins; (c) the composite DoD case at
+    full width (200^2, p = 5, two domains) in float32 to t = 0.2 through
+    run_scan(chunk=32): rows against the TPU's trajectory (DOD_LIMIT),
+    routing, launches, iterations a solve, syncs a chunk (<= 1), ms a
+    step and the idle share of one chunk; (d) the same in float64 at the
+    params' tolerances to t = 0.15, domain 1's err2 at t = 0.10 and 0.15
+    against the TPU's within 1e-3; (e) run() against run_scan over 10 steps in
+    turns (rows within 1e-4 scaled); (f) checkpoint and resume (40 steps,
+    chunk 10, stopped after two chunks: each slot's rows within 1e-6 on
+    its own scale); (g) K1 and K2's one-band mode against their plain
+    twins at both DoD masses (radius 6), timed in float32 and float64;
+    (h) both CLIs.  Returns the kernels line's rows of K1
+    and K2 at the DoD masses."""
+    import tempfile
+
+    import torch
+
+    from gdm_torch.apps import advection_app, advection_convergence
+    from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
+    from gdm_torch.ops import cutband, resident
+    from gdm_torch.problems.advection import (AdvectionProblem,
+                                              convergence_case)
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+
+    # ---- (a) the convergence case, float64 --------------------------------
+    with open(ADV_ORACLE) as f:
+        oracle = json.load(f)["adv_conv_p3_40_rot5"]["final_row"]
+    prob = AdvectionProblem(convergence_case(3, 40, 0.4, 0.0, 1.0),
+                            device="cuda", dtype=f64)
+    run_s, counts, log = scan_logged(prob, chunk=128)
+    scan_rows = prob.rows[0]
+    gaps = adv_check_row(scan_rows[-1][2:], oracle[2:])
+    prob.rows = {0: [], 1: []}
+    reset_counts()
+    t0 = time.perf_counter()
+    prob.run()
+    torch.cuda.synchronize()
+    run_s2, counts2 = time.perf_counter() - t0, read_counts()
+    d = scaled_rows_dev(prob.rows[0], scan_rows)
+    print(f"advection convergence_case(3, 40, 0.4, 0, 1) float64: run_scan "
+          f"{run_s:.2f} s (K1 {counts['cutband']}, K2 {counts['resident']}, "
+          f"by mode {resident.resident_cg.mode_launches}), run() "
+          f"{run_s2:.2f} s (K1 {counts2['cutband']}, K2 "
+          f"{counts2['resident']}); routing {prob._solver_meta}, fallbacks "
+          f"{[v.fallback_count for v in prob.mass_solvers]}; final row "
+          f"{scan_rows[-1]} against the oracle: relative gaps "
+          f"{[f'{g:.2e}' for g in gaps]}; run() against run_scan "
+          f"{d:.3e} (limit 1e-9)")
+    check(counts["resident"] > 0 and counts2["resident"] > 0,
+          "advection (a): K2 never launched")
+    check(d <= 1e-9, f"advection (a): run() rows {d:.3e} from run_scan's")
+
+    # ---- (b) the strong-BC advection_02 case, float64 ----------------------
+    prob = AdvectionProblem(adv02_params(), device="cuda", dtype=f64)
+    run_s, counts, log = scan_logged(prob, chunk=128)
+    rows = prob.rows[0]
+    got = (rows[0][2], rows[-1][2])
+    print(f"advection_02 strong BC (p = 3, n = 10) float64 run_scan: "
+          f"{len(rows)} rows, {run_s:.2f} s, K1 {counts['cutband']}, K2 "
+          f"{counts['resident']}; routing {prob._solver_meta}; err2 first "
+          f"{got[0]:.10e}, last {got[1]:.10e} against {ADV02_STRONG} "
+          f"(rtol 1e-3)")
+    check(len(rows) == 21 and all(abs(g - w) <= 1e-3 * w for g, w in
+                                  zip(got, ADV02_STRONG)),
+          f"advection (b): strong-BC err2 {got} against {ADV02_STRONG}")
+
+    # ---- (c) the DoD case at full width, float32, to t = 0.2 ---------------
+    golden = dod_golden()
+    prob, geo_s, setup_s = dod_setup(f32, DOD_STEPS)
+    read_solves = solve_counter(prob)
+    print(f"DoD float32: problem (geometry, two regions' operators) "
+          f"{geo_s:.1f} s, mass solvers {setup_s:.1f} s; "
+          f"{len(prob.op_in.cut_ids)} cut cells, full cells "
+          f"{len(prob.op_in.full_ids)} + {len(prob.op_out.full_ids)}; "
+          f"layout {prob.mass_solvers[0].layout.shape}")
+    run_s, counts, log = scan_logged(prob, True, chunk=DOD_CHUNK)
+    solves = read_solves()
+    modes = dict(resident.resident_cg.mode_launches)
+    ms_step = dod_report(prob, "float32 run_scan(chunk=32)", run_s, counts,
+                         log, solves)
+    steps = len(prob.rows[0]) - 1
+    dev_c = dod_dev(prob.rows, golden)
+    n_inv = dod_invariants(prob.rows)
+    print(f"DoD float32: {steps + 1} rows a slot against the TPU's: max "
+          f"scaled deviation {dev_c:.3e} (limit {DOD_LIMIT:g}); "
+          f"{n_inv} invariants of tests/test_composite_dod_pin.py hold; "
+          f"last rows {prob.rows[0][-1]}, {prob.rows[1][-1]}")
+    check(steps == DOD_STEPS, f"DoD float32: {steps} steps")
+    check(dev_c <= DOD_LIMIT, f"DoD float32 rows deviate {dev_c:.3e}")
+    check(all(c[0] <= 1 and c[1] == 0 for c in log),
+          f"DoD float32: more than one host sync or a host-loop solvers.cg "
+          f"call inside a chunk: {log}")
+    check(modes["band"] > 0, "DoD float32: K2's one-band mode never launched")
+    dod_k2 = modes["band"]
+    # where a chunk's time goes: the second chunk of a 16-step run (steps
+    # 9-16) under the profiler, against the wall time a step of the first
+    # chunk above (steps 1-32: the outside solves at max_iter throughout)
+    dt = prob.dx * prob.params.cfl / prob.params.max_val
+    n_prof = 8
+    prob.rows = {0: [], 1: []}
+    prob.params.end_t = prob.params.start_t + 2 * n_prof * dt
+    hook = chunk_profiler()
+    scan_logged(prob, hook=hook, chunk=n_prof)
+    busy_report(hook.items, n_prof, log[0][4] / DOD_CHUNK * 1e3,
+                "DoD float32, steps 9-16 under the profiler against steps "
+                "1-32")
+
+    # ---- (e) run() against run_scan over 10 steps, in turns ----------------
+    prob.params.end_t = prob.params.start_t + 10 * dt
+    times = {"run": [], "run_scan": []}
+    rows_of = {}
+    for kind in ("run", "run_scan", "run_scan", "run"):
+        prob.rows = {0: [], 1: []}
+        if kind == "run":
+            stamps, post = [], prob.postprocess
+
+            def postprocess(*a, post=post, stamps=stamps, **kw):
+                out = post(*a, **kw)       # reads its row: the device is done
+                stamps.append(time.perf_counter())
+                return out
+
+            prob.postprocess = postprocess
+            reset_counts()
+            torch.cuda.synchronize()
+            prob.run()
+            del prob.postprocess
+            step_s = stamps[-1] - stamps[1]     # rows 1 .. 2n-1: the steps
+            run_counts = read_counts()
+            # run() solves on the streamed route's host CG: K1 applies the
+            # mass and the Schwarz band (run_scan's device form: K2 alone)
+            check(run_counts["cutband"] > 0, "DoD run(): K1 never launched")
+            dod_k1 = run_counts["cutband"]
+        else:
+            _, _, log_e = scan_logged(prob, chunk=DOD_CHUNK)
+            step_s = sum(c[4] for c in log_e)
+        times[kind].append(step_s / 10 * 1e3)
+        rows_of[kind] = prob.rows
+    d_e, d_e_own = pair_dev(rows_of["run"], rows_of["run_scan"])
+    print(f"DoD float32 run() against run_scan over 10 steps in turns, ms "
+          f"a step: run {times['run'][0]:.2f}, run_scan "
+          f"{times['run_scan'][0]:.2f}, run_scan {times['run_scan'][1]:.2f}, "
+          f"run {times['run'][1]:.2f} (run() launches K1 "
+          f"{run_counts['cutband']}, K2 {run_counts['resident']}); rows "
+          f"{d_e:.3e} apart on the problem's error scale (limit 1e-4; each "
+          f"slot on its own scale {d_e_own})")
+    check(d_e <= 1e-4, f"DoD run() rows {d_e:.3e} from run_scan's")
+
+    # ---- (f) checkpoint and resume on the card -----------------------------
+    # under torch's deterministic algorithms (index_add_ sums in one order):
+    # in its default mode a float32 run differs from the next by ~1e-6 of
+    # the rows' scale, which would hide what the resume itself does
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        prob.params.end_t = prob.params.start_t + 40 * dt
+        prob.rows = {0: [], 1: []}
+        scan_logged(prob, chunk=10)
+        straight = prob.rows
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "dod.ckpt")
+            prob.params.end_t = prob.params.start_t + 20 * dt
+            prob.rows = {0: [], 1: []}
+            scan_logged(prob, chunk=10, checkpoint_path=ck)   # 2 chunks
+            prob.params.end_t = prob.params.start_t + 40 * dt
+            prob.rows = {0: [], 1: []}
+            _, _, log_f = scan_logged(prob, chunk=10, checkpoint_path=ck)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _, d_f = pair_dev(prob.rows, straight)
+    print(f"DoD float32 checkpoint (deterministic algorithms): 40 steps "
+          f"straight (chunk 10) against 2 chunks, a checkpoint and a resume "
+          f"({len(log_f)} chunks run): rows apart, each slot on its own "
+          f"scale, {[f'{d:.3e}' for d in d_f]} (limit 1e-6)")
+    check(len(log_f) == 2 and len(prob.rows[0]) == 41,
+          f"DoD resume ran {len(log_f)} chunks")
+    check(max(d_f) <= 1e-6, f"DoD resumed rows {d_f} from the straight run")
+
+    # ---- (g) K1 and K2 at the DoD masses against their plain twins ---------
+    # the kernels line's rows: K1 on the float32 inside mass (its error
+    # absolute and relative to max|y|: the Schwarz band's values reach
+    # ~1e10), K2's one-band solve on the inside mass and band, timed in
+    # float32 (its error the A-norm gap: the max-norm gap of these
+    # near-singular systems is large where the A-norm's is not)
+    gm = prob.params.ghost_parameter_M
+    k1_row = k2_row = None
+    for tag, op in (("inside", prob.op_in), ("outside", prob.op_out)):
+        mass = assemble_stencil(op, "mass", gm)
+        pre = schwarz_band(mass, op.w_cut, f32)
+        for dtype in (f32, f64):
+            for band, st in (("mass", mass), ("Schwarz band", pre)):
+                row = (tag, dtype, band) == ("inside", f32, "mass")
+                out = k1_vs_plain(rng, st, dev, dtype,
+                                  f"the DoD {tag} {band} (201^2, p = 5)",
+                                  plain_timed=row)
+                if row:
+                    k1_row = out
+                    lay = cutband.layout_for(st.grid, st.radius)
+                    bp = cutband.band_planes(st, lay, dev, f32)
+                    u = lay.pad(torch.as_tensor(
+                        rng.standard_normal(st.grid.n_nodes), dtype=f32,
+                        device=dev))
+                    k1_lib = spmv_ms(band_planes_csr(bp, lay), u,
+                                     cutband.band_apply_plain(u, bp),
+                                     "K1 on the DoD inside mass")
+                    del bp, u
+        out = k2_band_vs_plain(rng, mass, pre, dev,
+                               f"the DoD {tag} mass and Schwarz band",
+                               (400, 1e-6, 1e-20), bodies=(None,),
+                               timed=("float32", "float64"),
+                               plain_timed=tag == "inside")
+        if tag == "inside":
+            k2_row = out
+    del prob
+
+    # ---- (d) the DoD case in float64 at the params' tolerances -------------
+    prob, geo_s, setup_s = dod_setup(f64, DOD_F64_STEPS)
+    read_solves = solve_counter(prob)
+    run_s, counts, log = scan_logged(prob, chunk=DOD_CHUNK)
+    print(f"DoD float64: problem {geo_s:.1f} s, mass solvers {setup_s:.1f} s")
+    dod_report(prob, "float64 run_scan(chunk=32)", run_s, counts, log,
+               read_solves())
+    rows1 = prob.rows[1]
+    check(len(rows1) == DOD_F64_STEPS + 1,
+          f"DoD float64: {len(rows1) - 1} steps")
+    for k, want in DOD_F64_ERR2:
+        if k > DOD_F64_STEPS:
+            print(f"DoD float64 domain 1 err2 at step {k}: past this run "
+                  f"(scripts/torch_advection_dod.py --float64 holds it)")
+            continue
+        got = rows1[k][2]
+        print(f"DoD float64 domain 1 err2 at t = {rows1[k][1]:.2f}: "
+              f"{got:.8e} against the TPU's {want:.8e} (relative "
+              f"{abs(got - want) / want:.2e}, limit 1e-3)")
+        check(abs(got - want) <= 1e-3 * want,
+              f"DoD float64 domain 1 err2 {got} at step {k}")
+    print(f"DoD float64 rows against the TPU's float32 rows: max scaled "
+          f"deviation {dod_dev(prob.rows, golden):.3e}; "
+          f"{dod_invariants(prob.rows)} invariants hold")
+    del prob
+
+    # ---- (h) the CLIs --------------------------------------------------------
+    for name, main_fn, argv in (
+            ("advection_app", advection_app.main, ["--quick"]),
+            ("advection_convergence", advection_convergence.main,
+             ["parallel-ramp-degree", "--quick"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = main_fn(argv)
+        c = read_counts()
+        print(f"{name}.main({argv}) on the card: rc {rc}, "
+              f"{time.perf_counter() - t0:.1f} s, K1 {c['cutband']}, K2 "
+              f"{c['resident']}")
+        check(rc == 0, f"{name} exited {rc}")
+    print(f"advection phase {time.perf_counter() - t_phase:.1f} s; ms a "
+          f"DoD float32 step {ms_step:.2f}")
+    return {"k1": (dod_k1, *k1_row[:4], k1_lib), "k1_rel": k1_row[4],
+            "k2": (dod_k2, k2_row[5], *k2_row[1:4]),
+            "k2_gate_ms": k2_row[4]}
 
 
 def split_phase(rng, dev, sizes):
@@ -2645,6 +3236,7 @@ def main():
     fam_k1, fam_k2, fam_k1_err, fam_k2_err, refs = wave_family_phase(rng,
                                                                      dev)
     scan = scan_phase(rng, dev, refs)
+    adv = advection_phase(rng, dev)
 
     # ---- K3 and K3s against K3's plain twin -------------------------------
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2937,6 +3529,21 @@ def main():
                "gdm_torch/csrc/resident.cu", "gdm/ops/pallas_resident.py:197",
                *scan[:5]), "launches_on": "run_scan of the 2D wave preset",
          "rel_err_a_norm": scan[6], "gate_closed_ms": scan[5]},
+        {**row("cutband_apply (K1, the DoD 201^2 inside mass, radius 6)",
+               "gdm_torch/csrc/cutband.cu", "gdm/ops/pallas_cutband.py:137",
+               *adv["k1"]),
+         "launches_on": "run() of the composite DoD case, float32, 10 "
+                        "steps (its streamed CG)",
+         "max_abs_err_of": "float32, the inside mass",
+         "max_rel_err": adv["k1_rel"]},
+        {**row("resident_cg (K2, one-band mode, the DoD 201^2 inside mass)",
+               "gdm_torch/csrc/resident.cu", "gdm/ops/pallas_resident.py:197",
+               *adv["k2"]),
+         "launches_on": "run_scan of the composite DoD case, float32, "
+                        f"{DOD_STEPS} steps",
+         "max_abs_err_of": "|x - x_plain|_A / |x_ref|_A on the inside "
+                           "mass, the larger of float32 and float64",
+         "gate_closed_ms": adv["k2_gate_ms"]},
         row("laplace2_apply (K3)", "gdm_torch/csrc/laplace2.cu",
             "gdm/ops/pallas_stencil2.py:566", counts2["laplace2"], k3_err,
             k3_ms, k3_plain_ms, separable_bound(g2[3].n_nodes, 7, 4),

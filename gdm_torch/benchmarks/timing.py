@@ -116,13 +116,15 @@ def profiled_ms(fn, n=20, warmup=3):
     items per call (the count over n, rounded).  A profile with no
     items, or with a count more than 10% away from that many per call
     (a lost or mixed trace), is taken again, at most three times in all,
-    and then raises.  Returns an Ms of method "profiler"."""
+    and then raises.  Only device activity is recorded: the host's ops
+    of a host loop of thousands of launches would cost seconds a profile
+    and add nothing to the kernel sum.  Returns an Ms of method
+    "profiler"."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()

@@ -387,6 +387,16 @@ def _streamed_solver(st: StencilOperator, windows, max_iter, rel_tol,
     return solve_with_info
 
 
+# the resident solve's tolerance floors by dtype, (rel, abs): float32's
+# are gdm's (its resident kernel runs float32, whose true residual cannot
+# be asked below them); a float64 solve runs float64, whose true residual
+# on the GP'd cut masses sits near 1e-13 relative (the 16^2 wave masses'
+# probes: 9.5e-14 and 1.2e-13), so its floor is rel 1e-12 (and the
+# square, abs 1e-24, as gdm's abs floor is its rel floor squared)
+RESIDENT_FLOORS = {torch.float32: (1e-6, 1e-12),
+                   torch.float64: (1e-12, 1e-24)}
+
+
 def verified_fsai_solver(st: StencilOperator, windows=None,
                          max_iter: int = 50, rel_tol: float = 1e-5,
                          abs_tol: float = 1e-12, apply_fn=None,
@@ -403,8 +413,10 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
 
     * setup-time PROBE: one resident solve of a deterministic random
       RHS (``np.random.default_rng(0)``, float32); if its TRUE residual
-      misses max(abs_tol, rel_tol*||r0||)*slack (rel_tol >= 1e-6,
-      abs_tol >= 1e-12), the resident path is disabled for this operator
+      misses max(abs_tol, rel_tol*||r0||)*slack (the tolerances raised
+      to ``RESIDENT_FLOORS`` of the dtype: float32 rel 1e-6, abs 1e-12,
+      as gdm, whose resident kernel runs float32; float64 rel 1e-12,
+      abs 1e-24), the resident path is disabled for this operator
       and every solve goes through the streamed Schwarz/FSAI CG;
     * per-solve CHECK: every accepted resident solve carries its true
       residual; on failure the solve is rerun through the streamed path
@@ -428,8 +440,8 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
     """
     device = _device.resolve(device)
     dtype = _device.resolve_dtype(dtype)
-    rel_f = max(rel_tol, 1e-6)
-    abs_f = max(abs_tol, 1e-12)
+    rel_floor, abs_floor = RESIDENT_FLOORS[dtype]
+    rel_f, abs_f = max(rel_tol, rel_floor), max(abs_tol, abs_floor)
     G, GT = fsai_factors(st, R)
     layout = layout_for(st.grid, max(st.radius, G.radius))
     on_card = stencil.kernel_route(st.grid, device)

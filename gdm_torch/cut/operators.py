@@ -443,14 +443,17 @@ class CutOperators:
             return self.V_full_cat[self.cat_full]
         return getattr(self, name)
 
-    def table(self, name: str, u: torch.Tensor) -> torch.Tensor:
+    def table(self, name: str, u: torch.Tensor, host=None) -> torch.Tensor:
         """Host table ``name`` on u's device: int64 for an index table,
         bool for the inactive mask, else in u's dtype.  Moved there on
         the first request and cached, so the app's RHS (four calls a
         step) moves no host table after its first stage.  Besides the
         constructor's tables, ``"A_mass_full"``, ``"A_stiff_full"`` and
         ``"V_full"`` are the full cells' gathered local matrices and
-        basis values."""
+        basis values.  ``host``: for a name of the caller's own (a table
+        derived from these, as the advection operators' matrices), a
+        function of no arguments that gives its host array, called at
+        the first request on each device and dtype."""
         if name in _INDEX_TABLES:
             dtype = torch.int64
         elif name in _MASK_TABLES:
@@ -460,7 +463,8 @@ class CutOperators:
         key = (name, u.device, dtype)
         t = self._tables.get(key)
         if t is None:
-            t = _to_device(self._host_table(name), u.device, dtype)
+            arr = host() if host is not None else self._host_table(name)
+            t = _to_device(arr, u.device, dtype)
             self._tables[key] = t
         return t
 

@@ -55,6 +55,7 @@ from .. import solvers, special, timestepping
 from ..cut.geometry import INSIDE, OUTSIDE, CutGeometry
 from ..cut.operators import CutOperators
 from ..grid import Grid
+from . import scan
 
 
 @dataclasses.dataclass
@@ -766,58 +767,16 @@ class WaveProblem:
                     print("%5d %8.5f %14.8e %14.8e %14.8e" % row)
         return self.rows
 
-    @staticmethod
-    def _scan_chunk(step, errs, y, ts, dts, verified):
-        """One chunk: its steps enqueued from the host's schedule (t and
-        dt Python floats), then its (steps, slots, 3) error rows read as
-        lists with the verified solvers' device fallback counters folded
-        in: one read.  Returns (y, rows)."""
-        es = []
-        for t, dt in zip(ts.tolist(), dts.tolist()):
-            y = step(y, t, dt)
-            es.append(errs(y, t + dt))
-        es = torch.stack(es)
-        counted = [v for v in verified if v.fallbacks_device is not None]
-        flat = torch.cat([es.reshape(-1).double()]
-                         + [v.fallbacks_device.reshape(1).double()
-                            for v in counted]).tolist()
-        n = es.numel()
-        for v, c in zip(counted, flat[n:]):
-            v.fold_fallbacks(c)
-        return y, np.reshape(flat[:n], es.shape).tolist()
+    # the chunk loop, shared with the advection problem (``problems.scan``)
+    _scan_chunk = staticmethod(scan.scan_chunk)
 
     def _check_data_functions(self):
         """On a CUDA run: each data function, called on device points,
-        gives a tensor on the run's device (a host evaluation would put
-        a sync in every stage)."""
-        pp = self.params
-        pts = torch.zeros((1, self.grid.dim), dtype=self.dtype,
-                          device=self.device)
-        for name in ("function_rhs", "function_interface_dbc",
-                     "function_domain_dbc", "exact_solution"):
-            fn = getattr(pp, name)
-            if fn is None:
-                continue
-            v = fn(pts, pp.start_t)
-            if not isinstance(v, torch.Tensor) or v.device != pts.device:
-                where = (f"a tensor on {v.device}"
-                         if isinstance(v, torch.Tensor)
-                         else type(v).__name__)
-                raise ValueError(
-                    f"run_scan on {self.device}: params.{name} returned "
-                    f"{where} for tensor points on {self.device}; give a "
-                    f"function that computes on the points' device "
-                    f"(torch ops), or use run()")
-
-    @staticmethod
-    def _scan_solve(vs):
-        """The mass solve of a scan step: the verified solver's device
-        form (the card's 2D route), any other solver as it is."""
-        from ..cut.fsai import VerifiedSolver
-
-        if isinstance(vs, VerifiedSolver):
-            return lambda b: vs.solve_device(b)[0]
-        return vs
+        gives a tensor on the run's device (``scan.check_data_functions``)."""
+        scan.check_data_functions(
+            self.params, ("function_rhs", "function_interface_dbc",
+                          "function_domain_dbc", "exact_solution"),
+            self.grid.dim, self.device, self.dtype)
 
     def _scan_explicit(self, heat: bool):
         """(step, y0, slots, keep, verified) of the explicit RK4 loop on
@@ -831,7 +790,7 @@ class WaveProblem:
         if not one:
             self.mass_solvers = vss
         self.mass_solver = vss[0]
-        solves = tuple(self._scan_solve(v) for v in vss)
+        solves = tuple(scan.scan_solve(v) for v in vss)
         rhss = tuple(self._rhs_fn(o) for o in ops)
         n = len(ops)
         u0 = self.interpolate_exact(pp.start_t)
@@ -862,8 +821,7 @@ class WaveProblem:
 
         slots = lambda y: y[:n]  # noqa: E731
         keep = (lambda y: y[0]) if one else slots
-        return step, y0, slots, keep, tuple(
-            v for v, s in zip(vss, solves) if s is not v)
+        return step, y0, slots, keep, scan.verified(vss, solves)
 
     def _scan_heat_impl(self, dts):
         """(step, u0, slots, keep) of implicit Euler with gdm's run_scan

@@ -32,7 +32,7 @@ import torch
 import gdm_torch
 from gdm_torch.cut import fastapply
 from gdm_torch.cut.fsai import fsai_factors, verified_fsai_solver
-from gdm_torch.cut.geometry import INSIDE, CutGeometry
+from gdm_torch.cut.geometry import INSIDE, OUTSIDE, CutGeometry
 from gdm_torch.cut.operators import CutOperators
 from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
 from gdm_torch.entry import flagship_operators
@@ -111,6 +111,7 @@ K1_CASES = [
     (300, 600, 4, 5),    # five taps: four groups
     (100, 100, 2, 1),    # one tap: one group
     (513, 513, 4, 77),   # the flagship's 512^2 layout
+    (201, 201, 6, 169),  # the DoD masses' layout: every tap of radius 6
 ]
 
 
@@ -407,6 +408,99 @@ def test_verified_device_form_on_card(ops24, cuda_device):
     for x in (x_ok, x_fb):
         r = ops["mass"].apply(vs.layout.unpad(x).cpu().double()) - bh
         assert (r.norm() / bh.norm()).item() <= 1e-4
+
+
+@pytest.fixture(scope="module")
+def dod_masses():
+    """Both regions' ghost-penalised cut masses of the composite DoD
+    advection case (200^2 cells, p = 5: radius 6, up to 169 taps) with
+    their cut windows; built only where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from gdm_torch.problems.advection import composite_app_case
+
+    p = composite_app_case()
+    grid = Grid(p.fe_degree, (p.n_subdivisions_1D,) * 2,
+                (p.geometry_left,) * 2, (p.geometry_right,) * 2)
+    geo = CutGeometry.build(grid, p.level_set_function,
+                            p.level_set_fe_degree)
+    out = {}
+    for name, loc in (("inside", INSIDE), ("outside", OUTSIDE)):
+        op = CutOperators(geo, loc)
+        out[name] = (assemble_stencil(op, "mass", p.ghost_parameter_M),
+                     op.w_cut)
+    return grid, out
+
+
+def _a_norm(A64, v):
+    """|v|_A in float64 on the float64 planes ``A64``."""
+    v = v.double()
+    return (v * cutband.band_apply_plain(v, A64)).sum().sqrt().item()
+
+
+@pytest.mark.parametrize("region", ["inside", "outside"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_band_apply_dod_masses(dod_masses, cuda_device, region, dtype):
+    """K1 on the DoD masses' radius-6 bands (the mass and its Schwarz
+    band) against the plain version."""
+    grid, masses = dod_masses
+    mass, windows = masses[region]
+    layout = cutband.layout_for(grid, mass.radius)
+    assert mass.radius == 6 and layout.r == 6
+    for st in (mass, schwarz_band(mass, windows, dtype)):
+        bp = cutband.band_planes(st, layout, cuda_device, dtype)
+        assert len(bp.taps) <= 169
+        u = _rand(layout.shape, 11, dtype, cuda_device)
+        _check_band(bp, cutband.band_apply(u, bp), u, dtype)
+
+
+@pytest.mark.parametrize("mode", ["fsai", "band"])
+@pytest.mark.parametrize("region", ["inside", "outside"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_resident_cg_dod_masses(dod_masses, cuda_device, region, dtype,
+                                mode):
+    """K2 at the DoD masses' shapes, its FSAI mode and its one-band
+    (Schwarz) mode, on the body resident_plan picks (the device body:
+    the planes do not fit shared memory), against the plain twin on b =
+    A x_ref for a seeded O(1) x_ref, rel 1e-6: iterations within 2 in
+    float32 and equal in float64, the A-norm of x - x_plain within 1e-5
+    of |x_ref|_A (1e-8 in float64)."""
+    grid, masses = dod_masses
+    mass, windows = masses[region]
+    if mode == "fsai":
+        G, GT = fsai_factors(mass)
+        layout = cutband.layout_for(grid, max(mass.radius, G.radius))
+        A, Gp, GTp = (cutband.band_planes(s, layout, cuda_device, dtype)
+                      for s in (mass, G, GT))
+        slots, kw = (Gp, GTp), {}
+    else:
+        layout = cutband.layout_for(grid, mass.radius)
+        A, P = (cutband.band_planes(s, layout, cuda_device, dtype)
+                for s in (mass, schwarz_band(mass, windows, torch.float32)))
+        slots, kw = (None, None), {"P": P}
+    n_taps = len(A.taps) + sum(len(s.taps) for s in
+                               (slots if mode == "fsai" else (kw["P"],)))
+    plan = resident.resident_plan(layout, n_taps, A.planes.element_size(),
+                                  *resident.card_limits(
+                                      torch.cuda.current_device()))
+    assert plan.body == "device"
+    x_ref = layout.pad(torch.as_tensor(
+        np.random.default_rng(12).standard_normal(grid.n_nodes),
+        dtype=torch.float64, device=cuda_device))
+    A64 = cutband.band_planes(mass, layout, cuda_device, torch.float64)
+    b = cutband.band_apply_plain(x_ref, A64).to(dtype)
+    args = (A, *slots, 1000, 1e-6, 1e-12)
+    before = dict(resident.resident_cg.body_launches)
+    xk, sk = resident.resident_cg(b, torch.zeros_like(b), *args, **kw)
+    assert resident.resident_cg.body_launches["device"] == \
+        before["device"] + 1
+    xp, sp = resident.resident_cg_plain(b, torch.zeros_like(b), *args, **kw)
+    sk, sp = resident.read_stats(sk), resident.read_stats(sp)
+    assert 0 < sk["iterations"] < 1000
+    f64 = dtype == torch.float64
+    assert abs(sk["iterations"] - sp["iterations"]) <= (0 if f64 else 2)
+    assert _a_norm(A64, xk - xp) <= (1e-8 if f64 else 1e-5) * _a_norm(
+        A64, x_ref)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -125,12 +125,19 @@ def test_float32_step_close_to_float64(step24):
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, gdm_torch, gdm_torch.entry, gdm_torch.cut.fsai, "
-            "gdm_torch.ops.cutband, gdm_torch.ops.resident, "
-            "gdm_torch.interop; "
+    code = ("import importlib, pkgutil, sys, gdm_torch; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "gdm_torch.__path__, 'gdm_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "need = {'gdm_torch.problems.advection', "
+            "'gdm_torch.cut.advection', 'gdm_torch.checkpoint', "
+            "'gdm_torch.apps.advection_app', "
+            "'gdm_torch.apps.advection_convergence', "
+            "'gdm_torch.problems.wave', 'gdm_torch.entry'}; "
+            "assert need <= set(mods), need - set(mods); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'gdm.')) or m == 'gdm']; "
-            "assert not bad, bad")
+            "assert not bad, bad; print(len(mods))")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
