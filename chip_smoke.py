@@ -104,7 +104,30 @@ Run from the repository root:  python3 chip_smoke.py
    straight through (40 steps, deterministic algorithms, each slot on its
    own scale within 1e-6); (g) K1 on both DoD masses and their Schwarz
    bands and K2's one-band mode, against their plain versions in float32
-   and float64, timed in both; (h) both CLIs with --quick;
+   and float64, timed in both; (h) both CLIs with --quick; then
+   (``deform_phase``) grid deformation through its public entry points,
+   the counts reset just before each run: (a) the deformed uncut Poisson
+   solve at 512^2 (p = 3, examples/05_deformed_grid.py's warp, the
+   never-cut multigrid) through poisson.system_deformed in float64 to rel
+   1e-12 and float32 to rel 1e-6: host set-up by stage, CG phase (median
+   of 5), iterations, K1 launches (> 0), device busy and idle share, L2
+   against sin sin; float32 within 1e-3 of float64 and within one
+   iteration at rel 1e-6; K1 on the radius-3, 49-tap condensed band
+   against its plain twin and a CSR SpMV; (b) the 2D wave preset under
+   tests/test_cut_deform.py's warp, float32, run_scan and run() in turns:
+   routing, K1 and K2 launches (> 0), syncs a chunk (<= 1), ms a step,
+   the first 12 rows (11 steps) against the float64 CPU run (1e-3); (c)
+   heat 2D deformed, float32 and float64, run() and run_scan against the
+   float64 CPU run of the same loop (1e-3, 1e-8; float64 run() against
+   the CPU run of the card's route on the plain twins); (d) step85 at 32^2 with
+   the cut multigrid, float64: L2 < 5e-3, the CPU run's iterations;
+   (e) heat_deformed_1d, float32 against the TPU's rows (2.17e-2) and
+   float64 against the x64 oracle (1e-8); (f) K1 on the deformed wave
+   mass and stiffness and K2's one-band mode on the mass against their
+   plain twins; (g) the 3D deformed solve at 16^3 in float64 (the plain
+   tap loop): iterations, time, device launches, L2 within 1e-3 of gdm's
+   2.2348e-4; (h) the wave-ev CLI in 2D on the card against a CPU run
+   (spectra within 1e-8);
 7. K3 (2D separable Laplace) against its plain torch twin, float32, at
    1024^2 for p = 3 and p = 5, with four distinct band factors, and at
    2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
@@ -228,7 +251,11 @@ Run from the repository root:  python3 chip_smoke.py
 Prints a JSON line of per-kernel results (K1, K2's shared body at
 128^2 and device body at 256^2, K2's one-band mode on the wave app's
 mass (launches from run_scan's 2D wave run), K1 and K2's one-band mode
-on the DoD inside mass (launches from the DoD run() and run_scan), K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
+on the DoD inside mass (launches from the DoD run() and run_scan), K1 on
+the deformed 513^2 Dirichlet band (launches from the float32 CG phase of
+the deformed Poisson solve) and on the deformed wave mass, K2's one-band
+mode on the deformed wave mass (launches from run_scan of the deformed
+2D wave), K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
 K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes), M2, M3, M4, M5:
 launches on the kernel's main path (K1 and K2 also ``wave_app_launches``,
 their launches in phase 6's 2D run, and ``wave_family_launches``, in the
@@ -252,6 +279,7 @@ line, and last
 result line).
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2395,6 +2423,426 @@ def advection_phase(rng, dev):
             "k2_gate_ms": k2_row[4]}
 
 
+# ---- grid deformation -----------------------------------------------------
+DEFORM_N = 512           # (a): the top size of the cut-MG sweep
+# CG iterations of the 16^3 deformed solve: gdm/deform.py:424-425
+# documents 11; live gdm under x64 on a CPU takes 8 (rel 1e-12)
+DEFORM_MG_3D_ITERS = (11, 8)
+# heat_deformed_1d float32 rows against the TPU's float32 rows: twice the
+# TPU's own scaled deviation from the x64 rows (1.086e-2)
+HEAT_DEFORMED_LIMIT = 2.17e-2
+# (b): the float64 CPU reference runs to t = 0.2, 11 full steps and a
+# short twelfth; its first 12 rows are at the times of the full run's
+DEFORM_WAVE_ROWS = 12
+
+
+def deform_warp(pts):
+    """examples/05_deformed_grid.py's warp: a smooth interior warp that
+    leaves the unit square's boundary fixed."""
+    pts = np.asarray(pts, dtype=np.float64)
+    x, y = pts[..., 0], pts[..., 1]
+    s = 0.08 * np.sin(2 * np.pi * x) * np.sin(2 * np.pi * y)
+    return np.stack([x + s, y - 0.5 * s], -1)
+
+
+def cut_warp(pts):
+    """gdm's tests/test_cut_deform.py warp (max displacement ~0.05)."""
+    pts = np.asarray(pts, dtype=np.float64)
+    x, y = pts[..., 0], pts[..., 1]
+    return np.stack(
+        [x + 0.05 * np.sin(np.pi * x / 1.21) * np.cos(0.5 * np.pi * y / 1.21),
+         y - 0.04 * np.sin(np.pi * y / 1.21) * np.cos(0.5 * np.pi * x / 1.21)],
+        axis=-1)
+
+
+def deform_warp3(pts):
+    """gdm's tests/test_deform.py 3D warp."""
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    s = 0.05 * np.sin(2 * np.pi * x) * np.sin(2 * np.pi * y) * np.sin(
+        2 * np.pi * z)
+    return np.stack([x + s, y - 0.6 * s, z + 0.3 * s], -1)
+
+
+def heat_deformed_1d_changes():
+    """scripts/make_cpu_oracles.py's heat_deformed_1d: the heat preset in
+    1D at 40 cells to t = 0.02 under a sine vertex map."""
+    return dict(n_subdivisions_1D=40, end_t=0.02,
+                mapping_q_cache_function=lambda pts: (
+                    np.asarray(pts, float)
+                    + 0.04 * np.sin(np.pi * np.asarray(pts, float) / 1.21)))
+
+
+@contextlib.contextmanager
+def card_route_on_cpu():
+    """Inside: a CPU run takes the card's 2D route (``kernel_route``
+    forced), each kernel's wrapper its plain twin on the CPU tensors."""
+    from gdm_torch.cut import stencil
+
+    route = stencil.kernel_route
+    stencil.kernel_route = lambda grid, device: grid.dim == 2
+    try:
+        yield
+    finally:
+        stencil.kernel_route = route
+
+
+def deform_poisson(n, dev, k1_row=False, rng=None):
+    """Deformed uncut Poisson at n^2 cells (p = 3, ``deform_warp``,
+    "mg") through poisson.system_deformed on the card, float64 to rel
+    1e-12 and float32 to rel 1e-6 (the float32 system shares the band
+    and right-hand side; its own multigrid levels): the host set-up by
+    stage, the CG phase's median of 5, iterations, K1 launches, device
+    busy and idle share, L2 against sin sin (deform.l2_error); float32
+    within 1e-3 relative of float64 and within one iteration of a
+    float64 solve to the same rel 1e-6.  With
+    ``k1_row``: K1 on the condensed band (radius 3) against its plain
+    twin in both dtypes and one torch.sparse CSR SpMV of it.  Returns
+    (K1 launches of the float32 solve, the float32 K1 row values or
+    None, the report)."""
+    import torch
+
+    from gdm_torch import deform
+    from gdm_torch.grid import Grid
+    from gdm_torch.ops import cutband
+    from gdm_torch.problems import poisson
+
+    f32, f64 = torch.float32, torch.float64
+    g = Grid(3, (n, n), (0.0, 0.0), (1.0, 1.0))
+    t0 = time.perf_counter()
+    s64 = poisson.system_deformed(g, deform_warp, sin_rhs, precondition="mg",
+                                  device=dev, dtype=f64)
+    t1 = time.perf_counter()
+    s32 = dataclasses.replace(
+        s64, b=s64.b.float(), precond=deform.multigrid_preconditioner(
+            s64.band, device=dev, dtype=f32))
+    mg32_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    setup = {k: round(v, 2) for k, v in s64.setup_s.items()}
+    print(f"deformed Poisson {n}^2 (p = 3, deform_warp, mg): host set-up "
+          f"{t1 - t0:.2f} s by stage {setup}, float32 multigrid "
+          f"{mg32_s:.2f} s; band radius {s64.band.radius}, "
+          f"{(2 * s64.band.radius + 1) ** 2} taps")
+    out, xs = {}, {}
+    for dtype, rel, s in ((f64, 1e-12, s64), (f32, 1e-6, s32)):
+        name = str(dtype)[6:]
+        reset_counts()
+        x, info = s.run(rel_tol=rel)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ms, _ = wall_ms(lambda: s.run(rel_tol=rel), n=5, warmup=1)
+        busy, n_items, top = device_breakdown(lambda: s.run(rel_tol=rel),
+                                              n=2, warmup=0)
+        check(counts["cutband"] > 0,
+              f"deformed Poisson {n}^2 {name}: K1 never launched")
+        check(info["iterations"] < 10000 and x.dtype == dtype
+              and x.shape == g.nodes + (1,) and bool(torch.isfinite(x).all()),
+              f"deformed Poisson {n}^2 {name}: {info}")
+        # the host quadrature of the error takes seconds at 512^2: once
+        l2 = (deform.l2_error(g, deform_warp, x, sin_exact)
+              if dtype == f64 else float("nan"))
+        k1_busy = sum(m for k, m, _ in top if "cutband" in k)
+        print(f"  {name} to rel {rel:g}: {info['iterations']} iterations, "
+              f"residual {info['residual']:.3e}; CG phase {ms:.2f} ms "
+              f"(median of 5); K1 launches {counts['cutband']}; device "
+              f"busy {busy:.2f} ms over {n_items:.0f} items, K1 "
+              f"{k1_busy:.2f} ms (top 6), idle share "
+              f"{1 - busy / ms:.3f}; L2 against sin sin {l2:.4e}")
+        xs[dtype] = x
+        out[name] = dict(iterations=info["iterations"], cg_ms=ms,
+                         k1=counts["cutband"], busy_ms=busy,
+                         idle=1 - busy / ms, l2=l2)
+    d = ((xs[f32].double() - xs[f64]).norm() / xs[f64].norm()).item()
+    # iteration parity at float32's tolerance
+    _, info = s64.run(rel_tol=1e-6)
+    di = out["float32"]["iterations"] - info["iterations"]
+    print(f"  float32 against float64: relative difference {d:.3e} (limit "
+          f"1e-3), iterations at rel 1e-6 {out['float32']['iterations']} "
+          f"against {info['iterations']} (limit 1)")
+    check(d <= 1e-3, f"deformed Poisson {n}^2: float32 {d:.3e} from float64")
+    check(abs(di) <= 1, f"deformed Poisson {n}^2: iterations {di:+d}")
+    row = None
+    if k1_row:
+        what = f"the deformed {n + 1}^2 Dirichlet band"
+        for dtype in (f64, f32):
+            row = k1_vs_plain(rng, s64.band, dev, dtype, what,
+                              plain_timed=dtype == f32)
+        lay = cutband.layout_for(g, s64.band.radius)
+        bp = cutband.band_planes(s64.band, lay, dev, f32)
+        check(len(bp.taps) == 49 and lay.r == 3,
+              f"{what}: {len(bp.taps)} taps, guard {lay.r}")
+        u = lay.pad(torch.as_tensor(rng.standard_normal(g.n_nodes),
+                                    dtype=f32, device=dev))
+        lib = spmv_ms(band_planes_csr(bp, lay), u,
+                      cutband.band_apply_plain(u, bp), f"K1 on {what}")
+        row = (*row[:4], lib)
+        del bp, u
+    out["setup_s"] = setup
+    return out["float32"]["k1"], row, out
+
+
+def deform_phase(rng, dev):
+    """Grid deformation on the card through its public entry points:
+    (a) deformed uncut Poisson at DEFORM_N^2 (``deform_poisson``);
+    (b) the 2D wave preset (40^2, 111 steps) under ``cut_warp`` in
+    float32, run_scan and run() in turns: the mass solve's routing, K1's
+    and K2's launches by mode (both > 0), syncs a chunk (<= 1), ms a
+    step, the first 12 rows (11 steps) against the port's float64 CPU run
+    (1e-3 scaled); (c) heat (implicit) 2D at 40^2 under ``cut_warp``,
+    float32 and float64, run() and run_scan() each against the float64
+    CPU run of the same loop (1e-3 and 1e-8; float64 run() against the
+    CPU run of the card's route, ``card_route_on_cpu``); (d) step85 at 32^2 with the cut multigrid, rel 1e-10,
+    float64: L2 < 5e-3 and the CG iterations of the CPU run; (e)
+    heat_deformed_1d in float32 against the TPU's rows
+    (HEAT_DEFORMED_LIMIT) and in float64 against the x64 oracle (1e-8);
+    (f) K1 against its plain twin on (b)'s deformed mass and stiffness,
+    and K2's one-band mode on (b)'s mass; (g) deformed Poisson 3D at
+    16^3, float64, "mg" (the plain tap loop): iterations against gdm's
+    documented 11 and live gdm's 8 (at most 14, gdm's test), L2 within
+    1e-3 of gdm's 2.2348e-4, time and device launches; (h) the wave-ev CLI on the
+    card against a CPU run.  Returns the kernels line's values."""
+    import io
+
+    import torch
+
+    from gdm_torch import deform
+    from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
+    from gdm_torch.grid import Grid
+    from gdm_torch.ops import cutband, resident
+    from gdm_torch.problems import poisson, wave
+    from gdm_torch.tools import wave_ev
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    warp = dict(mapping_q_cache_function=cut_warp)
+
+    # ---- (a) deformed uncut Poisson ----------------------------------------
+    t0 = time.perf_counter()
+    a_k1, a_row, _ = deform_poisson(DEFORM_N, dev, k1_row=True, rng=rng)
+    print(f"(a) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (b) the deformed wave app, 2D, float32 ----------------------------
+    t0 = time.perf_counter()
+    p = wave.make_preset("wave", 2)
+    ref = family_run("wave", 2, f64, device="cpu",
+                     end_t=0.2, **warp)[0].rows[0]
+    check(len(ref) == DEFORM_WAVE_ROWS + 1,
+          f"deformed wave CPU: {len(ref)} rows")
+    ref = ref[:DEFORM_WAVE_ROWS]
+    times = {"run": [], "run_scan": []}
+    for kind in ("run_scan", "run", "run", "run_scan"):
+        if kind == "run":
+            prob, run_s, counts = family_run("wave", 2, f32, **warp)
+            log = None
+        else:
+            prob, run_s, counts, log = scan_run("wave", 2, f32, **warp)
+        rows = prob.rows[0]
+        steps = len(rows) - 1
+        vs = prob.mass_solver
+        modes = dict(resident.resident_cg.mode_launches)
+        d = scaled_rows_dev(rows[:DEFORM_WAVE_ROWS], ref)
+        route = {k: getattr(vs, k, None)
+                 for k in ("path", "probe", "fallback_count")}
+        times[kind].append(run_s / steps * 1e3)
+        print(f"deformed wave 2D float32 {kind}: {steps} steps, {run_s:.3f} s "
+              f"({run_s / steps * 1e3:.2f} ms a step); mass solve {route}; "
+              f"K1 {counts['cutband']}, K2 {counts['resident']} (by mode "
+              f"{modes}); first {DEFORM_WAVE_ROWS} rows against the float64 "
+              f"CPU run: {d:.3e} (limit 1e-3); last row {rows[-1]}"
+              + (f"; chunks (syncs, solvers.cg calls, K1, K2) {log}"
+                 if log else ""))
+        check(steps == 111, f"deformed wave 2D {kind}: {steps} steps")
+        check(d <= 1e-3, f"deformed wave 2D {kind}: rows {d:.3e}")
+        check(counts["cutband"] > 0 and counts["resident"] > 0,
+              f"deformed wave 2D {kind}: K1 {counts['cutband']}, K2 "
+              f"{counts['resident']}")
+        if kind == "run_scan":
+            check(modes["band"] > 0,
+                  "deformed wave 2D run_scan: K2's one-band mode never ran")
+            if len(times["run_scan"]) == 1:
+                b_launches = (counts["cutband"], modes["band"])
+    _, _, _, log16 = scan_run("wave", 2, f32, chunk=SCAN_SYNC_CHUNK,
+                              counted=True, **warp)
+    print(f"deformed wave 2D run_scan in chunks of {SCAN_SYNC_CHUNK} under "
+          f"set_sync_debug_mode('warn'): (syncs, solvers.cg calls, K1, K2) "
+          f"{log16}")
+    check(all(c[0] <= 1 and c[1] == 0 for c in log16),
+          f"deformed wave 2D run_scan: more than one sync a chunk: {log16}")
+    print(f"deformed wave 2D ms a step in turns: run_scan "
+          f"{times['run_scan'][0]:.2f}, run {times['run'][0]:.2f}, run "
+          f"{times['run'][1]:.2f}, run_scan {times['run_scan'][1]:.2f}; "
+          f"(b) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (c) deformed heat-impl, 2D ------------------------------------------
+    t0 = time.perf_counter()
+    # each loop against its own float64 CPU run: run_scan's heat-impl is
+    # gdm's warm-started Jacobi CG capped at the preset's max_iter, run()'s
+    # the FSAI CG, and their rows differ by ~5e-7.  run()'s float64 route
+    # on the card is the resident FSAI solve at the float64 floor (rel
+    # 1e-12, cut.fsai.RESIDENT_FLOORS; 8 iterations where the CPU's host
+    # CG takes 10 to rel 1e-14), whose rows sit ~1.4e-5 from the CPU
+    # route's, undeformed too: float64 run() is held against the CPU run
+    # of the card's route (kernel_route forced, the kernels' plain twins)
+    refs = {"run": family_run("heat", 2, f64, device="cpu",
+                              **warp)[0].rows[0],
+            "run_scan": scan_run("heat", 2, f64, device="cpu",
+                                 **warp)[0].rows[0]}
+    with card_route_on_cpu():
+        refs["run card route"] = family_run("heat", 2, f64, device="cpu",
+                                            **warp)[0].rows[0]
+    print(f"deformed heat 2D float64 CPU runs: run() against run_scan "
+          f"{scaled_rows_dev(refs['run'], refs['run_scan']):.3e}, run() on "
+          f"the card's route against the CPU route "
+          f"{scaled_rows_dev(refs['run card route'], refs['run']):.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for dtype, limit in ((f32, 1e-3), (f64, 1e-8)):
+        for kind in ("run", "run_scan"):
+            if kind == "run":
+                prob, run_s, counts = family_run("heat", 2, dtype, **warp)
+            else:
+                prob, run_s, counts, _ = scan_run("heat", 2, dtype, **warp)
+            ref = kind if (kind, dtype) != ("run", f64) else "run card route"
+            d = scaled_rows_dev(prob.rows[0], refs[ref])
+            print(f"deformed heat 2D {str(dtype)[6:]} {kind}: "
+                  f"{len(prob.rows[0]) - 1} steps, {run_s:.3f} s; K1 "
+                  f"{counts['cutband']}, K2 {counts['resident']} (by mode "
+                  f"{dict(resident.resident_cg.mode_launches)}); rows "
+                  f"against the float64 CPU {ref}: {d:.3e} (limit "
+                  f"{limit:g})")
+            check(d <= limit, f"deformed heat 2D {dtype} {kind}: {d:.3e}")
+            check(counts["cutband"] + counts["resident"] > 0,
+                  f"deformed heat 2D {dtype} {kind}: no kernel launched")
+    print(f"(c) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) deformed step85 with the cut multigrid, float64 ----------------
+    t0 = time.perf_counter()
+    kw = dict(n_subdivisions_1D=32, solver_name="MG",
+              solver_rel_tolerance=1e-10, **warp,
+              function_interface_dbc=wave.make_preset("step85",
+                                                      2).exact_solution)
+    cpu = family_run("step85", 2, f64, device="cpu", **kw)[0]
+    prob, run_s, counts = family_run("step85", 2, f64, **kw)
+    l2 = prob.rows[0][-1][2]
+    its, cpu_its = (q.poisson_info["iterations"] for q in (prob, cpu))
+    d = scaled_rows_dev(prob.rows[0], cpu.rows[0])
+    print(f"deformed step85 32^2 MG float64: L2 {l2:.4e} (limit 5e-3), "
+          f"{its} CG iterations (CPU {cpu_its}), rows against the CPU run "
+          f"{d:.3e}; K1 {counts['cutband']}; {run_s:.2f} s; "
+          f"(d) {time.perf_counter() - t0:.1f} s")
+    check(l2 < 5e-3, f"deformed step85: L2 {l2:.3e}")
+    check(its == cpu_its, f"deformed step85: {its} iterations against "
+                          f"{cpu_its}")
+    check(counts["cutband"] > 0, "deformed step85: K1 never launched")
+
+    # ---- (e) heat_deformed_1d --------------------------------------------------
+    t0 = time.perf_counter()
+    with open(ADV_ORACLE) as f:
+        oracle = json.load(f)["heat_deformed_1d"]["rows"]
+    for dtype in (f32, f64):
+        # the TPU's float32 run clamped the solver's tolerances
+        # (scripts/run_tpu_goldens.py)
+        tols = (dict(solver_rel_tolerance=1e-6, solver_abs_tolerance=1e-12)
+                if dtype == f32 else {})
+        prob, run_s, counts, _ = scan_run("heat", 1, dtype,
+                                          **heat_deformed_1d_changes(),
+                                          **tols)
+        if dtype == f32:
+            d, limit = golden_dev(prob.rows[0], "heat_deformed_1d"), \
+                HEAT_DEFORMED_LIMIT
+            what = "the TPU's float32 rows"
+        else:
+            d, limit = scaled_rows_dev(prob.rows[0], oracle), 1e-8
+            what = "the x64 oracle"
+        print(f"heat_deformed_1d {str(dtype)[6:]} run_scan: {run_s:.2f} s; "
+              f"rows against {what}: {d:.3e} (limit {limit:g})")
+        check(d <= limit, f"heat_deformed_1d {dtype}: {d:.3e}")
+    print(f"(e) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (f) K1 and K2 on the deformed wave app's bands ----------------------
+    t0 = time.perf_counter()
+    p = wave.make_preset("wave", 2)
+    p.mapping_q_cache_function = cut_warp
+    op = wave.WaveProblem(p, verbose=False, device="cuda", dtype=f32).op_in
+    check(op.w_q_cell is not None, "the wave app's operators not deformed")
+    mass = assemble_stencil(op, "mass", p.ghost_parameter_M)
+    stiff = assemble_stencil(op, "stiff", p.ghost_parameter_A,
+                             p.nitsche_parameter, with_nitsche=True)
+    b_rows = {}
+    for name, st in (("mass", mass), ("stiffness", stiff)):
+        for dtype in (f64, f32):
+            b_rows[name] = k1_vs_plain(
+                rng, st, dev, dtype,
+                f"the deformed wave app's 41^2 {name}",
+                plain_timed=(name, dtype) == ("mass", f32))
+    lay = cutband.layout_for(mass.grid, mass.radius)
+    bp = cutband.band_planes(mass, lay, dev, f32)
+    u = lay.pad(torch.as_tensor(rng.standard_normal(mass.grid.n_nodes),
+                                dtype=f32, device=dev))
+    mass_lib = spmv_ms(band_planes_csr(bp, lay), u,
+                       cutband.band_apply_plain(u, bp),
+                       "K1 on the deformed wave app's mass")
+    del bp, u
+    k2_row = k2_band_vs_plain(
+        rng, mass, schwarz_band(mass, op.w_cut, f32), dev,
+        "the deformed wave app's 41^2 mass and Schwarz band",
+        (p.solver_max_iterations, p.solver_rel_tolerance,
+         p.solver_abs_tolerance))
+    print(f"(f) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (g) deformed Poisson 3D at 16^3, float64 (the plain tap loop) ----
+    t0 = time.perf_counter()
+    g3 = Grid(3, (16, 16, 16), (0.0,) * 3, (1.0,) * 3)
+    s3 = poisson.system_deformed(g3, deform_warp3, sin_rhs,
+                                 precondition="mg", device=dev, dtype=f64)
+    setup3 = time.perf_counter() - t0
+    reset_counts()
+    (x3, info3), items = device_items(lambda: s3.run())
+    counts = read_counts()
+    ms3, _ = wall_ms(lambda: s3.run(), n=3, warmup=0)
+    launches3 = sum(it[2] for it in items)
+    l2_3 = deform.l2_error(g3, deform_warp3, x3, sin_exact)
+    print(f"deformed Poisson 3D 16^3 mg float64: host set-up {setup3:.2f} s "
+          f"{ {k: round(v, 2) for k, v in s3.setup_s.items()} }; "
+          f"{info3['iterations']} iterations (gdm documents "
+          f"{DEFORM_MG_3D_ITERS[0]}, live gdm takes {DEFORM_MG_3D_ITERS[1]}), "
+          f"residual {info3['residual']:.3e}; solve "
+          f"{ms3:.1f} ms (median of 3), {launches3} device launches "
+          f"(the plain tap loop, {(2 * s3.band.radius + 1) ** 3} taps an "
+          f"apply; K1 {counts['cutband']}); L2 {l2_3:.4e}; "
+          f"(g) {time.perf_counter() - t0:.1f} s")
+    check(counts["cutband"] == 0 and info3["iterations"] <= 14,
+          f"deformed Poisson 3D: {info3}, K1 {counts['cutband']}")
+    check(abs(l2_3 - 2.2348e-4) <= 1e-3 * 2.2348e-4,
+          f"deformed Poisson 3D: L2 {l2_3:.4e} against gdm's 2.2348e-04")
+
+    # ---- (h) the wave-ev CLI, on the card and on the CPU --------------------
+    t0 = time.perf_counter()
+    argv = ["--compute_kappa_m", "--compute_gev", "--rescale_matrix",
+            "--fe_degree", "3", "--n_subdivisions", "12", "--dim", "2",
+            "--alpha", "0.3"]
+    texts = []
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            wave_ev.main(list(argv), device=device)
+        texts.append(buf.getvalue())
+    nums = [np.array([float(w) for w in t.split() if w[0] in "-0123456789"])
+            for t in texts]
+    check(nums[0].shape == nums[1].shape and len(nums[0]) > 2,
+          "wave-ev: the card's output differs in form from the CPU's")
+    dev_ev = float(np.abs(nums[0] - nums[1]).max() / np.abs(nums[1]).max())
+    print(f"wave_ev.main({argv}) on the card: {texts[0].splitlines()[0]}; "
+          f"{len(nums[0])} numbers, max deviation from the CPU run "
+          f"{dev_ev:.3e} of the largest (limit 1e-8); "
+          f"(h) {time.perf_counter() - t0:.1f} s")
+    check(dev_ev <= 1e-8, f"wave-ev spectra {dev_ev:.3e} from the CPU's")
+    print(f"deformation phase {time.perf_counter() - t_phase:.1f} s")
+    return {"a_k1": a_k1, "a_row": a_row, "b_k1": b_launches[0],
+            "b_k2": b_launches[1], "mass_row": (*b_rows["mass"][:4],
+                                                mass_lib),
+            "mass_rel": b_rows["mass"][4],
+            "k2": (k2_row[5], *k2_row[1:4]), "k2_gate_ms": k2_row[4]}
+
+
 def split_phase(rng, dev, sizes):
     """Phase 11: the split cut apply on the flagship disc.  Its separable
     part (K3/mxu3p, its default, and K3 with rows="vpu") against that
@@ -3237,6 +3685,7 @@ def main():
                                                                      dev)
     scan = scan_phase(rng, dev, refs)
     adv = advection_phase(rng, dev)
+    dfm = deform_phase(rng, dev)
 
     # ---- K3 and K3s against K3's plain twin -------------------------------
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3544,6 +3993,24 @@ def main():
          "max_abs_err_of": "|x - x_plain|_A / |x_ref|_A on the inside "
                            "mass, the larger of float32 and float64",
          "gate_closed_ms": adv["k2_gate_ms"]},
+        {**row("cutband_apply (K1, the deformed 513^2 Dirichlet band, "
+               "radius 3, 49 taps)", "gdm_torch/csrc/cutband.cu",
+               "gdm/ops/pallas_cutband.py:137", dfm["a_k1"], *dfm["a_row"]),
+         "launches_on": f"the float32 CG phase of the deformed Poisson "
+                        f"solve at {DEFORM_N}^2 (system_deformed, mg)",
+         "max_abs_err_of": "float32"},
+        {**row("cutband_apply (K1, the deformed wave app's 41^2 mass)",
+               "gdm_torch/csrc/cutband.cu", "gdm/ops/pallas_cutband.py:137",
+               dfm["b_k1"], *dfm["mass_row"]),
+         "launches_on": "run_scan of the deformed 2D wave preset, float32",
+         "max_abs_err_of": "float32", "max_rel_err": dfm["mass_rel"]},
+        {**row("resident_cg (K2, one-band mode, the deformed wave app's "
+               "41^2 mass)", "gdm_torch/csrc/resident.cu",
+               "gdm/ops/pallas_resident.py:197", dfm["b_k2"], *dfm["k2"]),
+         "launches_on": "run_scan of the deformed 2D wave preset, float32",
+         "max_abs_err_of": "|x - x_plain|_A / |x_ref|_A, the larger of "
+                           "float32 and float64",
+         "gate_closed_ms": dfm["k2_gate_ms"]},
         row("laplace2_apply (K3)", "gdm_torch/csrc/laplace2.cu",
             "gdm/ops/pallas_stencil2.py:566", counts2["laplace2"], k3_err,
             k3_ms, k3_plain_ms, separable_bound(g2[3].n_nodes, 7, 4),

@@ -5,10 +5,10 @@ verbatim) feed the band assembly in gdm_torch.cut.stencil.  The
 device-side operations of the wave application, ``compute_rhs``,
 ``mass_apply`` (with ``cell_matvec``) and ``error_norms``, are torch
 (gather -> einsum -> index_add_) on the device of their input, with the
-host tables moved there once per (device, dtype) and cached.  gdm's
-matrix-free ``stiffness_matrix_apply`` waits for the implicit heat
-solve, and the deformed-grid constructor argument ``mapping_fn`` raises
-until gdm/deform.py is ported.
+host tables moved there once per (device, dtype) and cached.  A grid
+deformation (``mapping_fn``, gdm_torch.deform) re-metrics every host
+table in the constructor, as in gdm; the device side reads the same
+tables.
 
 Operators of the reference wave application:
 
@@ -133,10 +133,22 @@ _MASK_TABLES = ("inactive",)
 class CutOperators:
     """Host tables + the torch RHS for one location (INSIDE or OUTSIDE).
 
-    ``mapping_fn``/``geometry`` keep gdm's signature; a deformation
-    (``mapping_fn`` not None) raises NotImplementedError until
-    gdm/deform.py is ported, so ``geometry`` is unused and ``w_q_cell``
-    (gdm's per-cell full-cell JxW of a deformed run) is None.
+    ``mapping_fn``/``geometry``: optional grid deformation (the
+    reference's ``mapping_q_cache_function``).  The CUT — classification
+    and quadrature — is generated in UNDEFORMED coordinates exactly as
+    the reference does (discretization.h:92-97 interpolates the level
+    set with the default mapping; the deformed MappingQCache only enters
+    the NonMatching::FEValues metric, mass.h:126-137, stiffness.h); the
+    deformation re-metrics every quadrature table here: JxW pick up
+    |det dx/dx̂|, gradients are pulled back through A^{-T}, surface/face
+    measures and normals follow Nanson's formula, and physical points
+    (for BC/RHS/exact callbacks) are mapped.  h-scalings (Nitsche
+    gamma/h, ghost-penalty h^k) stay reference h — deal.II's
+    minimum_vertex_distance reads the UNDEFORMED triangulation vertices
+    (MappingQCache does not move them).  geometry="q1" matches
+    MappingQCache(1); "exact" (beyond-reference) samples the true map.
+    A deformed run keeps per-cell full-cell matrices (``cat_full`` the
+    identity) and their JxW in ``w_q_cell``.
 
     The device-side methods read the host tables through ``table``,
     which moves each to the device once per (device, dtype) and keeps
@@ -147,12 +159,7 @@ class CutOperators:
                  mapping_fn=None, geometry: str = "q1"):
         grid = geo.grid
         assert grid.n_components == 1, "cut path supports scalar fields"
-        if mapping_fn is not None:
-            raise NotImplementedError(
-                "deformed cut operators (mapping_fn) are not ported yet: "
-                "they wait for gdm/deform.py")
         self.grid = grid
-        self.w_q_cell = None  # per-cell full-cell JxW (deformed runs only)
         self._tables = {}
         self.geo = geo
         self.location = location
@@ -160,6 +167,13 @@ class CutOperators:
         dim = grid.dim
         self.nq = nq if nq is not None else p + 1
         self.h_min = min(grid.h)
+        self.mapping_fn = mapping_fn
+        self.geometry = geometry
+        self._verts = None
+        if mapping_fn is not None and geometry == "q1":
+            from .. import deform
+
+            self._verts = deform.deformed_node_positions(grid, mapping_fn)
         loc_flat = geo.locations_flat
         inverse = OUTSIDE if location == INSIDE else INSIDE
         same = location
@@ -194,6 +208,32 @@ class CutOperators:
             ]
         )  # (ncat^dim, Q, m)
         self.full_phys_q = self._phys_points(full_ids, self.ref_q)
+        self.w_q_cell = None  # per-cell full-cell JxW (deformed runs only)
+        if mapping_fn is not None and len(full_ids):
+            # deformed metric varies inside each cell, so the per-category
+            # Kronecker local matrices no longer apply: build PER-CELL
+            # matrices (cat_full degenerates to the identity lookup) and
+            # per-cell JxW/physical points.  Memory is n_full * m^2 —
+            # sized for the preset-scale deformed runs, like the
+            # reference's per-cell FEValues assembly.
+            from .. import deform
+
+            n_full = len(full_ids)
+            pts_full = np.broadcast_to(
+                self.ref_q, (n_full,) + self.ref_q.shape)
+            Gf = gradients_at_points(grid, cats_full, pts_full)
+            x, det, Ainv = deform.metric_at_cell_points(
+                grid, mapping_fn, geometry, self._verts,
+                full_ids.astype(np.int64), pts_full)
+            W = self.w_q[None, :] * det
+            self.V_full_cat = self.V_full_cat[self.cat_full]  # (n, Q, m)
+            Gx = np.einsum("nqed,nqei->nqdi", Ainv, Gf)
+            self.A_mass = np.einsum(
+                "nqi,nqj,nq->nij", self.V_full_cat, self.V_full_cat, W)
+            self.A_stiff = np.einsum("nqdi,nqdj,nq->nij", Gx, Gx, W)
+            self.cat_full = np.arange(n_full, dtype=np.int64)
+            self.full_phys_q = x
+            self.w_q_cell = W
 
         # ---- intersected cells -------------------------------------------
         cut_ids = geo.cut_cells
@@ -249,6 +289,28 @@ class CutOperators:
         self.V_surf = basis_at_points(grid, cats_cut, surf_pts)
         self.G_surf = gradients_at_points(grid, cats_cut, surf_pts)
         self.surf_phys_q = self._phys_points(cut_ids, surf_pts, per_cell=True)
+        if mapping_fn is not None:
+            # re-metric the cut volume + interface tables: JxW *= det,
+            # grad_x = A^{-T} grad_x̂, and Nanson's formula for the
+            # surface measure/normal (padded points carry zero weights
+            # and zero normals, so they stay inert)
+            from .. import deform
+
+            ids64 = cut_ids.astype(np.int64)
+            x, det, Ainv = deform.metric_at_cell_points(
+                grid, mapping_fn, geometry, self._verts, ids64, vol_pts)
+            self.vol_w = self.vol_w * det
+            self.G_cut = np.einsum("nqed,nqei->nqdi", Ainv, self.G_cut)
+            self.cut_phys_q = x
+            xs, dets, Ainvs = deform.metric_at_cell_points(
+                grid, mapping_fn, geometry, self._verts, ids64, surf_pts)
+            v = np.einsum("nqed,nqe->nqd", Ainvs, self.surf_n)
+            s = np.linalg.norm(v, axis=-1)
+            s_safe = np.where(s == 0.0, 1.0, s)
+            self.surf_w = self.surf_w * dets * s
+            self.surf_n = v / s_safe[..., None]
+            self.G_surf = np.einsum("nqed,nqei->nqdi", Ainvs, self.G_surf)
+            self.surf_phys_q = xs
 
         # ---- ghost-penalty faces -----------------------------------------
         faces = geo.ghost_penalty_faces(location)
@@ -308,9 +370,36 @@ class CutOperators:
             for i, d in enumerate(tang):
                 pts_m[:, d] = tp[:, i]
                 pts_p[:, d] = tp[:, i]
-            dmask = tuple(1 if e == axis else 0 for e in range(dim))
-            Gm = basis_at_points(grid, cat_m, pts_m[None], dmask)[0]
-            Gp = basis_at_points(grid, cat_p, pts_p[None], dmask)[0]
+            if self.mapping_fn is not None:
+                # deformed face: per-point normal derivative through each
+                # cell's own chart (their Jacobians agree only
+                # tangentially on the face), face measure/normal by
+                # Nanson's formula from the minus-side chart (the area
+                # vector depends only on the shared face restriction of
+                # the map, so it is side-independent)
+                from .. import deform
+
+                Gmf = gradients_at_points(grid, cat_m, pts_m[None])[0]
+                Gpf = gradients_at_points(grid, cat_p, pts_p[None])[0]
+                _, det_m, Ainv_m = deform.metric_at_cell_points(
+                    grid, self.mapping_fn, self.geometry, self._verts,
+                    np.array([cm], np.int64), pts_m[None])
+                _, _, Ainv_p = deform.metric_at_cell_points(
+                    grid, self.mapping_fn, self.geometry, self._verts,
+                    np.array([cp], np.int64), pts_p[None])
+                det_m, Ainv_m, Ainv_p = det_m[0], Ainv_m[0], Ainv_p[0]
+                nhat = np.zeros(dim)
+                nhat[axis] = 1.0
+                v = np.einsum("qed,e->qd", Ainv_m, nhat)
+                s = np.linalg.norm(v, axis=-1)
+                n_q = v / s[:, None]
+                Gm = np.einsum("qed,qei,qd->qi", Ainv_m, Gmf, n_q)
+                Gp = np.einsum("qed,qei,qd->qi", Ainv_p, Gpf, n_q)
+                tw = tw * det_m * s
+            else:
+                dmask = tuple(1 if e == axis else 0 for e in range(dim))
+                Gm = basis_at_points(grid, cat_m, pts_m[None], dmask)[0]
+                Gp = basis_at_points(grid, cat_p, pts_p[None], dmask)[0]
             J = np.concatenate([Gm, -Gp], axis=-1)  # (Qf, 2m) = n.[grad]
             Js.append(J)
             Ws.append(tw)
@@ -407,7 +496,21 @@ class CutOperators:
                     normal[d] = -1.0 if side == 0 else 1.0
                     phys = self._phys_points(np.array([flat]), pts_ref[None],
                                              per_cell=True)[0]
-                    normal_q = np.broadcast_to(normal, (len(w), dim))
+                    if self.mapping_fn is not None:
+                        from .. import deform
+
+                        x, det, Ainv = deform.metric_at_cell_points(
+                            grid, self.mapping_fn, self.geometry,
+                            self._verts, np.array([flat], np.int64),
+                            pts_ref[None])
+                        det, Ainv, phys = det[0], Ainv[0], x[0]
+                        v = np.einsum("qed,e->qd", Ainv, normal)
+                        s = np.linalg.norm(v, axis=-1)
+                        normal_q = v / s[:, None]
+                        G = np.einsum("qed,qei->qdi", Ainv, G)
+                        w = w * det * s
+                    else:
+                        normal_q = np.broadcast_to(normal, (len(w), dim))
                     items.append((flat, V, G, w, normal, phys, normal_q))
         self.bdry = items
         if items:
@@ -434,13 +537,15 @@ class CutOperators:
     # device-side applies: u is the C-order flat node vector (N,); the
     # host tables come from ``table``, cached per (device, dtype)
     # ------------------------------------------------------------------
+    _GATHERED = {"A_mass_full": "A_mass", "A_stiff_full": "A_stiff",
+                 "V_full": "V_full_cat"}
+
     def _host_table(self, name: str) -> np.ndarray:
-        if name == "A_mass_full":
-            return self.A_mass[self.cat_full]
-        if name == "A_stiff_full":
-            return self.A_stiff[self.cat_full]
-        if name == "V_full":
-            return self.V_full_cat[self.cat_full]
+        if name in self._GATHERED:
+            a = getattr(self, self._GATHERED[name])
+            # a deformed run's tables are per cell already (cat_full is
+            # the identity): no gathered copy
+            return a if self.w_q_cell is not None else a[self.cat_full]
         return getattr(self, name)
 
     def table(self, name: str, u: torch.Tensor, host=None) -> torch.Tensor:
@@ -566,8 +671,13 @@ class CutOperators:
         if rhs_fn is not None:
             if len(self.full_ids):
                 f = _like(rhs_fn(self.table("full_phys_q", u), t), u)
-                vw = torch.einsum("nqi,nq,q->ni", self.table("V_full", u), f,
-                                  self.table("w_q", u))
+                if self.w_q_cell is not None:
+                    vw = torch.einsum("nqi,nq,nq->ni",
+                                      self.table("V_full_cat", u), f,
+                                      self.table("w_q_cell", u))
+                else:
+                    vw = torch.einsum("nqi,nq,q->ni", self.table("V_full", u),
+                                      f, self.table("w_q", u))
                 y = self._scatter(y, self.table("w_full", u), vw)
             if len(self.cut_ids):
                 f = _like(rhs_fn(self.table("cut_phys_q", u), t), u)

@@ -4,10 +4,8 @@ point-data fields, per-cell `ranks` field, cell-selection filter for cut
 domains, serial write_vtu and a write_vtu_in_parallel that writes the
 same single file.
 
-Port of gdm/io/vtu.py, host numpy, verbatim but for the deformed
-mapping, which waits for gdm/deform.py (``mapping_fn`` raises
-NotImplementedError).  Fields may be numpy arrays or tensors (moved to
-the host)."""
+Port of gdm/io/vtu.py, host numpy, verbatim.  Fields may be numpy
+arrays or tensors (moved to the host)."""
 
 from __future__ import annotations
 
@@ -33,13 +31,7 @@ class DataOut:
         MappingQCache (data_out.h:39-98 evaluated with the mapping; used
         at wave problem.h:618).  geometry="q1" interpolates the moved
         vertices per cell (MappingQCache(1) semantics); "exact" maps the
-        lattice points through the true function.  The deformed mapping
-        waits for gdm/deform.py, which is not ported yet: a mapping_fn
-        raises NotImplementedError."""
-        if mapping_fn is not None:
-            raise NotImplementedError(
-                "DataOut(mapping_fn=...): the deformed patch points wait "
-                "for gdm/deform.py, which is not ported yet")
+        lattice points through the true function."""
         self.grid = grid
         self.deg = max(1, output_degree)
         self.mapping_fn = mapping_fn
@@ -92,6 +84,11 @@ class DataOut:
         lo = np.stack(
             [grid.lower[e] + idx[:, e] * grid.h[e] for e in range(dim)], -1)
         pts = lo[:, None, :] + ref[None] * np.asarray(grid.h)[None, None, :]
+        if self.mapping_fn is not None:
+            from ..deform import map_reference_points
+
+            pts = map_reference_points(grid, self.mapping_fn, flat_ids,
+                                       ref, self.geometry)
         if dim < 3:
             pts = np.concatenate(
                 [pts, np.zeros(pts.shape[:-1] + (3 - dim,))], axis=-1

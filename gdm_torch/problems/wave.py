@@ -29,8 +29,10 @@ verified solver's device form (K2's one-band Schwarz CG, gated behind
 the resident FSAI solve where its probe passed), heat-impl's warm-started
 Jacobi CG as K2's one-band mode on the band of M + dt S, the data
 functions on device point tables.  Elsewhere its solves are the host CG
-of ``run()``'s CPU branch.  The domain-decomposed and deformed runs are
-not ported yet.
+of ``run()``'s CPU branch.  A grid deformation
+(``mapping_q_cache_function``) re-metrics the cut tables
+(gdm_torch.deform) and takes the same paths: its bands are new shapes
+for the same kernels.  The domain-decomposed runs are not ported yet.
 
 Function convention: scalar field functions take (pts, t), pts an array
 of physical points shaped (..., dim) and t a Python float.  The
@@ -91,8 +93,12 @@ class WaveParams:
     # when set, every postprocess step writes solution_{i,o}_<counter>.vtu
     # into this directory (reference problem.h:617-657 writes one per step)
     output_vtu_dir: Optional[str] = None
-    # vertex deformation (gdm threads it through every cut table); the
-    # port raises until gdm/deform.py is ported
+    # vertex deformation (reference parameters.h mapping_q_cache_function,
+    # threaded through all assembly at discretization.h:57-74): the cut
+    # is generated in UNDEFORMED coordinates and the deformation
+    # re-metrics every quadrature table (cut/operators.py).
+    # mapping_geometry="q1" matches MappingQCache(1); "exact"
+    # (beyond-reference) samples the true map at quadrature points.
     mapping_q_cache_function: Optional[Callable] = None
     mapping_geometry: str = "q1"
     # print a reference-style " [L] solved in N" line per solve sample
@@ -288,9 +294,16 @@ class WaveProblem:
                            device=self.device)
 
     def interpolate_exact(self, t: float) -> torch.Tensor:
-        """The exact solution at the nodes (a deformed mapping raises in
-        the constructor, through CutOperators)."""
-        pts = np.stack(self.grid.node_coords_mesh(), axis=-1)
+        """The exact solution at the nodes: at their deformed positions
+        under a mapping (reference problem.h:448-455: VectorTools::
+        interpolate runs under the deformed mapping)."""
+        if self.params.mapping_q_cache_function is not None:
+            from .. import deform
+
+            pts = deform.deformed_node_positions(
+                self.grid, self.params.mapping_q_cache_function)
+        else:
+            pts = np.stack(self.grid.node_coords_mesh(), axis=-1)
         vals = self.params.exact_solution(pts, t)
         return torch.as_tensor(np.asarray(vals).reshape(-1),
                                dtype=self.dtype, device=self.device)
@@ -883,7 +896,11 @@ def _write_step_vtu(problem: "WaveProblem", sol, t, path: str,
     from ..io import DataOut
 
     pp = problem.params
-    out = DataOut(problem.grid, pp.output_fe_degree)
+    # reference problem.h:618 builds DataOut with the (possibly
+    # deformed) mapping: patch points land in deformed space
+    out = DataOut(problem.grid, pp.output_fe_degree,
+                  mapping_fn=pp.mapping_q_cache_function,
+                  geometry=pp.mapping_geometry)
     out.add_data_vector(sol, "solution")
     if pp.level_set_function is not None:
         mesh = problem.grid.node_coords_mesh()

@@ -1593,3 +1593,123 @@ def test_micro_wrappers_reject(cuda_device):
     for bad in (x.double(), x.t(), x.half()):
         with pytest.raises(ValueError):
             mxu_micro.relayout_apply(bad)
+
+
+def _cut_warp(pts):
+    pts = np.asarray(pts, dtype=np.float64)
+    x, y = pts[..., 0], pts[..., 1]
+    return np.stack(
+        [x + 0.05 * np.sin(np.pi * x / 1.21) * np.cos(0.5 * np.pi * y / 1.21),
+         y - 0.04 * np.sin(np.pi * y / 1.21) * np.cos(0.5 * np.pi * x / 1.21)],
+        axis=-1)
+
+
+@pytest.fixture(scope="module")
+def deformed_bands():
+    """The deformed bands of the deformation slice: the Dirichlet-
+    condensed deformed stiffness on the unit square at 40^2 (radius 3,
+    49 taps) and the flagship disc's cut mass and stiffness at 24^2
+    under a vertex map (radius 4, per-cell full-cell matrices), with
+    the mass's cut windows; built only where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from gdm_torch import deform
+    from gdm_torch.constraints import Constraints
+
+    g = Grid(3, (40, 40), (0.0, 0.0), (1.0, 1.0))
+    mask = np.asarray(Constraints.zero_boundary(g, device="cpu")
+                      .full_mask).reshape(-1)
+    dirichlet = deform.dirichlet_band(deform.laplace_band(g, _cut_warp),
+                                      mask)
+    grid = Grid(3, (24, 24), (-1.21, -1.21), (1.21, 1.21))
+    geo = CutGeometry.build(
+        grid, lambda m: np.sqrt(sum(x**2 for x in m)) - 1.0, 3)
+    op = CutOperators(geo, INSIDE, mapping_fn=_cut_warp)
+    mass = assemble_stencil(op, "mass", 0.25 * np.sqrt(3.0))
+    stiff = assemble_stencil(op, "stiff", 0.5 * np.sqrt(3.0), 15.0,
+                             with_nitsche=True)
+    return {"dirichlet": dirichlet, "mass": mass, "stiff": stiff,
+            "windows": op.w_cut}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["dirichlet", "mass", "stiff"])
+def test_band_apply_deformed_bands(deformed_bands, cuda_device, name, dtype):
+    """K1 on the deformed bands against the plain version: the radius-3
+    Dirichlet band fills all 49 taps (k1_plan at a tap count no earlier
+    case has), the cut bands carry per-cell entries."""
+    st = deformed_bands[name]
+    layout = cutband.layout_for(st.grid, st.radius)
+    bp = cutband.band_planes(st, layout, cuda_device, dtype)
+    if name == "dirichlet":
+        assert st.radius == 3 and layout.r == 3 and len(bp.taps) == 49
+    u = _rand(layout.shape, 21, dtype, cuda_device)
+    before = cutband.band_apply.launches
+    y = cutband.band_apply(u, bp)
+    assert cutband.band_apply.launches == before + 1
+    _check_band(bp, y, u, dtype)
+
+
+@pytest.mark.parametrize("body", BODIES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_resident_cg_one_band_deformed_mass(deformed_bands, cuda_device,
+                                            dtype, body):
+    """K2's one-band mode on the deformed cut mass with its Schwarz band,
+    each body against the plain twin on b = A x_ref for a seeded O(1)
+    x_ref, rel 1e-6 (as test_resident_cg_dod_masses: a random b leaves
+    the float32 solve at its residual floor, where the order of a sum
+    moves the residual by tens of percent): iterations within 2 in
+    float32 and equal in float64, the A-norm of x - x_plain within 1e-5
+    of |x_ref|_A (1e-8 in float64), counted in mode "band"."""
+    mass = deformed_bands["mass"]
+    layout = cutband.layout_for(mass.grid, mass.radius)
+    A, P = (cutband.band_planes(s, layout, cuda_device, dtype)
+            for s in (mass, schwarz_band(mass, deformed_bands["windows"],
+                                         dtype)))
+    A64 = cutband.band_planes(mass, layout, cuda_device, torch.float64)
+    x_ref = layout.pad(torch.as_tensor(
+        np.random.default_rng(22).standard_normal(mass.grid.n_nodes),
+        dtype=torch.float64, device=cuda_device))
+    b = cutband.band_apply_plain(x_ref, A64).to(dtype)
+    args = (A, None, None, 1000, 1e-6, 1e-12)
+    before = resident.resident_cg.mode_launches["band"]
+    xk, sk = resident.resident_cg(b, torch.zeros_like(b), *args, P=P,
+                                  body=body)
+    assert resident.resident_cg.mode_launches["band"] == before + 1
+    xp, sp = resident.resident_cg_plain(b, torch.zeros_like(b), *args, P=P)
+    sk, sp = resident.read_stats(sk), resident.read_stats(sp)
+    assert 0 < sk["iterations"] < 1000
+    f64 = dtype == torch.float64
+    assert abs(sk["iterations"] - sp["iterations"]) <= (0 if f64 else 2)
+    assert _a_norm(A64, xk - xp) <= (1e-8 if f64 else 1e-5) * _a_norm(
+        A64, x_ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_solve_deformed_on_card(cuda_device, dtype):
+    """poisson.solve_deformed with the never-cut multigrid at 32^2 on the
+    card (CG apply and every level through K1) against the CPU float64
+    solve: iterations equal in float64 and within one in float32, the
+    solution within 1e-10 (float64) and 1e-5 (float32) relative."""
+    g = Grid(3, (32, 32), (0.0, 0.0), (1.0, 1.0))
+
+    def rhs(m, c):
+        return 2 * np.pi**2 * np.sin(np.pi * m[0]) * np.sin(np.pi * m[1])
+
+    def warp(pts):
+        s = 0.08 * np.sin(2 * np.pi * pts[:, 0]) * np.sin(2 * np.pi * pts[:, 1])
+        return np.stack([pts[:, 0] + s, pts[:, 1] - 0.5 * s], -1)
+
+    rel = 1e-10 if dtype == torch.float64 else 1e-6
+    xc, ic = poisson.solve_deformed(g, warp, rhs, rel_tol=rel,
+                                    precondition="mg", device="cpu")
+    before = cutband.band_apply.launches
+    xk, ik = poisson.solve_deformed(g, warp, rhs, rel_tol=rel,
+                                    precondition="mg", device=cuda_device,
+                                    dtype=dtype)
+    assert cutband.band_apply.launches > before
+    assert xk.device.type == "cuda" and xk.dtype == dtype
+    f64 = dtype == torch.float64
+    assert abs(ik["iterations"] - ic["iterations"]) <= (0 if f64 else 1)
+    d = ((xk.cpu().double() - xc).norm() / xc.norm()).item()
+    assert d <= (1e-10 if f64 else 1e-5)

@@ -133,7 +133,9 @@ def test_port_imports_without_jax():
             "'gdm_torch.cut.advection', 'gdm_torch.checkpoint', "
             "'gdm_torch.apps.advection_app', "
             "'gdm_torch.apps.advection_convergence', "
-            "'gdm_torch.problems.wave', 'gdm_torch.entry'}; "
+            "'gdm_torch.problems.wave', 'gdm_torch.entry', "
+            "'gdm_torch.deform', 'gdm_torch.tools.eigen', "
+            "'gdm_torch.tools.wave_ev'}; "
             "assert need <= set(mods), need - set(mods); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'gdm.')) or m == 'gdm']; "

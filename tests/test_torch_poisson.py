@@ -106,6 +106,19 @@ def test_float32_on_cpu_within_one_iteration():
     assert ((x32.double() - x64).norm() / x64.norm()).item() <= 1e-4
 
 
-def test_solve_deformed_not_ported():
-    with pytest.raises(NotImplementedError, match="deform"):
-        poisson.solve_deformed(_grid(Grid, (8, 8)), lambda x: x, rhs)
+def _bump(pts):
+    x, y = pts[:, 0], pts[:, 1]
+    s = 0.06 * np.sin(2 * np.pi * x) * np.sin(2 * np.pi * y)
+    return np.stack([x + s, y + 0.7 * s], -1)
+
+
+def test_solve_deformed_matches_gdm():
+    """The deformed solve (gdm_torch.deform's condensed band, Jacobi CG)
+    at 8^2: gdm's iterations and solution within 1e-10."""
+    u, info = poisson.solve_deformed(_grid(Grid, (8, 8)), _bump, rhs,
+                                     device="cpu")
+    ug, ginfo = gpoisson.solve_deformed(_grid(GGrid, (8, 8)), _bump, rhs)
+    ug = np.asarray(ug)
+    assert info["iterations"] == int(ginfo["iterations"])
+    assert u.shape == ug.shape == (9, 9, 1)
+    assert np.abs(u.numpy() - ug).max() <= 1e-10 * np.abs(ug).max()

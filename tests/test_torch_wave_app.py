@@ -15,8 +15,9 @@ max |port - gdm| / max |gdm| per column, over L2, L1 and Linf.
 
 Every preset's scalar parameters equal gdm's and its data functions
 (numpy here, jnp in gdm) agree with gdm's on sample points at several t.
-The options that are not ported (``mesh=``, a deformed mapping) raise
-NotImplementedError naming what they wait for.  The other simulation
+The option that is not ported (``mesh=``) raises NotImplementedError
+naming what it waits for; a deformed mapping (1D wave) gives gdm's
+rows.  The other simulation
 types and options are held in tests/test_torch_wave_family.py,
 tests/test_torch_cut_multigrid.py and tests/test_torch_wave_io.py.
 """
@@ -161,11 +162,33 @@ def test_unknown_simulation_type_raises_value_error():
 @pytest.mark.parametrize("call,match", [
     (lambda: wave.WaveProblem(wave.make_preset("wave", 1), verbose=False,
                               mesh=object(), device="cpu"), "dist/cut.py"),
-    (lambda: _problem(mapping_q_cache_function=lambda x: x), "deform"),
-], ids=["mesh", "deformed"])
+], ids=["mesh"])
 def test_unported_options_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()
+
+
+def _squeeze(pts):
+    pts = np.asarray(pts, dtype=np.float64)
+    return pts + 0.04 * np.sin(np.pi * pts / 1.21)
+
+
+def test_deformed_wave_rows_match_gdm():
+    """A deformed mapping runs (gdm_torch.deform re-metrics the cut
+    tables): the wave preset in 1D under a vertex map, to t = 0.5, every
+    row within 1e-10 of gdm's, and apart from the undeformed rows."""
+    pt, pg = wave.make_preset("wave", 1), gwave.make_preset("wave", 1)
+    for p in (pt, pg):
+        p.end_t = 0.5
+        p.mapping_q_cache_function = _squeeze
+    rows = wave.WaveProblem(pt, verbose=False, device="cpu",
+                            dtype=F64).run()[0]
+    grows = gwave.WaveProblem(pg, verbose=False).run()[0]
+    assert len(rows) == len(grows) > 20
+    assert (_scaled_dev(rows, grows) <= TOL).all()
+    plain = _problem(end_t=0.5).run()[0]
+    assert np.abs(np.asarray(rows)[:, 2] - np.asarray(plain)[:, 2]).max() \
+        > 1e-6
 
 
 def test_defaults_to_the_card():

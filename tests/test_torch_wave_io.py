@@ -2,7 +2,8 @@
 
 - ``gdm_torch.io.DataOut`` writes the same bytes as gdm's DataOut for the
   same arrays (1D and 2D, point data, cell data, a cell selection, output
-  degrees 1 and 3); ``ConvergenceTable`` writes gdm's text.
+  degrees 1 and 3, under a deformed mapping); ``ConvergenceTable`` writes
+  gdm's text.
 - ``write_solution_vtu`` and the per-step ``output_vtu_dir`` output of a
   ``heat`` 1D run write parseable VTU files whose points equal gdm's and
   whose fields agree with gdm's within 1e-9 of their largest value.
@@ -63,9 +64,47 @@ def test_data_out_writes_gdms_bytes(tmp_path, dim, n, degree):
     ET.fromstring(outs[0])
 
 
-def test_data_out_refuses_a_mapping():
-    with pytest.raises(NotImplementedError, match="deform"):
-        DataOut(Grid(3, (8,), (0.0,), (1.0,)), 1, mapping_fn=lambda x: x)
+def _warp(pts):
+    pts = np.asarray(pts, dtype=np.float64)
+    x, y = pts[..., 0], pts[..., 1]
+    return np.stack(
+        [x + 0.05 * np.sin(np.pi * x / 1.21) * np.cos(0.5 * np.pi * y / 1.21),
+         y - 0.04 * np.sin(np.pi * y / 1.21) * np.cos(0.5 * np.pi * x / 1.21)],
+        axis=-1)
+
+
+def test_data_out_under_a_mapping_writes_gdms_bytes(tmp_path):
+    """DataOut(mapping_fn=...) writes its patch points in deformed space
+    (gdm_torch.deform.map_reference_points), as gdm's, and a deformed
+    WaveProblem's per-step VTU equals gdm's file."""
+    args = (3, (8, 8), (-1.21,) * 2, (1.21,) * 2)
+    u = np.random.default_rng(2).standard_normal(81)
+    outs = []
+    for cls, grid in ((DataOut, Grid(*args)), (GDataOut, GGrid(*args))):
+        out = cls(grid, 2, mapping_fn=_warp)
+        out.add_data_vector(u, "u")
+        path = tmp_path / f"{cls.__module__.split('.')[0]}.vtu"
+        out.write_vtu(str(path))
+        outs.append(path.read_bytes())
+    assert outs[0] == outs[1]
+    plain = DataOut(Grid(*args), 2)
+    plain.add_data_vector(u, "u")
+    plain.write_vtu(str(tmp_path / "plain.vtu"))
+    assert _vtu(tmp_path / "plain.vtu")[0].shape == _vtu(
+        tmp_path / "gdm_torch.vtu")[0].shape
+    assert np.abs(_vtu(tmp_path / "plain.vtu")[0]
+                  - _vtu(tmp_path / "gdm_torch.vtu")[0]).max() > 1e-3
+
+    files = []
+    for mod, kw in ((wave, dict(device="cpu", dtype=F64)), (gwave, {})):
+        p = mod.make_preset("heat", 2)
+        p.n_subdivisions_1D = 8
+        p.mapping_q_cache_function = _warp
+        path = tmp_path / f"step_{mod.__name__.split('.')[0]}.vtu"
+        mod._write_step_vtu(mod.WaveProblem(p, verbose=False, **kw),
+                            np.zeros(81), 0.0, str(path))
+        files.append(path.read_bytes())
+    assert files[0] == files[1]
 
 
 def test_convergence_table_writes_gdms_text():
