@@ -127,7 +127,24 @@ Run from the repository root:  python3 chip_smoke.py
    plain twins; (g) the 3D deformed solve at 16^3 in float64 (the plain
    tap loop): iterations, time, device launches, L2 within 1e-3 of gdm's
    2.2348e-4; (h) the wave-ev CLI in 2D on the card against a CPU run
-   (spectra within 1e-8);
+   (spectra within 1e-8); then (``cut3d_phase``) the 3D cut problems,
+   gdm's off-TPU route (no kernel): heat_impl_3d (8^3, p = 3, the unit
+   sphere, to t = 0.1) in float64 through run_scan and run() against the
+   x64 oracle (CUT3D_ORACLE_LIMIT) and in float32 through run_scan
+   against the TPU's rows (CUT3D_TPU_LIMIT), and the 3D cut Poisson solve
+   of gdm's tests/test_cut_3d.py (iterations within one of
+   CUT3D_POISSON_ITERS), each with its set-up by stage and ms a step;
+   then (``dist_phase``) gdm_torch.dist over a mesh of slots on the
+   cards present: (a) the sharded 128^2 mass over 1, 3 and 4 slots
+   against serial K1 and the plain twin, one K1 launch a slot, in turns
+   against serial K1, K1 on each shard's layout against its plain twin;
+   (b) dist.poisson.solve's slot-count invariance; (c) the 2D wave
+   preset over 4 slots in float64 (12 steps) against wave_1 and one
+   slot, the counts reset just before it; (d) composite advection
+   run_scan over 4 slots against one.  Its (e), a profiling.trace of
+   three sharded applies that must name K1's kernel 12 times
+   (``sharded_trace``), runs right after phase 2, before any other
+   profile;
 7. K3 (2D separable Laplace) against its plain torch twin, float32, at
    1024^2 for p = 3 and p = 5, with four distinct band factors, and at
    2048^2 and 4096^2 for p = 3: max error <= 1e-5 of max|y|; device and
@@ -255,7 +272,9 @@ on the DoD inside mass (launches from the DoD run() and run_scan), K1 on
 the deformed 513^2 Dirichlet band (launches from the float32 CG phase of
 the deformed Poisson solve) and on the deformed wave mass, K2's one-band
 mode on the deformed wave mass (launches from run_scan of the deformed
-2D wave), K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
+2D wave), K1 on a shard of the flagship 128^2 mass and of the wave
+app's 41^2 mass over 4 slots, float32 and float64 (launches from the
+sharded 2D wave run of ``dist_phase``), K3-K5, K3s, K3c, K3f, K3h, K3p, K3/mxu,
 K3/mxu3, K3/mxu3p, K0, and M1 (column and row modes), M2, M3, M4, M5:
 launches on the kernel's main path (K1 and K2 also ``wave_app_launches``,
 their launches in phase 6's 2D run, and ``wave_family_launches``, in the
@@ -999,15 +1018,20 @@ WAVE_CASES = {2: ("wave_1", 3.0e-3), 1: ("wave_0", 1.35e-2)}
 CUT_MG_ITERS = {40: (6, 7), 80: (7, 7), 160: (7, 7)}
 
 
-def golden_dev(rows, case, slot=None):
+def golden_dev(rows, case, slot=None, prefix=False):
     """max |m - g| / max g over L2, L1 and Linf (the measure of
     tests/test_tpu_goldens_artifact.py) of the rows against the TPU's
     rows of ``case`` (of location slot ``slot`` for a composite case);
-    the counters equal and the times within 5e-6."""
+    the counters equal and the times within 5e-6.  ``prefix``: the rows
+    of a run cut short, against the TPU's first rows."""
     with open(WAVE_GOLDENS) as f:
         golden = json.load(f)["cases"][case]["rows"]
     if slot is not None:
         golden = golden[slot]
+    if prefix:
+        check(len(rows) <= len(golden),
+              f"{case}: {len(rows)} rows against {len(golden)}")
+        golden = golden[:len(rows)]
     check(len(rows) == len(golden),
           f"{case}: {len(rows)} rows against {len(golden)}")
     for r, g in zip(rows, golden):
@@ -1026,6 +1050,10 @@ FAMILY_LIMITS = {"heat 2D": 1e-3, "wave-composite 2D": 5e-4}
 TPU_1D_CASES = {"heat-composite": ("heat_composite_0", 6.87e-3),
                 "wave-composite": ("wave_composite_0", 2.25e-2),
                 "heat-rk": ("heat_1", 3.84e-3)}
+# the 1D heat runs are cut to their first TPU_1D_STEPS of 820 steps
+# (t = 0.05 of 0.1), against the same rows of the TPU's, for the whole
+# script's time limit: they are host-bound (~100-155 ms a step)
+TPU_1D_STEPS = {"heat-composite": 410, "heat-rk": 410}
 STEP85_L2 = 8.5201e-9     # the reference output's L2 (step85_0.output)
 
 
@@ -1243,6 +1271,7 @@ def wave_family_phase(rng, dev):
 
     from gdm_torch.apps import wave_app
     from gdm_torch.cut.stencil import StencilOperator, assemble_stencil
+    from gdm_torch.problems import wave
 
     f32, f64 = torch.float32, torch.float64
     t_start = time.perf_counter()
@@ -1308,12 +1337,22 @@ def wave_family_phase(rng, dev):
 
     # ---- 1D against the TPU's rows, float32 ---------------------------------
     for name, (case, limit) in TPU_1D_CASES.items():
-        prob, run_s, counts = family_run(name, 1, f32)
+        kw, cut = {}, TPU_1D_STEPS.get(name)
+        if cut is not None:
+            p = wave.make_preset(name, 1)
+            kw["end_t"] = p.start_t + cut * p.cfl * (
+                (p.geometry_right - p.geometry_left)
+                / p.n_subdivisions_1D) ** p.cfl_pow
+        prob, run_s, counts = family_run(name, 1, f32, **kw)
         slots = (0, 1) if prob.params.composite else (None,)
-        d = max(golden_dev(prob.rows[k or 0], case, k) for k in slots)
+        d = max(golden_dev(prob.rows[k or 0], case, k, prefix=bool(kw))
+                for k in slots)
         steps = len(prob.rows[0]) - 1
+        check(cut is None or steps == cut,
+              f"{name} 1D cut to {cut} steps ran {steps}")
         print(f"{name} 1D float32: run {run_s:.3f} s, {run_s / steps * 1e3:.2f}"
-              f" ms a step; rows against {case}: max scaled deviation "
+              f" ms a step ({steps} steps); rows against {case}: max scaled "
+              f"deviation "
               f"{d:.3e} (limit {limit:.2e})")
         check(d <= limit, f"{name} 1D rows deviate {d:.3e} from {case}")
         used = {k: v for k, v in counts.items() if v}
@@ -2843,6 +2882,661 @@ def deform_phase(rng, dev):
             "k2": (k2_row[5], *k2_row[1:4]), "k2_gate_ms": k2_row[4]}
 
 
+# ---- the 3D cut problems (cut3d_phase) --------------------------------------
+
+# heat_impl_3d's limits: float64 rows against tests/data/cpu_oracle_rows.json
+# (gdm's x64 run_scan), twice live gdm's own 2.57e-8 gap; float32 rows
+# against the TPU's float32 rows (tests/data/tpu_wave_goldens.json), twice
+# the TPU's own 1.33e-3 (BASELINE.md:355)
+CUT3D_ORACLE_LIMIT = 5.14e-8
+CUT3D_TPU_LIMIT = 2.67e-3
+# CG iterations of gdm's tests/test_cut_3d.py solve (the 8^3 sphere,
+# Jacobi CG to rel 1e-11 over the matrix-free stiffness) in the port's
+# float64 CPU run; tests/test_torch_cut3d.py holds it against gdm
+CUT3D_POISSON_ITERS = 178
+CUT3D_N = 8
+# float32 rows against the float64 card run where no reference rows exist
+# (16^3): a loose bound on a float32 Jacobi CG at max_iter (the 8^3 gap
+# is 2.67e-3, the 16^3 gap 3.9e-3; PERF.md §6)
+CUT3D_N_LIMIT = 1e-2
+
+
+def heat3d_params(n=CUT3D_N):
+    """gdm's tests/test_cut_3d_heat.py configuration (p = 3, n^3 cells,
+    the unit sphere, heat-impl to t = 0.1, u = x^2 y^2 z^2 e^{-t}), its
+    data functions on numpy points and on tensors."""
+    from gdm_torch.problems import wave
+
+    p = wave.WaveParams(dim=3)
+    p.simulation_type = "heat-impl"
+    p.fe_degree = 3
+    p.n_subdivisions_1D = n
+    p.ghost_parameter_M = 0.75
+    p.ghost_parameter_A = 1.5
+    p.nitsche_parameter = 15.0
+    p.level_set_function = wave.sphere_signed_distance
+    p.end_t = 0.1
+
+    def g(pts, t):
+        return (pts[..., 0] ** 2 * pts[..., 1] ** 2 * pts[..., 2] ** 2
+                * math.exp(-t))
+
+    def f(pts, t):
+        x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+        return (-(x * y * z) ** 2
+                - 2 * (y * y * z * z + x * x * z * z + x * x * y * y)
+                ) * math.exp(-t)
+
+    p.function_interface_dbc = g
+    p.function_rhs = f
+    p.exact_solution = g
+    return p
+
+
+@contextlib.contextmanager
+def set_up_stages():
+    """Time the host set-up stages of a cut problem with
+    ``gdm_torch.profiling.phase_timer``: the geometry
+    (``CutGeometry.build``), the operators' tables (``CutOperators``),
+    the band assembly (``assemble_stencil``) and the solver set-up
+    (``fsai_cg_solver``); yields ``profiling.report``."""
+    from gdm_torch import profiling
+    from gdm_torch.cut import fsai, stencil
+    from gdm_torch.cut.geometry import CutGeometry
+    from gdm_torch.problems import wave
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            with profiling.phase_timer(name):
+                return fn(*a, **kw)
+        return run
+
+    saved = [(CutGeometry, "build", CutGeometry.__dict__["build"]),
+             (wave, "CutOperators", wave.CutOperators),
+             (stencil, "assemble_stencil", stencil.assemble_stencil),
+             (fsai, "fsai_cg_solver", fsai.fsai_cg_solver)]
+    profiling.reset()
+    CutGeometry.build = staticmethod(timed("geometry", CutGeometry.build))
+    wave.CutOperators = timed("operators", wave.CutOperators)
+    stencil.assemble_stencil = timed("assembly", stencil.assemble_stencil)
+    fsai.fsai_cg_solver = timed("solver set-up", fsai.fsai_cg_solver)
+    try:
+        yield profiling.report
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+def stages_line(report) -> str:
+    return ", ".join(f"{k} {v['total_s']:.2f} s" for k, v in report().items())
+
+
+def cut3d_run(prob, kind, what, profiled=False):
+    """One ``run()`` or ``run_scan()`` of ``prob`` on the card, the
+    counts reset just before: (rows, s, ms a step, device launches a
+    step, busy ms a step, idle share, counts).  With ``profiled`` the
+    same run again under the profiler (device activity only; it costs
+    ~0.3 ms a launch on an H100 host, PERF.md §6, so the wall time is
+    the first run's) gives the launches and the busy time, else they
+    are None."""
+    import torch
+
+    prob.rows = {0: [], 1: []}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    getattr(prob, kind)()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    rows = prob.rows[0]
+    steps = len(rows) - 1
+    step_ms = run_s * 1e3 / steps
+    items_step = busy = idle = None
+    line = ""
+    if profiled:
+        prob.rows = {0: [], 1: []}
+        _, items = device_items(getattr(prob, kind))
+        busy = sum(it[1] for it in items) / steps
+        items_step = sum(it[2] for it in items) / steps
+        idle = 1 - busy / step_ms
+        line = (f", {items_step:.0f} device launches a step, busy "
+                f"{busy:.3f} ms a step, idle share {idle:.3f}")
+        check(items_step > 0, f"{what}: no device work")
+    print(f"{what}: {kind} {run_s:.2f} s, {steps} steps, {step_ms:.1f} ms "
+          f"a step{line}; K1 {counts['cutband']}, K2 {counts['resident']} "
+          f"launches")
+    if profiled:
+        for name, ms, cnt in sorted(items, key=lambda it: -it[1])[:4]:
+            print(f"    {ms / steps * 1e3:9.1f} us  x{cnt / steps:7.1f}  "
+                  f"{name[:80]}")
+    check(counts["cutband"] == 0 and counts["resident"] == 0,
+          f"{what}: a 2D kernel launched on the 3D route")
+    return rows, run_s, step_ms, items_step, busy, idle, counts
+
+
+def cut3d_phase(rng, dev, n=CUT3D_N, oracle=True, profiled=False):
+    """The 3D cut problems on the card through their public entry point,
+    gdm's off-TPU route (``kernel_route`` is false in 3D: the plain tap
+    loop, the host CG, the matrix-free applies): (a) heat_impl_3d
+    (``heat3d_params``) in float64, ``run_scan`` (gdm's warm-started
+    Jacobi CG, the oracle's route) and ``run()`` (the host FSAI-CG),
+    each against the x64 oracle within CUT3D_ORACLE_LIMIT (scaled);
+    (b) the same in float32, ``run_scan`` against the TPU's float32 rows
+    within CUT3D_TPU_LIMIT and against (a)'s; (c) the 3D cut Poisson
+    solve of gdm's tests/test_cut_3d.py in float64 on (a)'s operators:
+    CG iterations within one of CUT3D_POISSON_ITERS, L2 < 2e-5, its
+    device launches and idle share (profiler).  Each run with its set-up
+    by stage and ms a step; with ``profiled`` (the script, not
+    chip_smoke.py: a profiled run costs ~0.3 ms a launch) each run again
+    under the profiler for its device launches a step and idle share.
+    At another ``n`` (``oracle=False``, no reference rows) the rows are
+    held finite and float32 against float64 within CUT3D_N_LIMIT.
+    Returns the phase's figures."""
+    import torch
+
+    from gdm_torch import solvers
+    from gdm_torch.problems import wave
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    out = {}
+    probs = {}
+    for dtype in (f64, f32):
+        with set_up_stages() as report:
+            t0 = time.perf_counter()
+            probs[dtype] = wave.WaveProblem(heat3d_params(n), verbose=False,
+                                            device=dev, dtype=dtype)
+            print(f"3D {n}^3 {dtype}: problem {time.perf_counter() - t0:.2f} "
+                  f"s ({stages_line(report)}); "
+                  f"{len(probs[dtype].op_in.cut_ids)} cut cells, "
+                  f"{probs[dtype].grid.n_nodes} nodes")
+    with open(ADV_ORACLE) as f:
+        ref = json.load(f)["heat_impl_3d"]["rows"]
+
+    # ---- (a) float64: run_scan, then run() ---------------------------------
+    for kind in ("run_scan", "run"):
+        with set_up_stages() as report:
+            got = cut3d_run(probs[f64], kind, f"(a) {n}^3 float64",
+                            profiled)
+        print(f"  set-up inside the run: {stages_line(report) or 'none'}")
+        rows = got[0]
+        if oracle:
+            dev_o = scaled_rows_dev(rows, ref)
+            print(f"  rows against the x64 oracle: {dev_o:.3e} (limit "
+                  f"{CUT3D_ORACLE_LIMIT:g})")
+            check(dev_o <= CUT3D_ORACLE_LIMIT,
+                  f"3D heat float64 {kind}: {dev_o:.3e} from the oracle")
+        check(bool(np.isfinite(np.array([r[2:] for r in rows])).all()),
+              f"3D heat float64 {kind}: rows not finite")
+        out[f"f64 {kind}"] = got[1:]
+        out[f"f64 {kind} rows"] = rows
+
+    # ---- (b) float32 run_scan ----------------------------------------------
+    with set_up_stages() as report:
+        got = cut3d_run(probs[f32], "run_scan", f"(b) {n}^3 float32",
+                        profiled)
+    rows = got[0]
+    d64 = scaled_rows_dev(rows, out["f64 run_scan rows"])
+    print(f"  set-up inside the run: {stages_line(report) or 'none'}; rows "
+          f"against (a)'s float64 run_scan: {d64:.3e}")
+    if oracle:
+        dev_t = golden_dev(rows, "heat_impl_3d")
+        print(f"  rows against the TPU's float32 rows: {dev_t:.3e} (limit "
+              f"{CUT3D_TPU_LIMIT:g})")
+        check(dev_t <= CUT3D_TPU_LIMIT,
+              f"3D heat float32: {dev_t:.3e} from the TPU's rows")
+        out["f32 tpu dev"] = dev_t
+    else:
+        check(d64 <= CUT3D_N_LIMIT, f"3D heat float32 at {n}^3: {d64:.3e} "
+                                    f"from float64")
+    out["f32 run_scan"] = got[1:]
+    out["f32 vs f64"] = d64
+
+    # ---- (c) the 3D cut Poisson solve of gdm's tests/test_cut_3d.py ---------
+    if oracle:
+        op = probs[f64].op_in
+        N = op.grid.n_nodes
+        gn = 15.0
+
+        def const(v):
+            return lambda pts, t: pts.new_full(pts.shape[:-1], v)
+
+        def exact(pts, t):
+            return 1.0 - (2.0 / 3) * ((pts**2).sum(-1) - 1.0)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = op.compute_rhs(torch.zeros(N, dtype=f64, device=dev), 0.0,
+                           False, rhs_fn=const(4.0),
+                           interface_dbc=const(1.0), nitsche_gamma=gn)
+        diag = torch.as_tensor(op.stiffness_diagonal(0.5, gn), dtype=f64,
+                               device=dev)
+        op.stiffness_matrix_apply(b, 0.5, gn)     # moves its tables
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        def solve():
+            return solvers.cg(
+                lambda v: op.stiffness_matrix_apply(v, 0.5, gn), b,
+                precond=solvers.jacobi_preconditioner(diag),
+                max_iter=20000, rel_tol=1e-11)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = solve()
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        l2 = op.error_norms(x, exact, 0.0)[0]
+        its = info["iterations"]
+        launches = busy = None
+        line = ""
+        if profiled:
+            _, items = device_items(solve)
+            busy = sum(it[1] for it in items)
+            launches = sum(it[2] for it in items)
+            line = (f", {launches / max(its, 1):.0f} device launches an "
+                    f"iteration, busy {busy:.1f} ms, idle share "
+                    f"{1 - busy / (solve_s * 1e3):.3f}")
+        print(f"(c) 3D cut Poisson {n}^3 float64: set-up {setup_s:.2f} s "
+              f"(right-hand side, diagonal, tables), solve {solve_s:.2f} s, "
+              f"{its} "
+              f"iterations (the CPU's {CUT3D_POISSON_ITERS}), L2 "
+              f"{l2:.4e}{line}")
+        check(abs(its - CUT3D_POISSON_ITERS) <= 1,
+              f"3D cut Poisson: {its} iterations against "
+              f"{CUT3D_POISSON_ITERS}")
+        check(l2 < 2e-5, f"3D cut Poisson: L2 {l2:.3e}")
+        out["poisson"] = (its, l2, solve_s, launches, busy)
+    print(f"3D phase at {n}^3: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---- distribution (dist_phase) --------------------------------------------
+
+DIST_SLOTS = (1, 3, 4)
+DIST_WAVE_STEPS = 12      # chip_smoke.py; the script runs all 111
+DIST_WAVE_LIMIT = 3.0e-3  # wave_1's limit (WAVE_CASES)
+DIST_IDLE_STEPS = 2       # whole steps profiled for the sharded idle share
+DIST_IDLE_LAUNCH_GAP = 0.02  # K1 launches' largest gap between its passes
+
+
+def sharded_vs_serial(rng, st, slots, dev, dtype):
+    """The sharded apply of ``st`` over ``slots`` slots against the
+    serial K1 apply and the plain twin: (max error / max|y| against each,
+    K1 launches of one apply, the apply)."""
+    import torch
+
+    from gdm_torch.cut.stencil import routed_apply
+    from gdm_torch.dist.cut import sharded_stencil_apply
+    from gdm_torch.dist.mesh import device_mesh
+    from gdm_torch.ops import cutband
+
+    apply = sharded_stencil_apply(st, device_mesh(slots))
+    serial = routed_apply(st)
+    u = torch.as_tensor(rng.standard_normal(st.grid.n_nodes), dtype=dtype,
+                        device=dev)
+    y_k1, y_plain = serial(u), st.apply(u)
+    before = cutband.band_apply.launches
+    y = apply(u)
+    n_k1 = cutband.band_apply.launches - before
+    scale = y_plain.abs().max().item()
+    e_k1 = (y - y_k1).abs().max().item() / scale
+    e_plain = (y - y_plain).abs().max().item() / scale
+    return e_k1, e_plain, n_k1, apply, serial, u
+
+
+def k1_shard_row(rng, st, slots, shard, dev, dtype, what):
+    """K1 on shard ``shard``'s own layout of ``st`` over ``slots`` slots
+    (its planes the global band's rows over the whole band's taps, random
+    halo planes in its guard rows) against its plain twin, beside a
+    torch.sparse CSR SpMV of the shard's operator.  Returns (max abs
+    error, ms, plain ms, bound, library ms)."""
+    import torch
+
+    from gdm_torch.ops import cutband
+
+    r = st.radius
+    n0, n1 = st.grid.nodes
+    loc = max(-(-n0 // slots), r)
+    K = 2 * r + 1
+    band = np.zeros((loc * slots, n1, K, K))
+    band[:n0] = st.band_host
+    band[n0:, :, r, r] = 1.0
+    lay = cutband.PaddedLayout(loc, n1, r)
+    bp = cutband.planes_of(band[shard * loc:(shard + 1) * loc], r, lay, dev,
+                           dtype, cutband.band_taps(band, r))
+    u = torch.zeros(lay.shape, dtype=dtype, device=dev)
+    u[:, r:r + n1] = torch.as_tensor(rng.standard_normal((lay.rows, n1)),
+                                     dtype=dtype, device=dev)
+    yk, yp = cutband.band_apply(u, bp), cutband.band_apply_plain(u, bp)
+    err = (yk - yp).abs().max().item()
+    rel = err / yp.abs().max().item()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    # the shard's own data, not its padded layout: taps x loc x N1
+    # coefficients, u over the loc + 2r planes of the shard and its halo,
+    # y over its loc x N1 nodes; two operations a coefficient
+    nodes = loc * n1
+    bnd = bound(u.element_size() * ((len(bp.taps) + 1) * nodes
+                                    + (loc + 2 * r) * n1),
+                2 * len(bp.taps) * nodes)
+    ms = device_ms(lambda: cutband.band_apply(u, bp))
+    pms = device_ms(lambda: cutband.band_apply_plain(u, bp))
+    lms = spmv_ms(band_planes_csr(bp, lay), u, yp, f"K1 shard {what}")
+    print(f"K1 on shard {shard} of {what} over {slots} slots ({len(bp.taps)} "
+          f"taps, layout {lay.shape}, {dtype}): max abs err {err:.3e} (rel "
+          f"{rel:.3e}, limit {tol:g}); {ms * 1e3:.2f} us, plain "
+          f"{pms * 1e3:.2f} us, bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+    check(rel <= tol, f"K1 on shard {shard} of {what}: {rel:.3e} of max|y|")
+    return err, ms, pms, bnd, lms
+
+
+def sharded_trace(rng, dev, mass128):
+    """One ``profiling.trace`` around three sharded applies of the
+    flagship 128^2 mass over 4 slots, late in the run (dist_phase (e)):
+    its Chrome trace must name K1's kernel once a slot an apply."""
+    import tempfile
+
+    import torch
+
+    _, _, _, apply, _, u = sharded_vs_serial(rng, mass128, 4, dev,
+                                             torch.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        from gdm_torch import profiling
+
+        with profiling.trace(tmp) as tr:
+            for _ in range(3):
+                apply(u)
+        with open(tr.path) as f:
+            text = f.read()
+    named = text.count("cutband_apply")
+    print(f"(e) profiling.trace of 3 sharded applies over 4 slots: "
+          f"{len(text)} bytes, K1's kernel named {named} times")
+    check(named >= 12, "the trace does not name K1's kernel once a slot "
+                       "an apply")
+    return named
+
+
+def sharded_wave_idle(p, dev, n_prof=DIST_IDLE_STEPS):
+    """The idle share of whole steps of the 2D wave preset over 4 slots
+    (float64): after one warm-up step, steps 2 .. n_prof + 1 timed
+    unprofiled, then the same steps from the same state again under the
+    profiler (device activity only).  The right-hand side's atomic sums
+    are not bitwise repeatable, so a CG to rel 1e-14 may stop a few
+    iterations apart on the two passes: their K1 launches must agree
+    within DIST_IDLE_LAUNCH_GAP, and the profiled busy time is scaled
+    to the unprofiled pass's K1 launches before it is set against that
+    pass's wall time."""
+    import torch
+
+    from gdm_torch.dist.mesh import device_mesh
+    from gdm_torch.ops import cutband
+    from gdm_torch.problems import wave
+
+    prob = wave.WaveProblem(p, verbose=False, device=dev,
+                            dtype=torch.float64, mesh=device_mesh(4))
+    step, y, dt = prob.explicit_step(heat=False)
+    t = p.start_t
+    y = step(t, dt, y)
+    t += dt
+
+    def steps():
+        yk, tk = y, t
+        for _ in range(n_prof):
+            yk = step(tk, dt, yk)
+            prob.postprocess(tk + dt, yk[0])
+            tk += dt
+        return yk
+
+    torch.cuda.synchronize()
+    n0 = cutband.band_apply.launches
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    n1 = cutband.band_apply.launches
+    _, items = device_items(steps)
+    n2 = cutband.band_apply.launches
+    n_un, n_pr = n1 - n0, n2 - n1
+    check(n_pr > 0 and abs(n_pr - n_un) <= DIST_IDLE_LAUNCH_GAP * n_un,
+          f"the profiled steps launched K1 {n_pr} times, the unprofiled "
+          f"ones {n_un} (more than {DIST_IDLE_LAUNCH_GAP:.0%} apart)")
+    busy = sum(it[1] for it in items) * n_un / n_pr
+    idle = 1 - busy / wall
+    print(f"  steps 2-{n_prof + 1} over 4 slots, float64: unprofiled "
+          f"{wall / n_prof:.1f} ms a step, K1 {n_un} launches; profiled "
+          f"K1 {n_pr} launches, busy {busy / n_prof:.2f} ms a step (scaled "
+          f"to the unprofiled launches) over "
+          f"{sum(it[2] for it in items) / n_prof:.0f} device items: idle "
+          f"share {idle:.3f}")
+    for name, ms, cnt in sorted(items, key=lambda it: -it[1])[:4]:
+        print(f"    {ms * 1e3 / n_prof:9.1f} us  x{cnt / n_prof:6.0f}  "
+              f"{name[:80]}  (a step)")
+    return {"idle": idle, "idle_busy_ms": busy / n_prof,
+            "idle_wall_ms": wall / n_prof}
+
+
+def dist_phase(rng, dev, mass128, steps=DIST_WAVE_STEPS):
+    """gdm_torch.dist on the card, the mesh's slots over every card
+    present (slots share a card where there are fewer cards): (a) the
+    sharded cut apply of the flagship 128^2 mass over DIST_SLOTS slots
+    against the serial K1 apply and the plain twin (float32 1e-5 of
+    max|y|, float64 1e-12), one K1 launch a slot an apply, and its
+    device time in turns against the serial K1 apply, with K1 on each
+    shard's layout against its plain twin; (b) ``dist.poisson.solve`` at
+    gdm's 20-cell sizes in 1D and 2D over 1, 3 and 7 slots, float64:
+    invariant to 1e-12; (c) the 2D wave preset (40^2, wave_1's
+    configuration) over 4 slots in float64 for its first ``steps`` steps
+    (None: all 111) through ``WaveProblem(mesh=...)``, gdm's mesh route
+    (Jacobi CG to the preset's rel 1e-14 over the sharded apply): rows
+    within DIST_WAVE_LIMIT of wave_1 and 1e-10 (scaled) of the same run
+    over one slot, ms a step, K1 launches a step (by band), CG
+    iterations a solve, and the idle share of whole steps
+    (``sharded_wave_idle``); (d) the composite advection ``run_scan`` of
+    gdm's shard test over 4 slots against one slot (1e-10); (e)
+    ``sharded_trace``.  The counts are reset just before (c) and read
+    just after it.  Returns the phase's figures and kernels-line rows."""
+    import torch
+
+    from gdm_torch import solvers
+    from gdm_torch.dist import poisson as dpoisson
+    from gdm_torch.dist.mesh import device_mesh
+    from gdm_torch.grid import Grid
+    from gdm_torch.ops import cutband
+    from gdm_torch.problems import advection, wave
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    print(f"dist: {cards} card(s); slots lie on cuda:(i % {cards})")
+    out = {"cards": cards}
+
+    # ---- (a) the sharded flagship mass ----------------------------------
+    for dtype in (f32, f64):
+        tol = 1e-5 if dtype == f32 else 1e-12
+        for slots in DIST_SLOTS:
+            e_k1, e_plain, n_k1, apply, serial, u = sharded_vs_serial(
+                rng, mass128, slots, dev, dtype)
+            print(f"(a) 128^2 mass over {slots} slots ({dtype}, loc "
+                  f"{apply.loc}): against serial K1 {e_k1:.3e}, against the "
+                  f"plain twin {e_plain:.3e} of max|y| (limit {tol:g}); "
+                  f"{n_k1} K1 launches an apply")
+            check(e_k1 <= tol and e_plain <= tol,
+                  f"sharded 128^2 mass over {slots} slots: {e_k1:.3e}, "
+                  f"{e_plain:.3e}")
+            check(n_k1 == slots, f"sharded apply over {slots} slots: {n_k1} "
+                                 f"K1 launches")
+            if dtype == f32 and slots > 1:
+                (s1, s2), (h1, h2) = turns("serial K1", lambda: serial(u),
+                                           f"sharded x{slots}",
+                                           lambda: apply(u))
+                c_s, c_h = call_ms(lambda: serial(u)), call_ms(
+                    lambda: apply(u))
+                print(f"  per call with its launches: serial "
+                      f"{c_s * 1e3:.1f} us, sharded {c_h * 1e3:.1f} us")
+                out[f"a turns {slots}"] = ((s1, s2), (h1, h2), c_s, c_h)
+            if slots == 4:
+                out["a launches", dtype] = n_k1
+        out[f"a err {dtype}"] = e_k1
+    rows_k1 = {}
+    for dtype in (f32, f64):
+        for shard in (range(4) if dtype == f32 else (1,)):
+            got = k1_shard_row(rng, mass128, 4, shard, dev, dtype,
+                               "the 128^2 mass")
+            key = ("128", dtype)
+            if key not in rows_k1 or got[1] > rows_k1[key][1]:
+                rows_k1[key] = got
+
+    # ---- (b) dist.poisson.solve invariance ----------------------------------
+    for dim in (1, 2):
+        grid = Grid(3, (20,) * dim, (0.0,) * dim, (1.0,) * dim)
+        sols, its = [], []
+        for slots in (1, 3, 7):
+            t0 = time.perf_counter()
+            u, info = dpoisson.solve(grid, ones_rhs, device_mesh(slots),
+                                     mode="shard_map")
+            sols.append(u)
+            its.append(info["iterations"])
+            print(f"(b) poisson {dim}D over {slots} slots: "
+                  f"{info['iterations']} iterations, "
+                  f"{time.perf_counter() - t0:.2f} s")
+        d = max((s - sols[0]).abs().max().item() for s in sols[1:])
+        print(f"  shard-count invariance {d:.3e} (limit 1e-12)")
+        check(d <= 1e-12 and len(set(its)) == 1,
+              f"dist.poisson {dim}D not invariant: {d:.3e}, {its}")
+        out[f"b {dim}D"] = (its[0], d)
+
+    # ---- (c) the 2D wave preset over 4 slots, float64 -----------------------
+    p = wave.make_preset("wave", 2)
+    with open(WAVE_GOLDENS) as f:
+        gold = json.load(f)["cases"]["wave_1"]["rows"]
+    if steps is None:
+        steps = len(gold) - 1       # the preset's whole horizon
+    else:
+        p.end_t = steps * p.cfl * (2.42 / 40) ** p.cfl_pow
+        gold = gold[:steps + 1]
+    runs = {}
+    cg = solvers.cg
+    shard, mass_solver = wave.WaveProblem._maybe_shard, \
+        wave.WaveProblem._mass_solver
+    for slots in (4, 1):
+        its = []
+        # K1 launches by band: the sharded applies built for the mass
+        # solves, and the rest (the RHS stiffness)
+        by_band, band = {"mass": 0, "stiffness": 0}, ["stiffness"]
+
+        def counted(*a, **kw):
+            x, info = cg(*a, **kw)
+            its.append(info["iterations"])
+            return x, info
+
+        def tagged(self, op):
+            band[0] = "mass"
+            try:
+                return mass_solver(self, op)
+            finally:
+                band[0] = "stiffness"
+
+        def tallied(self, st, by_band=by_band):
+            apply, kind = shard(self, st), band[0]
+
+            def call(u):
+                before = cutband.band_apply.launches
+                y = apply(u)
+                by_band[kind] += cutband.band_apply.launches - before
+                return y
+
+            return call
+
+        solvers.cg = counted
+        wave.WaveProblem._maybe_shard = tallied
+        wave.WaveProblem._mass_solver = tagged
+        try:
+            t0 = time.perf_counter()
+            prob = wave.WaveProblem(p, verbose=False, device=dev, dtype=f64,
+                                    mesh=device_mesh(slots))
+            setup_s = time.perf_counter() - t0
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prob.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            solvers.cg = cg
+            wave.WaveProblem._maybe_shard = shard
+            wave.WaveProblem._mass_solver = mass_solver
+        rows = prob.rows[0]
+        n_steps = len(rows) - 1
+        runs[slots] = (prob, rows, run_s, counts, its, by_band)
+        print(f"(c) wave 2D over {slots} slots, float64: set-up "
+              f"{setup_s:.2f} s, {n_steps} steps in {run_s:.2f} s "
+              f"({run_s * 1e3 / n_steps:.1f} ms a step), K1 "
+              f"{counts['cutband']} launches "
+              f"({counts['cutband'] / n_steps:.0f} a step), K2 "
+              f"{counts['resident']}, {len(its)} solves of "
+              f"{np.mean(its):.1f} CG iterations (min {min(its)}, max "
+              f"{max(its)}); K1 by band {by_band}")
+        check(n_steps == steps, f"sharded wave: {n_steps} steps")
+        check(sum(by_band.values()) == counts["cutband"],
+              f"sharded wave: K1 by band {by_band} against "
+              f"{counts['cutband']} launches")
+        check(counts["cutband"] > 0, "K1 never launched on the sharded run")
+        check(counts["resident"] == 0, "K2 launched on gdm's mesh route")
+    prob4, rows4, run_s4, counts4, its4, band4 = runs[4]
+    d1 = scaled_rows_dev(rows4, runs[1][1])
+    for r, g in zip(rows4, gold):
+        check(r[0] == g[0] and abs(r[1] - g[1]) <= 5e-6,
+              f"sharded wave: row {r[:2]} against {g[:2]}")
+    dg = scaled_rows_dev(rows4, gold)
+    print(f"  rows over 4 slots against 1 slot {d1:.3e} (limit 1e-10), "
+          f"against wave_1's first {steps + 1} {dg:.3e} (limit "
+          f"{DIST_WAVE_LIMIT:g})")
+    check(d1 <= 1e-10, f"sharded wave: {d1:.3e} from one slot")
+    check(dg <= DIST_WAVE_LIMIT, f"sharded wave: {dg:.3e} from wave_1")
+    idle = sharded_wave_idle(p, dev)
+    out["c"] = {"step_ms": run_s4 * 1e3 / steps, "k1": counts4["cutband"],
+                "k1_mass": band4["mass"],
+                "k1_step": counts4["cutband"] / steps,
+                "its": float(np.mean(its4)), "rows_1": d1, "rows_gold": dg,
+                **idle}
+    pp = prob4.params
+    wave_mass = prob4.op_in
+    from gdm_torch.cut.stencil import assemble_stencil
+    st41 = assemble_stencil(wave_mass, "mass", pp.ghost_parameter_M)
+    # float64 alone: (c) is the one main-path run at this layout
+    rows_k1[("41", f64)] = k1_shard_row(rng, st41, 4, 1, dev, f64,
+                                        "the wave app's 41^2 mass")
+
+    # ---- (d) composite advection run_scan over 4 slots ----------------------
+    adv_rows = {}
+    for slots in (4, 1):
+        ap = advection.composite_app_case()
+        ap.n_subdivisions_1D = 12
+        ap.fe_degree = 3
+        ap.end_t = 3 * (2.0 / 12) * 0.2 / 4.0
+        t0 = time.perf_counter()
+        prob = advection.AdvectionProblem(ap, device=dev, dtype=f64,
+                                          mesh=device_mesh(slots))
+        prob.run_scan()
+        adv_rows[slots] = prob.rows
+        print(f"(d) composite advection run_scan over {slots} slots: "
+              f"{time.perf_counter() - t0:.2f} s")
+    d_adv = max(scaled_rows_dev(adv_rows[4][s], adv_rows[1][s],
+                                cols=slice(2, 8)) for s in (0, 1))
+    print(f"  rows over 4 slots against 1 slot {d_adv:.3e} (limit 1e-10)")
+    check(d_adv <= 1e-10, f"sharded composite advection: {d_adv:.3e}")
+    out["d"] = d_adv
+
+    # ---- (e) a device trace of sharded applies -----------------------------
+    sharded_trace(rng, dev, mass128)
+    out["k1_rows"] = rows_k1
+    print(f"dist phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def split_phase(rng, dev, sizes):
     """Phase 11: the split cut apply on the flagship disc.  Its separable
     part (K3/mxu3p, its default, and K3 with rows="vpu") against that
@@ -3686,6 +4380,8 @@ def main():
     scan = scan_phase(rng, dev, refs)
     adv = advection_phase(rng, dev)
     dfm = deform_phase(rng, dev)
+    cut3d = cut3d_phase(rng, dev)
+    dist = dist_phase(rng, dev, mass)
 
     # ---- K3 and K3s against K3's plain twin -------------------------------
     if torch.backends.cuda.matmul.allow_tf32:
@@ -4011,6 +4707,24 @@ def main():
          "max_abs_err_of": "|x - x_plain|_A / |x_ref|_A, the larger of "
                            "float32 and float64",
          "gate_closed_ms": dfm["k2_gate_ms"]},
+        *({**row(f"cutband_apply (K1, a shard of {what} over 4 slots, "
+                 f"{dtype_name})", "gdm_torch/csrc/cutband.cu",
+                 "gdm/ops/pallas_cutband.py:137", launches,
+                 *dist["k1_rows"][key, dtype]),
+           "launches_on": on, "max_abs_err_of": "the shard's K1 against "
+                                                "its plain twin",
+           "cards": dist["cards"]}
+          for key, what, dtype, dtype_name, launches, on in (
+              ("128", "the flagship 128^2 mass", torch.float32, "float32",
+               dist["a launches", torch.float32],
+               "one sharded apply over 4 slots (sharded_stencil_apply)"),
+              ("128", "the flagship 128^2 mass", torch.float64, "float64",
+               dist["a launches", torch.float64],
+               "one sharded apply over 4 slots (sharded_stencil_apply)"),
+              ("41", "the wave app's 41^2 mass", torch.float64, "float64",
+               dist["c"]["k1_mass"],
+               "the mass solves of run() of the 2D wave preset over 4 "
+               f"slots (WaveProblem(mesh=...)), {DIST_WAVE_STEPS} steps"))),
         row("laplace2_apply (K3)", "gdm_torch/csrc/laplace2.cu",
             "gdm/ops/pallas_stencil2.py:566", counts2["laplace2"], k3_err,
             k3_ms, k3_plain_ms, separable_bound(g2[3].n_nodes, 7, 4),

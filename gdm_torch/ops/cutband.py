@@ -75,8 +75,9 @@ def layout_for(grid, r: int) -> PaddedLayout:
     """The padded layout of a 2D grid for band radii up to ``r``."""
     if grid.dim != 2:
         raise NotImplementedError(
-            "the padded band kernels are 2D; the 3D cut problems are not "
-            "ported yet")
+            "the padded band kernels are 2D: a 3D band apply takes the "
+            "plain tap loop (cut.stencil.StencilOperator.apply), as "
+            "cut.stencil.kernel_route decides")
     n0, n1 = grid.nodes
     return PaddedLayout(n0, n1, r)
 
@@ -90,6 +91,15 @@ class BandPlanes:
     layout: PaddedLayout
 
 
+def band_taps(band: np.ndarray, r_op: int) -> tuple:
+    """The signed (dy, dx) offsets of a (n0, n1, K, K) band's taps that
+    hold any nonzero coefficient, in (dy, dx) row-major order."""
+    K = 2 * r_op + 1
+    nonzero = np.any(band != 0.0, axis=(0, 1))
+    return tuple((dy - r_op, dx - r_op)
+                 for dy in range(K) for dx in range(K) if nonzero[dy, dx])
+
+
 def band_planes(st, layout: PaddedLayout, device, dtype) -> BandPlanes:
     grid = st.grid
     n0, n1 = grid.nodes
@@ -99,9 +109,18 @@ def band_planes(st, layout: PaddedLayout, device, dtype) -> BandPlanes:
                          f"does not fit {layout}")
     K = 2 * r_op + 1
     band = np.asarray(st.band_host, np.float64).reshape(n0, n1, K, K)
-    nonzero = np.any(band != 0.0, axis=(0, 1))
-    taps = tuple((dy - r_op, dx - r_op)
-                 for dy in range(K) for dx in range(K) if nonzero[dy, dx])
+    return planes_of(band, r_op, layout, device, dtype)
+
+
+def planes_of(band: np.ndarray, r_op: int, layout: PaddedLayout, device,
+              dtype, taps: tuple = None) -> BandPlanes:
+    """The planes of a (n0, n1, K, K) band of radius ``r_op`` on
+    ``layout``: its own nonzero taps (``band_taps``), or ``taps`` where
+    given (a shard of a larger band takes the whole band's, so that
+    every shard sums a node's taps in the serial apply's order)."""
+    n0, n1 = layout.n0, layout.n1
+    if taps is None:
+        taps = band_taps(band, r_op)
     planes = np.zeros((len(taps),) + layout.shape)
     r = layout.r
     for t, (dy, dx) in enumerate(taps):

@@ -200,9 +200,17 @@ class AdvectionProblem:
     """Cut advection solver (reference: applications/advection/), on
     ``device`` in ``dtype``.
 
-    ``mesh`` is gdm's domain decomposition over a device mesh; it waits
-    for gdm/dist/cut.py (ROADMAP Queue 1, item 7) and raises
-    NotImplementedError when given.  ``rows`` holds the postprocess rows
+    ``mesh``: optional ``gdm_torch.dist.mesh.Mesh`` (``device_mesh(n)``;
+    anything else raises TypeError).  When given, the mass solves take
+    gdm's mesh route on every device: no verified solver; CG with the
+    cut-window Schwarz-Jacobi preconditioner (``solvers.cg``) over the
+    band apply domain-decomposed along grid axis 0 with a halo exchange
+    (``dist.cut.sharded_stencil_apply``: K1 on each CUDA shard of a 2D
+    grid, the plain tap loop elsewhere); the upwind flux and boundary
+    terms and the CG's vectors stay whole on ``device``.  Shards may
+    share a card (a mesh of more slots than cards).  ``run_scan`` with
+    a mesh runs the same host CG, so its chunks read the card inside
+    every solve.  ``rows`` holds the postprocess rows
     (counter, t, L2, L1, Linf, surface L2, L1, Linf) per location slot;
     ``_solver_meta`` the routing of each verified mass solver (``loc``,
     ``path``, ``probe``); ``mass_solvers`` the mass solves of the latest
@@ -213,10 +221,9 @@ class AdvectionProblem:
     def __init__(self, params: AdvectionParams, verbose: bool = False,
                  mesh=None, *, device="cuda", dtype=torch.float32):
         if mesh is not None:
-            raise NotImplementedError(
-                "the domain-decomposed mass solves (mesh=) wait for "
-                "gdm/dist/cut.py (sharded_stencil_apply), which is not "
-                "ported yet (ROADMAP Queue 1, item 7)")
+            from ..dist.mesh import check_mesh
+
+            check_mesh(mesh)
         self.device = _device.resolve(device)
         self.dtype = _device.resolve_dtype(dtype)
         self.params = params
@@ -284,6 +291,27 @@ class AdvectionProblem:
 
         st = assemble_stencil(op, "mass", gm)
         K = 2 * (op.grid.degree + 1) + 1
+        if self.mesh is not None:
+            from ..dist.cut import sharded_stencil_apply
+
+            apply_fn = sharded_stencil_apply(st, self.mesh)
+            # cut-window Schwarz: point-Jacobi CG stalls on the
+            # near-singular GP'd cut mass matrix of badly cut p=5
+            # configurations (the reference leans on ILU here,
+            # parameters.h:32)
+            pre = schwarz_jacobi_preconditioner(st, op.w_cut,
+                                                dtype=self.dtype)
+
+            def solve(b):
+                x, _ = solvers.cg(
+                    apply_fn, b, precond=pre,
+                    max_iter=pp.solver_max_iterations,
+                    abs_tol=pp.solver_abs_tolerance,
+                    rel_tol=pp.solver_rel_tolerance,
+                )
+                return x
+
+            return solve
         if self._kernel_route():
             # gdm's TPU branch: probe-routed, true-residual-verified
             # resident FSAI-CG (K2) with the streamed Schwarz CG over K1

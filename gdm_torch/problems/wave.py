@@ -32,7 +32,9 @@ functions on device point tables.  Elsewhere its solves are the host CG
 of ``run()``'s CPU branch.  A grid deformation
 (``mapping_q_cache_function``) re-metrics the cut tables
 (gdm_torch.deform) and takes the same paths: its bands are new shapes
-for the same kernels.  The domain-decomposed runs are not ported yet.
+for the same kernels.  ``mesh=`` runs gdm's domain-decomposed
+routes (``gdm_torch.dist``): the band applies of the mass CG and of the
+right-hand side split along grid axis 0 over the mesh's slots.
 
 Function convention: scalar field functions take (pts, t), pts an array
 of physical points shaped (..., dim) and t a Python float.  The
@@ -238,8 +240,21 @@ class WaveProblem:
     """Cut wave/heat solver (reference: applications/wave/include/gdm/
     wave/problem.h), on ``device`` in ``dtype``.
 
-    ``mesh`` is gdm's domain decomposition over a device mesh; it waits
-    for gdm/dist/cut.py and raises NotImplementedError when given.
+    ``mesh``: optional ``gdm_torch.dist.mesh.Mesh`` (``device_mesh(n)``;
+    anything else raises TypeError).  When given, the port takes gdm's
+    mesh routes on every device: no verified solver and no K2 bundle;
+    the mass solve is Jacobi CG (``solvers.cg``) over the band apply
+    domain-decomposed along grid axis 0 with a halo exchange
+    (``dist.cut.sharded_stencil_apply``: K1 on each CUDA shard of a 2D
+    grid, the plain tap loop elsewhere), and so are the RHS stiffness
+    and the step85 band with domain-boundary Nitsche terms; the forcing
+    terms and the CG's vectors stay whole on ``device``.  heat-impl
+    ignores the mesh, as gdm's does.  Shards may share a card (a mesh of
+    more slots than cards), where gdm's mesh has a device a shard.  The
+    rows equal the serial run's to rounding (the CG's dot products are
+    the same; the shards' sums are the serial apply's in exact
+    arithmetic).  ``run_scan`` with a mesh runs the same host CG, so
+    its chunks read the card inside every solve.
     ``rows`` holds the postprocess rows (counter, t, L2, L1, Linf) per
     location slot, ``solver_rows`` the solver samples when
     ``params.print_solver_info`` (heat-impl: every implicit solve), and
@@ -254,10 +269,9 @@ class WaveProblem:
     def __init__(self, params: WaveParams, verbose: bool = True,
                  mesh=None, device="cuda", dtype=torch.float32):
         if mesh is not None:
-            raise NotImplementedError(
-                "the domain-decomposed time loops (mesh=) wait for "
-                "gdm/dist/cut.py (sharded_stencil_apply), which is not "
-                "ported yet")
+            from ..dist.mesh import check_mesh
+
+            check_mesh(mesh)
         self.device = _device.resolve(device)
         self.dtype = _device.resolve_dtype(dtype)
         self.params = params
@@ -316,6 +330,18 @@ class WaveProblem:
 
         return stencil.kernel_route(self.grid, self.device)
 
+    def _maybe_shard(self, stencil_op):
+        """The stencil apply, domain-decomposed over ``self.mesh`` if
+        set (gdm's hook), else routed on the tensor (K1 for a CUDA
+        tensor of a 2D grid)."""
+        if self.mesh is None:
+            from ..cut.stencil import routed_apply
+
+            return routed_apply(stencil_op)
+        from ..dist.cut import sharded_stencil_apply
+
+        return sharded_stencil_apply(stencil_op, self.mesh)
+
     def _mass_solver(self, op: CutOperators):
         gm = self.params.ghost_parameter_M
         pp = self.params
@@ -325,7 +351,7 @@ class WaveProblem:
                 device=self.device, dtype=self.dtype)
         from ..cut.stencil import assemble_stencil, best_solver_apply
 
-        if self._kernel_route():
+        if self.mesh is None and self._kernel_route():
             # gdm's TPU branch: the whole FSAI-preconditioned CG as one
             # launch (K2), probe-routed and true-residual-checked per
             # solve, with the streamed Schwarz CG over K1 as fallback
@@ -345,8 +371,12 @@ class WaveProblem:
                  "path": vs.path, "probe": vs.probe})
             return vs
 
-        # gdm's CPU branch: Jacobi CG over the band (or matrix-free) apply
-        apply_fn = best_solver_apply(op, "mass", gm)
+        # gdm's CPU branch and mesh branch: Jacobi CG over the band (or
+        # matrix-free) apply, or over the sharded band apply
+        if self.mesh is not None:
+            apply_fn = self._maybe_shard(assemble_stencil(op, "mass", gm))
+        else:
+            apply_fn = best_solver_apply(op, "mass", gm)
         pre = solvers.jacobi_preconditioner(torch.as_tensor(
             op.mass_diagonal(gm), dtype=self.dtype, device=self.device))
 
@@ -430,12 +460,12 @@ class WaveProblem:
             # LHS must carry the matching boundary-face Nitsche matrix
             # (stiffness_matrix_apply has only the interface terms); the
             # stencil-band assembly has both (K1 on the card in 2D)
-            from ..cut.stencil import assemble_stencil, routed_apply
+            from ..cut.stencil import assemble_stencil
 
             S = assemble_stencil(op, "stiff", ga, gn,
                                  with_nitsche=with_nitsche,
                                  with_bdry_nitsche=True)
-            apply_fn = routed_apply(S)
+            apply_fn = self._maybe_shard(S)
             K = 2 * (self.grid.degree + 1) + 1
             center = (K ** self.grid.dim - 1) // 2
             diag_np = np.asarray(
@@ -486,7 +516,8 @@ class WaveProblem:
     def _rhs_fn(self, op: CutOperators):
         pp = self.params
         K = 2 * (self.grid.degree + 1) + 1
-        if self.grid.n_nodes * K**self.grid.dim <= 3e7:
+        if (self.mesh is not None
+                or self.grid.n_nodes * K**self.grid.dim <= 3e7):
             # the u-linear ("impl") part of the matrix-free RHS has stencil
             # sparsity: assemble it once; per-stage work = one band apply
             # + the time-dependent forcing terms
@@ -500,7 +531,9 @@ class WaveProblem:
                 with_bdry_nitsche=pp.function_domain_dbc is not None,
                 inactive_identity=False,
             )
-            if self._kernel_route():
+            if self.mesh is not None:
+                S_apply = self._maybe_shard(S)
+            elif self._kernel_route():
                 S_apply = fast_stencil_apply(
                     S, op, "stiff", inactive_identity=False,
                     device=self.device, dtype=self.dtype)
@@ -737,7 +770,11 @@ class WaveProblem:
         tensor on the run's device raises ValueError there.  Off the
         card, and in 1D on the card, the solves are the host CG of
         ``run()``'s CPU branch (heat-impl: gdm's warm-started Jacobi CG
-        over the matrix-free M + dt S).
+        over the matrix-free M + dt S).  With a ``mesh`` the RK stages'
+        mass solves are gdm's mesh route, the host Jacobi CG over the
+        sharded apply: each solve reads the card three times an
+        iteration, so a chunk's host reads grow with its solves'
+        iterations.
         """
         pp = self.params
         st = pp.simulation_type

@@ -17,7 +17,9 @@ float64 on the CPU.
   ``tests/data/cpu_oracle_rows.json["adv_conv_p3_40_rot5"]`` with gdm's
   ``_check`` tolerances (tests/test_advection_app.py);
 - the cases' data functions on tensors against their numpy values, the
-  constructor's ``mesh=`` refusal and both CLIs on the CPU;
+  constructor's refusal of a ``mesh=`` that is not the port's
+  ``dist.mesh.Mesh`` (TypeError; the mesh runs are held in
+  tests/test_torch_dist_cut.py) and both CLIs on the CPU;
 - the verified solver's resident tolerance floor by dtype on a probe.
 """
 
@@ -231,7 +233,7 @@ def test_data_functions_on_tensors(case):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="device_mesh"):
         adv.AdvectionProblem(_conv(adv), mesh=object(), device="cpu")
     p = _mini(adv)
     p.strong_bc = True

@@ -1713,3 +1713,52 @@ def test_solve_deformed_on_card(cuda_device, dtype):
     assert abs(ik["iterations"] - ic["iterations"]) <= (0 if f64 else 1)
     d = ((xk.cpu().double() - xc).norm() / xc.norm()).item()
     assert d <= (1e-10 if f64 else 1e-5)
+
+
+# ---- K1 on the shards of a mesh (gdm_torch.dist.cut) ----
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("slots", [1, 3, 4, 8])
+def test_band_apply_shard_layouts(ops24, cuda_device, slots, dtype):
+    """K1 on each shard's own layout, PaddedLayout(loc, N1, r), with
+    random halo planes in its guard rows, against its plain twin."""
+    from gdm_torch.dist.cut import sharded_stencil_apply
+    from gdm_torch.dist.mesh import device_mesh
+
+    mass = ops24[2]["mass"]
+    r = mass.radius
+    n0, n1 = mass.grid.nodes
+    apply = sharded_stencil_apply(mass, device_mesh(slots))
+    loc = apply.loc
+    lay = cutband.PaddedLayout(loc, n1, r)
+    K = 2 * r + 1
+    band = np.zeros((loc * slots, n1, K, K))
+    band[:n0] = mass.band_host
+    band[n0:, :, r, r] = 1.0
+    taps = cutband.band_taps(band, r)
+    gen = torch.Generator(device="cuda").manual_seed(slots)
+    for s in range(slots):
+        bp = cutband.planes_of(band[s * loc:(s + 1) * loc], r, lay,
+                               cuda_device, dtype, taps)
+        u = torch.zeros(lay.shape, dtype=dtype, device=cuda_device)
+        u[:, r:r + n1] = torch.randn((lay.rows, n1), generator=gen,
+                                     dtype=dtype, device=cuda_device)
+        y = cutband.band_apply(u, bp)
+        assert _rel(y, cutband.band_apply_plain(u, bp)) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("slots", [1, 3, 4, 8])
+def test_sharded_apply_on_card(ops24, cuda_device, slots, dtype):
+    """The sharded cut apply over slots sharing the card: one K1 launch
+    a slot, y against the serial apply's plain twin."""
+    from gdm_torch.dist.cut import sharded_stencil_apply
+    from gdm_torch.dist.mesh import device_mesh
+
+    mass = ops24[2]["mass"]
+    apply = sharded_stencil_apply(mass, device_mesh(slots))
+    u = torch.randn(mass.grid.n_nodes, dtype=dtype, device=cuda_device)
+    before = cutband.band_apply.launches
+    y = apply(u)
+    assert cutband.band_apply.launches - before == slots
+    assert _rel(y, mass.apply(u)) <= _tol(dtype)

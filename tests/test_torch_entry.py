@@ -135,7 +135,10 @@ def test_port_imports_without_jax():
             "'gdm_torch.apps.advection_convergence', "
             "'gdm_torch.problems.wave', 'gdm_torch.entry', "
             "'gdm_torch.deform', 'gdm_torch.tools.eigen', "
-            "'gdm_torch.tools.wave_ev'}; "
+            "'gdm_torch.tools.wave_ev', 'gdm_torch.dist.mesh', "
+            "'gdm_torch.dist.halo', 'gdm_torch.dist.cut', "
+            "'gdm_torch.dist.poisson', 'gdm_torch.dist.dryrun', "
+            "'gdm_torch.profiling'}; "
             "assert need <= set(mods), need - set(mods); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'gdm.')) or m == 'gdm']; "

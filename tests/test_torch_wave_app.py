@@ -15,9 +15,10 @@ max |port - gdm| / max |gdm| per column, over L2, L1 and Linf.
 
 Every preset's scalar parameters equal gdm's and its data functions
 (numpy here, jnp in gdm) agree with gdm's on sample points at several t.
-The option that is not ported (``mesh=``) raises NotImplementedError
-naming what it waits for; a deformed mapping (1D wave) gives gdm's
-rows.  The other simulation
+A ``mesh=`` that is not the port's ``dist.mesh.Mesh`` (gdm's jax mesh,
+any other object) raises TypeError naming ``device_mesh``; the mesh
+runs themselves are held in tests/test_torch_dist_cut.py.  A deformed
+mapping (1D wave) gives gdm's rows.  The other simulation
 types and options are held in tests/test_torch_wave_family.py,
 tests/test_torch_cut_multigrid.py and tests/test_torch_wave_io.py.
 """
@@ -161,10 +162,10 @@ def test_unknown_simulation_type_raises_value_error():
 
 @pytest.mark.parametrize("call,match", [
     (lambda: wave.WaveProblem(wave.make_preset("wave", 1), verbose=False,
-                              mesh=object(), device="cpu"), "dist/cut.py"),
+                              mesh=object(), device="cpu"), "device_mesh"),
 ], ids=["mesh"])
 def test_unported_options_raise(call, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         call()
 
 
