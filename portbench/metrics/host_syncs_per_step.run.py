@@ -1,0 +1,3 @@
+"""``host_syncs_per_step`` of the wave cell, which moves ``run_s``."""
+
+from portbench.metrics.host_syncs_per_step import read  # noqa: F401
