@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .. import solvers
+from .. import profiling, solvers
 from ..ops.cutband import layout_for
 from ..ops.resident import STATS, Gate, make_resident_cg, read_stats
 from . import stencil
@@ -193,10 +193,13 @@ class VerifiedSolver:
     ``solve_padded_device(b, x0)`` and its flat form ``solve_device``
     are the device form: K2 launches and tensor ops alone, no host read
     (``device_solve``: K2's one-band streamed CG, gated behind the
-    resident solve where the probe passed).  Their fallbacks gather in a
-    device counter that ``fallback_count`` folds in when it is read, or
-    that a caller reading once a chunk folds in with
-    ``fold_fallbacks``.
+    resident solve where the probe passed).  Each solve adds the
+    iterations and ``ran`` of both its stats rows into ``tally``, a
+    (2, 2) device tensor, by one in-place add; ``fallback_count`` folds
+    it in when it is read, and a caller reading once a chunk folds its
+    read in with ``fold_tally``, which also bumps the host counters
+    (``profiling.count``) "solves", "fallbacks", "k2.band_iterations"
+    (K2's one-band launches) and "k2.fsai_iterations" (its FSAI ones).
     """
 
     def __init__(self, path: str, probe: dict, layout, streamed,
@@ -210,7 +213,7 @@ class VerifiedSolver:
         self.probe = probe
         self.layout = layout
         self._fallbacks = 0
-        self.fallbacks_device = None
+        self.tally = None
         self.last_info = None
         self.streamed = streamed
         self._resident = resident
@@ -223,17 +226,23 @@ class VerifiedSolver:
     @property
     def fallback_count(self) -> int:
         """Solves the check sent to the streamed path, the device form's
-        counter folded in (one read when it has counted)."""
-        if self.fallbacks_device is not None:
-            self.fold_fallbacks(self.fallbacks_device.item())
+        tally folded in (one read when it has counted)."""
+        if self.tally is not None:
+            self.fold_tally(self.tally.reshape(-1).tolist())
         return self._fallbacks
 
-    def fold_fallbacks(self, n):
-        """Add ``n``, a read of ``fallbacks_device``, to the host count
-        and zero the device counter (no read of its own)."""
-        self._fallbacks += int(n)
-        if self.fallbacks_device is not None:
-            self.fallbacks_device.zero_()
+    def fold_tally(self, read):
+        """Fold ``read``, ``tally`` read as a flat list (the first row's
+        iterations and ran, the second's), into the fallback count and
+        the host counters, and zero the device tally (no read of its
+        own)."""
+        it0, ran0, it1, ran1 = (int(v) for v in read)
+        self._fallbacks += ran1
+        profiling.count("solves", ran0)
+        profiling.count("fallbacks", ran1)
+        for kind, it in zip(self._device_form().kinds, (it0, it1)):
+            profiling.count(f"k2.{kind}_iterations", it)
+        self.tally.zero_()
 
     def _streamed_solve(self, b):
         """A solve on the streamed path alone (no resident path)."""
@@ -278,25 +287,28 @@ class VerifiedSolver:
         stats and ``torch.where`` on the verdict; on "streamed" one K2
         one-band launch from x0.  stats is a (2, 4) float32 tensor on
         the device, rows the first solve's and the fallback's ``STATS``
-        (zeros where no fallback ran, or none exists); row 1's ``ran``
-        counts into ``fallbacks_device``."""
+        (zeros where no fallback ran, or none exists); the iterations
+        and ``ran`` of both rows add into ``tally``."""
         if x0 is None:
             x0 = torch.zeros_like(b)
         x, stats = self._device_form()(b, x0)
-        if self.fallbacks_device is None:
-            self.fallbacks_device = torch.zeros((), dtype=torch.float32,
-                                                device=b.device)
-        self.fallbacks_device += stats[1, STATS.index("ran")]
+        if self.tally is None:
+            self.tally = torch.zeros((2, 2), dtype=stats.dtype,
+                                     device=b.device)
+        # (iterations, ran) of both rows: a strided view, no gather
+        self.tally += stats[:, STATS.index("iterations")::2]
         return x, stats
 
     def _device_form(self):
-        """The device form, built at the first call."""
+        """The device form, built at the first call (span
+        ``setup.device_form``)."""
         if self._device_solve is None:
             if self._device_factory is None:
                 raise ValueError(
                     "this solver has no device form (no padded layout); "
                     "call solve_with_info")
-            self._device_solve = self._device_factory()
+            with profiling.span("setup.device_form"):
+                self._device_solve = self._device_factory()
         return self._device_solve
 
     def solve_device(self, b, x0=None):
@@ -442,12 +454,14 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
     dtype = _device.resolve_dtype(dtype)
     rel_floor, abs_floor = RESIDENT_FLOORS[dtype]
     rel_f, abs_f = max(rel_tol, rel_floor), max(abs_tol, abs_floor)
-    G, GT = fsai_factors(st, R)
+    with profiling.span("setup.mass_solver.fsai"):
+        G, GT = fsai_factors(st, R)
     layout = layout_for(st.grid, max(st.radius, G.radius))
     on_card = stencil.kernel_route(st.grid, device)
-    pre_band = (schwarz_band(st, windows, dtype)
-                if on_card and windows is not None
-                and np.asarray(windows).size else None)
+    pre_band = None
+    if on_card and windows is not None and np.asarray(windows).size:
+        with profiling.span("setup.mass_solver.schwarz"):
+            pre_band = schwarz_band(st, windows, dtype)
     streamed = _streamed_solver(st, windows, max_iter, rel_tol, abs_tol,
                                 layout, device, dtype, apply_fn, pre_band)
     solve_r, pad_r, _, _ = make_resident_cg(
@@ -463,8 +477,9 @@ def verified_fsai_solver(st: StencilOperator, windows=None,
         b_p = torch.as_tensor(
             rng.standard_normal(st.grid.n_nodes).astype(np.float32),
             dtype=dtype, device=device)
-        _, stats = solve_r(pad_r(b_p))
-        s = read_stats(stats)
+        with profiling.span("setup.mass_solver.probe"):
+            _, stats = solve_r(pad_r(b_p))
+            s = read_stats(stats)
         tol_p = max(abs_f, rel_f * s["r0"])
         probe_info = {"ok": s["residual"] <= slack * tol_p,
                       "residual": s["residual"], "tol": tol_p,
@@ -491,7 +506,9 @@ def _device_solver(st, windows, G, GT, pre_band, max_iter, rel_tol, abs_tol,
     over the Schwarz band of ``windows`` (``pre_band`` when the caller
     built it; FSAI mode over G, G^T when there are no windows) at the
     streamed tolerances; behind ``resident`` it runs from zero, gated on
-    the resident solve's stats by ``check`` = (slack, rel, abs)."""
+    the resident solve's stats by ``check`` = (slack, rel, abs).  The
+    form's ``kinds`` names K2's mode in each stats row, "band" or
+    "fsai" (the second row's is unused without ``resident``)."""
     if pre_band is None and windows is not None and np.asarray(windows).size:
         pre_band = schwarz_band(st, windows, dtype)
     if pre_band is not None:
@@ -512,6 +529,9 @@ def _device_solver(st, windows, G, GT, pre_band, max_iter, rel_tol, abs_tol,
         x = torch.where(s2[STATS.index("ran")] > 0, xf, x)
         return x, torch.stack([s1, s2])
 
+    streamed = "band" if pre_band is not None else "fsai"
+    solve.kinds = (("fsai", streamed) if resident is not None
+                   else (streamed, streamed))
     return solve
 
 

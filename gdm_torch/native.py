@@ -17,6 +17,8 @@ import tempfile
 
 import numpy as np
 
+from . import profiling
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_ROOT, "native", "gdm_native.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -38,6 +40,13 @@ def _build():
 
 @functools.lru_cache(maxsize=None)
 def _load():
+    """The library, built if missing or older than its source (span
+    ``setup.kernels``); None where it cannot be built or loaded."""
+    with profiling.span("setup.kernels"):
+        return _build_and_load()
+
+
+def _build_and_load():
     try:
         if (not os.path.exists(_LIB)) or (
             os.path.getmtime(_LIB) < os.path.getmtime(_SRC)

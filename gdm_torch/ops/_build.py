@@ -25,6 +25,8 @@ import time
 
 import torch
 
+from .. import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -139,7 +141,13 @@ def _declare(lib):
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> KernelLibrary:
-    """The kernel library, built on first call in this process."""
+    """The kernel library, built on first call in this process (span
+    ``setup.kernels``)."""
+    with profiling.span("setup.kernels"):
+        return _load()
+
+
+def _load() -> KernelLibrary:
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

@@ -37,7 +37,7 @@ import torch
 
 from .. import checkpoint
 from .. import device as _device
-from .. import solvers, timestepping
+from .. import profiling, solvers, timestepping
 from ..cut.advection import AdvectionOperators
 from ..cut.geometry import INSIDE, OUTSIDE, CutGeometry
 from ..cut.operators import CutOperators, _like
@@ -212,10 +212,10 @@ class AdvectionProblem:
     a mesh runs the same host CG, so its chunks read the card inside
     every solve.  ``rows`` holds the postprocess rows
     (counter, t, L2, L1, Linf, surface L2, L1, Linf) per location slot;
-    ``_solver_meta`` the routing of each verified mass solver (``loc``,
-    ``path``, ``probe``); ``mass_solvers`` the mass solves of the latest
-    run (one a region; built at the first run and kept for later runs at
-    the same solver parameters).
+    ``_solver_meta`` the routing of each region's verified mass solver
+    (``loc``, ``path``, ``probe``; one entry a region); ``mass_solvers``
+    the mass solves of the latest run (one a region; built at the first
+    run and kept for later runs at the same solver parameters).
     """
 
     def __init__(self, params: AdvectionParams, verbose: bool = False,
@@ -237,17 +237,19 @@ class AdvectionProblem:
             (pp.geometry_left,) * dim,
             (pp.geometry_right,) * dim,
         )
-        self.geo = CutGeometry.build(
-            self.grid, pp.level_set_function, pp.level_set_fe_degree
-        )
+        with profiling.span("setup.geometry"):
+            self.geo = CutGeometry.build(
+                self.grid, pp.level_set_function, pp.level_set_fe_degree
+            )
         self.dx = (pp.geometry_right - pp.geometry_left) / pp.n_subdivisions_1D
-        self.op_in = CutOperators(self.geo, INSIDE)
-        self.adv_in = AdvectionOperators(self.op_in, pp.advection)
+        with profiling.span("setup.operators", region="inside"):
+            self.op_in = CutOperators(self.geo, INSIDE)
+            self.adv_in = AdvectionOperators(self.op_in, pp.advection)
+        self.op_out = self.adv_out = None
         if pp.composite:
-            self.op_out = CutOperators(self.geo, OUTSIDE)
-            self.adv_out = AdvectionOperators(self.op_out, pp.advection_1)
-        else:
-            self.op_out = self.adv_out = None
+            with profiling.span("setup.operators", region="outside"):
+                self.op_out = CutOperators(self.geo, OUTSIDE)
+                self.adv_out = AdvectionOperators(self.op_out, pp.advection_1)
         self.rows = {0: [], 1: []}
         # measured routing decisions of the verified mass solvers
         # (per-domain path + probe evidence), for rows/artifacts
@@ -274,13 +276,14 @@ class AdvectionProblem:
         """The mass solve of ``op``'s region, built once per problem and
         solver parameters (a later run reuses it: on the card its set-up,
         the FSAI factors, the Schwarz band and the probe, takes ~9 s a
-        region at the DoD size)."""
+        region at the DoD size; span ``setup.mass_solver``)."""
         pp = self.params
         key = (op is self.op_in, pp.ghost_parameter_M,
                pp.solver_max_iterations, pp.solver_rel_tolerance,
                pp.solver_abs_tolerance)
         if key not in self._mass_cache:
-            self._mass_cache[key] = self._build_mass_solver(op)
+            with profiling.span("setup.mass_solver", region=scan.region(op)):
+                self._mass_cache[key] = self._build_mass_solver(op)
         return self._mass_cache[key]
 
     def _build_mass_solver(self, op):
@@ -289,7 +292,8 @@ class AdvectionProblem:
         from ..cut.stencil import (assemble_stencil,
                                    schwarz_jacobi_preconditioner)
 
-        st = assemble_stencil(op, "mass", gm)
+        with profiling.span("setup.mass_solver.assemble"):
+            st = assemble_stencil(op, "mass", gm)
         K = 2 * (op.grid.degree + 1) + 1
         if self.mesh is not None:
             from ..dist.cut import sharded_stencil_apply
@@ -328,9 +332,7 @@ class AdvectionProblem:
                 abs_tol=pp.solver_abs_tolerance,
                 device=self.device, dtype=self.dtype,
             )
-            self._solver_meta.append(
-                {"loc": "inside" if op is self.op_in else "outside",
-                 "path": vs.path, "probe": vs.probe})
+            scan.note_routing(self._solver_meta, op, vs)
             return vs
 
         if op.grid.n_nodes * K**op.grid.dim <= 3e7:
@@ -582,62 +584,76 @@ class AdvectionProblem:
         and an existing checkpoint is RESUMED from (at its
         ``meta["next_s"]``) instead of restarting the horizon; a
         checkpoint gdm wrote resumes here too.
+
+        Spans (``profiling``): ``scan.call`` (``steps``, ``chunk``) over
+        ``scan.prepare`` (the data functions' check, the schedule, the
+        solvers at the first call, the first error rows, the
+        checkpoint's load), the chunks (``scan.chunk``), each
+        ``scan.checkpoint_save`` and ``scan.rows``.
         """
         pp = self.params
         if pp.strong_bc and pp.composite:
             raise ValueError("strong_bc supports non-composite runs only "
                              "(as in the reference prototype)")
-        if self.device.type == "cuda":
-            scan.check_data_functions(
-                pp, ("exact_solution", "exact_solution_der"), self.grid.dim,
-                self.device, self.dtype)
-        ts, dts = self._schedule()
-        chunk = max(1, min(chunk, len(ts)))
-        n_slots = 2 if pp.composite else 1
-        ops = (self.op_in, self.op_out)[:n_slots]
-        vss = tuple(self._mass_solver(o) for o in ops)
-        self.mass_solvers = vss
-        solves = tuple(scan.scan_solve(v) for v in vss)
-        step, y = self._scan_body(solves)
+        with profiling.span("scan.call") as call:
+            with profiling.span("scan.prepare"):
+                if self.device.type == "cuda":
+                    scan.check_data_functions(
+                        pp, ("exact_solution", "exact_solution_der"),
+                        self.grid.dim, self.device, self.dtype)
+                ts, dts = self._schedule()
+                chunk = max(1, min(chunk, len(ts)))
+                n_slots = 2 if pp.composite else 1
+                ops = (self.op_in, self.op_out)[:n_slots]
+                vss = tuple(self._mass_solver(o) for o in ops)
+                self.mass_solvers = vss
+                solves = tuple(scan.scan_solve(v) for v in vss)
+                step, y = self._scan_body(solves)
 
-        def errs(y, t):
-            us = y if pp.composite else (y,)
-            return torch.stack([self._errs(u, t, k)
-                                for k, u in enumerate(us)])
+                def errs(y, t):
+                    us = y if pp.composite else (y,)
+                    return torch.stack([self._errs(u, t, k)
+                                        for k, u in enumerate(us)])
 
-        parts = [errs(y, pp.start_t)[None].tolist()]   # moves the tables
-        start = 0
-        if checkpoint_path and os.path.exists(checkpoint_path):
-            like = (tuple(y) if pp.composite else (y,)) + (np.zeros(1),)
-            state, _, meta = checkpoint.load(checkpoint_path, like)
-            y = tuple(state[:2]) if pp.composite else state[0]
-            es_prev = np.asarray(state[-1], np.float64)
-            parts = [es_prev.reshape(len(es_prev), n_slots, -1).tolist()]
-            start = int(meta["next_s"])
-        verified = scan.verified(vss, solves)
-        for ci, s in enumerate(range(start, len(ts), chunk)):
-            y, rows = self._scan_chunk(step, errs, y, ts[s:s + chunk],
-                                       dts[s:s + chunk], verified)
-            parts.append(rows)
-            end = min(s + chunk, len(ts))
-            if checkpoint_path and ((ci + 1) % checkpoint_every == 0
-                                    or end >= len(ts)):
-                es = np.asarray([r for part in parts for r in part])
-                checkpoint.save(
-                    checkpoint_path,
-                    (tuple(y) if pp.composite else (y,))
-                    + (es if pp.composite else es[:, 0],),
-                    float(ts[end - 1] + dts[end - 1]),
-                    meta={"next_s": s + chunk})
-        if pp.composite:
-            self.u0, self.u1 = y
-        else:
-            self.u = y
-        rows = [r for part in parts for r in part]
-        for k, row_slots in enumerate(rows):
-            t = float(pp.start_t if k == 0 else ts[k - 1] + dts[k - 1])
-            for slot, e in enumerate(row_slots):
-                self._append_row(slot, k, t, e)
+                parts = [errs(y, pp.start_t)[None].tolist()]  # moves tables
+                start = 0
+                if checkpoint_path and os.path.exists(checkpoint_path):
+                    like = ((tuple(y) if pp.composite else (y,))
+                            + (np.zeros(1),))
+                    state, _, meta = checkpoint.load(checkpoint_path, like)
+                    y = tuple(state[:2]) if pp.composite else state[0]
+                    es_prev = np.asarray(state[-1], np.float64)
+                    parts = [es_prev.reshape(len(es_prev), n_slots,
+                                             -1).tolist()]
+                    start = int(meta["next_s"])
+                verified = scan.verified(vss, solves)
+                call.set(steps=len(ts) - start, chunk=chunk)
+            for ci, s in enumerate(range(start, len(ts), chunk)):
+                y, rows = self._scan_chunk(step, errs, y, ts[s:s + chunk],
+                                           dts[s:s + chunk], verified)
+                parts.append(rows)
+                end = min(s + chunk, len(ts))
+                if checkpoint_path and ((ci + 1) % checkpoint_every == 0
+                                        or end >= len(ts)):
+                    with profiling.span("scan.checkpoint_save"):
+                        es = np.asarray([r for part in parts for r in part])
+                        checkpoint.save(
+                            checkpoint_path,
+                            (tuple(y) if pp.composite else (y,))
+                            + (es if pp.composite else es[:, 0],),
+                            float(ts[end - 1] + dts[end - 1]),
+                            meta={"next_s": end})
+            with profiling.span("scan.rows"):
+                if pp.composite:
+                    self.u0, self.u1 = y
+                else:
+                    self.u = y
+                rows = [r for part in parts for r in part]
+                for k, row_slots in enumerate(rows):
+                    t = float(pp.start_t if k == 0
+                              else ts[k - 1] + dts[k - 1])
+                    for slot, e in enumerate(row_slots):
+                        self._append_row(slot, k, t, e)
         return self.rows
 
     _scan_chunk = staticmethod(scan.scan_chunk)

@@ -7,7 +7,8 @@ t and dt are Python floats from the schedule, the mass solves run
 through the verified solver's device form (``scan_solve``) and the data
 functions compute on device point tables (``check_data_functions``
 holds them to it), so a chunk makes one host read, its error rows with
-the solvers' device fallback counters (``scan_chunk``).
+the solvers' device tallies (``scan_chunk``).  Also the problems' shared
+record of their verified solvers' routing (``note_routing``).
 """
 
 from __future__ import annotations
@@ -15,26 +16,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
+
 
 def scan_chunk(step, errs, y, ts, dts, verified):
     """One chunk: its steps enqueued from the host's schedule (t and dt
     Python floats), then its (steps, slots, columns) error rows read as
-    lists with the verified solvers' device fallback counters folded
-    in: one read.  ``step(y, t, dt)`` gives the next state,
-    ``errs(y, t)`` a (slots, columns) tensor.  Returns (y, rows)."""
-    es = []
-    for t, dt in zip(ts.tolist(), dts.tolist()):
-        y = step(y, t, dt)
-        es.append(errs(y, t + dt))
-    es = torch.stack(es)
-    counted = [v for v in verified if v.fallbacks_device is not None]
-    flat = torch.cat([es.reshape(-1).double()]
-                     + [v.fallbacks_device.reshape(1).double()
-                        for v in counted]).tolist()
-    n = es.numel()
-    for v, c in zip(counted, flat[n:]):
-        v.fold_fallbacks(c)
-    return y, np.reshape(flat[:n], es.shape).tolist()
+    lists with the verified solvers' device tallies folded in: one read.
+    ``step(y, t, dt)`` gives the next state, ``errs(y, t)`` a (slots,
+    columns) tensor.  Returns (y, rows).  Spans: ``scan.chunk``
+    (``steps``), with ``scan.enqueue`` and ``scan.read``."""
+    with profiling.span("scan.chunk", steps=len(ts)):
+        with profiling.span("scan.enqueue"):
+            es = []
+            for t, dt in zip(ts.tolist(), dts.tolist()):
+                y = step(y, t, dt)
+                es.append(errs(y, t + dt))
+            es = torch.stack(es)
+        with profiling.span("scan.read"):
+            counted = [v for v in verified if v.tally is not None]
+            flat = torch.cat([es.reshape(-1).double()]
+                             + [v.tally.reshape(-1).double()
+                                for v in counted]).tolist()
+            n = es.numel()
+            for k, v in enumerate(counted):
+                v.fold_tally(flat[n + 4 * k:n + 4 * k + 4])
+            return y, np.reshape(flat[:n], es.shape).tolist()
 
 
 def check_data_functions(params, names, dim, device, dtype):
@@ -68,6 +75,25 @@ def scan_solve(vs):
 
 
 def verified(solvers, solves) -> tuple:
-    """The solvers whose device form the scan steps use (their fallback
-    counters are read once a chunk)."""
+    """The solvers whose device form the scan steps use (their tallies
+    are read once a chunk)."""
     return tuple(v for v, s in zip(solvers, solves) if s is not v)
+
+
+def region(op) -> str:
+    """"inside" or "outside": the region of a problem's cut operators."""
+    from ..cut.geometry import INSIDE
+
+    return "inside" if op.location == INSIDE else "outside"
+
+
+def note_routing(meta, op, vs):
+    """Record the verified solver ``vs``'s routing in ``meta`` (a
+    problem's ``_solver_meta``) as the entry of ``op``'s region: one
+    entry a region, replaced when the region's solver is built again."""
+    rec = {"loc": region(op), "path": vs.path, "probe": vs.probe}
+    for i, m in enumerate(meta):
+        if m["loc"] == rec["loc"]:
+            meta[i] = rec
+            return
+    meta.append(rec)

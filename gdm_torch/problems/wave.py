@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .. import solvers, special, timestepping
+from .. import profiling, solvers, special, timestepping
 from ..cut.geometry import INSIDE, OUTSIDE, CutGeometry
 from ..cut.operators import CutOperators
 from ..grid import Grid
@@ -258,8 +258,9 @@ class WaveProblem:
     ``rows`` holds the postprocess rows (counter, t, L2, L1, Linf) per
     location slot, ``solver_rows`` the solver samples when
     ``params.print_solver_info`` (heat-impl: every implicit solve), and
-    ``_solver_meta`` the routing of each verified mass solver (``path``,
-    ``probe``).  After a run the solvers are ``mass_solver`` (the
+    ``_solver_meta`` the routing of each region's verified mass solver
+    (``loc``, ``path``, ``probe``; one entry a region, the latest
+    build's).  After a run the solvers are ``mass_solver`` (the
     inside region's; ``mass_solvers`` holds both of a composite run),
     ``heat_solvers`` (heat-impl, one per distinct step size) and, for
     the Poisson solve, ``multigrid`` (with ``solver_name="MG"``) and
@@ -289,18 +290,20 @@ class WaveProblem:
             (params.geometry_left,) * dim,
             (params.geometry_right,) * dim,
         )
-        self.geo = CutGeometry.build(
-            self.grid, params.level_set_function, params.level_set_fe_degree
-        )
+        with profiling.span("setup.geometry"):
+            self.geo = CutGeometry.build(
+                self.grid, params.level_set_function,
+                params.level_set_fe_degree)
         self.dx = (params.geometry_right - params.geometry_left) / \
             params.n_subdivisions_1D
         map_kw = dict(mapping_fn=params.mapping_q_cache_function,
                       geometry=params.mapping_geometry)
-        self.op_in = CutOperators(self.geo, INSIDE, **map_kw)
-        self.op_out = (
-            CutOperators(self.geo, OUTSIDE, **map_kw)
-            if params.composite else None
-        )
+        with profiling.span("setup.operators", region="inside"):
+            self.op_in = CutOperators(self.geo, INSIDE, **map_kw)
+        self.op_out = None
+        if params.composite:
+            with profiling.span("setup.operators", region="outside"):
+                self.op_out = CutOperators(self.geo, OUTSIDE, **map_kw)
 
     # -- helpers --------------------------------------------------------
     def _zeros(self) -> torch.Tensor:
@@ -343,6 +346,12 @@ class WaveProblem:
         return sharded_stencil_apply(stencil_op, self.mesh)
 
     def _mass_solver(self, op: CutOperators):
+        """The mass solve of ``op``'s region, built anew (span
+        ``setup.mass_solver``)."""
+        with profiling.span("setup.mass_solver", region=scan.region(op)):
+            return self._build_mass_solver(op)
+
+    def _build_mass_solver(self, op: CutOperators):
         gm = self.params.ghost_parameter_M
         pp = self.params
         if pp.solver_name == "direct":
@@ -357,7 +366,8 @@ class WaveProblem:
             # solve, with the streamed Schwarz CG over K1 as fallback
             from ..cut.fsai import verified_fsai_solver
 
-            st = assemble_stencil(op, "mass", gm)
+            with profiling.span("setup.mass_solver.assemble"):
+                st = assemble_stencil(op, "mass", gm)
             vs = verified_fsai_solver(
                 st, windows=op.w_cut,
                 max_iter=pp.solver_max_iterations,
@@ -366,9 +376,7 @@ class WaveProblem:
                 device=self.device, dtype=self.dtype,
             )
             self._register_solver_sample(op, vs, gm)
-            self._solver_meta.append(
-                {"loc": "inside" if op is self.op_in else "outside",
-                 "path": vs.path, "probe": vs.probe})
+            scan.note_routing(self._solver_meta, op, vs)
             return vs
 
         # gdm's CPU branch and mesh branch: Jacobi CG over the band (or
@@ -774,7 +782,10 @@ class WaveProblem:
         mass solves are gdm's mesh route, the host Jacobi CG over the
         sharded apply: each solve reads the card three times an
         iteration, so a chunk's host reads grow with its solves'
-        iterations.
+        iterations.  Spans (``profiling``): ``scan.call`` (``steps``,
+        ``chunk``) over ``scan.prepare`` (the data functions' check,
+        the schedule, the solvers, built anew each call, and the first
+        error rows), the chunks (``scan.chunk``) and ``scan.rows``.
         """
         pp = self.params
         st = pp.simulation_type
@@ -783,38 +794,44 @@ class WaveProblem:
             return self.rows
         if pp.output_vtu_dir is not None:
             raise ValueError("per-step VTU output requires run()")
-        if self.device.type == "cuda":
-            self._check_data_functions()
-        ts, dts = self._schedule()
-        chunk = max(1, min(chunk, len(ts)))
-        if st == "heat-impl":
-            step, y, slots, keep = self._scan_heat_impl(dts)
-            verified = ()
-        elif st in ("heat-rk", "wave-rk"):
-            step, y, slots, keep, verified = self._scan_explicit(
-                st == "heat-rk")
-        else:
-            raise ValueError(st)
-        ops = (self.op_in, self.op_out)[:len(slots(y))]
+        with profiling.span("scan.call") as call:
+            with profiling.span("scan.prepare"):
+                if self.device.type == "cuda":
+                    self._check_data_functions()
+                ts, dts = self._schedule()
+                chunk = max(1, min(chunk, len(ts)))
+                call.set(steps=len(ts), chunk=chunk)
+                if st == "heat-impl":
+                    step, y, slots, keep = self._scan_heat_impl(dts)
+                    verified = ()
+                elif st in ("heat-rk", "wave-rk"):
+                    step, y, slots, keep, verified = self._scan_explicit(
+                        st == "heat-rk")
+                else:
+                    raise ValueError(st)
+                ops = (self.op_in, self.op_out)[:len(slots(y))]
 
-        def errs(y, t):
-            return torch.stack([o.error_norms_tensor(u, pp.exact_solution, t)
-                                for o, u in zip(ops, slots(y))])
+                def errs(y, t):
+                    return torch.stack([
+                        o.error_norms_tensor(u, pp.exact_solution, t)
+                        for o, u in zip(ops, slots(y))])
 
-        parts = [errs(y, pp.start_t)[None].tolist()]
-        for s0 in range(0, len(ts), chunk):
-            y, rows = self._scan_chunk(step, errs, y, ts[s0:s0 + chunk],
-                                       dts[s0:s0 + chunk], verified)
-            parts.append(rows)
-        self.final_solution = keep(y)
-        rows = [r for part in parts for r in part]
-        for k, row_slots in enumerate(rows):
-            t = float(pp.start_t if k == 0 else ts[k - 1] + dts[k - 1])
-            for slot, e in enumerate(row_slots):
-                row = (k, t) + tuple(float(x) for x in e)
-                self.rows[slot].append(row)
-                if self.verbose:
-                    print("%5d %8.5f %14.8e %14.8e %14.8e" % row)
+                parts = [errs(y, pp.start_t)[None].tolist()]
+            for s0 in range(0, len(ts), chunk):
+                y, rows = self._scan_chunk(step, errs, y, ts[s0:s0 + chunk],
+                                           dts[s0:s0 + chunk], verified)
+                parts.append(rows)
+            with profiling.span("scan.rows"):
+                self.final_solution = keep(y)
+                rows = [r for part in parts for r in part]
+                for k, row_slots in enumerate(rows):
+                    t = float(pp.start_t if k == 0
+                              else ts[k - 1] + dts[k - 1])
+                    for slot, e in enumerate(row_slots):
+                        row = (k, t) + tuple(float(x) for x in e)
+                        self.rows[slot].append(row)
+                        if self.verbose:
+                            print("%5d %8.5f %14.8e %14.8e %14.8e" % row)
         return self.rows
 
     # the chunk loop, shared with the advection problem (``problems.scan``)

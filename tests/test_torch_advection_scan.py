@@ -24,8 +24,12 @@ device, with the checkpoint in gdm's file format (gdm_torch/checkpoint.py).
   one-band Schwarz CG at rel 1e-14), float32 at the DoD script's
   settings (rel 1e-6, max_iter 400) within 5e-4 (1.8e-4 in a
   rehearsal); the routing logged;
-- ``run_scan``'s refusal of a data function that gives no tensor.
+- ``run_scan``'s refusal of a data function that gives no tensor;
+- a checkpoint after a short last chunk resumes at the horizon's end;
+- the spans of a run_scan (``gdm_torch.profiling``) while recording.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -33,6 +37,7 @@ import torch
 
 from gdm.problems import advection as gadv
 
+from gdm_torch import profiling
 from gdm_torch.cut import stencil
 from gdm_torch.problems import advection as adv
 
@@ -210,3 +215,55 @@ def test_run_scan_refuses_a_host_data_function():
     scan.check_data_functions(_conv(adv), ("exact_solution",
                                            "exact_solution_der"),
                               2, torch.device("cpu"), F64)
+
+
+def test_resume_after_a_short_last_chunk(tmp_path):
+    """A checkpoint of a horizon that is not a multiple of the chunk
+    (3 steps in chunks of 2) names its next step as the horizon's end,
+    so a resume over a longer horizon gives the uninterrupted run's rows
+    and state."""
+    ck = str(tmp_path / "run.ckpt")
+    full = _port(_conv(adv, steps=5))
+    full_rows = full.run_scan(chunk=2)
+    _port(_conv(adv, steps=3)).run_scan(chunk=2, checkpoint_path=ck)
+    with np.load(ck) as z:
+        assert json.loads(bytes(z["__meta__"]).decode())["next_s"] == 3
+    prob = _port(_conv(adv, steps=5))
+    rows = prob.run_scan(chunk=2, checkpoint_path=ck)
+    assert len(rows[0]) == len(full_rows[0]) == 6
+    rows_close(rows[0], full_rows[0], rtol=1e-12, atol=1e-16)
+    torch.testing.assert_close(prob.u, full.u, rtol=1e-12, atol=1e-16)
+
+
+def test_run_scan_spans():
+    """With recording on, a composite run_scan of 3 steps in chunks of 2
+    gives one ``scan.call`` over ``scan.prepare`` (with each region's
+    ``setup.mass_solver`` and its ``.assemble``), two ``scan.chunk``s,
+    each with ``scan.enqueue`` and ``scan.read``, and ``scan.rows``;
+    the constructor's ``setup.geometry`` and ``setup.operators``."""
+    profiling.reset()
+    with profiling.recording():
+        prob = _port(_mini(adv, steps=3))
+        prob.run_scan(chunk=2)
+    sp = profiling.spans()
+    kids = {i: [sp[j] for j in range(len(sp)) if sp[j].parent == i]
+            for i in range(len(sp))}
+    tops = [s for s in sp if s.parent is None]
+    assert [s.name for s in tops] == ["setup.geometry", "setup.operators",
+                                      "setup.operators", "scan.call"]
+    assert [s.attrs["region"] for s in tops[1:3]] == ["inside", "outside"]
+    call = sp.index(tops[-1])
+    assert sp[call].attrs == {"steps": 3, "chunk": 2}
+    assert [s.name for s in kids[call]] == ["scan.prepare", "scan.chunk",
+                                            "scan.chunk", "scan.rows"]
+    prepare = sp.index(kids[call][0])
+    solvers = [s for s in kids[prepare] if s.name == "setup.mass_solver"]
+    assert [s.attrs["region"] for s in solvers] == ["inside", "outside"]
+    for s in solvers:
+        assert [k.name for k in kids[sp.index(s)]] == [
+            "setup.mass_solver.assemble"]
+    chunks = [sp.index(s) for s in kids[call][1:3]]
+    assert [sp[c].attrs["steps"] for c in chunks] == [2, 1]
+    for c in chunks:
+        assert [k.name for k in kids[c]] == ["scan.enqueue", "scan.read"]
+        assert sp[c].start <= kids[c][0].start <= kids[c][1].end <= sp[c].end

@@ -11,19 +11,20 @@ band apply and preconditioner, x within 1e-12 of max|x|; a one-tap
 Jacobi band is ``solvers.jacobi_preconditioner``'s CG; a closed gate
 leaves x at x0 and writes stats [0, 0, 0, 0], an open one solves as an
 ungated launch; the band of heat-impl's M + dt S is its matrix-free
-system within 1e-12.  The kernel against this twin is in
-tests/test_torch_cuda.py (skipped without a card).
+system within 1e-12.  The device form's tally, read once a chunk,
+gives the counters the sums of its solves' stats.  The kernel against
+this twin is in tests/test_torch_cuda.py (skipped without a card).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gdm_torch import solvers
+from gdm_torch import profiling, solvers
 from gdm_torch.cut import fsai
 from gdm_torch.cut.stencil import assemble_stencil, schwarz_band
 from gdm_torch.ops import cutband, resident
-from gdm_torch.problems import wave
+from gdm_torch.problems import scan, wave
 
 F64 = torch.float64
 
@@ -197,10 +198,10 @@ def test_device_form_on_the_resident_route(mass16):
     xs, ss = resident.resident_cg_plain(b, torch.zeros_like(b), A, None,
                                         None, 300, 1e-9, 1e-30, P=P)
     assert torch.equal(x, xs) and torch.equal(stats[1], ss)
-    assert bad.fallbacks_device.item() == 1.0
+    assert bad.tally[1, 1].item() == 1.0
     bad.solve_padded_device(b)
-    assert bad.fallback_count == 2 and bad.fallbacks_device.item() == 0.0
-    bad.fold_fallbacks(3)
+    assert bad.fallback_count == 2 and not bool(bad.tally.any())
+    bad.fold_tally([0, 0, 0, 3])
     assert bad.fallback_count == 5
 
 
@@ -226,3 +227,48 @@ def test_device_form_on_the_streamed_route(mass16):
                                device="cpu", dtype=F64)
     with pytest.raises(ValueError, match="device form"):
         host.solve_padded_device(b)
+
+
+@pytest.mark.parametrize("route", ["resident-verified", "fallback",
+                                   "streamed"])
+def test_tally_counts_the_solves_stats(mass16, route):
+    """The device form's tally, folded by a chunk's one read
+    (``scan.scan_chunk``), gives the host counters the sums of the stats
+    its solves returned: the solves, the fallbacks, and the iterations
+    of K2's one-band and FSAI launches apart (row 0 is the one-band CG
+    on "streamed", the FSAI solve behind which row 1's one-band CG is
+    gated on "resident-verified"); the tally is zero after the read."""
+    kw = {"resident-verified": {},
+          "fallback": {"probe": False, "resident_max_iter": 1},
+          "streamed": {"resident_max_iter": 1}}[route]
+    vs = _verified(mass16, **kw)
+    assert vs.path == ("streamed" if route == "streamed"
+                       else "resident-verified")
+    b, kept = mass16["b"], []
+
+    def step(y, t, dt):
+        x, stats = vs.solve_padded_device(b * (1.0 + t), y)
+        kept.append(stats)
+        return x
+
+    def errs(y, t):
+        return y.abs().max().reshape(1, 1)
+
+    before = profiling.counters()
+    ts = np.arange(3) * 0.5
+    scan.scan_chunk(step, errs, torch.zeros_like(b), ts, np.full(3, 0.5),
+                    (vs,))
+    got = {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
+    st = torch.stack(kept).double()
+    it, ran = resident.STATS.index("iterations"), resident.STATS.index("ran")
+    kinds = vs._device_form().kinds
+    want = {"solves": 3, "fallbacks": int(st[:, 1, ran].sum()),
+            "k2.band_iterations": 0, "k2.fsai_iterations": 0}
+    for row, kind in enumerate(kinds):
+        want[f"k2.{kind}_iterations"] += int(st[:, row, it].sum())
+    assert got == want
+    # the gate stays closed behind a resident solve that passed
+    assert (want["k2.band_iterations"] > 0) == (route != "resident-verified")
+    assert (want["fallbacks"] > 0) == (route == "fallback")
+    assert not bool(vs.tally.any())
+    assert vs.fallback_count == want["fallbacks"]

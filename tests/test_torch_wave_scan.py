@@ -23,7 +23,10 @@ the presets' rel 1e-14; heat-impl warm-started from u), so:
   ``run_scan``'s refusal of a data function that gives no tensor.
 
 The card's route (K2's one-band mode, the verified solver's device
-form) is rehearsed here on the plain twins, with the route forced.
+form) is rehearsed here on the plain twins, with the route forced; two
+such calls while recording give each call's spans, the mass solver
+built anew in each, the tally's count of every solve, and one routing
+record a region.
 """
 
 import numpy as np
@@ -32,6 +35,7 @@ import torch
 
 from gdm.problems import wave as gwave
 
+from gdm_torch import profiling
 from gdm_torch.cut import stencil
 from gdm_torch.problems import wave
 
@@ -218,3 +222,45 @@ def test_card_route_rehearsed_on_the_twins(monkeypatch, name):
         solvers = getattr(prob, "mass_solvers", (prob.mass_solver,))
         assert all(v.path == "resident-verified" and v.fallback_count == 0
                    for v in solvers)
+
+
+def test_rebuilt_solvers_spans_and_tally(monkeypatch):
+    """The card's 2D route rehearsed on the twins, two run_scan calls
+    while recording: each call's ``scan.prepare`` builds the mass solver
+    again (``setup.mass_solver`` with ``.assemble``, ``.fsai``,
+    ``.schwarz``, ``.probe`` and ``setup.device_form``), the chunks'
+    reads count every solve (4 a step), and one routing record and one
+    solver sample a region stay."""
+    p = _params(wave, "wave", 2, 16, 3)
+    monkeypatch.setattr(stencil, "kernel_route",
+                        lambda grid, device: grid.dim == 2)
+    prob = _port(p)
+    profiling.reset()
+    before = profiling.counters()
+    with profiling.recording():
+        prob.run_scan(chunk=2)
+        prob.run_scan(chunk=2)
+    sp = profiling.spans()
+    calls = [i for i, s in enumerate(sp) if s.name == "scan.call"]
+    assert len(calls) == 2
+    for c in calls:
+        assert sp[c].attrs == {"steps": 3, "chunk": 2}
+        kids = [s.name for s in sp if s.parent == c]
+        assert kids == ["scan.prepare", "scan.chunk", "scan.chunk",
+                        "scan.rows"]
+        prepare = next(i for i, s in enumerate(sp)
+                       if s.parent == c and s.name == "scan.prepare")
+        (build,) = [i for i, s in enumerate(sp) if s.parent == prepare
+                    and s.name == "setup.mass_solver"]
+        assert sp[build].attrs == {"region": "inside"}
+        assert [s.name for s in sp if s.parent == build] == [
+            "setup.mass_solver.assemble", "setup.mass_solver.fsai",
+            "setup.mass_solver.schwarz", "setup.mass_solver.probe",
+            "setup.device_form"]
+    got = profiling.counters()
+    assert got["solves"] - before.get("solves", 0) == 2 * 3 * 4
+    assert got["fallbacks"] == before.get("fallbacks", 0)
+    assert got["k2.fsai_iterations"] > before.get("k2.fsai_iterations", 0)
+    assert [m["loc"] for m in prob._solver_meta] == ["inside"]
+    assert prob._solver_meta[0]["path"] == prob.mass_solver.path
+    assert list(prob._solver_sample) == [0]
